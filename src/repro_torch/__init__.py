@@ -1,0 +1,9 @@
+"""repro_torch: the PyTorch / CUDA (NVIDIA H100) port of the JAX package
+``repro``.
+
+It mirrors ``src/repro/`` path for path for the modules it ports, imports
+``torch`` and numpy and never ``jax`` or ``repro``, and runs its entry
+points on ``cuda`` unless the caller passes ``device="cpu"``.  Ported so
+far: the gemma2-2b serving path (prefill, KV-cache decode, continuous
+batching) with a hand-written Hopper flash attention kernel.
+"""

@@ -1,0 +1,247 @@
+"""Backbone: the dense family's serving path (prefill / decode), in PyTorch.
+
+Port of the dense family of ``repro/models/backbones.py``, with and without
+``alt_local_global`` (gemma2's local/global layer pairs):
+
+- ``LM`` is an ``nn.Module`` with the JAX leaves as parameters.  The JAX
+  params stack each superblock's leaves with a leading dim; here layer
+  ``2i`` / ``2i+1`` of ``LM.layers`` holds superblock ``i``'s ``local`` /
+  ``global`` layer (layer ``i`` for plain dense), and each ``lax.scan`` over
+  superblocks is a Python loop.
+- ``init_cache``, ``embed``, ``lm_logits``, ``prefill`` and ``decode_step``
+  are plain functions with the JAX signatures (plus an explicit ``device``
+  where they allocate).  Cache leaves keep the JAX layout — K/V
+  ``(n_sb, B, S, Hkv, dh)`` and ``lengths`` ``(B,)`` int32 — and are updated
+  IN PLACE: ``prefill`` and ``decode_step`` write into the tensors of the
+  cache they are given and return a new dict holding those same tensors
+  plus a new ``lengths``.
+- Single-device only: the JAX sharding constraints are identities on one
+  device and are dropped.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from .config import ModelConfig
+from .layers import (
+    MLP,
+    Attention,
+    RMSNorm,
+    _dense_init,
+    _empty,
+    attention_decode,
+    attention_train,
+    cdtype,
+    mlp,
+    rmsnorm,
+)
+
+
+def superblock_layout(cfg: ModelConfig):
+    """Returns (n_superblocks, layers_per_block, tail_layers)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported to "
+                                  "repro_torch yet (dense only)")
+    if cfg.alt_local_global:
+        if cfg.n_layers % 2:
+            raise ValueError("alt_local_global needs an even n_layers")
+        return cfg.n_layers // 2, 2, 0
+    return cfg.n_layers, 1, 0
+
+
+class DenseLayer(nn.Module):
+    """One pre-norm attention + SwiGLU layer (post-norms when cfg.post_norm)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.attn_norm = RMSNorm(cfg.d_model, device=device)
+        self.attn = Attention(cfg, **kw)
+        self.mlp_norm = RMSNorm(cfg.d_model, device=device)
+        self.mlp = MLP(cfg, **kw)
+        if cfg.post_norm:
+            self.attn_post_norm = RMSNorm(cfg.d_model, device=device)
+            self.mlp_post_norm = RMSNorm(cfg.d_model, device=device)
+
+
+class LM(nn.Module):
+    """Leaves ``tok_embed`` (Vp,D), ``layers``, ``final_norm``, ``lm_head``
+    (D,Vp), ``value_head`` (D,1).  Matrices are stored in ``dtype``, norm
+    scales in f32."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
+        super().__init__()
+        superblock_layout(cfg)  # rejects unported families
+        Vp, D = cfg.padded_vocab, cfg.d_model
+
+        def mat(shape, fan_in):
+            if generator is None:
+                return _empty(shape, device=device, dtype=dtype)
+            return _dense_init(shape, fan_in, generator=generator,
+                               device=device, dtype=dtype)
+
+        self.tok_embed = mat((Vp, D), D)
+        self.layers = nn.ModuleList(
+            DenseLayer(cfg, device=device, dtype=dtype, generator=generator)
+            for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(D, device=device)
+        self.lm_head = mat((D, Vp), D)
+        self.value_head = mat((D, 1), D)
+
+
+def layer_windows(cfg: ModelConfig):
+    """Attention window of each layer: gemma2 alternates local (window) and
+    global (None) layers; plain dense layers all use cfg.window."""
+    if cfg.alt_local_global:
+        return [cfg.window if i % 2 == 0 else None for i in range(cfg.n_layers)]
+    return [cfg.window] * cfg.n_layers
+
+
+def _cache_slot(cfg: ModelConfig, i: int):
+    """(k name, v name, superblock index) of layer i's cache."""
+    if cfg.alt_local_global:
+        kind = "local" if i % 2 == 0 else "global"
+        return f"k_{kind}", f"v_{kind}", i // 2
+    return "k", "v", i
+
+
+def init_lm(cfg: ModelConfig, *, device, generator: torch.Generator,
+            dtype=None) -> LM:
+    """Random full model: matrices N(0, 1/fan_in) in ``dtype`` (default the
+    compute dtype) drawn from ``generator`` on ``device``, norm scales 1."""
+    return LM(cfg, device=device, dtype=dtype or cdtype(cfg),
+              generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# embed / logits
+# ---------------------------------------------------------------------------
+def embed(params, tokens, cfg: ModelConfig):
+    x = params.tok_embed.index_select(0, tokens.reshape(-1))
+    x = x.reshape(*tokens.shape, -1).to(cdtype(cfg))
+    if cfg.softcap_logits is not None:  # gemma scale
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def lm_logits(params, hidden, cfg: ModelConfig):
+    logits = hidden @ params.lm_head.to(hidden.dtype)
+    if cfg.softcap_logits is not None:
+        logits = torch.tanh(logits / cfg.softcap_logits) * cfg.softcap_logits
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, B: int, S: int, *, device, dtype=None):
+    """Allocate the serving cache for a batch of B sequences, max context S."""
+    dt = dtype or cdtype(cfg)
+    n_sb, _, _ = superblock_layout(cfg)
+    Hkv, dh = cfg.n_kv_heads, cfg.d_head
+    cache: Dict[str, Any] = {
+        "lengths": torch.zeros((B,), dtype=torch.int32, device=device)}
+
+    def kv(s):
+        return (torch.zeros((n_sb, B, s, Hkv, dh), dtype=dt, device=device),
+                torch.zeros((n_sb, B, s, Hkv, dh), dtype=dt, device=device))
+
+    Sl = min(cfg.window or S, S)
+    if cfg.alt_local_global:
+        cache["k_local"], cache["v_local"] = kv(Sl)
+        cache["k_global"], cache["v_global"] = kv(S)
+    else:
+        cache["k"], cache["v"] = kv(Sl)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Decode path
+# ---------------------------------------------------------------------------
+def _dense_layer_decode(p, x, ck, cv, lengths, cfg, *, window=None):
+    h = rmsnorm(p.attn_norm, x)
+    a, nk, nv = attention_decode(p.attn, h, ck, cv, lengths, cfg, window=window)
+    if cfg.post_norm:
+        a = rmsnorm(p.attn_post_norm, a)
+    x = x + a
+    h = rmsnorm(p.mlp_norm, x)
+    m = mlp(p.mlp, h)
+    if cfg.post_norm:
+        m = rmsnorm(p.mlp_post_norm, m)
+    return x + m, nk, nv
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
+    """One decode token for the whole batch.  tokens:(B,) int32.
+    Returns (hidden (B,1,D), new_cache); the K/V tensors are updated in
+    place and shared with ``cache``.
+
+    ``active`` ((B,) bool, optional) is the continuous-batching slot mask:
+    retired slots keep stepping but their ``lengths`` are NOT bumped — their
+    outputs are dead and their cache slot is fully overwritten by the next
+    ``write_prefill_at`` (serving/slots.py) before reuse."""
+    lengths = cache["lengths"]
+    x = embed(params, tokens[:, None], cfg)
+    new_cache = dict(cache)
+    for i, (lp, window) in enumerate(zip(params.layers, layer_windows(cfg))):
+        kn, vn, sb = _cache_slot(cfg, i)
+        x, _, _ = _dense_layer_decode(lp, x, cache[kn][sb], cache[vn][sb],
+                                      lengths, cfg, window=window)
+    bump = 1 if active is None else active.to(torch.int32)
+    new_cache["lengths"] = lengths + bump
+    x = rmsnorm(params.final_norm, x)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill: full-sequence forward that also fills the cache
+# ---------------------------------------------------------------------------
+def _fill_kv(cache_k, cache_v, k, v, window):
+    """Write prefill K/V (B,T,Hkv,dh) into a fresh cache (B,S,Hkv,dh), in
+    place."""
+    S = cache_k.shape[1]
+    T = k.shape[1]
+    if window is not None and S == window and T > S:
+        k, v = k[:, -S:], v[:, -S:]
+        # rolling buffer: slot i holds absolute position p where p % S == i
+        roll = (T - S) % S
+        cache_k.copy_(torch.roll(k, roll, dims=1))
+        cache_v.copy_(torch.roll(v, roll, dims=1))
+        return cache_k, cache_v
+    Tw = min(T, S)
+    cache_k[:, :Tw] = k[:, :Tw]
+    cache_v[:, :Tw] = v[:, :Tw]
+    return cache_k, cache_v
+
+
+def prefill(params, tokens, cfg: ModelConfig, cache):
+    """Run the full-sequence forward, returning (last_hidden (B,1,D), cache).
+
+    The cache must be freshly initialized (lengths == 0); its K/V tensors
+    are filled in place."""
+    B, T = tokens.shape
+    x = embed(params, tokens, cfg)
+    new_cache = dict(cache)
+    for i, (lp, window) in enumerate(zip(params.layers, layer_windows(cfg))):
+        h = rmsnorm(lp.attn_norm, x)
+        # positions=None: contiguous from 0, eligible for the flash kernel
+        a, (k, v) = attention_train(lp.attn, h, cfg, positions=None,
+                                    window=window)
+        if cfg.post_norm:
+            a = rmsnorm(lp.attn_post_norm, a)
+        x = x + a
+        h = rmsnorm(lp.mlp_norm, x)
+        m = mlp(lp.mlp, h)
+        if cfg.post_norm:
+            m = rmsnorm(lp.mlp_post_norm, m)
+        x = x + m
+        kn, vn, sb = _cache_slot(cfg, i)
+        _fill_kv(cache[kn][sb], cache[vn][sb], k, v, window)
+    new_cache["lengths"] = cache["lengths"] + T
+    x_last = rmsnorm(params.final_norm, x[:, -1:, :])
+    return x_last, new_cache

@@ -1,0 +1,154 @@
+"""Port parity for the flash attention kernel module on the CPU.
+
+The same numpy inputs (from a seed) go through the JAX package's
+``attention_reference`` / Pallas kernel in interpret mode and through the
+port's ``attention_reference`` / ``flash_attention`` /
+``flash_attention_decode`` (which on CPU tensors compute the plain
+version).  Tolerance 2e-5 in f32 (the JAX kernel tests' own bound; the two
+frameworks sum in different orders) and 2e-2 in bf16 (outputs rounded to
+bf16 on both sides).  The CUDA kernel itself is held against the plain
+version on the card by tests/test_torch_kernels_cuda.py.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import (  # noqa: E402
+    attention_reference as jax_ref, flash_attention as jax_fa)
+from repro.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention_decode as jax_fa_decode)
+from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
+from repro_torch.telemetry import trace  # noqa: E402
+
+# the JAX kernel tests' cases (tests/test_kernels.py ATTN_CASES)
+ATTN_CASES = [
+    # B, T, S, H, Hkv, dh, causal, window, softcap, q_offset
+    (2, 128, 128, 4, 2, 64, True, None, None, 0),
+    (1, 256, 256, 8, 8, 128, True, None, None, 0),
+    (2, 100, 100, 4, 1, 32, True, None, None, 0),
+    (1, 128, 128, 4, 2, 64, True, 64, None, 0),
+    (1, 128, 128, 4, 2, 64, True, None, 50.0, 0),
+    (2, 64, 256, 4, 4, 64, True, None, None, 192),
+    (1, 128, 96, 4, 2, 64, False, None, None, 0),
+    (1, 64, 64, 2, 2, 16, True, 32, 30.0, 0),
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(B, T, S, H, Hkv, dh, seed=0):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(B, T, H, dh).astype(np.float32),
+            rs.randn(B, S, Hkv, dh).astype(np.float32),
+            rs.randn(B, S, Hkv, dh).astype(np.float32))
+
+
+def _both(arrays, dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attention_reference_matches_jax(case, dtype):
+    B, T, S, H, Hkv, dh, causal, window, softcap, qoff = case
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, T, S, H, Hkv, dh), dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+    _close(attention_reference(tq, tk, tv, **kw), jax_ref(jq, jk, jv, **kw),
+           DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_cpu_route_matches_jax_kernel(case, dtype):
+    """Port op (CPU route: the plain version) == the JAX Pallas kernel run in
+    interpret mode, including ragged T/S the JAX wrapper pads."""
+    B, T, S, H, Hkv, dh, causal, window, softcap, qoff = case
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, T, S, H, Hkv, dh, 1), dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+    n0 = ops.flash_attention.launches
+    got = ops.flash_attention(tq, tk, tv, **kw)
+    assert ops.flash_attention.launches == n0  # no kernel on the CPU
+    _close(got, jax_fa(jq, jk, jv, block_q=64, block_k=64, **kw),
+           DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_decode_op_ragged_kv_len_matches_jax_kernel(dtype, softcap):
+    """The JAX test_decode_op_kv_len_vs_ref case: ragged (non-block-multiple)
+    cache, kv_len 1 / 37 / 80."""
+    B, S, H, Hkv, dh = 3, 80, 4, 2, 32
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, 1, S, H, Hkv, dh, 2), dtype)
+    kvl = np.array([1, 37, 80], np.int32)
+    n0 = ops.flash_attention_decode.launches
+    got = ops.flash_attention_decode(tq, tk, tv, torch.from_numpy(kvl),
+                                     softcap=softcap)
+    assert ops.flash_attention_decode.launches == n0
+    want = jax_fa_decode(jq, jk, jv, jnp.asarray(kvl), softcap=softcap,
+                         block_k=32)
+    _close(got, want, DTYPES[dtype][2])
+    _close(attention_reference(tq, tk, tv, causal=False, softcap=softcap,
+                               kv_len=torch.from_numpy(kvl)),
+           jax_ref(jq, jk, jv, causal=False, softcap=softcap,
+                   kv_len=jnp.asarray(kvl)), DTYPES[dtype][2])
+
+
+def test_ops_reject_mixed_devices():
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="must all be on the CPU or all on CUDA"):
+        ops.flash_attention(q, q.to("meta"), q)
+
+
+def test_registry_spec_parsing_and_auto():
+    with registry.override("cuda"):
+        assert registry.backend_for("attention") == "cuda"
+        assert registry.backend_for("ssd") == "unported"
+        with registry.override("attention=ref"):
+            assert registry.backend_for("attention") == "ref"
+            assert registry.backend_for("ssd") == "unported"
+    with registry.override("ref,attention=cuda,sum_tree=ref"):
+        assert registry.backend_for("sum_tree") == "unported"
+        assert registry.backend_for("attention") == "cuda"
+    with registry.override("auto"):
+        assert registry.backend_for("attention", device="cpu") == "ref"
+        assert registry.backend_for("attention", device="cuda") == "cuda"
+        assert registry.backend_for("attention") == "ref"
+        assert registry.describe("cuda") == {
+            "attention": "cuda", "ssd": "unported", "sum_tree": "unported"}
+    with pytest.raises(ValueError):
+        registry.backend_for("conv")
+    for bad in ("attention=pallas", "flashattn=ref", "interpret",
+                "ssd=cuda", "ref,sum_tree=cuda"):
+        with pytest.raises(ValueError):
+            with registry.override(bad):
+                pass
+
+
+def test_registry_env_and_dispatch_event(monkeypatch):
+    monkeypatch.setenv(registry.ENV, "ref,attention=cuda")
+    tracer = trace.configure(None)
+    try:
+        for _ in range(3):
+            assert registry.backend_for("attention", site="attention_train",
+                                        device="cpu") == "cuda"
+        assert registry.backend_for("ssd", device="cuda") == "unported"
+        events = [e for e in tracer.events if e["kind"] == "kernel_dispatch"]
+        assert len(events) == 1  # once per (op, site, backend)
+        assert events[0]["name"] == "attention@attention_train"
+        assert events[0]["backend"] == "cuda"
+    finally:
+        trace.configure(None)
+    with pytest.raises(ValueError):
+        registry.set_env("attention=mosaic")

@@ -1,0 +1,88 @@
+"""The PyTorch port stands alone: no file under src/repro_torch/, and not
+chip_smoke.py, imports ``jax`` or the JAX package ``repro`` (checked on the
+AST, so an import inside a function counts too); importing the package
+builds no kernel; and the serving entry point defaults to the card."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10 and all(f.exists() for f in files)
+    return files
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__"):
+            arg = node.args[0] if node.args else None
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str) \
+                    and not arg.value.startswith("."):
+                yield arg.value.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_no_jax_and_no_repro(path):
+    bad = [(mod, line) for mod, line in _imported_roots(path)
+           if mod in FORBIDDEN]
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_import_walk_catches_forbidden_imports(tmp_path):
+    f = tmp_path / "x.py"
+    f.write_text("def g():\n    from repro.models import layers\n"
+                 "    import jax.numpy as jnp\n"
+                 "    importlib.import_module('jax')\n")
+    assert [m for m, _ in _imported_roots(f)] == ["repro", "jax", "jax"]
+
+
+def test_importing_the_port_builds_nothing():
+    """In a fresh interpreter: importing every module loads no kernel
+    library and starts no build."""
+    code = ("import importlib, pathlib, sys\n"
+            "root = pathlib.Path('src')\n"
+            "for f in sorted((root / 'repro_torch').rglob('*.py')):\n"
+            "    mod = '.'.join(f.relative_to(root).with_suffix('').parts)\n"
+            "    importlib.import_module(mod.removesuffix('.__init__'))\n"
+            "fa = sys.modules['repro_torch.kernels.flash_attention"
+            ".flash_attention']\n"
+            "assert fa._lib is None\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       env={**os.environ, "PYTHONPATH": str(REPO / "src")},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_serve_defaults_to_cuda():
+    from repro_torch.launch import serve
+    ap = serve.build_parser()
+    assert ap.get_default("device") == "cuda"
+    assert ap.get_default("arch") == "gemma2-2b"
+
+
+def test_serve_on_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--rounds", "0"])
