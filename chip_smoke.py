@@ -8,7 +8,8 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
 
 1. the card's name and power limit (nvidia-smi);
 2. build every hand-written kernel from csrc/ (one nvcc per source, all at
-   once) and print the build time and ptxas' register / spill report;
+   once: flash_attention.cu, ssd_scan.cu) and print the build time and
+   ptxas' register / shared memory / spill report;
 3. kernel phase: each kernel entry point against its plain PyTorch version
    (``attention_reference``) in bf16 on the card, within its own tolerance
    (``TOL``) at every shape the main path gives it: prefill at B 4, T 1024
@@ -24,7 +25,16 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    from kv_len.  Then the time of each at the fixed-round shape beside its
    plain version, its bound and one PyTorch library call
    (``scaled_dot_product_attention``, without softcap: not the same
-   function, a yardstick only — the port never calls it);
+   function, a yardstick only — the port never calls it).  Then the SSD
+   scan (``ssd_scan``) against ``ssd_reference`` on the card at the
+   mamba2-1.3b training shape (B 8, T 512, H 64, P 64, G 1, N 128, chunk
+   256, bf16 x/B/C), one chunk (T 256), ragged T 500, a slow-decay case
+   where the carry between chunks matters, and dt x 10 so that exp(cum)
+   underflows inside a chunk, within ``ssd_tolerance``; sensitivity checks
+   show the bound catches a dropped inter-chunk carry, a causal mask off by
+   one, dt left out of M and an undecayed state; then its time beside its
+   plain version and its bound (no single PyTorch call computes the scan:
+   library_ms null);
 4. slice phase, fixed rounds: full-width gemma2-2b with random bf16 weights
    from a seeded generator on the card, through ``repro_torch.launch.serve
    .main`` (batch 8, prompt 1024, gen 64, two rounds); both kernel entry
@@ -35,11 +45,22 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
 5. slice phase, continuous: 16 Poisson requests over 8 slots (prompts 8-64,
    gen 4-32) through ``serve.main --continuous``; every request must get
    its max_tokens;
-6. on the same weights, a ``torch.profiler`` pass measures the device's
-   busy time per prefill and per decode step against the unprofiled wall
-   time of the same work (the idle share) — last, since the profiler slows
-   every later launch of the process;
-7. the ``kernels`` JSON line (launch counts from phases 4-5, the largest
+6. slice phase, training: full-width mamba2-1.3b (48 layers, d_model 2048,
+   random f32 master weights from a seeded generator, bf16 compute) through
+   ``repro_torch.launch.train.main`` (batch 8, horizon 512, two PPO steps of
+   rollout + GAE + Adam update); the SSD kernel must launch and every
+   logged metric be finite.  Then, on the same weights and first rollout,
+   at full depth and at a 4-layer depth cut of the same width: the
+   serve-path logp (decode_step, no kernel) against the train-path logp
+   (forward_train through the kernel), both against the plain route's
+   (``ssd=ref``) on the same data, and the kernel route against
+   ``ssd=ref`` in loss and grad_norm of one update, within ``TRAIN_TOL``;
+7. on the same weights, a ``torch.profiler`` pass measures the device's
+   busy time per prefill, per decode step, per rollout of ROLL_STEPS steps
+   and per PPO update against the unprofiled wall time of the same work
+   (the idle share) — last, since the profiler slows every later launch of
+   the process;
+8. the ``kernels`` JSON line (launch counts from phases 4-6, the largest
    error of phase 3, times), then ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -67,7 +88,45 @@ CONT = {"requests": 16, "slots": 8, "prompt_min": 8, "prompt_len": 64,
 # after the softcap): both routes round attention to bf16 at other places
 # and the difference passes through 26 layers of random weights.
 LOGIT_TOL = 0.25
+# SSD scan (csrc/ssd_scan.cu) against ssd_reference: both compute in f32
+# and round y to bf16 once, so they differ by the order of f32 sums, by
+# the rounding of the chunk cumsum, and by one bf16 spacing of y where the
+# two f32 values straddle a rounding point.  Per element:
+#   |y - y_ref| <= 2^-7 |y_ref| + eps * y_abs,   |S - S_ref| <= eps * S_abs,
+#   eps = 2^-14 + 2^-19 * max|cum|,
+# where y_abs, S_abs are ssd_reference of |x|, dt, A, |B|, |C| (the sum of
+# the magnitudes of every term) and max|cum| is the largest |cumsum(dt*A)|
+# within a chunk: 2^-14 covers f32 sums of <= 512 terms with margin, and
+# 2^-19 * max|cum| eight roundings of the cumsum on each side (an absolute
+# error in cum_q - cum_k is a relative error of exp(cum_q - cum_k)).
+SSD_TPU_KERNEL = "src/repro/kernels/ssd_scan/ssd_scan.py:69"
+SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+# the training slice (phase 6).  The random-weight model amplifies bf16
+# rounding through depth (CPU calibration at full width: serve-path and
+# train-path logp agree within 2e-3 in f32 at 48 layers, but differ by 0.52
+# mean in bf16; reordering the SSD's f32 sums moves grad_norm 2-5x at 48
+# layers and <= 2.4 % at 4).  So, on the same weights and first rollout:
+# - the mean |serve logp - train logp| through the kernel is held absolutely
+#   (fixed before the first chip run from that calibration);
+# - the kernel route is held against the plain route (ssd=ref) on the same
+#   data: its serve-vs-train gap within 1.25x (mean) and 2x (max) of the
+#   plain route's, and its own distance from the plain route's train logp
+#   within 1.5x (mean) and 2x (max) of the plain route's serve-vs-train gap
+#   -- the kernel is then no worse than rounding.  Amplified through depth,
+#   any rounding difference reaches about the same gap (4 layers on the
+#   card: 0.0105, 0.0103 and 0.0096 mean), hence the margins;
+# - loss and grad_norm of one update, kernel route vs ssd=ref: grad_norm
+#   held at the 4-layer cut only, printed at 48 layers.
+# (A first design held the max |serve - train| at 0.5 (4 layers) and 6.0
+# (48 layers) from a 640-sample CPU calibration; the card's 4096 samples
+# gave 0.528 at 4 layers with the mean at 0.0105, and the plain route on
+# the same data 0.576 (mean 0.0103).  See PERF.md, PR 12.)
+TRAIN_TOL = {48: {"logp_mean": 1.0, "loss_rel": 5e-2, "grad_norm_rel": None},
+             4: {"logp_mean": 5e-2, "loss_rel": 2e-3, "grad_norm_rel": 5e-2}}
+TRAIN = {"batch": 8, "horizon": 512, "steps": 2}
+ROLL_STEPS = 8   # decode steps of the rollout the profile phase measures
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 L2_BYTES = 50 * 2**20
 
@@ -83,17 +142,25 @@ if not (REPO / "src" / "repro_torch").is_dir():
 sys.path.insert(0, str(REPO / "src"))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 if not torch.cuda.is_available():
     fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
 
+import dataclasses  # noqa: E402
+
+from repro_torch.algos.pg.ppo import make_lm_ppo_train_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.envs.token_lm import make_token_lm  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_reference  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import backbones as bb  # noqa: E402
 from repro_torch.serving import DEFAULT_BUCKETS, poisson_trace  # noqa: E402
+from repro_torch.train import optim  # noqa: E402
 
 DEV = torch.device("cuda")
 BF16 = torch.bfloat16
@@ -165,8 +232,8 @@ def must_differ(entry, fault, wrong, want):
         fail(f"{entry}: the tolerance would not catch {fault}")
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -404,6 +471,331 @@ def profile_phase(cfg, params, prompts, steps=8):
             print(f"    {e.self_device_time_total / 1e3 / per:8.3f} ms "
                   f"x{e.count / per:.0f}  {e.key[:90]}")
 
+# ---------------------------------------------------------------------------
+# phase 3 (SSD): the scan kernel against ssd_reference, then its time
+# ---------------------------------------------------------------------------
+def ssd_inputs(B, T, gen, dt_scale=1.0, H=64, P=64, N=128):
+    """Inputs at mamba2-1.3b's widths: bf16 x/B/C, f32 dt = softplus(z) *
+    dt_scale and the model's A = -exp(A_log) = -linspace(1, 16, H)."""
+    x = torch.randn(B, T, H, P, generator=gen, device=DEV).to(BF16)
+    dt = F.softplus(torch.randn(B, T, H, generator=gen, device=DEV)) * dt_scale
+    A = -torch.linspace(1.0, 16.0, H, device=DEV)
+    Bm = (torch.randn(B, T, 1, N, generator=gen, device=DEV) * 0.5).to(BF16)
+    Cm = (torch.randn(B, T, 1, N, generator=gen, device=DEV) * 0.5).to(BF16)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_tolerance(x, dt, A, Bm, Cm, chunk):
+    """(y_abs, S_abs, eps) of the SSD error model (the note above
+    SSD_TPU_KERNEL)."""
+    ya, sa = ssd_reference(x.abs(), dt, A, Bm.abs(), Cm.abs(), chunk=chunk)
+    B, T, H = dt.shape
+    nc = -(-T // chunk)
+    dA = F.pad(dt * A, (0, 0, 0, nc * chunk - T))
+    cmax = float(torch.cumsum(dA.reshape(B, nc, chunk, H), 2).abs().max())
+    return ya.float(), sa, 2.0 ** -14 + 2.0 ** -19 * cmax
+
+
+def ssd_share(y, s, yr, sr, tol):
+    """Largest share of the tolerance used by y and by the state."""
+    ya, sa, eps = tol
+    sy = ((y.float() - yr.float()).abs()
+          / (2.0 ** -7 * yr.float().abs() + eps * ya + 1e-30)).max()
+    ss = ((s - sr).abs() / (eps * sa + 1e-30)).max()
+    return float(sy), float(ss)
+
+
+def ssd_faulty(x, dt, A, Bm, Cm, chunk, fault=None):
+    """ssd_chunked's math (G = 1, T a multiple of chunk) with one fault, for
+    the sensitivity checks: 'carry' drops y_off, 'causal' drops the
+    diagonal of the mask (q > k), 'dt' leaves dt out of M, 'decay' does not
+    decay the state by exp(cum_last)."""
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    S = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device),
+                     diagonal=-1 if fault == "causal" else 0)[None, :, :, None]
+    ys = []
+    for c in range(T // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xq, dtq = x[:, sl].float(), dt[:, sl]
+        Bq, Cq = Bm[:, sl, 0].float(), Cm[:, sl, 0].float()
+        cum = torch.cumsum(dtq * A, dim=1)
+        Ld = torch.where(tri, cum[:, :, None, :] - cum[:, None, :, :], 0.0)
+        L = torch.where(tri, torch.exp(Ld), 0.0)
+        M = torch.einsum("bqn,bkn->bqk", Cq, Bq)[..., None] * L
+        if fault != "dt":
+            M = M * dtq[:, None, :, :]
+        y = torch.einsum("bqkh,bkhp->bqhp", M, xq)
+        if fault != "carry":
+            y = y + torch.einsum("bqn,bhpn->bqhp", Cq, S) * \
+                torch.exp(cum)[..., None]
+        w = torch.exp(cum[:, -1:] - cum) * dtq
+        if fault != "decay":
+            S = S * torch.exp(cum[:, -1])[..., None, None]
+        S = S + torch.einsum("bqn,bqhp->bhpn", Bq, xq * w[..., None])
+        ys.append(y.to(x.dtype))
+    return torch.cat(ys, dim=1), S
+
+
+def ssd_flops(B, T, H, P, G, N, chunk):
+    """Multiply-adds x 2 that the scan needs on these shapes: C.B^T once
+    per (batch, group, chunk) and, per (batch, head, chunk), M.x over the
+    causal (q, k) pairs, C.S_prev and B^T.(x w) over the chunk's rows."""
+    total = 0
+    for c in range(-(-T // chunk)):
+        tc = min(chunk, T - c * chunk)
+        pairs = tc * (tc + 1) // 2
+        total += B * G * 2 * pairs * N + B * H * (2 * pairs * P
+                                                  + 4 * tc * N * P)
+    return total
+
+
+def ssd_kernel_phase():
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    worst = {"err": 0.0, "share": 0.0}
+    print("kernel phase: ssd_scan vs ssd_reference (bf16 x/B/C, f32 dt/A; "
+          "|y - ref| <= 2^-7 |ref| + eps y_abs, |S - ref| <= eps S_abs, "
+          "eps = 2^-14 + 2^-19 max|cum|)")
+    cases = [("training shape", 8, 512, 1.0), ("one chunk", 8, 256, 1.0),
+             ("ragged T", 8, 500, 1.0), ("slow decay dt x0.01", 8, 512, 0.01),
+             ("underflow dt x10", 8, 512, 10.0)]
+    keep = {}
+    for name, B, T, scale in cases:
+        inp = ssd_inputs(B, T, gen, scale)
+        chunk = min(256, T)
+        n0 = ssd_ops.ssd_scan.launches
+        y, s = ssd_ops.ssd_scan(*inp, chunk=chunk)
+        torch.cuda.synchronize()
+        if ssd_ops.ssd_scan.launches != n0 + 1:
+            fail(f"ssd_scan {name}: the kernel did not launch")
+        if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+            fail(f"ssd_scan {name}: non-finite kernel output")
+        yr, sr = ssd_reference(*inp, chunk=chunk)
+        tol = ssd_tolerance(*inp, chunk)
+        sy, ss = ssd_share(y, s, yr, sr, tol)
+        err = float((y.float() - yr.float()).abs().max())
+        serr = float((s - sr).abs().max())
+        print(f"  {name} B{B} T{T}: y max_abs_err {err:.3e} (|y| max "
+              f"{float(yr.float().abs().max()):.3e}), state {serr:.3e}; "
+              f"tolerance used y {sy:.3f}, state {ss:.3f} (eps {tol[2]:.2e})")
+        if max(sy, ss) > 1:
+            fail(f"ssd_scan {name}: kernel disagrees with ssd_reference "
+                 f"({sy:.2f} / {ss:.2f} x the tolerance)")
+        worst["err"] = max(worst["err"], err)
+        worst["share"] = max(worst["share"], sy, ss)
+        keep[name] = (inp, yr, sr, tol)
+    # the sensitivity checks, where the carry between chunks matters
+    inp, yr, sr, tol = keep["slow decay dt x0.01"]
+    yf, sf = ssd_faulty(*inp, 256)
+    used = max(ssd_share(yf, sf, yr, sr, tol))
+    print(f"  plain variant without fault: tolerance used {used:.3f}")
+    if used > 1:
+        fail("ssd_faulty without a fault disagrees with ssd_reference")
+    for fault, what in (("carry", "inter-chunk carry dropped (y_off = 0)"),
+                        ("causal", "causal mask off by one (q > k)"),
+                        ("dt", "dt left out of M"),
+                        ("decay", "state not decayed by exp(cum_last)")):
+        used = max(ssd_share(*ssd_faulty(*inp, 256, fault), yr, sr, tol))
+        print(f"  sensitivity: {what} -> {used:.1f} x the tolerance")
+        if used <= 1:
+            fail(f"ssd_scan: the tolerance would not catch {what}")
+    del keep
+
+    B, T, H, P, G, N = 8, 512, 64, 64, 1, 128
+    nbytes = (2 * B * T * H * P * 2 + B * T * H * 4 + H * 4
+              + 2 * B * T * G * N * 2 + B * H * P * N * 4)
+    sets = [ssd_inputs(B, T, gen) for _ in range(copies_for(nbytes))]
+    ms = time_ms([lambda s=s: ssd_ops.ssd_scan(*s, chunk=256) for s in sets])
+    plain = time_ms([lambda s=s: ssd_reference(*s, chunk=256)
+                     for s in sets[:2]], iters=4)
+    flops = ssd_flops(B, T, H, P, G, N, 256)
+    t = dict(ms=ms, plain_ms=plain, library_ms=None,
+             bound=bound_ms(nbytes, flops, PEAK_F32_FLOPS))
+    print(f"  ssd_scan [B{B} T{T} H{H} P{P} G{G} N{N} chunk 256]: kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {t['bound'][0]:.4f} ms "
+          f"({t['bound'][1]}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP "
+          f"at the f32 rate), library_ms none (no single PyTorch call "
+          f"computes the scan)")
+    return worst, t
+
+
+# ---------------------------------------------------------------------------
+# phase 6: LM-PPO training of mamba2-1.3b
+# ---------------------------------------------------------------------------
+def train_checks(cfg, tol):
+    """Serve-path vs train-path logp and kernel route vs ssd=ref on the
+    weights and first rollout that train.main draws for ``cfg``.  Returns
+    (params, batch)."""
+    L = cfg.n_layers
+    env = make_token_lm(vocab=cfg.vocab, episode_len=TRAIN["horizon"],
+                        device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = bb.init_lm(cfg, device=DEV, generator=gen, dtype=torch.float32,
+                        requires_grad=True)
+    rollout = train.make_lm_rollout(cfg, env, TRAIN["batch"],
+                                    TRAIN["horizon"], device=DEV)
+    traj, v_last = rollout(params, gen)
+    batch = train.build_batch(traj, v_last)
+    del traj
+    logp = {}
+    for spec in ("ssd=cuda", "ssd=ref"):
+        with registry.override(spec), torch.no_grad():
+            hidden, _ = bb.forward_train(params, batch["tokens"], cfg)
+            logits = bb.lm_logits(params, hidden, cfg).float()
+            logp[spec] = torch.gather(F.log_softmax(logits, -1), -1,
+                                      batch["actions"].long()[..., None])[
+                                          ..., 0]
+            del hidden, logits
+    gaps = {"serve vs train (kernel)": logp["ssd=cuda"] - batch["logp_old"],
+            "serve vs train (ssd=ref)": logp["ssd=ref"] - batch["logp_old"],
+            "train kernel vs train ssd=ref": logp["ssd=cuda"] - logp["ssd=ref"]}
+    st = {}
+    for name, d in gaps.items():
+        d = d.abs().flatten()
+        st[name] = (float(d.mean()), float(d.max()))
+        print(f"  {L} layers: |logp diff| {name}: mean {st[name][0]:.4f}, "
+              f"max {st[name][1]:.4f}")
+    (km, kx), (rm, rx), (dm, dx) = st.values()
+    checks = [(km <= tol["logp_mean"], f"mean serve-vs-train gap {km:.4f} > "
+               f"{tol['logp_mean']}"),
+              (km <= 1.25 * rm and kx <= 2 * rx, "the kernel route's "
+               "serve-vs-train gap exceeds the plain route's"),
+              (dm <= 1.5 * rm and dx <= 2 * rx, "the kernel route's logp is "
+               "farther from the plain route's than rounding")]
+    for ok, what in checks:
+        if not ok:
+            fail(f"{L} layers: {what}")
+    out = {}
+    for spec in ("ssd=cuda", "ssd=ref"):
+        with registry.override(spec):
+            opt = optim.sgd(0.0)   # weights stay as they are
+            step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003)
+            n0 = ssd_ops.ssd_scan.launches
+            _, _, m = step(params, opt.init(params.parameters()), batch)
+            torch.cuda.synchronize()
+            out[spec] = ({k: float(v) for k, v in m.items()},
+                         ssd_ops.ssd_scan.launches - n0)
+    (mk, nk), (mr, nr) = out["ssd=cuda"], out["ssd=ref"]
+    print(f"  {L} layers: kernel route loss {mk['loss']:.6f} grad_norm "
+          f"{mk['grad_norm']:.4f} ({nk} launches); ssd=ref loss "
+          f"{mr['loss']:.6f} grad_norm {mr['grad_norm']:.4f} ({nr})")
+    if nk != 2 * L or nr != 0:
+        fail(f"{L} layers: {nk} kernel launches on the kernel route (want "
+             f"{2 * L}: forward + recompute), {nr} on the ref route")
+    for k in ("loss", "grad_norm"):
+        if not (math.isfinite(mk[k]) and math.isfinite(mr[k])):
+            fail(f"{L} layers: non-finite {k}")
+        rel = abs(mk[k] - mr[k]) / abs(mr[k])
+        lim = tol[f"{k}_rel"]
+        print(f"    {k}: relative difference {rel:.3e} (tolerance "
+              f"{'none: printed only' if lim is None else lim})")
+        if lim is not None and rel > lim:
+            fail(f"{L} layers: kernel route and ssd=ref differ in {k}")
+    return params, batch, env
+
+
+def train_phase(log_dir):
+    cfg = get_config("mamba2-1.3b")
+    n_params = sum(p.numel() for p in bb.LM(cfg, device="meta",
+                                             dtype=torch.float32).parameters())
+    print(f"slice phase: LM-PPO training (full-width mamba2-1.3b, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} params, "
+          f"batch {TRAIN['batch']}, horizon {TRAIN['horizon']}, "
+          f"{TRAIN['steps']} steps)")
+    torch.cuda.reset_peak_memory_stats()
+    ssd_ops.ssd_scan.launches = 0
+    params = train.main(["--arch", "mamba2-1.3b", "--full", "--device",
+                         "cuda", "--batch", str(TRAIN["batch"]), "--horizon",
+                         str(TRAIN["horizon"]), "--steps", str(TRAIN["steps"]),
+                         "--seed", str(SEED), "--log-dir", log_dir])
+    launches = ssd_ops.ssd_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    print(f"  ssd_scan launches in the training run: {launches}")
+    if launches == 0:
+        fail("ssd_scan never launched on the training run")
+    rows = [json.loads(ln) for ln in
+            (Path(log_dir) / "progress.jsonl").read_text().splitlines()]
+    if len(rows) != TRAIN["steps"]:
+        fail(f"training logged {len(rows)} rows")
+    for r in rows:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        if bad:
+            fail(f"training step {r['step']}: non-finite {bad}")
+    last = rows[-1]
+    print(f"  step {last['step']}: samples_per_sec "
+          f"{last['samples_per_sec']:.2f}, rollout {last['rollout_s']:.3f} s, "
+          f"update {last['update_s']:.3f} s, loss {last['loss']:.5f}, "
+          f"grad_norm {last['grad_norm']:.3f}, entropy "
+          f"{last['entropy']:.4f}; max_memory_allocated {peak / 2**30:.2f} "
+          f"GiB")
+    print("  checks on the same weights and first rollout")
+    small = train_checks(dataclasses.replace(cfg, n_layers=4), TRAIN_TOL[4])
+    del small
+    torch.cuda.empty_cache()
+    params, batch, env = train_checks(cfg, TRAIN_TOL[48])
+    torch.cuda.empty_cache()
+    # unprofiled wall times for the profile phase, each after a warm-up:
+    # ROLL_STEPS decode steps of the rollout (plus its bootstrap step) ...
+    short = train.make_lm_rollout(cfg, env, TRAIN["batch"], ROLL_STEPS,
+                                  device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        short(params, gen)
+        torch.cuda.synchronize()
+        roll_wall = (time.perf_counter() - t0) * 1e3
+    # ... and one Adam update (the warm-up also fills the allocator's cache)
+    opt = optim.adam(3e-4, grad_clip=1.0)
+    state = opt.init(params.parameters())
+    step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    walls = {"rollout": roll_wall, "update": wall}
+    work = {"rollout": lambda: short(params, gen),
+            "update": lambda: step(params, state, batch)}
+    return launches, (work, walls)
+
+
+def profile_training(training):
+    """Device busy time of ROLL_STEPS rollout steps and of one PPO update
+    against their unprofiled wall times (the idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    work, walls = training
+    for name, fn in work.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        what = (f"{ROLL_STEPS} + 1 decode steps" if name == "rollout"
+                else "one step")
+        if not evs:
+            print(f"  profile {name}: device time not measured (the profiler "
+                  "recorded no CUDA kernels)")
+            continue
+        busy = sum(e.self_device_time_total for e in evs) / 1e3
+        n = sum(e.count for e in evs)
+        print(f"  profile {name} (mamba2-1.3b, B{TRAIN['batch']}, {what}): "
+              f"wall {walls[name]:.3f} ms unprofiled, device busy "
+              f"{busy:.3f} ms ({n} kernels), idle share "
+              f"{max(0.0, 1 - busy / walls[name]):.3f}")
+        for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count}  "
+                  f"{e.key[:90]}")
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -427,8 +819,11 @@ def main() -> None:
                     "spill" in ln:
                 print("   ", ln.replace("ptxas info    : ", "").strip()[:150])
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions in
+    torch.backends.cudnn.allow_tf32 = False         # full f32
     cfg = get_config("gemma2-2b")
     errs, used, timing = kernel_phase(cfg)
+    ssd_worst, ssd_timing = ssd_kernel_phase()
 
     with tempfile.TemporaryDirectory() as log_dir:
         print("slice phase: fixed rounds (full-width gemma2-2b, bf16)")
@@ -481,12 +876,16 @@ def main() -> None:
               f"{summary['p99_latency_s']:.4f} s, decode "
               f"{summary['decode_tok_per_sec']:.1f} tok/s, every request got "
               "its max_tokens")
+        torch.cuda.empty_cache()
+        ssd_launches, training = train_phase(log_dir)
 
     # last, because the profiler slows every later launch of the process
     print("profile: where the time goes (not the main path's counts)")
     profile_phase(cfg, params, prompts)
-    # the main path is the fixed rounds plus the continuous run; the
-    # kernel-vs-ref comparison between them does not count
+    profile_training(training)
+    # the main path is the fixed rounds plus the continuous run (attention)
+    # and the training run (ssd_scan); the kernel-vs-ref comparisons
+    # between them do not count
     launches = {k: fixed[k] + cont[k] for k in fixed}
     kernels = []
     for name, t in timing.items():
@@ -496,6 +895,12 @@ def main() -> None:
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"]})
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": SSD_TPU_KERNEL, "launches": ssd_launches,
+        "max_abs_err": ssd_worst["err"], "ms": ssd_timing["ms"],
+        "plain_ms": ssd_timing["plain_ms"], "bound_ms": ssd_timing["bound"][0],
+        "bound_by": ssd_timing["bound"][1], "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

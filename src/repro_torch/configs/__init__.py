@@ -2,8 +2,9 @@
 
 Each module defines ``config()`` (the exact published configuration) and
 ``smoke_config()`` (a reduced same-family configuration for CPU tests).
-Only the archs the PyTorch port serves are listed; the rest of the JAX
-package's zoo is still to be ported (see ROADMAP.md).
+Only the archs the PyTorch port runs are listed (gemma2-2b serving,
+mamba2-1.3b training); the rest of the JAX package's zoo is still to be
+ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -11,10 +12,10 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCH_IDS = ("gemma2_2b",)
+ARCH_IDS = ("gemma2_2b", "mamba2_1p3b")
 
 # public ids -> module names
-ALIASES = {"gemma2-2b": "gemma2_2b"}
+ALIASES = {"gemma2-2b": "gemma2_2b", "mamba2-1.3b": "mamba2_1p3b"}
 
 
 def resolve(arch: str) -> str:

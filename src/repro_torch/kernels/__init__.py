@@ -1,7 +1,12 @@
 """Hand-written Hopper kernels for the PyTorch port, one per Pallas TPU
-kernel of the JAX package (ported so far: flash attention).
+kernel of the JAX package (ported so far: flash attention, SSD scan).
 
 - flash_attention: fused online-softmax GQA attention (causal, sliding
   window, logit softcap, per-sequence kv_len) — CUDA C++ for sm_90a in
-  ``csrc/flash_attention.cu``, built by ``kernels/build.py`` at first use.
+  ``csrc/flash_attention.cu``.
+- ssd_scan: the Mamba-2 SSD chunked scan (train forward; the backward
+  recomputes through the plain chunked scan) — CUDA C++ for sm_90a in
+  ``csrc/ssd_scan.cu``.
+
+Both are built by ``kernels/build.py`` at first use.
 """

@@ -12,7 +12,8 @@ take — there is no fallback on the card.  For CPU tensors each computes
 
 The kernel masks ragged T and S itself, so the JAX wrapper's padding
 (``_pad_to``) and its non-causal-padding reference fallback are gone.  The
-serving path takes no gradients; the training slice adds the backward.
+serving path takes no gradients; the backward comes with the dense family's
+training forward (mamba2's, the one ported so far, has no attention).
 """
 from __future__ import annotations
 

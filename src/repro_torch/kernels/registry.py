@@ -5,8 +5,8 @@ Every hand-written kernel of the port has two runnable forms:
 - ``ref``  — plain PyTorch ops (the model layers' own math); runs anywhere.
 - ``cuda`` — the hand-written Hopper kernel behind the op's wrapper.  The
   wrapper launches it for CUDA tensors; for CPU tensors it computes the
-  kernel's plain version (``attention_reference``), so the kernel call site
-  stays testable on a machine without a GPU.
+  kernel's plain version (``attention_reference``, ``ssd_chunked``), so the
+  kernel call site stays testable on a machine without a GPU.
 
 Selection is per-op via the ``REPRO_TORCH_KERNELS`` environment variable,
 with the spec syntax of the JAX package's ``REPRO_KERNELS``::
@@ -15,7 +15,10 @@ with the spec syntax of the JAX package's ``REPRO_KERNELS``::
     REPRO_TORCH_KERNELS=attention=cuda,ssd=ref   # per-op
     REPRO_TORCH_KERNELS=ref,attention=cuda       # default + override
 
-or programmatically with :func:`override`.  The default is ``auto``: it
+or programmatically with :func:`override`, whose scope is process-wide,
+not per thread: autograd runs a CUDA backward -- and with it the recompute
+of a checkpointed layer -- on a device thread of its own, which must see
+the override its forward ran under.  The default is ``auto``: it
 resolves to ``cuda`` for a CUDA tensor and to ``ref`` for a CPU tensor.  An
 explicit ``ref`` on the card is allowed — it is a choice the launch entry
 points echo in their "kernel backends:" line, never a silent fallback.
@@ -27,7 +30,6 @@ others resolve to ``unported`` whatever the spec says, and asking for
 from __future__ import annotations
 
 import os
-import threading
 from contextlib import contextmanager
 from functools import lru_cache
 from typing import Dict, Optional
@@ -35,17 +37,11 @@ from typing import Dict, Optional
 import torch
 
 OPS = ("attention", "ssd", "sum_tree")
-PORTED = ("attention",)
+PORTED = ("attention", "ssd")
 BACKENDS = ("ref", "cuda", "auto")
 ENV = "REPRO_TORCH_KERNELS"
 
-_local = threading.local()
-
-
-def _override_stack():
-    if not hasattr(_local, "stack"):
-        _local.stack = []
-    return _local.stack
+_OVERRIDES: list = []  # process-wide stack of parsed specs, innermost last
 
 
 @lru_cache(maxsize=32)
@@ -96,7 +92,7 @@ def backend_for(op: str, site: Optional[str] = None, *,
     env = os.environ.get(ENV, "")
     if env:
         be = _parse(env).get(op, "auto")
-    for layer in _override_stack():
+    for layer in _OVERRIDES:
         if op in layer:
             be = layer[op]
     if op not in PORTED:
@@ -123,11 +119,11 @@ def override(spec: str):
         with registry.override("ref"):
             ...  # call sites dispatch to the plain PyTorch math
     """
-    _override_stack().append(_parse(spec))
+    _OVERRIDES.append(_parse(spec))
     try:
         yield
     finally:
-        _override_stack().pop()
+        _OVERRIDES.pop()
 
 
 def describe(device=None) -> Dict[str, str]:

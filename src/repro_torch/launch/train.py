@@ -1,0 +1,176 @@
+"""LM-policy PPO training entry point of the PyTorch port.
+
+Port of the single-device, per-iteration path of ``repro/launch/train.py``
+(its ``fuse_window == 1`` branch).  The policy IS a language model over the
+token-MDP environment: each iteration runs
+
+- a rollout: ``horizon`` batched ``decode_step``s with the SSM cache, one
+  sampled token per sequence per step (the serving path);
+- GAE over the (T, B) trajectory, advantages normalised over the batch;
+- one PPO update through ``forward_train``, ``lm_logits``, ``value_out`` and
+  Adam (lr ``--lr``, global-norm clip 1.0, entropy coefficient 0.003).
+
+Entry points run on ``--device cuda`` (the default), where every SSD scan
+of ``forward_train`` goes through the hand-written CUDA kernel
+(``csrc/ssd_scan.cu``) unless ``--kernels ref`` asks for the plain PyTorch
+math; ``--device cpu`` runs the plain versions.  The forward of the update
+is the ssm family's only (``--arch mamba2-1.3b``, the default); the dense
+family's needs the flash-attention backward, not ported yet.  Every
+iteration logs one row (console, CSV, JSONL under ``--log-dir``) with the
+PPO metrics, ``samples_per_sec`` and the rollout and update wall times.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --full --batch 8 \\
+      --horizon 512 --steps 2
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+import torch.nn.functional as F
+
+from ..algos.pg.gae import gae_associative
+from ..algos.pg.ppo import make_lm_ppo_train_step
+from ..configs import get_config, get_smoke_config
+from ..envs.token_lm import make_token_lm
+from ..kernels import registry as kernel_registry
+from ..models import backbones as bb
+from ..models.config import ModelConfig
+from ..serving.engine import sample, sync
+from ..telemetry import trace
+from ..train.optim import adam
+from ..utils.logger import Logger
+
+F32 = torch.float32
+
+
+def make_lm_rollout(cfg: ModelConfig, env, batch: int, horizon: int,
+                    temperature: float = 1.0, *, device):
+    """Batched action selection with the serving path: one decode_step per
+    env step, the cache carried through a Python loop.
+
+    rollout(params, generator) -> (traj, v_last); traj holds (T, B) tensors
+    tokens, actions, logp, value, reward, done.  Runs under
+    ``torch.no_grad()`` (not ``inference_mode``: the update's backward
+    saves the tokens).  The logp is over the first ``V`` logits, as in JAX
+    (the update's is over the padded vocabulary)."""
+    V = env.action_space.n
+
+    @torch.no_grad()
+    def rollout(params, generator):
+        env_state, obs = env.reset(batch, generator)
+        cache = bb.init_cache(cfg, batch, horizon + 1, device=device)
+        out = {k: [] for k in ("tokens", "actions", "logp", "value",
+                               "reward", "done")}
+        for _ in range(horizon):
+            hidden, cache = bb.decode_step(params, cache, obs, cfg)
+            logits = bb.lm_logits(params, hidden, cfg)[:, 0, :V].to(F32)
+            value = bb.value_out(params, hidden)[:, 0]
+            action = sample(logits, temperature, generator).to(torch.int32)
+            logp = torch.gather(F.log_softmax(logits, dim=-1), 1,
+                                action.long()[:, None])[:, 0]
+            env_state, obs2, reward, done, _ = env.step(env_state, action,
+                                                        generator)
+            for k, v in (("tokens", obs), ("actions", action), ("logp", logp),
+                         ("value", value), ("reward", reward), ("done", done)):
+                out[k].append(v)
+            obs = obs2
+        # bootstrap value of the last obs
+        hidden, _ = bb.decode_step(params, cache, obs, cfg)
+        v_last = bb.value_out(params, hidden)[:, 0]
+        return {k: torch.stack(v) for k, v in out.items()}, v_last
+
+    return rollout
+
+
+def build_batch(traj, v_last):
+    """Time-major (T, B) -> GAE -> batch-major (B, T) for the train step."""
+    adv, ret = gae_associative(traj["reward"], traj["value"], v_last,
+                               traj["done"], gamma=0.99, lam=0.95)
+    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+
+    def tm(x):
+        return x.transpose(0, 1).contiguous()
+
+    return {"tokens": tm(traj["tokens"]), "actions": tm(traj["actions"]),
+            "logp_old": tm(traj["logp"]), "advantage": tm(adv),
+            "return_": tm(ret)}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; the CUDA kernels run on 'cuda', "
+                         "'cpu' runs the plain PyTorch versions")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--horizon", type=int, default=32)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-dir", default=None)
+    ap.add_argument("--kernels", default=None,
+                    help="kernel backend spec (REPRO_TORCH_KERNELS syntax: "
+                         "'ref', 'cuda', 'ssd=ref', ...)")
+    return ap
+
+
+def main(argv=None):
+    """Run ``--steps`` iterations; returns the trained ``LM``."""
+    args = build_parser().parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available; "
+                           "pass --device cpu to run the plain versions")
+    tracer = trace.configure(os.path.join(args.log_dir, "trace.jsonl")
+                             if args.log_dir else None)
+    if args.kernels:
+        kernel_registry.set_env(args.kernels)
+    print(f"kernel backends: {kernel_registry.describe(device)}")
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    env = make_token_lm(vocab=cfg.vocab, episode_len=args.horizon,
+                        device=device)
+    logger = Logger(args.log_dir)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = bb.init_lm(cfg, device=device, generator=gen, dtype=F32,
+                        requires_grad=True)
+    opt = adam(args.lr, grad_clip=1.0)
+    opt_state = opt.init(params.parameters())
+    rollout = make_lm_rollout(cfg, env, args.batch, args.horizon,
+                              device=device)
+    train_step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003)
+    try:
+        for step in range(args.steps):
+            sync(device)
+            t0 = time.perf_counter()
+            with tracer.span("rollout", step=step):
+                traj, v_last = rollout(params, gen)
+                sync(device)
+            t1 = time.perf_counter()
+            with tracer.span("update", step=step):
+                batch = build_batch(traj, v_last)
+                params, opt_state, metrics = train_step(params, opt_state,
+                                                        batch)
+                sync(device)
+            t2 = time.perf_counter()
+            with tracer.span("log", step=step + 1):
+                logger.record(step + 1, {
+                    "avg_reward": float(torch.mean(traj["reward"])),
+                    **{k: float(v) for k, v in metrics.items()},
+                    "samples_per_sec": args.batch * args.horizon / (t2 - t0),
+                    "rollout_s": t1 - t0,
+                    "update_s": t2 - t1,
+                })
+            tracer.memory_snapshot(f"step_{step + 1}")
+    finally:
+        logger.close()
+    return params
+
+
+if __name__ == "__main__":
+    main()

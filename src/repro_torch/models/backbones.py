@@ -1,20 +1,29 @@
-"""Backbone: the dense family's serving path (prefill / decode), in PyTorch.
+"""Backbones of the ported families, in PyTorch.
 
-Port of the dense family of ``repro/models/backbones.py``, with and without
-``alt_local_global`` (gemma2's local/global layer pairs):
+Port of two families of ``repro/models/backbones.py``: the dense family's
+serving path (prefill / decode, with and without ``alt_local_global``,
+gemma2's local/global layer pairs) and the ssm family's (mamba2) training
+forward and decode step:
 
 - ``LM`` is an ``nn.Module`` with the JAX leaves as parameters.  The JAX
   params stack each superblock's leaves with a leading dim; here layer
   ``2i`` / ``2i+1`` of ``LM.layers`` holds superblock ``i``'s ``local`` /
   ``global`` layer (layer ``i`` for plain dense), and each ``lax.scan`` over
   superblocks is a Python loop.
-- ``init_cache``, ``embed``, ``lm_logits``, ``prefill`` and ``decode_step``
-  are plain functions with the JAX signatures (plus an explicit ``device``
-  where they allocate).  Cache leaves keep the JAX layout — K/V
-  ``(n_sb, B, S, Hkv, dh)`` and ``lengths`` ``(B,)`` int32 — and are updated
-  IN PLACE: ``prefill`` and ``decode_step`` write into the tensors of the
-  cache they are given and return a new dict holding those same tensors
-  plus a new ``lengths``.
+  An ssm ``LM`` holds one ``SSMLayer`` (leaves ``norm``, ``ssd``) per layer.
+- ``init_cache``, ``embed``, ``lm_logits``, ``value_out``, ``prefill``,
+  ``decode_step`` and ``forward_train`` are plain functions with the JAX
+  signatures (plus an explicit ``device`` where they allocate).  Cache
+  leaves keep the JAX layout — K/V ``(n_sb, B, S, Hkv, dh)``, SSM conv
+  ``(n_sb, B, K-1, conv_dim)`` and state ``(n_sb, B, H, P, N)`` f32,
+  ``lengths`` ``(B,)`` int32 — and are updated IN PLACE: ``prefill`` and
+  ``decode_step`` write into the tensors of the cache they are given and
+  return a new dict holding those same tensors plus a new ``lengths``.
+- ``forward_train`` covers the ssm family (the dense family's needs the
+  flash-attention backward, not ported yet); ``cfg.remat`` checkpoints each
+  layer with ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+  ``jax.checkpoint`` over the scanned superblock.  ``prefill`` covers the
+  dense family only.
 - Single-device only: the JAX sharding constraints are identities on one
   device and are dropped.
 """
@@ -25,10 +34,13 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (
+    F32,
     MLP,
+    SSD,
     Attention,
     RMSNorm,
     _dense_init,
@@ -38,15 +50,20 @@ from .layers import (
     cdtype,
     mlp,
     rmsnorm,
+    ssd_block_decode,
+    ssd_block_train,
 )
+
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def superblock_layout(cfg: ModelConfig):
     """Returns (n_superblocks, layers_per_block, tail_layers)."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported to "
-                                  "repro_torch yet (dense only)")
-    if cfg.alt_local_global:
+                                  f"repro_torch yet (ported: "
+                                  f"{PORTED_FAMILIES})")
+    if cfg.family == "dense" and cfg.alt_local_global:
         if cfg.n_layers % 2:
             raise ValueError("alt_local_global needs an even n_layers")
         return cfg.n_layers // 2, 2, 0
@@ -68,6 +85,15 @@ class DenseLayer(nn.Module):
             self.mlp_post_norm = RMSNorm(cfg.d_model, device=device)
 
 
+class SSMLayer(nn.Module):
+    """One pre-norm mamba2 layer: leaves ``norm`` and ``ssd``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
+        super().__init__()
+        self.norm = RMSNorm(cfg.d_model, device=device)
+        self.ssd = SSD(cfg, device=device, dtype=dtype, generator=generator)
+
+
 class LM(nn.Module):
     """Leaves ``tok_embed`` (Vp,D), ``layers``, ``final_norm``, ``lm_head``
     (D,Vp), ``value_head`` (D,1).  Matrices are stored in ``dtype``, norm
@@ -85,8 +111,9 @@ class LM(nn.Module):
                                device=device, dtype=dtype)
 
         self.tok_embed = mat((Vp, D), D)
+        layer = SSMLayer if cfg.family == "ssm" else DenseLayer
         self.layers = nn.ModuleList(
-            DenseLayer(cfg, device=device, dtype=dtype, generator=generator)
+            layer(cfg, device=device, dtype=dtype, generator=generator)
             for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(D, device=device)
         self.lm_head = mat((D, Vp), D)
@@ -110,11 +137,14 @@ def _cache_slot(cfg: ModelConfig, i: int):
 
 
 def init_lm(cfg: ModelConfig, *, device, generator: torch.Generator,
-            dtype=None) -> LM:
+            dtype=None, requires_grad: bool = False) -> LM:
     """Random full model: matrices N(0, 1/fan_in) in ``dtype`` (default the
-    compute dtype) drawn from ``generator`` on ``device``, norm scales 1."""
-    return LM(cfg, device=device, dtype=dtype or cdtype(cfg),
-              generator=generator)
+    compute dtype) drawn from ``generator`` on ``device``, norm scales 1
+    (SSM ``A_log`` = log(linspace(1, 16, H)), ``dt_bias`` 0).  Training asks
+    for f32 master weights with ``requires_grad=True``."""
+    lm = LM(cfg, device=device, dtype=dtype or cdtype(cfg),
+            generator=generator)
+    return lm.requires_grad_(requires_grad)
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +166,42 @@ def lm_logits(params, hidden, cfg: ModelConfig):
     return logits
 
 
+def value_out(params, hidden):
+    """hidden (..., T, D) -> value (..., T) in f32."""
+    return (hidden.float() @ params.value_head.float())[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Training path
+# ---------------------------------------------------------------------------
+def _ssm_layer_train(p, x, cfg: ModelConfig):
+    h = rmsnorm(p.norm, x)
+    y, _ = ssd_block_train(p.ssd, h, cfg)
+    return x + y
+
+
+def forward_train(params, tokens, cfg: ModelConfig):
+    """tokens:(B,T) -> (hidden (B,T,D) in the compute dtype, aux scalar).
+
+    The ssm family only.  With ``cfg.remat`` each layer's activations are
+    dropped after its forward and recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), so every SSD scan of an
+    update runs twice."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"forward_train of family {cfg.family!r} is not ported to "
+            "repro_torch yet (ssm only: the dense family needs the "
+            "flash-attention backward)")
+    x = embed(params, tokens, cfg)
+    for lp in params.layers:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_ssm_layer_train, lp, x, cfg, use_reentrant=False)
+        else:
+            x = _ssm_layer_train(lp, x, cfg)
+    x = rmsnorm(params.final_norm, x)
+    return x, torch.zeros((), dtype=F32, device=x.device)
+
+
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
@@ -146,6 +212,15 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, device, dtype=None):
     Hkv, dh = cfg.n_kv_heads, cfg.d_head
     cache: Dict[str, Any] = {
         "lengths": torch.zeros((B,), dtype=torch.int32, device=device)}
+    if cfg.family == "ssm":
+        Hs, Pd, G, N = (cfg.ssm_n_heads, cfg.ssm_headdim, cfg.ssm_n_groups,
+                        cfg.d_state)
+        conv_dim = Hs * Pd + 2 * G * N
+        cache["conv"] = torch.zeros((n_sb, B, cfg.conv_kernel - 1, conv_dim),
+                                    dtype=dt, device=device)
+        cache["ssm"] = torch.zeros((n_sb, B, Hs, Pd, N), dtype=F32,
+                                   device=device)
+        return cache
 
     def kv(s):
         return (torch.zeros((n_sb, B, s, Hkv, dh), dtype=dt, device=device),
@@ -188,10 +263,21 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
     lengths = cache["lengths"]
     x = embed(params, tokens[:, None], cfg)
     new_cache = dict(cache)
-    for i, (lp, window) in enumerate(zip(params.layers, layer_windows(cfg))):
-        kn, vn, sb = _cache_slot(cfg, i)
-        x, _, _ = _dense_layer_decode(lp, x, cache[kn][sb], cache[vn][sb],
-                                      lengths, cfg, window=window)
+    if cfg.family == "ssm":
+        for i, lp in enumerate(params.layers):
+            h = rmsnorm(lp.norm, x)
+            y, (ncs, nss) = ssd_block_decode(lp.ssd, h, cache["conv"][i],
+                                             cache["ssm"][i], cfg)
+            cache["conv"][i].copy_(ncs)
+            cache["ssm"][i].copy_(nss)
+            x = x + y
+    else:
+        for i, (lp, window) in enumerate(zip(params.layers,
+                                             layer_windows(cfg))):
+            kn, vn, sb = _cache_slot(cfg, i)
+            x, _, _ = _dense_layer_decode(lp, x, cache[kn][sb],
+                                          cache[vn][sb], lengths, cfg,
+                                          window=window)
     bump = 1 if active is None else active.to(torch.int32)
     new_cache["lengths"] = lengths + bump
     x = rmsnorm(params.final_norm, x)
@@ -223,7 +309,10 @@ def prefill(params, tokens, cfg: ModelConfig, cache):
     """Run the full-sequence forward, returning (last_hidden (B,1,D), cache).
 
     The cache must be freshly initialized (lengths == 0); its K/V tensors
-    are filled in place."""
+    are filled in place.  The dense family only."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"prefill of family {cfg.family!r} is not "
+                                  "ported to repro_torch yet (dense only)")
     B, T = tokens.shape
     x = embed(params, tokens, cfg)
     new_cache = dict(cache)

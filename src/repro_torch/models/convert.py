@@ -5,10 +5,13 @@
 an ``LM``.  The stacked superblock leaves ``blocks/...`` (leading dim
 ``n_sb``) go to ``LM.layers``: for gemma2's local/global pairs,
 ``blocks/local/...[i]`` to layer ``2i`` and ``blocks/global/...[i]`` to
-layer ``2i+1``; for plain dense, ``blocks/...[i]`` to layer ``i``.
-Matrices are stored in ``dtype`` and norm scales in f32.  JAX casts every
+layer ``2i+1``; for plain dense and for mamba2 (``blocks/norm/scale``,
+``blocks/ssd/{wz,wx,wB,wC,wdt,A_log,dt_bias,conv_w,norm_scale,out_proj}``),
+``blocks/...[i]`` to layer ``i``.  Matrices are stored in ``dtype``; norm
+scales and the SSM's ``A_log`` / ``dt_bias`` in f32.  JAX casts every
 weight to the compute dtype right before its product, so storing the
-matrices in the compute dtype computes the same thing.
+matrices in the compute dtype computes the same thing for serving; training
+asks for f32 master weights with ``requires_grad=True``.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
-                    dtype=torch.float32) -> LM:
+                    dtype=torch.float32, requires_grad: bool = False) -> LM:
     """JAX ``init_lm`` params (nested dict of numpy arrays) -> ``LM``.
     Raises if a leaf is missing, unexpected, or of the wrong shape."""
     n_sb, per_block, _ = superblock_layout(cfg)
@@ -69,4 +72,4 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
                     raise ValueError(f"{jax_name}: shape {val.shape} != "
                                      f"{tuple(p.shape)}")
                 p.copy_(torch.from_numpy(np.array(val)))
-    return lm
+    return lm.requires_grad_(requires_grad)

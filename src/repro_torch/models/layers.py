@@ -1,10 +1,12 @@
-"""Neural-net layers of the dense family's serving path, in PyTorch.
+"""Neural-net layers of the ported families, in PyTorch.
 
-Port of ``repro/models/layers.py`` (rmsnorm, RoPE, GQA attention with
-sliding window + softcap, KV-cache decode attention, SwiGLU MLP).  Each
-layer is an ``nn.Module`` holding parameters named after the JAX leaves;
-the math lives in plain functions over (module, tensor) with the JAX
-signatures, so the backbone and the serving engine port line for line.
+Port of ``repro/models/layers.py``: rmsnorm, RoPE, GQA attention with
+sliding window + softcap, KV-cache decode attention and the SwiGLU MLP (the
+dense family's serving path), and the Mamba-2 SSD mixer (the ssm family's
+training forward and decode step).  Each layer is an ``nn.Module`` holding
+parameters named after the JAX leaves; the math lives in plain functions
+over (module, tensor) with the JAX signatures, so the backbones, the serving
+engine and the trainer port line for line.
 
 dtype discipline, as in JAX:
 - activations run in the compute dtype (bf16 on the card); every weight is
@@ -16,7 +18,7 @@ dtype discipline, as in JAX:
 
 KV caches are updated IN PLACE (JAX returns new arrays): ``attention_decode``
 writes the new token's K/V into the cache tensors it is given and returns
-the same tensors.  MoE, SSD and cross-attention are not ported yet.
+the same tensors.  MoE and cross-attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -54,6 +56,17 @@ def _empty(shape, *, device, dtype):
                         requires_grad=False)
 
 
+def _add_matrices(module, shapes, *, device, dtype, generator):
+    """Register each ``name: (shape, fan_in)`` of ``shapes`` on ``module``:
+    N(0, 1/fan_in) drawn from ``generator`` in dict order, or uninitialised
+    when ``generator`` is None (weights loaded afterwards)."""
+    for name, (shape, fan_in) in shapes.items():
+        setattr(module, name,
+                _empty(shape, device=device, dtype=dtype) if generator is None
+                else _dense_init(shape, fan_in, generator=generator,
+                                 device=device, dtype=dtype))
+
+
 class RMSNorm(nn.Module):
     """Leaf ``scale`` (d,), kept in f32."""
 
@@ -64,10 +77,14 @@ class RMSNorm(nn.Module):
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
+    return _rmsnorm_scale(params.scale, x, eps)
+
+
+def _rmsnorm_scale(scale, x, eps: float = 1e-6):
+    """``rmsnorm`` with a bare scale (JAX: ``rmsnorm({"scale": s}, x)``)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * params.scale
-    return y.to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -101,11 +118,8 @@ class Attention(nn.Module):
         D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         shapes = {"wq": ((D, H, dh), D), "wk": ((D, Hkv, dh), D),
                   "wv": ((D, Hkv, dh), D), "wo": ((H, dh, D), H * dh)}
-        for name, (shape, fan_in) in shapes.items():
-            p = (_empty(shape, device=device, dtype=dtype) if generator is None
-                 else _dense_init(shape, fan_in, generator=generator,
-                                  device=device, dtype=dtype))
-            setattr(self, name, p)
+        _add_matrices(self, shapes, device=device, dtype=dtype,
+                      generator=generator)
 
 
 def _proj(x, w):
@@ -256,11 +270,8 @@ class MLP(nn.Module):
         super().__init__()
         D, Fh = cfg.d_model, cfg.d_ff
         shapes = {"wi": ((D, Fh), D), "wg": ((D, Fh), D), "wd": ((Fh, D), Fh)}
-        for name, (shape, fan_in) in shapes.items():
-            p = (_empty(shape, device=device, dtype=dtype) if generator is None
-                 else _dense_init(shape, fan_in, generator=generator,
-                                  device=device, dtype=dtype))
-            setattr(self, name, p)
+        _add_matrices(self, shapes, device=device, dtype=dtype,
+                      generator=generator)
 
 
 def mlp(params, x):
@@ -268,3 +279,194 @@ def mlp(params, x):
     h = x @ params.wi.to(dt)
     g = x @ params.wg.to(dt)
     return (F.silu(g) * h) @ params.wd.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD block
+# ---------------------------------------------------------------------------
+class SSD(nn.Module):
+    """Leaves ``wz``/``wx`` (D,H,P), ``wB``/``wC`` (D,G,N), ``wdt`` (D,H),
+    ``A_log``/``dt_bias`` (H,), ``conv_w`` (K, H*P + 2*G*N), ``norm_scale``
+    (H*P,), ``out_proj`` (H,P,D).  Matrices (and ``conv_w``) in ``dtype``;
+    ``A_log``, ``dt_bias`` and ``norm_scale`` in f32, as JAX keeps them."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
+        super().__init__()
+        D = cfg.d_model
+        H, Pd, G, N = (cfg.ssm_n_heads, cfg.ssm_headdim, cfg.ssm_n_groups,
+                       cfg.d_state)
+        Kc = cfg.conv_kernel
+        conv_dim = H * Pd + 2 * G * N
+        shapes = {"wz": ((D, H, Pd), D), "wx": ((D, H, Pd), D),
+                  "wB": ((D, G, N), D), "wC": ((D, G, N), D),
+                  "wdt": ((D, H), D), "conv_w": ((Kc, conv_dim), Kc),
+                  "out_proj": ((H, Pd, D), H * Pd)}
+        _add_matrices(self, shapes, device=device, dtype=dtype,
+                      generator=generator)
+
+        def f32(t):
+            return nn.Parameter(t, requires_grad=False)
+
+        self.A_log = f32(torch.log(torch.linspace(1.0, 16.0, H, dtype=F32,
+                                                  device=device)))
+        self.dt_bias = f32(torch.zeros(H, dtype=F32, device=device))
+        self.norm_scale = f32(torch.ones(H * Pd, dtype=F32, device=device))
+
+
+def _causal_conv1d(x, w, state=None):
+    """Depthwise causal conv. x:(B,T,C), w:(K,C); state:(B,K-1,C) or None.
+    Returns y:(B,T,C), new_state:(B,K-1,C)."""
+    K = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)
+    T = x.shape[1]
+    wd = w.to(x.dtype)
+    y = xp[:, 0:T] * wd[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + T] * wd[i]
+    new_state = xp[:, -(K - 1):] if K > 1 else state
+    return F.silu(y), new_state
+
+
+def _ssd_proj(params, u, cfg: ModelConfig):
+    z = _proj(u, params.wz)
+    x = _proj(u, params.wx)
+    Bs = _proj(u, params.wB)
+    Cs = _proj(u, params.wC)
+    dt = _proj(u, params.wdt)
+    return z, x, Bs, Cs, dt
+
+
+def ssd_chunked(x, dt, A, Bs, Cs, chunk: int, state=None,
+                intra_bf16: bool = False):
+    """SSD (Mamba-2 state-space dual) forward, a loop over chunks.
+
+    x:(B,T,H,P) dt:(B,T,H) A:(H,) negative  Bs,Cs:(B,T,G,N).
+    Returns y:(B,T,H,P) in x.dtype, final_state:(B,H,P,N) f32.  Ragged T is
+    padded with dt = 0 rows, which add nothing to the state.  This is the
+    plain version of the SSD kernel (``kernels/ssd_scan``) and the math its
+    backward differentiates.
+    """
+    B_, T, H, Pd = x.shape
+    G, N = Bs.shape[2], Bs.shape[3]
+    rep = H // G
+    Q = min(chunk, T)
+    T_orig = T
+    if T % Q:  # pad the tail with dt=0 tokens (no state contribution)
+        pad = Q - T % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bs = F.pad(Bs, (0, 0, 0, 0, 0, pad))
+        Cs = F.pad(Cs, (0, 0, 0, 0, 0, pad))
+        T = T + pad
+    nC = T // Q
+    if state is None:
+        state = torch.zeros((B_, H, Pd, N), dtype=F32, device=x.device)
+    # intra-chunk compute dtype: bf16 halves the (B,Q,Q,H) traffic of the
+    # scores / L / M chain; the inter-chunk state recurrence stays f32
+    idt = torch.bfloat16 if intra_bf16 else F32
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    tri = tri[None, :, :, None]
+    zero = torch.zeros((), dtype=idt, device=x.device)
+    ys = []
+    for c in range(nC):
+        sl = slice(c * Q, (c + 1) * Q)
+        xq, dtq, Bq, Cq = x[:, sl], dt[:, sl], Bs[:, sl], Cs[:, sl]
+        dA = dtq.float() * A  # (B,Q,H) negative
+        cum = torch.cumsum(dA, dim=1)  # (B,Q,H)
+        # L[q,k] = exp(cum_q - cum_k) for q >= k.  Zero the masked (q<k)
+        # entries BEFORE exp: they are positive and can overflow, and
+        # where-after-exp leaks 0*inf = NaN into the backward.
+        cum_i = cum.to(idt)
+        Ldiff = torch.where(tri, cum_i[:, :, None, :] - cum_i[:, None, :, :],
+                            zero)
+        L = torch.where(tri, torch.exp(Ldiff), zero)
+        # C.B^T once per group, repeated over the group's heads (the same
+        # products as JAX's repeat-then-einsum)
+        scores = torch.einsum("bqgn,bkgn->bqkg", Cq.to(idt), Bq.to(idt))
+        scores = scores.repeat_interleave(rep, dim=3)  # (B,Q,K,H)
+        M = scores * L * dtq.to(idt)[:, None, :, :]
+        y_diag = torch.einsum("bqkh,bkhp->bqhp", M.float(), xq.to(idt).float())
+        # inter-chunk: contribution of the incoming state
+        Ch = Cq.float().repeat_interleave(rep, dim=2)  # (B,Q,H,N)
+        Bh = Bq.float().repeat_interleave(rep, dim=2)
+        decay_out = torch.exp(cum)  # (B,Q,H)
+        y_off = torch.einsum("bqhn,bhpn->bqhp", Ch, state) * decay_out[..., None]
+        # state update
+        decay_last = torch.exp(cum[:, -1:, :] - cum)  # (B,Q,H)
+        w = (decay_last * dtq.float())[..., None]  # (B,Q,H,1)
+        state = state * torch.exp(cum[:, -1, :])[..., None, None] + \
+            torch.einsum("bqhn,bqhp->bhpn", Bh * w, xq.float())
+        ys.append((y_diag + y_off).to(x.dtype))
+    y = torch.cat(ys, dim=1)
+    return y[:, :T_orig], state
+
+
+def ssd_block_train(params, u, cfg: ModelConfig, conv_state=None,
+                    ssm_state=None):
+    """Full mamba2 mixer over a sequence. u:(B,T,D) -> y:(B,T,D),
+    (conv_st, ssm_st)."""
+    B_, T, D = u.shape
+    H, Pd, G, N = cfg.ssm_n_heads, cfg.ssm_headdim, cfg.ssm_n_groups, cfg.d_state
+    z, x, Bs, Cs, dt = _ssd_proj(params, u, cfg)
+    # conv over [x, B, C]
+    xBC = torch.cat([x.reshape(B_, T, H * Pd), Bs.reshape(B_, T, G * N),
+                     Cs.reshape(B_, T, G * N)], dim=-1)
+    xBC, conv_state = _causal_conv1d(xBC, params.conv_w, conv_state)
+    x = xBC[..., : H * Pd].reshape(B_, T, H, Pd)
+    Bs = xBC[..., H * Pd: H * Pd + G * N].reshape(B_, T, G, N)
+    Cs = xBC[..., H * Pd + G * N:].reshape(B_, T, G, N)
+    dt = F.softplus(dt.float() + params.dt_bias)
+    A = -torch.exp(params.A_log)
+    # Kernel dispatch: the SSD kernel covers the zero-initial-state train
+    # shape in f32.  Chunked-prefill continuation (ssm_state) and the
+    # bf16-intra knob (a ref-path traffic optimization the kernel subsumes)
+    # stay on the plain chunked scan.  (The JAX ``cfg.unroll`` dry-run
+    # variants have no counterpart here: the port always loops.)
+    if (kernel_registry.backend_for("ssd", site="ssd_block_train",
+                                    device=u.device) != "ref"
+            and ssm_state is None and not cfg.unroll and not cfg.ssd_bf16):
+        # lazy: kernels.ssd_scan.ref imports this module
+        from ..kernels.ssd_scan.ops import ssd_scan
+
+        y, ssm_state = ssd_scan(x.contiguous(), dt.contiguous(), A,
+                                Bs.contiguous(), Cs.contiguous(),
+                                chunk=min(cfg.ssd_chunk, T))
+    else:
+        y, ssm_state = ssd_chunked(x, dt, A, Bs, Cs, cfg.ssd_chunk, ssm_state,
+                                   intra_bf16=cfg.ssd_bf16)
+    y = y.reshape(B_, T, H * Pd) * F.silu(z.reshape(B_, T, H * Pd))
+    y = _rmsnorm_scale(params.norm_scale, y)
+    return _out_proj(y.reshape(B_, T, H, Pd), params.out_proj), \
+        (conv_state, ssm_state)
+
+
+def ssd_block_decode(params, u, conv_state, ssm_state, cfg: ModelConfig):
+    """Single-token mamba2 step. u:(B,1,D); ssm_state:(B,H,P,N) f32.
+    Returns (y (B,1,D), (conv_state, ssm_state)) -- new tensors; the
+    caller writes them back into its cache."""
+    B_ = u.shape[0]
+    H, Pd, G, N = cfg.ssm_n_heads, cfg.ssm_headdim, cfg.ssm_n_groups, cfg.d_state
+    z, x, Bs, Cs, dt = _ssd_proj(params, u, cfg)
+    xBC = torch.cat([x.reshape(B_, 1, H * Pd), Bs.reshape(B_, 1, G * N),
+                     Cs.reshape(B_, 1, G * N)], dim=-1)
+    xBC, conv_state = _causal_conv1d(xBC, params.conv_w, conv_state)
+    x = xBC[..., : H * Pd].reshape(B_, H, Pd)
+    Bs = xBC[..., H * Pd: H * Pd + G * N].reshape(B_, G, N)
+    Cs = xBC[..., H * Pd + G * N:].reshape(B_, G, N)
+    dt = F.softplus(dt.float() + params.dt_bias)[:, 0]  # (B,H)
+    A = -torch.exp(params.A_log)
+    rep = H // G
+    Bh = Bs.repeat_interleave(rep, dim=1).float()  # (B,H,N)
+    Ch = Cs.repeat_interleave(rep, dim=1).float()
+    dA = torch.exp(dt * A)  # (B,H)
+    ssm_state = ssm_state * dA[..., None, None] + torch.einsum(
+        "bhn,bhp->bhpn", Bh * dt[..., None], x.float())
+    y = torch.einsum("bhn,bhpn->bhp", Ch, ssm_state)  # (B,H,P)
+    y = y.reshape(B_, 1, H * Pd).to(u.dtype) * F.silu(z.reshape(B_, 1, H * Pd))
+    y = _rmsnorm_scale(params.norm_scale, y)
+    out = _out_proj(y.reshape(B_, 1, H, Pd), params.out_proj)
+    return out, (conv_state, ssm_state)
+

@@ -21,10 +21,12 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
 
 
-def port_lm(jax_params, jax_cfg: JaxConfig, dtype=torch.float32):
+def port_lm(jax_params, jax_cfg: JaxConfig, dtype=torch.float32,
+            requires_grad: bool = False):
     """The port's LM holding the JAX ``init_lm`` params, on the CPU."""
     return params_from_jax(to_numpy(jax_params), torch_cfg(jax_cfg),
-                           device="cpu", dtype=dtype)
+                           device="cpu", dtype=dtype,
+                           requires_grad=requires_grad)
 
 
 def t2n(x) -> np.ndarray:

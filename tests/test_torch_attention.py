@@ -114,10 +114,12 @@ def test_ops_reject_mixed_devices():
 def test_registry_spec_parsing_and_auto():
     with registry.override("cuda"):
         assert registry.backend_for("attention") == "cuda"
-        assert registry.backend_for("ssd") == "unported"
+        assert registry.backend_for("ssd") == "cuda"
+        assert registry.backend_for("sum_tree") == "unported"
         with registry.override("attention=ref"):
             assert registry.backend_for("attention") == "ref"
-            assert registry.backend_for("ssd") == "unported"
+            assert registry.backend_for("ssd") == "cuda"
+            assert registry.backend_for("sum_tree") == "unported"
     with registry.override("ref,attention=cuda,sum_tree=ref"):
         assert registry.backend_for("sum_tree") == "unported"
         assert registry.backend_for("attention") == "cuda"
@@ -126,11 +128,11 @@ def test_registry_spec_parsing_and_auto():
         assert registry.backend_for("attention", device="cuda") == "cuda"
         assert registry.backend_for("attention") == "ref"
         assert registry.describe("cuda") == {
-            "attention": "cuda", "ssd": "unported", "sum_tree": "unported"}
+            "attention": "cuda", "ssd": "cuda", "sum_tree": "unported"}
     with pytest.raises(ValueError):
         registry.backend_for("conv")
     for bad in ("attention=pallas", "flashattn=ref", "interpret",
-                "ssd=cuda", "ref,sum_tree=cuda"):
+                "sum_tree=cuda", "ref,sum_tree=cuda"):
         with pytest.raises(ValueError):
             with registry.override(bad):
                 pass
@@ -143,7 +145,8 @@ def test_registry_env_and_dispatch_event(monkeypatch):
         for _ in range(3):
             assert registry.backend_for("attention", site="attention_train",
                                         device="cpu") == "cuda"
-        assert registry.backend_for("ssd", device="cuda") == "unported"
+        assert registry.backend_for("ssd", device="cuda") == "ref"
+        assert registry.backend_for("sum_tree", device="cuda") == "unported"
         events = [e for e in tracer.events if e["kind"] == "kernel_dispatch"]
         assert len(events) == 1  # once per (op, site, backend)
         assert events[0]["name"] == "attention@attention_train"

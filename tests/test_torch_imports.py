@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file under src/repro_torch/, and not
 chip_smoke.py, imports ``jax`` or the JAX package ``repro`` (checked on the
 AST, so an import inside a function counts too); importing the package
-builds no kernel; and the serving entry point defaults to the card."""
+builds no kernel; and the serving and training entry points default to the
+card."""
 import ast
 import os
 import pathlib
@@ -66,7 +67,8 @@ def test_importing_the_port_builds_nothing():
             "    importlib.import_module(mod.removesuffix('.__init__'))\n"
             "fa = sys.modules['repro_torch.kernels.flash_attention"
             ".flash_attention']\n"
-            "assert fa._lib is None\n")
+            "ssd = sys.modules['repro_torch.kernels.ssd_scan.ssd_scan']\n"
+            "assert fa._lib is None and ssd._lib is None\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        env={**os.environ, "PYTHONPATH": str(REPO / "src")},
                        capture_output=True, text=True, timeout=120)
@@ -86,3 +88,22 @@ def test_serve_on_cuda_without_a_card_raises():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--rounds", "0"])
+
+
+def test_train_on_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.launch import train
+    assert train.build_parser().get_default("device") == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "0"])
+
+
+def test_every_kernel_source_is_built_and_ported():
+    """Each csrc/*.cu is in build.SOURCES, and the registry's PORTED ops are
+    exactly those with a kernel package."""
+    from repro_torch.kernels import build, registry
+    assert sorted(build.SOURCES) == sorted(
+        p.stem for p in (PORT / "csrc").glob("*.cu"))
+    assert registry.PORTED == ("attention", "ssd")
+    assert registry.backend_for("sum_tree") == "unported"

@@ -1,5 +1,5 @@
-"""The hand-written CUDA flash attention kernel against its plain PyTorch
-version, on the card.  Needs an NVIDIA GPU with the CUDA toolkit (sm_90a);
+"""The hand-written CUDA kernels (flash attention, SSD scan) against their
+plain PyTorch versions, on the card.  Needs an NVIDIA GPU with the CUDA toolkit (sm_90a);
 every test here skips on a machine without CUDA.  Imports no JAX, so the
 file runs where only PyTorch is installed:
 
@@ -11,6 +11,13 @@ most one bf16 rounding (atol 1e-3, rtol 8e-3); prefill also rounds P to bf16
 for the P.V product (atol 8e-3, rtol 1.6e-2).  The library is built for the
 ported config's shapes only: d_head 256, and two query heads per KV head
 for decode.  Cases with q scaled by 20 push the scores into the softcap.
+
+The SSD scan (``csrc/ssd_scan.cu``) is held against ``ssd_reference`` at
+the mamba2-1.3b training shape (B 8, T 512, H 64, P 64, G 1, N 128, chunk
+256), one chunk (T 256), ragged T 500 and T < 256, with the error model of
+chip_smoke.py: |y - ref| <= 2^-7 |ref| + eps y_abs and |S - ref| <=
+eps S_abs, eps = 2^-14 + 2^-19 max|cum| (y_abs, S_abs: the scan of |x|,
+|B|, |C|).  It is built for P 64, N 128, one group and chunk 256 only.
 """
 import pytest
 
@@ -20,6 +27,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_reference  # noqa: E402
 
 FWD_TOL = dict(atol=8e-3, rtol=1.6e-2)
 DECODE_TOL = dict(atol=1e-3, rtol=8e-3)
@@ -103,3 +112,53 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         ops.flash_attention_decode(q[:, :1], k[:, :, :1].contiguous(),
                                    v[:, :, :1].contiguous(),
                                    torch.full((1,), 8, device=cuda))
+
+
+def _ssd_inputs(B, T, device, dt_scale=1.0, H=64, seed=2):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(B, T, H, 64, generator=g).to(device, torch.bfloat16)
+    dt = torch.nn.functional.softplus(torch.randn(B, T, H, generator=g))
+    A = -torch.linspace(1.0, 16.0, H)
+    Bm = (torch.randn(B, T, 1, 128, generator=g) * 0.5).to(device, torch.bfloat16)
+    Cm = (torch.randn(B, T, 1, 128, generator=g) * 0.5).to(device, torch.bfloat16)
+    return x, (dt * dt_scale).to(device), A.to(device), Bm, Cm
+
+
+@pytest.mark.parametrize("B,T,dt_scale", [(8, 512, 1.0), (8, 256, 1.0),
+                                          (8, 500, 1.0), (2, 100, 1.0),
+                                          (4, 512, 0.01)])
+def test_ssd_scan_vs_reference(B, T, dt_scale, cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(B, T, cuda, dt_scale)
+    chunk = min(256, T)
+    n0 = ssd_ops.ssd_scan.launches
+    y, s = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.launches == n0 + 1
+    yr, sr = ssd_reference(x, dt, A, Bm, Cm, chunk=chunk)
+    ya, sa = ssd_reference(x.abs(), dt, A, Bm.abs(), Cm.abs(), chunk=chunk)
+    nc = -(-T // chunk)
+    dA = torch.nn.functional.pad(dt * A, (0, 0, 0, nc * chunk - T))
+    cmax = float(torch.cumsum(dA.reshape(B, nc, chunk, -1), 2).abs().max())
+    eps = 2.0 ** -14 + 2.0 ** -19 * cmax
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    assert ((y.float() - yr.float()).abs()
+            <= 2.0 ** -7 * yr.float().abs() + eps * ya.float()).all()
+    assert ((s - sr).abs() <= eps * sa).all()
+
+
+def test_ssd_scan_rejects_shapes_it_was_not_built_for(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 256, cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ssd_ops.ssd_scan(x.float(), dt, A, Bm, Cm, chunk=256)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_scan(x.transpose(1, 2), dt, A, Bm, Cm, chunk=256)
+    with pytest.raises(ValueError, match="built for head dim"):
+        ssd_ops.ssd_scan(x[..., :32].contiguous(), dt, A, Bm, Cm, chunk=256)
+    with pytest.raises(ValueError, match="built for head dim"):
+        ssd_ops.ssd_scan(x, dt, A, Bm[..., :64].contiguous(),
+                         Cm[..., :64].contiguous(), chunk=256)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        ssd_ops.ssd_scan(x, dt.cpu(), A, Bm, Cm, chunk=256)
