@@ -8,8 +8,8 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
 
 1. the card's name and power limit (nvidia-smi);
 2. build every hand-written kernel from csrc/ (one nvcc per source, all at
-   once: flash_attention.cu, ssd_scan.cu) and print the build time and
-   ptxas' register / shared memory / spill report;
+   once: flash_attention.cu, ssd_scan.cu, sum_tree.cu) and print the build
+   time and ptxas' register / shared memory / spill report;
 3. kernel phase: each kernel entry point against its plain PyTorch version
    (``attention_reference``) in bf16 on the card, within its own tolerance
    (``TOL``) at every shape the main path gives it: prefill at B 4, T 1024
@@ -34,7 +34,18 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    show the bound catches a dropped inter-chunk carry, a causal mask off by
    one, dt left out of M and an undecayed state; then its time beside its
    plain version and its bound (no single PyTorch call computes the scan:
-   library_ms null);
+   library_ms null).  Then the sum-tree sampler (``tree_sample_blocked``,
+   csrc/sum_tree.cu) against its plain version (``sample_plain``) and the
+   f64 flat oracle on sum trees at the rainbow example's shape (8192
+   leaves, batch 64) and the replay bench's (2^14, 2^17, 2^20 leaves x
+   256): exactly on integer priorities (u on boundaries, below 0, at and
+   beyond the total, runs of zero leaves, a zero block), by the rounding
+   rule of ``kernels/sum_tree/ref.agreement`` on real ones; sensitivity
+   checks show the checks catch '<' for '<=', a dropped clamp, a residual
+   that keeps the block base and a total taken from a stale root; then its
+   time at the example's shape and at 2^17 x 256 beside its plain version,
+   its bound (bytes) and a PyTorch yardstick of two calls (``cumsum`` +
+   ``searchsorted``, which the port never calls);
 4. slice phase, fixed rounds: full-width gemma2-2b with random bf16 weights
    from a seeded generator on the card, through ``repro_torch.launch.serve
    .main`` (batch 8, prompt 1024, gen 64, two rounds); both kernel entry
@@ -55,12 +66,24 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    (forward_train through the kernel), both against the plain route's
    (``ssd=ref``) on the same data, and the kernel route against
    ``ssd=ref`` in loss and grad_norm of one update, within ``TRAIN_TOL``;
-7. on the same weights, a ``torch.profiler`` pass measures the device's
-   busy time per prefill, per decode step, per rollout of ROLL_STEPS steps
-   and per PPO update against the unprofiled wall time of the same work
-   (the idle share) — last, since the profiler slows every later launch of
-   the process;
-8. the ``kernels`` JSON line (launch counts from phases 4-6, the largest
+7. slice phase, RL: prioritized DQN on Catch through
+   ``python -m repro_torch.examples.catch_dqn_variants --variant rainbow``'s
+   ``main`` at the example's settings (16 envs x horizon 16, capacity 8192,
+   batch 64, 2 updates a collect, 150 iterations, warm-up 512, epsilon
+   0.2); the sum-tree kernel must launch on every prioritized sample (300)
+   and every logged number be finite.  Then the learning bar of
+   tests/test_learning.py::test_dqn_learns_catch (dueling + double +
+   prioritized, 200 iterations, 4 updates a collect): a greedy evaluation
+   of 4 collects must reach avg_return > 0 (a random policy scores about
+   -0.6).  Then the rainbow configuration at rlpyt's Atari replay scale
+   (capacity 2^20, 0.43 GB of Catch transitions on the card; warm-up 512,
+   20 iterations), where the kernel samples over 2048 blocks;
+8. on the same weights, a ``torch.profiler`` pass measures the device's
+   busy time per prefill, per decode step, per rollout of ROLL_STEPS steps,
+   per PPO update and per RL iteration against the unprofiled wall time of
+   the same work (the idle share) — last, since the profiler slows every
+   later launch of the process;
+9. the ``kernels`` JSON line (launch counts from phases 4-7, the largest
    error of phase 3, times), then ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -125,6 +148,13 @@ TRAIN_TOL = {48: {"logp_mean": 1.0, "loss_rel": 5e-2, "grad_norm_rel": None},
              4: {"logp_mean": 5e-2, "loss_rel": 2e-3, "grad_norm_rel": 5e-2}}
 TRAIN = {"batch": 8, "horizon": 512, "steps": 2}
 ROLL_STEPS = 8   # decode steps of the rollout the profile phase measures
+# the sum-tree sampler (phase 3) and the RL slice (phase 7)
+ST_TPU_KERNEL = "src/repro/kernels/sum_tree/sum_tree.py:49"
+ST_SOURCE = "src/repro_torch/csrc/sum_tree.cu"
+# (leaves, samples): the rainbow example's tree and the replay bench's
+ST_SHAPES = [(8192, 64), (2 ** 14, 256), (2 ** 17, 256), (2 ** 20, 256)]
+RL = {"variant": "rainbow", "iters": 150, "bar_iters": 200, "bar_updates": 4,
+      "big_capacity": 2 ** 20, "big_iters": 20, "profile_iters": 10}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -152,15 +182,20 @@ import dataclasses  # noqa: E402
 from repro_torch.algos.pg.ppo import make_lm_ppo_train_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.envs.token_lm import make_token_lm  # noqa: E402
+from repro_torch.examples import catch_dqn_variants as catch_dqn  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_reference  # noqa: E402
+from repro_torch.kernels.sum_tree import ops as st_ops  # noqa: E402
+from repro_torch.kernels.sum_tree import ref as st_ref  # noqa: E402
+from repro_torch.kernels.sum_tree.sum_tree import sample_plain  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import backbones as bb  # noqa: E402
 from repro_torch.serving import DEFAULT_BUCKETS, poisson_trace  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
+from repro_torch.utils.logger import Logger  # noqa: E402
 
 DEV = torch.device("cuda")
 BF16 = torch.bfloat16
@@ -797,6 +832,315 @@ def profile_training(training):
                   f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (sum tree): the sampling kernel against its plain version and the
+# f64 oracle, then its time
+# ---------------------------------------------------------------------------
+def st_tree(size, integer, gen):
+    """A (2*size,) sum tree on the card, built from its leaves by pairwise
+    sums as tree_set builds it; a run of zero leaves and a zero block."""
+    leaves = (torch.randint(0, 5, (size,), generator=gen, device=DEV).float()
+              if integer else
+              torch.rand(size, generator=gen, device=DEV) * 2 + 0.01)
+    leaves[size // 3: size // 3 + 300] = 0.0
+    leaves[512:1024] = 0.0
+    levels = [leaves]
+    while levels[-1].numel() > 1:
+        levels.append(levels[-1][0::2] + levels[-1][1::2])
+    return torch.cat([torch.zeros(1, device=DEV)] + levels[::-1])
+
+
+def st_positions(tree, batch, integer, gen):
+    """Stratified positions over the root, as replay/device.tree_sample
+    draws them; for integer priorities a quarter of them on boundaries, and
+    -1, 0, the total and the total + 3."""
+    size = tree.shape[0] // 2
+    total = float(tree[1])
+    u = (torch.arange(batch, device=DEV)
+         + torch.rand(batch, generator=gen, device=DEV)) / batch * total
+    if integer:
+        cum = torch.cumsum(tree[size:].double(), 0)
+        u = u.floor()
+        k = batch // 4
+        u[:k] = cum[torch.randint(0, size, (k,), generator=gen,
+                                  device=DEV)].float()
+        u[k:k + 4] = torch.tensor([-1.0, 0.0, total, total + 3.0], device=DEV)
+    return u.float()
+
+
+def st_split(tree):
+    """(leaves (n_blocks, bs), block sums) of a tree, as ops reads them."""
+    size = tree.shape[0] // 2
+    bs = min(512, size)
+    nb = size // bs
+    return tree[size:].view(nb, bs), tree[nb:2 * nb]
+
+
+def st_faulty(leaves, bsums, u, fault, root):
+    """sample_plain with one fault, for the sensitivity checks: 'lt' uses <
+    for <=, 'clamp' drops both clamps, 'base' keeps the block base in the
+    residual, 'root' divides by ``root`` instead of the block sums' total."""
+    n_blocks, bs = leaves.shape
+    cum = torch.cumsum(bsums, 0)
+    cmp = (lambda a, b: a < b) if fault == "lt" else (lambda a, b: a <= b)
+    blk = cmp(cum[None, :], u[:, None]).sum(1)
+    if fault != "clamp":
+        blk = blk.clamp(max=n_blocks - 1)
+    base = torch.where(blk > 0, cum[(blk - 1).clamp(0, n_blocks - 1)],
+                       torch.zeros((), device=u.device))
+    off = u if fault == "base" else u - base
+    rows = leaves[blk.clamp(max=n_blocks - 1)]
+    inner = cmp(torch.cumsum(rows, 1), off[:, None]).sum(1)
+    if fault != "clamp":
+        inner = inner.clamp(max=bs - 1)
+    total = root if fault == "root" else cum[-1]
+    pr = torch.gather(rows, 1, inner.clamp(max=bs - 1)[:, None])[:, 0]
+    return (blk * bs + inner).to(torch.int32), pr / total
+
+
+def sum_tree_kernel_phase():
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    worst = 0.0
+    print("kernel phase: sum_tree (tree_sample_blocked) vs sample_plain and "
+          "the f64 oracle (integer priorities: exact; real: an index may "
+          "differ from the oracle's only within delta = (n_blocks + 2 bs + "
+          "1) 2^-24 total of the boundary; prob within (n_blocks + 2 bs + "
+          "2) 2^-24 relative)")
+    keep = None
+    for size, batch in ST_SHAPES:
+        for integer in (True, False):
+            tree = st_tree(size, integer, gen)
+            u = st_positions(tree, batch, integer, gen)
+            n0 = st_ops.tree_sample_blocked.launches
+            idx, prob = st_ops.tree_sample_blocked(tree, u)
+            torch.cuda.synchronize()
+            if st_ops.tree_sample_blocked.launches != n0 + 1:
+                fail(f"sum_tree {size}: the kernel did not launch")
+            leaves, bsums = st_split(tree)
+            pidx, pprob = sample_plain(leaves, bsums, u)
+            n_terms = st_ref.rounding_terms(*leaves.shape)
+            ks = st_ref.agreement(idx, prob, tree[size:], u, n_terms=n_terms,
+                                  exact=integer)
+            ps = st_ref.agreement(pidx, pprob, tree[size:], u,
+                                  n_terms=n_terms, exact=integer)
+            same = float((idx == pidx).float().mean())
+            p64 = tree[size:].double().cpu()
+            ref = p64[idx.long().cpu().clamp(0, size - 1)] / float(p64.sum())
+            err = float((prob.double().cpu() - ref).abs().max())
+            worst = max(worst, err)
+            kind = "integer" if integer else "real"
+            print(f"  {kind} priorities, {size} leaves x {batch}: kernel vs "
+                  f"oracle {ks['mismatches']}/{batch} indices differ "
+                  f"({ks['mismatches'] / batch:.4f}; rule violations "
+                  f"{ks['violations']}), plain vs oracle {ps['mismatches']}, "
+                  f"kernel == plain on {same:.4f}; prob max_abs_err "
+                  f"{err:.3e}, {ks['prob_rel_err']:.4f} of its bound; delta "
+                  f"{ks['delta']:.4g} (total {float(tree[1]):.6g})")
+            if not (st_ref.agreement_ok(ks) and st_ref.agreement_ok(ps)):
+                fail(f"sum_tree {kind} {size}: kernel {ks} / plain {ps}")
+            if integer and not (torch.equal(idx, pidx)
+                                and torch.equal(prob, pprob)):
+                fail(f"sum_tree integer {size}: kernel and plain differ")
+            if integer and size == 2 ** 17:
+                keep = (tree, u, leaves, bsums, n_terms)
+    tree, u, leaves, bsums, n_terms = keep
+    size = tree.shape[0] // 2
+    root = bsums.sum() * 1.5   # a stale root: 1.5 x the sum of the block sums
+    for fault, what in ((None, "no fault"), ("lt", "'<' for '<='"),
+                        ("clamp", "clamp dropped (u >= total)"),
+                        ("base", "residual keeps the block base"),
+                        ("root", "total from a stale root")):
+        st = st_ref.agreement(*st_faulty(leaves, bsums, u, fault, root),
+                              tree[size:], u, n_terms=n_terms, exact=True)
+        ok = st_ref.agreement_ok(st)
+        print(f"  sensitivity: {what} -> {st['violations']} index "
+              f"violations, prob {st['prob_rel_err']:.3g} x its bound: "
+              f"{'passes' if ok else 'caught'}")
+        if ok != (fault is None):
+            fail(f"sum_tree: the checks would not catch {what}")
+
+    timing = {}
+    for size, batch in ((8192, 64), (2 ** 17, 256)):
+        tree = st_tree(size, False, gen)
+        u = st_positions(tree, batch, False, gen)
+        sets = [(tree.clone(), u.clone())
+                for _ in range(copies_for(tree.numel() * 4))]
+        ms = time_ms([lambda s=s: st_ops.tree_sample_blocked(*s)
+                      for s in sets], iters=200)
+        plain = time_ms([lambda s=s: sample_plain(*st_split(s[0]), s[1])
+                         for s in sets], iters=50)
+        lib = time_ms([lambda s=s: torch.searchsorted(
+            torch.cumsum(s[0][size:], 0), s[1], right=True) for s in sets],
+            iters=50)
+        leaves, bsums = st_split(tree)
+        idx, _ = st_ops.tree_sample_blocked(tree, u)
+        rows = int(torch.unique(idx.long() // leaves.shape[1]).numel())
+        # bytes this run's data needs: the block sums, each row a sample
+        # lands in (once), u, idx and prob
+        nbytes = 4 * (bsums.numel() + rows * leaves.shape[1] + 3 * batch)
+        flops = batch * (2 * leaves.shape[1] + math.ceil(
+            math.log2(bsums.numel() + 1))) + bsums.numel()
+        timing[(size, batch)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                     bound=bound_ms(nbytes, flops,
+                                                    PEAK_F32_FLOPS),
+                                     nbytes=nbytes)
+        print(f"  sum_tree [{size} leaves, {bsums.numel()} blocks of "
+              f"{leaves.shape[1]}, {batch} samples, {rows} rows]: kernel "
+              f"{ms:.4f} ms a call, plain {plain:.4f} ms, bound "
+              f"{timing[(size, batch)]['bound'][0]:.6f} ms "
+              f"({timing[(size, batch)]['bound'][1]}: {nbytes} B), "
+              f"library_ms (cumsum + searchsorted, two calls) {lib:.4f} ms")
+    return worst, timing
+
+
+# ---------------------------------------------------------------------------
+# phase 7: prioritized DQN on Catch
+# ---------------------------------------------------------------------------
+def finite_rows(path, what):
+    rows = [json.loads(ln) for ln in Path(path).read_text().splitlines()]
+    for r in rows:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        if bad:
+            fail(f"{what} step {r['step']}: non-finite {bad}")
+    return rows
+
+
+def rl_phase(log_dir):
+    launches = {}
+    rl_dir = str(Path(log_dir) / "catch")
+    print(f"slice phase: prioritized DQN on Catch ({RL['variant']}, "
+          f"{RL['iters']} iterations, the example's settings)")
+    st_ops.tree_sample_blocked.launches = 0
+    t0 = time.perf_counter()
+    greedy = catch_dqn.main(["--variant", RL["variant"], "--device", "cuda",
+                             "--iters", str(RL["iters"]), "--seed", str(SEED),
+                             "--log-dir", rl_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["rainbow"] = st_ops.tree_sample_blocked.launches
+    rows = finite_rows(Path(rl_dir) / "progress.jsonl", "rainbow")
+    if len(rows) != RL["iters"] // 25:
+        fail(f"rainbow logged {len(rows)} rows")
+    want = 2 * RL["iters"]
+    print(f"  sum_tree launches: {launches['rainbow']} (want {want}: one "
+          f"per prioritized sample); {wall:.2f} s with warm-up and greedy "
+          f"eval; last row samples_per_sec {rows[-1]['samples_per_sec']:.1f}, "
+          f"avg_return {rows[-1]['avg_return']:.4f}, loss "
+          f"{rows[-1]['loss']:.4f}; greedy {greedy}")
+    if launches["rainbow"] != want:
+        fail(f"rainbow: {launches['rainbow']} sum_tree launches, want {want}")
+
+    print(f"slice phase: the learning bar of test_dqn_learns_catch (dueling "
+          f"+ double + prioritized, {RL['bar_iters']} iterations, "
+          f"{RL['bar_updates']} updates a collect)")
+    st_ops.tree_sample_blocked.launches = 0
+    sampler, runner = catch_dqn.make_runner(
+        "dueling", RL["bar_iters"], updates_per_collect=RL["bar_updates"],
+        log_interval=RL["bar_iters"], logger=Logger(sinks=()))
+    t0 = time.perf_counter()
+    ts, ss, info = runner.run(SEED, device=DEV)
+    stats = catch_dqn.greedy_eval(sampler, ts.params, ss)
+    wall = time.perf_counter() - t0
+    launches["learning bar"] = st_ops.tree_sample_blocked.launches
+    print(f"  greedy eval over 4 collects: {stats}; loss {float(info.loss):.4f}"
+          f"; {launches['learning bar']} sum_tree launches; {wall:.2f} s")
+    if not stats["avg_return"] > 0.0:
+        fail(f"Catch learning bar: greedy avg_return {stats['avg_return']} "
+             f"<= 0")
+
+    cap = RL["big_capacity"]
+    print(f"slice phase: rainbow at rlpyt's Atari replay scale (capacity "
+          f"{cap}, {RL['big_iters']} iterations)")
+    st_ops.tree_sample_blocked.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    _, runner = catch_dqn.make_runner("rainbow", RL["big_iters"],
+                                      replay_capacity=cap, log_interval=10,
+                                      logger=Logger(sinks=()))
+    ts, ss, info = runner.run(SEED, device=DEV)
+    rs = runner.replay_state
+    torch.cuda.synchronize()
+    launches["2^20 replay"] = st_ops.tree_sample_blocked.launches
+    store = sum(t.numel() * t.element_size() for t in rs.storage.values())
+    print(f"  storage {store / 1e9:.3f} GB, tree {rs.tree.numel()} floats, "
+          f"filled {rs.filled}; loss {float(info.loss):.4f}, grad_norm "
+          f"{float(info.grad_norm):.4f}; {launches['2^20 replay']} sum_tree "
+          f"launches (over {cap // 512} blocks); peak memory of the run "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+          f"above the {base / 2**30:.2f} GiB earlier phases hold")
+    if launches["2^20 replay"] != 2 * RL["big_iters"] or not all(
+            math.isfinite(float(x)) for x in (info.loss, info.grad_norm)):
+        fail(f"2^20 replay: {launches['2^20 replay']} launches, loss "
+             f"{float(info.loss)}")
+    del rs, runner, ts, ss
+    torch.cuda.empty_cache()
+
+    # unprofiled wall time of RL iterations for the profile phase
+    _, runner = catch_dqn.make_runner(RL["variant"], 2, log_interval=2,
+                                      logger=Logger(sinks=()))
+    ts, ss, _ = runner.run(SEED, device=DEV)
+    state = {"ts": ts, "ss": ss, "rs": runner.replay_state,
+             "gen": torch.Generator(device=DEV).manual_seed(SEED + 3)}
+
+    def iterate(n=RL["profile_iters"]):
+        for _ in range(n):
+            state["ts"], state["ss"], state["rs"], _ = runner.loop.iteration(
+                state["ts"], state["ss"], state["rs"], state["gen"])
+        torch.cuda.synchronize()
+
+    iterate(2)
+    t0 = time.perf_counter()
+    iterate()
+    it_wall = (time.perf_counter() - t0) * 1e3 / RL["profile_iters"]
+    print(f"  one rainbow iteration (collect 16 x 16, 2 updates): "
+          f"{it_wall:.3f} ms unprofiled")
+    return launches, (iterate, it_wall)
+
+
+def profile_rl(work, st_timing):
+    """Device busy time of RL iterations against their unprofiled wall
+    time, and the sum-tree kernel's own device time per launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    iterate, wall = work
+    n = RL["profile_iters"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        iterate()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        print("  profile RL: device time not measured (the profiler recorded "
+              "no CUDA kernels)")
+        return {}
+    busy = sum(e.self_device_time_total for e in evs) / 1e3 / n
+    kernels = sum(e.count for e in evs) / n
+    print(f"  profile RL iteration (rainbow, collect 16 x 16 + 2 updates): "
+          f"wall {wall:.3f} ms unprofiled, device busy {busy:.3f} ms "
+          f"({kernels:.0f} kernels), idle share {max(0.0, 1 - busy / wall):.3f}")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms "
+              f"x{e.count / n:.0f}  {e.key[:90]}")
+    dev_ms = {}
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    for size, batch in st_timing:
+        tree = st_tree(size, False, gen)
+        u = st_positions(tree, batch, False, gen)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(100):
+                st_ops.tree_sample_blocked(tree, u)
+            torch.cuda.synchronize()
+        ks = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and "sum_tree" in e.key]
+        if ks:
+            dev_ms[(size, batch)] = ks[0].self_device_time_total / 1e3 / ks[0].count
+            print(f"  sum_tree_sample_kernel device time [{size} leaves x "
+                  f"{batch}]: {dev_ms[(size, batch)] * 1e3:.3f} us a launch "
+                  f"(profiler, {ks[0].count} launches)")
+    return dev_ms
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = smi()
@@ -824,6 +1168,7 @@ def main() -> None:
     cfg = get_config("gemma2-2b")
     errs, used, timing = kernel_phase(cfg)
     ssd_worst, ssd_timing = ssd_kernel_phase()
+    st_worst, st_timing = sum_tree_kernel_phase()
 
     with tempfile.TemporaryDirectory() as log_dir:
         print("slice phase: fixed rounds (full-width gemma2-2b, bf16)")
@@ -878,11 +1223,14 @@ def main() -> None:
               "its max_tokens")
         torch.cuda.empty_cache()
         ssd_launches, training = train_phase(log_dir)
+        torch.cuda.empty_cache()
+        rl_launches, rl_work = rl_phase(log_dir)
 
     # last, because the profiler slows every later launch of the process
     print("profile: where the time goes (not the main path's counts)")
     profile_phase(cfg, params, prompts)
     profile_training(training)
+    profile_rl(rl_work, st_timing)
     # the main path is the fixed rounds plus the continuous run (attention)
     # and the training run (ssd_scan); the kernel-vs-ref comparisons
     # between them do not count
@@ -901,6 +1249,15 @@ def main() -> None:
         "max_abs_err": ssd_worst["err"], "ms": ssd_timing["ms"],
         "plain_ms": ssd_timing["plain_ms"], "bound_ms": ssd_timing["bound"][0],
         "bound_by": ssd_timing["bound"][1], "library_ms": None})
+    # the main path's shape: the rainbow example's tree (8192 leaves, 64)
+    t = st_timing[(8192, 64)]
+    print(f"sum_tree launches on the RL path: {rl_launches}")
+    kernels.append({
+        "name": "sum_tree_sample", "route": "cuda", "source": ST_SOURCE,
+        "replaces": ST_TPU_KERNEL, "launches": sum(rl_launches.values()),
+        "max_abs_err": st_worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+        "library_ms": t["library_ms"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,1 +1,3 @@
-"""RL algorithms of the port (so far: GAE and the LM-scale PPO step)."""
+"""RL algorithms of the port (so far: DQN and its variants, GAE and the
+LM-scale PPO step)."""
+from .dqn.dqn import DQN  # noqa: F401

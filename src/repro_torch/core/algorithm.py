@@ -1,0 +1,40 @@
+"""Algorithm base interface (paper §6.1), port of ``repro/core/algorithm.py``.
+
+An Algorithm owns the loss and the update rule; it consumes samples gathered
+by a sampler and trains the agent.  TrainState bundles the step, the params
+(a pytree of tensors), the optimizer state and extras (target network).
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+from .batch_spec import BatchSpec
+from .narrtup import namedarraytuple
+
+OptInfo = namedarraytuple("OptInfo", ["loss", "grad_norm", "extra"])
+
+
+class TrainState(NamedTuple):
+    step: Any
+    params: Any
+    opt_state: Any
+    extra: Any = None  # e.g. target-network params
+
+
+class Algorithm:
+    """Subclasses define:
+    batch_spec: BatchSpec — the fields ``update`` consumes and how they are
+        produced; the runner stack feeds every algorithm through
+        ``make_algo_batch(algo.batch_spec, ...)``
+    init_train_state(generator, params) -> TrainState
+    loss(params, batch, ...) -> (scalar, aux)
+    update(train_state, batch, generator) -> (train_state, OptInfo)
+    """
+
+    batch_spec: Optional[BatchSpec] = None
+
+    def init_train_state(self, generator, params) -> TrainState:
+        raise NotImplementedError
+
+    def update(self, train_state: TrainState, batch, generator=None):
+        raise NotImplementedError

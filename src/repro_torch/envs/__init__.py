@@ -1,1 +1,20 @@
-"""Environments of the port (so far: the token MDP of LM-PPO training)."""
+"""Environments of the port, batched torch counterparts of ``repro/envs``
+(so far: Catch and the token MDP of LM-PPO training).
+
+Every env is a pair of functions (reset, step) over explicit state dicts of
+(B,) tensors.  ``step`` auto-resets on done (the returned obs is the first
+obs of the next episode), and env_info is a namedarraytuple with the SAME
+fields every step, including ``timeout`` for time-limit value bootstrapping.
+"""
+from .base import EnvSpec, EnvInfo  # noqa: F401
+from .catch import make_catch
+from .token_lm import make_token_lm
+
+REGISTRY = {
+    "catch": make_catch,
+    "token_lm": make_token_lm,
+}
+
+
+def make_env(name: str, **kwargs) -> EnvSpec:
+    return REGISTRY[name](**kwargs)

@@ -10,18 +10,17 @@ step(state, action, generator) -> (state', obs, reward, done, EnvInfo)
   done).
 
 The port's envs are batched: state, action, reward and done carry a leading
-batch dim (JAX vmaps a single-env ``step`` instead).  ``EnvInfo`` is a plain
-``NamedTuple`` until the RL slice ports ``core/narrtup.py``.
+batch dim (JAX vmaps a single-env ``step`` instead), and ``reset(batch,
+generator)`` / ``step`` draw their noise from the ``torch.Generator`` they
+are given, on its device.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+from ..core.narrtup import namedarraytuple
 
-class EnvInfo(NamedTuple):
-    timeout: Any
-    episode_step: Any
-    terminal_obs: Any
+EnvInfo = namedarraytuple("EnvInfo", ["timeout", "episode_step", "terminal_obs"])
 
 
 class EnvSpec(NamedTuple):

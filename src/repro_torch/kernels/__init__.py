@@ -1,5 +1,5 @@
 """Hand-written Hopper kernels for the PyTorch port, one per Pallas TPU
-kernel of the JAX package (ported so far: flash attention, SSD scan).
+kernel of the JAX package (all three are ported).
 
 - flash_attention: fused online-softmax GQA attention (causal, sliding
   window, logit softcap, per-sequence kv_len) — CUDA C++ for sm_90a in
@@ -7,6 +7,9 @@ kernel of the JAX package (ported so far: flash attention, SSD scan).
 - ssd_scan: the Mamba-2 SSD chunked scan (train forward; the backward
   recomputes through the plain chunked scan) — CUDA C++ for sm_90a in
   ``csrc/ssd_scan.cu``.
+- sum_tree: prioritized replay's stratified proportional sampling (block
+  scan, binary search, a warp scan of one leaf row per sample) — CUDA C++
+  for sm_90a in ``csrc/sum_tree.cu``.
 
-Both are built by ``kernels/build.py`` at first use.
+All are built by ``kernels/build.py`` at first use.
 """

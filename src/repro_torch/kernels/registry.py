@@ -5,8 +5,12 @@ Every hand-written kernel of the port has two runnable forms:
 - ``ref``  — plain PyTorch ops (the model layers' own math); runs anywhere.
 - ``cuda`` — the hand-written Hopper kernel behind the op's wrapper.  The
   wrapper launches it for CUDA tensors; for CPU tensors it computes the
-  kernel's plain version (``attention_reference``, ``ssd_chunked``), so the
-  kernel call site stays testable on a machine without a GPU.
+  kernel's plain version (``attention_reference``, ``ssd_chunked``,
+  ``sum_tree.sample_plain``), so the kernel call site stays testable on a
+  machine without a GPU.  For ``sum_tree`` the two backends are also two
+  algorithms, as in the JAX package: ``ref`` is the sum tree's pointer-walk
+  update and fixed-depth descent, ``cuda`` the blocked update (plain
+  PyTorch ops) and the blocked sampling kernel.
 
 Selection is per-op via the ``REPRO_TORCH_KERNELS`` environment variable,
 with the spec syntax of the JAX package's ``REPRO_KERNELS``::
@@ -23,9 +27,9 @@ resolves to ``cuda`` for a CUDA tensor and to ``ref`` for a CPU tensor.  An
 explicit ``ref`` on the card is allowed — it is a choice the launch entry
 points echo in their "kernel backends:" line, never a silent fallback.
 
-Only the ops in ``PORTED`` have a kernel (and call sites) in the port; the
-others resolve to ``unported`` whatever the spec says, and asking for
-``op=cuda`` on one of them raises.
+Every op of ``OPS`` is in ``PORTED``: each has its kernel and its call
+sites in the port.  An op outside ``PORTED`` would resolve to ``unported``
+whatever the spec says, and asking for ``op=cuda`` on it would raise.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from typing import Dict, Optional
 import torch
 
 OPS = ("attention", "ssd", "sum_tree")
-PORTED = ("attention", "ssd")
+PORTED = ("attention", "ssd", "sum_tree")
 BACKENDS = ("ref", "cuda", "auto")
 ENV = "REPRO_TORCH_KERNELS"
 

@@ -12,6 +12,11 @@ scales and the SSM's ``A_log`` / ``dt_bias`` in f32.  JAX casts every
 weight to the compute dtype right before its product, so storing the
 matrices in the compute dtype computes the same thing for serving; training
 asks for f32 master weights with ``requires_grad=True``.
+
+``rl_params_from_jax`` carries the parameter pytree of a small RL model
+(``repro.models.rl_models``: ``make_q_conv``, ``make_q_mlp``) into the
+port's ``models/rl_models.py``, whose params are the same nested dicts and
+lists of arrays: a leaf-for-leaf copy into f32 tensors.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .backbones import LM, superblock_layout
 from .config import ModelConfig
@@ -73,3 +79,12 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
                                      f"{tuple(p.shape)}")
                 p.copy_(torch.from_numpy(np.array(val)))
     return lm.requires_grad_(requires_grad)
+
+
+def rl_params_from_jax(np_params, *, device="cpu"):
+    """JAX RL-model params (nested dicts / lists of numpy arrays, the layout
+    of ``rl_models``' ``init``) -> the same tree of f32 tensors on
+    ``device``."""
+    return pytree.tree_map(
+        lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,
+                               device=device), np_params)

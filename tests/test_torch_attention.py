@@ -115,24 +115,27 @@ def test_registry_spec_parsing_and_auto():
     with registry.override("cuda"):
         assert registry.backend_for("attention") == "cuda"
         assert registry.backend_for("ssd") == "cuda"
-        assert registry.backend_for("sum_tree") == "unported"
+        assert registry.backend_for("sum_tree") == "cuda"
         with registry.override("attention=ref"):
             assert registry.backend_for("attention") == "ref"
             assert registry.backend_for("ssd") == "cuda"
-            assert registry.backend_for("sum_tree") == "unported"
+            assert registry.backend_for("sum_tree") == "cuda"
     with registry.override("ref,attention=cuda,sum_tree=ref"):
-        assert registry.backend_for("sum_tree") == "unported"
+        assert registry.backend_for("sum_tree") == "ref"
         assert registry.backend_for("attention") == "cuda"
+    with registry.override("ref,sum_tree=cuda"):
+        assert registry.backend_for("sum_tree") == "cuda"
+        assert registry.backend_for("ssd") == "ref"
     with registry.override("auto"):
         assert registry.backend_for("attention", device="cpu") == "ref"
         assert registry.backend_for("attention", device="cuda") == "cuda"
         assert registry.backend_for("attention") == "ref"
         assert registry.describe("cuda") == {
-            "attention": "cuda", "ssd": "cuda", "sum_tree": "unported"}
+            "attention": "cuda", "ssd": "cuda", "sum_tree": "cuda"}
     with pytest.raises(ValueError):
         registry.backend_for("conv")
     for bad in ("attention=pallas", "flashattn=ref", "interpret",
-                "sum_tree=cuda", "ref,sum_tree=cuda"):
+                "sum_tree=interpret", "ref,sum_tree=pallas"):
         with pytest.raises(ValueError):
             with registry.override(bad):
                 pass
@@ -146,7 +149,7 @@ def test_registry_env_and_dispatch_event(monkeypatch):
             assert registry.backend_for("attention", site="attention_train",
                                         device="cpu") == "cuda"
         assert registry.backend_for("ssd", device="cuda") == "ref"
-        assert registry.backend_for("sum_tree", device="cuda") == "unported"
+        assert registry.backend_for("sum_tree", device="cuda") == "ref"
         events = [e for e in tracer.events if e["kind"] == "kernel_dispatch"]
         assert len(events) == 1  # once per (op, site, backend)
         assert events[0]["name"] == "attention@attention_train"

@@ -68,7 +68,8 @@ def test_importing_the_port_builds_nothing():
             "fa = sys.modules['repro_torch.kernels.flash_attention"
             ".flash_attention']\n"
             "ssd = sys.modules['repro_torch.kernels.ssd_scan.ssd_scan']\n"
-            "assert fa._lib is None and ssd._lib is None\n")
+            "st = sys.modules['repro_torch.kernels.sum_tree.sum_tree']\n"
+            "assert fa._lib is None and ssd._lib is None and st._lib is None\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        env={**os.environ, "PYTHONPATH": str(REPO / "src")},
                        capture_output=True, text=True, timeout=120)
@@ -105,5 +106,5 @@ def test_every_kernel_source_is_built_and_ported():
     from repro_torch.kernels import build, registry
     assert sorted(build.SOURCES) == sorted(
         p.stem for p in (PORT / "csrc").glob("*.cu"))
-    assert registry.PORTED == ("attention", "ssd")
-    assert registry.backend_for("sum_tree") == "unported"
+    assert registry.PORTED == registry.OPS == ("attention", "ssd", "sum_tree")
+    assert "unported" not in registry.describe("cuda").values()

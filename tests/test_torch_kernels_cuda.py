@@ -18,6 +18,13 @@ the mamba2-1.3b training shape (B 8, T 512, H 64, P 64, G 1, N 128, chunk
 chip_smoke.py: |y - ref| <= 2^-7 |ref| + eps y_abs and |S - ref| <=
 eps S_abs, eps = 2^-14 + 2^-19 max|cum| (y_abs, S_abs: the scan of |x|,
 |B|, |C|).  It is built for P 64, N 128, one group and chunk 256 only.
+
+The sum-tree sampler (``csrc/sum_tree.cu``) is held against its plain
+version and the f64 flat oracle on sum trees at the rainbow example's shape
+(8192 leaves, batch 64) and the replay bench's (2^14, 2^17 and 2^20 leaves,
+256 samples): exactly on integer priorities (u on boundaries, below 0, at
+and beyond the total, over runs of zero leaves and a zero block), and by
+the rounding rule of ``kernels/sum_tree/ref.agreement`` on real ones.
 """
 import pytest
 
@@ -29,6 +36,10 @@ from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_reference  # noqa: E402
+from repro_torch.kernels.sum_tree import ops as st_ops  # noqa: E402
+from repro_torch.kernels.sum_tree import ref as st_ref  # noqa: E402
+from repro_torch.kernels.sum_tree.sum_tree import (sample_blocked,  # noqa: E402
+                                                   sample_plain)
 
 FWD_TOL = dict(atol=8e-3, rtol=1.6e-2)
 DECODE_TOL = dict(atol=1e-3, rtol=8e-3)
@@ -162,3 +173,72 @@ def test_ssd_scan_rejects_shapes_it_was_not_built_for(cuda):
         ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         ssd_ops.ssd_scan(x, dt.cpu(), A, Bm, Cm, chunk=256)
+
+
+def _tree(size, device, integer, seed=3):
+    """A (2*size,) sum tree built by pairwise sums from its leaves, with a
+    run of zero leaves and a zero block of 512 leaves."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    leaves = (torch.randint(0, 5, (size,), generator=g).float() if integer
+              else torch.rand(size, generator=g) * 2 + 0.01)
+    leaves[size // 3: size // 3 + 300] = 0.0
+    leaves[512:1024] = 0.0
+    levels = [leaves]
+    while levels[-1].numel() > 1:
+        levels.append(levels[-1][0::2] + levels[-1][1::2])
+    tree = torch.cat([torch.zeros(1)] + levels[::-1])
+    return tree.to(device)
+
+
+def _positions(tree, batch, integer, seed=4):
+    size = tree.shape[0] // 2
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    total = float(tree[1])
+    u = (torch.arange(batch) + torch.rand(batch, generator=g)) / batch * total
+    if integer:
+        c = torch.cumsum(tree[size:].double().cpu(), 0)
+        u = u.floor()
+        k = batch // 4
+        u[:k] = c[torch.randint(0, size, (k,), generator=g)].float()
+        u[k:k + 4] = torch.tensor([-1.0, 0.0, total, total + 3.0])
+    return u.float().to(tree.device)
+
+
+@pytest.mark.parametrize("size,batch", [(8192, 64), (2 ** 14, 256),
+                                        (2 ** 17, 256), (2 ** 20, 256)])
+@pytest.mark.parametrize("integer", [True, False])
+def test_sum_tree_kernel_vs_plain_and_oracle(size, batch, integer, cuda):
+    tree = _tree(size, cuda, integer)
+    u = _positions(tree, batch, integer)
+    n0 = st_ops.tree_sample_blocked.launches
+    idx, prob = st_ops.tree_sample_blocked(tree, u)
+    torch.cuda.synchronize()
+    assert st_ops.tree_sample_blocked.launches == n0 + 1
+    bs = min(512, size)
+    leaves = tree[size:].view(-1, bs)
+    pidx, pprob = sample_plain(leaves, tree[leaves.shape[0]:2 * leaves.shape[0]], u)
+    n_terms = st_ref.rounding_terms(leaves.shape[0], bs)
+    for i, p in ((idx, prob), (pidx, pprob)):
+        stats = st_ref.agreement(i, p, tree[size:], u, n_terms=n_terms,
+                                 exact=integer)
+        assert st_ref.agreement_ok(stats), stats
+    if integer:
+        assert torch.equal(idx, pidx) and torch.equal(prob, pprob)
+
+
+def test_sum_tree_kernel_rejects_what_it_does_not_take(cuda):
+    leaves = torch.rand(4, 512, device=cuda)
+    bsums, u = leaves.sum(1), torch.rand(8, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        sample_blocked(leaves.double(), bsums, u)
+    with pytest.raises(ValueError, match="contiguous"):
+        sample_blocked(leaves.t(), bsums, u)
+    with pytest.raises(ValueError, match="block size"):
+        sample_blocked(torch.rand(2, 1024, device=cuda), bsums[:2], u)
+    with pytest.raises(ValueError, match="blocks outside"):
+        sample_blocked(torch.rand(8193, 4, device=cuda),
+                       torch.rand(8193, device=cuda), u)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sample_blocked(leaves, bsums, u.cpu())
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        st_ops.tree_sample_blocked(torch.rand(2048, device=cuda), u.cpu())
