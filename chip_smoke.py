@@ -18,14 +18,21 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    layers) and at the continuous run's bucketed B 1 prompts (T 8-64, one
    partial tile, local and global); decode at B 8, S 2048 with ragged
    kv_len, at the fixed-round shape (S 1089), and at the continuous run's
-   B 8 slot batch and B 1 prompt-tail steps (S 97, ragged kv_len).  One
-   case per entry point scales q by 20 so that the scores reach the
-   softcap.  Sensitivity checks show that the tolerance would catch a
-   dropped softcap, a window or causal edge off by one, and one key lost
-   from kv_len.  Then the time of each at the fixed-round shape beside its
-   plain version, its bound and one PyTorch library call
-   (``scaled_dot_product_attention``, without softcap: not the same
-   function, a yardstick only — the port never calls it).  Then the SSD
+   B 8 slot batch and B 1 prompt-tail steps (S 97, ragged kv_len); decode
+   also at kv_len on every boundary of its split plan +-1 and at kv_len 1
+   (every split but the first empty).  One case per entry point scales q
+   by 20 so that the scores reach the softcap.  Sensitivity checks show
+   that the tolerance would catch a dropped softcap, a window or causal
+   edge off by one, one key lost from kv_len and one decode split's
+   partial lost in the merge.  Then each entry point's grid (and for
+   decode its clusters against how many the card holds at once) and its
+   time at the fixed-round shape (decode also at the continuous run's B 8
+   and B 1, S 97) beside its plain version, its bound and one PyTorch
+   library call (``scaled_dot_product_attention``, without softcap: not
+   the same function, a yardstick only — the port never calls it), all
+   as device time: the calls captured in one CUDA graph and replayed, so
+   that the host's cost of a call does not hide a faster kernel (the
+   back-to-back time of eager calls is printed beside it).  Then the SSD
    scan (``ssd_scan``) against ``ssd_reference`` on the card at the
    mamba2-1.3b training shape (B 8, T 512, H 64, P 64, G 1, N 128, chunk
    256, bf16 x/B/C), one chunk (T 256), ragged T 500, a slow-decay case
@@ -81,8 +88,10 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
 8. on the same weights, a ``torch.profiler`` pass measures the device's
    busy time per prefill, per decode step, per rollout of ROLL_STEPS steps,
    per PPO update and per RL iteration against the unprofiled wall time of
-   the same work (the idle share) — last, since the profiler slows every
-   later launch of the process;
+   the same work (the idle share), and checks that prefill and a decode
+   step run exactly one attention kernel a layer (printing its device
+   time a launch) — last, since the profiler slows every later launch of
+   the process;
 9. the ``kernels`` JSON line (launch counts from phases 4-7, the largest
    error of phase 3, times), then ``{"ok": true, "device": {...}}`` last.
 """
@@ -185,6 +194,8 @@ from repro_torch.envs.token_lm import make_token_lm  # noqa: E402
 from repro_torch.examples import catch_dqn_variants as catch_dqn  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    FWD_BLOCK_Q, FWD_THREADS, decode_max_clusters, decode_split_plan)
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_reference  # noqa: E402
@@ -224,6 +235,30 @@ def time_ms(fns, iters: int = 20) -> float:
         fns[i % len(fns)]()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, iters: int = 100) -> float:
+    """Mean device time of one call: ``iters`` calls cycling through ``fns``
+    (as in ``time_ms``) captured in one CUDA graph and replayed, so that the
+    host's cost of a call (checks, allocation, the launch itself) does not
+    hide a kernel that is faster than it."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -342,7 +377,17 @@ def kernel_phase(cfg):
              # the continuous run: the slot batch, then B 1 prompt-tail steps
              (8, S_cont, slots, 1.0), (1, S_cont, [9], 1.0),
              (1, S_cont, [33], 1.0), (1, S_cont, [64], 1.0),
-             (8, 2048, ragged, 20.0), (8, S_cont, slots, 20.0)]
+             # kv_len 1: every split but the first is empty
+             (8, S_fixed, [1] * 8, 1.0), (1, S_cont, [1], 1.0)]
+    # kv_len at every boundary of the split plan +-1, 8 (or 1) at a time
+    for B, S in ((8, S_fixed), (8, S_cont), (1, S_cont)):
+        n_split, chunk = decode_split_plan(B, Hkv, S)
+        vals = sorted({i * chunk + d for i in range(1, n_split)
+                       for d in (-1, 0, 1)} | {S})
+        cases += [(B, S, (vals[i:i + B] + [1] * B)[:B], 1.0)
+                  for i in range(0, len(vals), B)]
+    # last: the softcap cases, whose inputs the sensitivity checks reuse
+    cases += [(8, 2048, ragged, 20.0), (8, S_cont, slots, 20.0)]
     for B, S, kvl, scale in cases:
         q = randn(B, 1, H, dh, gen=gen) * scale
         k, v = randn(B, S, Hkv, dh, gen=gen), randn(B, S, Hkv, dh, gen=gen)
@@ -358,6 +403,22 @@ def kernel_phase(cfg):
                 attention_reference(q, k, v, causal=False, softcap=cap,
                                     kv_len=torch.clamp(kv_len - 1, min=1)),
                 want)
+    # one split's partial lost in the merge: the reference without the
+    # keys of each row's last non-empty split
+    B, S = 8, S_fixed
+    n_split, chunk = decode_split_plan(B, Hkv, S)
+    q = randn(B, 1, H, dh, gen=gen)
+    k, v = randn(B, S, Hkv, dh, gen=gen), randn(B, S, Hkv, dh, gen=gen)
+    kv_len = torch.randint(chunk + 1, S + 1, (B,), generator=gen,
+                           device=DEV).to(torch.int32)
+    want = attention_reference(q, k, v, causal=False, softcap=cap,
+                               kv_len=kv_len)
+    record("flash_attn_decode", f"B{B} S{S} kv_len {kv_len.tolist()}",
+           ops.flash_attention_decode(q, k, v, kv_len, softcap=cap), want)
+    must_differ("flash_attn_decode", "last non-empty split dropped",
+                attention_reference(q, k, v, causal=False, softcap=cap,
+                                    kv_len=(kv_len - 1) // chunk * chunk),
+                want)
 
     timing = {}
     # prefill at the fixed-round shape (local layer, window 4096 >= T)
@@ -366,44 +427,62 @@ def kernel_phase(cfg):
     sets = [(randn(B, T, H, dh, gen=gen), randn(B, T, Hkv, dh, gen=gen),
              randn(B, T, Hkv, dh, gen=gen)) for _ in range(copies_for(nbytes))]
     kw = dict(causal=True, window=cfg.window, softcap=cap)
-    ms = time_ms([lambda s=s: ops.flash_attention(*s, **kw) for s in sets])
-    plain = time_ms([lambda s=s: attention_reference(*s, **kw)
-                     for s in sets[:2]], iters=4)
-    lib = time_ms([lambda s=s: torch.nn.functional.scaled_dot_product_attention(
+    fns = [lambda s=s: ops.flash_attention(*s, **kw) for s in sets]
+    ms, call = graph_ms(fns), time_ms(fns)
+    plain = graph_ms([lambda s=s: attention_reference(*s, **kw)
+                      for s in sets[:2]], iters=4)
+    lib = graph_ms([lambda s=s: F.scaled_dot_product_attention(
         s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
         is_causal=True, enable_gqa=True) for s in sets])
     flops = 4 * dh * B * H * valid_pairs(T, T, True, cfg.window)
-    timing["flash_attn_fwd"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+    timing["flash_attn_fwd"] = dict(ms=ms, call_ms=call, plain_ms=plain,
+                                    library_ms=lib,
                                     shape=f"B{B} T{T} H{H} Hkv{Hkv} dh{dh} "
                                           f"causal window {cfg.window} "
                                           f"softcap {cap}",
                                     bound=bound_ms(nbytes, flops))
-    # decode at the fixed-round shape: S 1089, kv_len of the 64 decode steps
-    S = S_fixed
-    kvl = torch.randint(1025, S, (B,), generator=gen, device=DEV)
-    kv_len = kvl.to(torch.int32)
-    n_kv = int(kvl.sum())
-    nbytes = 2 * (2 * B * H * dh + 2 * n_kv * Hkv * dh) + 4 * B
-    sets = [(randn(B, 1, H, dh, gen=gen), randn(B, S, Hkv, dh, gen=gen),
-             randn(B, S, Hkv, dh, gen=gen))
-            for _ in range(copies_for(2 * 2 * B * S * Hkv * dh))]
-    mask = (torch.arange(S, device=DEV)[None, :] < kvl[:, None])[:, None, None]
-    ms = time_ms([lambda s=s: ops.flash_attention_decode(*s, kv_len,
-                                                         softcap=cap)
-                  for s in sets], iters=50)
-    plain = time_ms([lambda s=s: attention_reference(
-        *s, causal=False, softcap=cap, kv_len=kv_len) for s in sets])
-    lib = time_ms([lambda s=s: torch.nn.functional.scaled_dot_product_attention(
-        s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
-        attn_mask=mask, enable_gqa=True) for s in sets], iters=50)
-    flops = 4 * dh * H * n_kv
-    timing["flash_attn_decode"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                       shape=f"B{B} S{S} H{H} Hkv{Hkv} dh{dh} "
-                                             f"kv_len sum {n_kv} softcap {cap}",
-                                       bound=bound_ms(nbytes, flops))
+    timing["grid"] = {"flash_attn_fwd": (f"({-(-T // FWD_BLOCK_Q)}, {H}, "
+                                         f"{B}) x {FWD_THREADS} threads, "
+                                         "cluster 1")}
+    # decode at the fixed-round shape (S 1089, kv_len of the 64 decode
+    # steps), then at the continuous run's slot batch and prompt-tail steps
+    for key, B, S, lo in (("flash_attn_decode", 8, S_fixed, 1025),
+                          ("flash_attn_decode B8 S97", 8, S_cont, 1),
+                          ("flash_attn_decode B1 S97", 1, S_cont, 1)):
+        kvl = torch.randint(lo, S, (B,), generator=gen, device=DEV)
+        kv_len = kvl.to(torch.int32)
+        n_kv = int(kvl.sum())
+        nbytes = 2 * (2 * B * H * dh + 2 * n_kv * Hkv * dh) + 4 * B
+        sets = [(randn(B, 1, H, dh, gen=gen), randn(B, S, Hkv, dh, gen=gen),
+                 randn(B, S, Hkv, dh, gen=gen))
+                for _ in range(copies_for(2 * 2 * B * S * Hkv * dh))]
+        mask = (torch.arange(S, device=DEV)[None, :]
+                < kvl[:, None])[:, None, None]
+        fns = [lambda s=s: ops.flash_attention_decode(*s, kv_len, softcap=cap)
+               for s in sets]
+        ms, call = graph_ms(fns, iters=200), time_ms(fns, iters=200)
+        plain = graph_ms([lambda s=s: attention_reference(
+            *s, causal=False, softcap=cap, kv_len=kv_len) for s in sets],
+            iters=20)
+        lib = graph_ms([lambda s=s: F.scaled_dot_product_attention(
+            s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
+            attn_mask=mask, enable_gqa=True) for s in sets], iters=200)
+        flops = 4 * dh * H * n_kv
+        n_split, chunk = decode_split_plan(B, Hkv, S)
+        timing["grid"][key] = (
+            f"({n_split}, {Hkv}, {B}) x 256 threads, cluster {n_split} "
+            f"({chunk} slots a split); {B * Hkv} clusters, the card holds "
+            f"{decode_max_clusters(n_split)} at once")
+        timing[key] = dict(ms=ms, call_ms=call, plain_ms=plain, library_ms=lib,
+                           shape=f"B{B} S{S} H{H} Hkv{Hkv} dh{dh} "
+                                 f"kv_len sum {n_kv} softcap {cap}",
+                           bound=bound_ms(nbytes, flops))
+    for name, g in timing.pop("grid").items():
+        print(f"  {name} grid {g}")
     for name, t in timing.items():
-        print(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+        print(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms (device, "
+              f"graph replay; {t['call_ms']:.4f} ms a call back to back), "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
               f"({t['bound'][1]}), library_ms (no softcap: not the same "
               f"function) {t['library_ms']:.4f} ms")
     return errs, used, timing
@@ -505,6 +584,24 @@ def profile_phase(cfg, params, prompts, steps=8):
         for e in top:
             print(f"    {e.self_device_time_total / 1e3 / per:8.3f} ms "
                   f"x{e.count / per:.0f}  {e.key[:90]}")
+        # one attention kernel a layer: flash_attn_decode merges its splits
+        # inside its one launch
+        name = "flash_fwd_kernel" if phase == "prefill" else \
+            "flash_decode_kernel"
+        mine = [e for e in evs if name in e.key]
+        others = [e.key for e in evs if "flash" in e.key and name not in e.key]
+        if others:
+            fail(f"profile {phase}: other attention kernels ran: {others}")
+        count = sum(e.count for e in mine) / per
+        if count != cfg.n_layers:
+            fail(f"profile {phase}: {count:g} {name} launches a "
+                 f"{'call' if per == 1 else 'step'}, expected one a layer "
+                 f"({cfg.n_layers})")
+        us = sum(e.self_device_time_total for e in mine) / max(
+            sum(e.count for e in mine), 1)
+        print(f"    {name}: {count:g} launches a {'call' if per == 1 else 'step'} "
+              f"(one a layer, no other attention kernel), {us:.2f} us of "
+              "device time a launch")
 
 # ---------------------------------------------------------------------------
 # phase 3 (SSD): the scan kernel against ssd_reference, then its time
@@ -1236,7 +1333,8 @@ def main() -> None:
     # between them do not count
     launches = {k: fixed[k] + cont[k] for k in fixed}
     kernels = []
-    for name, t in timing.items():
+    for name in ("flash_attn_fwd", "flash_attn_decode"):
+        t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": TPU_KERNEL, "launches": launches[name],

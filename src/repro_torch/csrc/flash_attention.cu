@@ -14,33 +14,47 @@
 //                 and k >  q_offset + q - window              (if window)
 //   masked scores are -1e30; online softmax with f32 running max, sum and
 //   accumulator; out = acc / max(l, 1e-30) in bf16.  Query head h reads KV
-//   head h / (H / Hkv); KV heads are never repeated.
+//   head h / (H / Hkv); KV heads are never repeated.  (A query row with no
+//   valid key at all gets 0 here; the reference averages v over every key.)
 //
-// What bounds it on an H100, and what the design does about it:
+// What bounds each entry point on an H100, and what the design does about it:
 //   * Prefill (T = 1024, dh = 256) does 4*dh flops per valid (q, k) pair on
-//     ~50 MB of q/k/v/out: it is bound by tensor-core operations, so both
-//     products run on the tensor cores (mma.sync m16n8k16 bf16 -> f32) with
-//     the operands fed from shared memory by ldmatrix.  The TPU kernel's
-//     sequential KV grid axis and its VMEM scratch become a loop over KV
-//     tiles inside one block, with the running max / sum / accumulator held
-//     in registers.  Tiles wholly outside the causal / window / kv_len range
-//     are never visited.  One 64-query tile, one 64-key K tile and one V tile
-//     at dh = 256 need 99 KB of shared memory, above the 48 KB default, so
-//     the launch opts in with cudaFuncAttributeMaxDynamicSharedMemorySize.
-//     Rows are padded by 16 bytes so ldmatrix reads are free of bank
-//     conflicts.  Ragged T and S are masked here; no padding in the wrapper.
-//     (Not yet done: wgmma, TMA and a pipelined K/V ring — later work.)
+//     ~50 MB of q/k/v/out: it is bound by tensor-core operations.  Both
+//     products run on wgmma, fed by TMA: a block of 384 threads takes 128
+//     query rows of one (batch, head); one producer warp loads the Q tile
+//     once and K / V tiles of 64 keys into a two-stage mbarrier ring, while
+//     two consumer warpgroups (64 rows each, 232 registers after setmaxnreg
+//     for the 64 x 256 f32 output) run S = Q K^T (both operands in shared
+//     memory, K-major, 128-byte swizzle) and O += P V (P from registers in
+//     the A-operand layout, V MN-major through the transpose bit).  The
+//     4-D tensor maps (dh, heads, seq, batch) zero-fill rows past T or S,
+//     so ragged tiles need no padding and never reach the next sequence.
+//     Tiles wholly outside the causal / window / kv_len range are never
+//     loaded, a warpgroup skips a tile none of its rows sees, and the masks
+//     are evaluated only on tiles that cross an edge.  The query tiles with
+//     the most keys are launched first.  192 KB of tiles: one block an SM.
 //   * Decode (T = 1) reads every valid K/V byte once and does ~1 flop per
-//     byte: it is bound by memory bytes.  One block serves one (batch, KV
-//     head) pair and all G query heads that share it, so each K/V row is read
-//     from device memory exactly once; each warp keeps four rows' loads in
-//     flight.  Only B * Hkv blocks run, so a split over the cache length
-//     (flash-decoding) is the next step for this entry point.
+//     byte: it is bound by memory bytes, so the work is to put every SM to
+//     work with enough bytes in flight.  The cache is cut into n_split <= 8
+//     contiguous ranges (a host-side plan from B, Hkv and S alone, so no
+//     device-to-host sync): grid (n_split, Hkv, B), 256 blocks at the
+//     fixed-round shape.  A block fits in 80 registers and 66 KB of shared
+//     memory, so three share an SM and every cluster is resident at once
+//     (at two an SM, 30 clusters of 8 fit and the last two ran as a second
+//     wave).  Each block serves all G query heads of its KV head, so each
+//     K/V byte is still read once, and streams its rows through a
+//     four-stage cp.async ring (48 KB in flight a block).  The
+//     splits of one (batch, KV head) form a thread-block cluster and merge
+//     their (m, l, acc) through distributed shared memory inside the same
+//     launch: one kernel a call on a host-bound path.  The arithmetic stays
+//     on the CUDA cores (G = 2 query rows give tensor cores nothing to do).
 //
 // C interface: every entry point returns a cudaError_t (0 on success) taken
 // with cudaGetLastError() right after the launch; the Python wrapper raises
 // on anything else.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,33 +62,13 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
+namespace cg = cooperative_groups;
 
 constexpr float kMask = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two floats -> one register of two bf16; `lo` takes the lower column.
@@ -83,66 +77,276 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float apply_softcap(float s, float softcap) {
-  return softcap > 0.f ? tanhf(s / softcap) * softcap : s;
-}
-
 // ---------------------------------------------------------------------------
-// Prefill: grid (ceil(T/64), H, B), 4 warps; warp w owns query rows
-// 16w..16w+15 of the block's 64-row tile.
+// Prefill: grid (ceil(T/128), H, B), 384 threads, one block an SM.
+// Warpgroups 0 and 1 (consumers) own query rows 0-63 and 64-127 of the
+// block's 128-row tile; warpgroup 2 (producer) gives up its registers and
+// one of its threads issues the TMA loads: the Q tile once, then K and V
+// tiles of 64 keys into a ring of kFwdStages stages, each stage released by
+// the consumers through an mbarrier.  Shared memory holds every tile as
+// column blocks of 64 head dims (128 bytes a row) in TMA's 128-byte
+// swizzle, the layout wgmma reads.
 // ---------------------------------------------------------------------------
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kFwdThreads = 128;
+constexpr int kBQ = 128;            // query rows a block
+constexpr int kBK = 64;             // keys a K/V tile
+constexpr int kCB = 64;             // head dims a column block (128 bytes)
+constexpr int kFwdStages = 2;
+constexpr int kFwdThreads = 384;
+constexpr int kFwdConsumerWarps = 8;
 
 template <int DH>
 struct FwdSmem {
-  static constexpr int LD = DH + 8;  // padded row, in elements
-  static constexpr int BYTES = (kBQ + 2 * kBK) * LD * 2;
+  static constexpr int Q_BYTES = kBQ * DH * 2;
+  static constexpr int KV_BYTES = kBK * DH * 2;  // one K or one V tile
+  static constexpr int BARRIERS = 1 + 3 * kFwdStages;
+  // + 1024: the dynamic base is aligned up to the swizzle's 1024 bytes
+  static constexpr int BYTES = Q_BYTES + 2 * kFwdStages * KV_BYTES + 8 * BARRIERS + 1024;
 };
 
-// rows x DH tile from global (row stride `stride` elements) into shared
-// memory (row stride LD); rows >= n_rows are zero-filled so masked keys
-// never carry NaN/Inf garbage into P.V.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map (head dim, head, position, batch) into shared
+// memory; rows past the tensor's end arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets in 16-byte units, layout type 1 (B128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// The value itself, opaque to the compiler: a per-tile descriptor base that
+// it cannot hoist out of the tile loop as sixteen live 64-bit constants.
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(x));
+  return x;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads of an accumulator across the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, smem) * B (16 x 64, smem), both K-major
+// with the 128-byte swizzle; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 256, f32) += A (64 x 16, registers) * B (16 x 256, smem), B
+// MN-major (the transpose bit set) with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// A consumer warpgroup's work on one K/V tile of kBK keys for its 64 query
+// rows: S = Q K^T (descriptors dq, dk), then softcap, the masks (edge tiles
+// only) and the online softmax in registers, then O += P V (descriptor dv,
+// once v_bar's phase `ph` has completed).  S[4j + e]: row (e < 2 ? row :
+// row + 8), key k0 + 8j + 2 t4 + (e & 1).  `scale` is 1/sqrt(dh), divided
+// by the softcap when there is one.
 template <int DH>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long stride,
-                                          int n_rows, int rows) {
-  constexpr int LD = FwdSmem<DH>::LD;
-  constexpr int CHUNKS = DH / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * CHUNKS; c += kFwdThreads) {
-    const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows) val = *reinterpret_cast<const uint4*>(src + r * stride + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
+__device__ __forceinline__ void attn_step(float (&o)[DH / 2], float (&m)[2], float (&l)[2],
+                                          uint64_t dq, uint64_t dk, uint64_t dv, uint32_t v_bar,
+                                          int ph, int k0, bool edge, const int (&qpos)[2], int t4,
+                                          int k_limit, int causal, int window, float softcap,
+                                          float scale) {
+  static_assert(kBK == 64, "S is one m64n64 wgmma accumulator");
+  float sc[kBK / 2];
+#pragma unroll
+  for (int j = 0; j < kBK / 2; ++j) sc[j] = 0.f;  // overwritten: scale_d = 0 at kk = 0
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {  // 16 head dims a step
+    const uint32_t a = ((kk / 4) * kBQ * kCB * 2 + (kk % 4) * 32) >> 4;
+    const uint32_t b = ((kk / 4) * kBK * kCB * 2 + (kk % 4) * 32) >> 4;
+    wgmma_m64n64k16_ss(sc, dq + a, dk + b, kk > 0);
   }
+  wgmma_commit_wait();
+  fence_regs(sc);
+
+  // row max over the 4 threads that share a row
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = softcap > 0.f ? tanhf(sc[4 * j + e] * scale) * softcap : sc[4 * j + e] * scale;
+      if (edge) {
+        const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+        const int qp = qpos[e >> 1];
+        bool ok = key < k_limit;
+        if (causal) ok = ok && key <= qp;
+        if (window > 0) ok = ok && key > qp - window;
+        x = ok ? x : kMask;
+      }
+      sc[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  const float alpha[2] = {exp2f((m[0] - mx[0]) * kLog2e), exp2f((m[1] - mx[1]) * kLog2e)};
+  // a row whose keys so far are all masked keeps p = 0 (fmaf(-1e30, log2e,
+  // 1e30 log2e) need not cancel to 0: exp2 of its rounding error is inf or 0)
+  const float mxl[2] = {mx[0] == kMask ? 0.f : mx[0] * kLog2e,
+                        mx[1] == kMask ? 0.f : mx[1] * kLog2e};
+  m[0] = mx[0];
+  m[1] = mx[1];
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kBK / 2; ++j) {
+    const float p = exp2f(fmaf(sc[j], kLog2e, -mxl[(j >> 1) & 1]));
+    sc[j] = p;
+    rs[(j >> 1) & 1] += p;
+  }
+  l[0] = l[0] * alpha[0] + rs[0];  // per-thread partial; summed at the end
+  l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+  for (int j = 0; j < DH / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+
+  // P as the A operand: the score accumulator is already in the register
+  // layout of A, one 16-key step per four registers
+  uint32_t pa[kBK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  }
+
+  // O += P V: V is MN-major (head dims contiguous); its 64-dim column
+  // blocks are kBK * 128 bytes apart (LBO), 8-key groups 1024 bytes (SBO)
+  mbar_wait(v_bar, ph);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) wgmma_m64n256k16_rs(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+  wgmma_commit_wait();
+  fence_regs(o);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kFwdThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ kv_len,
-                 bf16* __restrict__ out, int T, int S, int H, int Hkv, int causal,
-                 int window, float softcap, float scale, int q_offset) {
-  constexpr int LD = FwdSmem<DH>::LD;
-  constexpr int NS = kBK / 8;  // 8-key column tiles of the score block
-  constexpr int NO = DH / 8;   // 8-wide column tiles of the output
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBQ * LD;
-  bf16* sV = sK + kBK * LD;
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ kv_len,
+                 bf16* __restrict__ out, int T, int S, int H, int Hkv, int causal, int window,
+                 float softcap, float scale, int q_offset) {
+  static_assert(DH == 256, "the P.V product is one m64n256 wgmma");
+  using L = FwdSmem<DH>;
+  constexpr int NCB = DH / kCB;
+  extern __shared__ unsigned char fsmem[];
+  const uint32_t raw = smem_addr(fsmem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = base + L::Q_BYTES;                      // + stage * KV_BYTES
+  const uint32_t sV = sK + kFwdStages * L::KV_BYTES;          // + stage * KV_BYTES
+  const uint32_t bars = sV + kFwdStages * L::KV_BYTES;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + kFwdStages + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * kFwdStages + s); };
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  // the tiles with the most keys (the last ones, when causal) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
   const int q_rows = min(kBQ, T - q0);
-  const long q_stride = (long)H * DH, kv_stride = (long)Hkv * DH;
-
-  const bf16* qb = q + ((long)b * T + q0) * q_stride + (long)h * DH;
-  const bf16* kb = k + (long)b * S * kv_stride + (long)hk * DH;
-  const bf16* vb = v + (long)b * S * kv_stride + (long)hk * DH;
-
-  load_tile<DH>(sQ, qb, q_stride, q_rows, kBQ);
 
   // valid keys are < k_limit; the causal bound of the block's last row and
   // the window bound of its first row cut the range of tiles visited
@@ -153,123 +357,142 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q_offset + q0 - window + 1);
   k_begin = (k_begin / kBK) * kBK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
-  const int row = warp * 16 + g;  // this thread's rows: row, row + 8
-  const int qpos[2] = {q_offset + q0 + row, q_offset + q0 + row + 8};
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), kFwdConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float o[NO][4];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {kMask, kMask};
-  float l[2] = {0.f, 0.f};
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    const int k_rows = min(kBK, S - k0);
-    load_tile<DH>(sK, kb + k0 * kv_stride, kv_stride, k_rows, kBK);
-    load_tile<DH>(sV, vb + k0 * kv_stride, kv_stride, k_rows, kBK);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[NS][4];
-#pragma unroll
-    for (int i = 0; i < NS; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 32; ++kk) {  // 32 head dims per step
-      uint32_t a0[4], a1[4];
-      const bf16* qa = sQ + (warp * 16 + (lane & 15)) * LD + kk * 32 + (lane >> 4) * 8;
-      ldmatrix_x4(a0, smem_addr(qa));
-      ldmatrix_x4(a1, smem_addr(qa + 16));
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, smem_addr(sK + (nt * 8 + (lane & 7)) * LD + kk * 32 + (lane >> 3) * 8));
-        mma_bf16(s[nt], a0, bk[0], bk[1]);
-        mma_bf16(s[nt], a1, bk[2], bk[3]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: from here on the roles never meet at a block barrier
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, L::Q_BYTES);
+      for (int c = 0; c < NCB; ++c)
+        tma_load(sQ + c * kBQ * kCB * 2, &tm_q, q_full, c * kCB, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kFwdStages, k0 = k_begin + i * kBK;
+        if (i >= kFwdStages) mbar_wait(empty(s), (i / kFwdStages - 1) & 1);
+        mbar_expect_tx(k_full(s), L::KV_BYTES);
+        for (int c = 0; c < NCB; ++c)
+          tma_load(sK + s * L::KV_BYTES + c * kBK * kCB * 2, &tm_k, k_full(s), c * kCB, hk, k0, b);
+        mbar_expect_tx(v_full(s), L::KV_BYTES);
+        for (int c = 0; c < NCB; ++c)
+          tma_load(sV + s * L::KV_BYTES + c * kBK * kCB * 2, &tm_v, v_full(s), c * kCB, hk, k0, b);
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31, wwarp = (threadIdx.x >> 5) & 3;
+    const int t4 = lane & 3;
+    const int row = wg * 64 + wwarp * 16 + (lane >> 2);  // this thread's rows: row, row + 8
+    const int qpos[2] = {q_offset + q0 + row, q_offset + q0 + row + 8};
+    const int wq_min = q_offset + q0 + wg * 64, wq_max = wq_min + 63;
 
-    // scale, softcap, mask; row max across the 4 threads sharing a row
-    float mx[2] = {m[0], m[1]};
+    float o[DH / 2];
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const int qp = qpos[e >> 1];
-        bool ok = key < k_limit;
-        if (causal) ok = ok && key <= qp;
-        if (window > 0) ok = ok && key > qp - window;
-        const float x = ok ? apply_softcap(s[nt][e] * scale, softcap) : kMask;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    float m[2] = {kMask, kMask};
+    float l[2] = {0.f, 0.f};
+
+    // the scale folded into the softcap's argument: x = tanh(s * scale / cap) * cap
+    const float step_scale = softcap > 0.f ? scale / softcap : scale;
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kFwdStages, ph = (i / kFwdStages) & 1;
+      const int k0 = k_begin + i * kBK;
+      // a tile that no row of this warpgroup sees is skipped; only tiles
+      // that cross the kv_len, causal or window edge are masked
+      const bool skip = wg * 64 >= q_rows || (causal && k0 > wq_max) ||
+                        (window > 0 && k0 + kBK - 1 <= wq_min - window);
+      const bool edge = k0 + kBK > k_limit || (causal && k0 + kBK - 1 > wq_min) ||
+                        (window > 0 && k0 <= wq_max - window);
+      // even a warpgroup that skips the tile waits for it: its arrival on
+      // empty(s) must not fall into the phase of the stage's previous tile
+      mbar_wait(k_full(s), ph);
+      if (!skip) {
+        // the descriptors are the tile's bases plus constants (16-byte units)
+        attn_step<DH>(o, m, l, opaque(sw128_desc(sQ + wg * 64 * 128, 16, 1024)),
+                      opaque(sw128_desc(sK + s * L::KV_BYTES, 16, 1024)),
+                      opaque(sw128_desc(sV + s * L::KV_BYTES, kBK * kCB * 2, 1024)), v_full(s), ph,
+                      k0, edge, qpos, t4, k_limit, causal, window, softcap, step_scale);
       }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-    const float alpha[2] = {expf(m[0] - mx[0]), expf(m[1] - mx[1])};
-    m[0] = mx[0];
-    m[1] = mx[1];
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - mx[e >> 1]);
-        s[nt][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-    l[0] = l[0] * alpha[0] + rs[0];  // per-thread partial; summed at the end
-    l[1] = l[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      o[i][0] *= alpha[0];
-      o[i][1] *= alpha[0];
-      o[i][2] *= alpha[1];
-      o[i][3] *= alpha[1];
+      if (lane == 0) mbar_arrive(empty(s));  // this warp is done with stage s
     }
 
-    // O += P V; the score accumulators are already laid out as the A operand
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+    const long q_stride = (long)H * DH;
+    bf16* ob = out + ((long)b * T + q0) * q_stride + (long)h * DH;
 #pragma unroll
-      for (int nd = 0; nd < NO / 2; ++nd) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, smem_addr(sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                        nd * 16 + (lane >> 4) * 8));
-        mma_bf16(o[2 * nd], a, bv[0], bv[1]);
-        mma_bf16(o[2 * nd + 1], a, bv[2], bv[3]);
+    for (int half = 0; half < 2; ++half) {
+      const int r = row + half * 8;
+      if (r >= q_rows) continue;
+      bf16* orow = ob + r * q_stride;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
+            pack_bf16(o[4 * j + 2 * half] / den[half], o[4 * j + 2 * half + 1] / den[half]);
       }
     }
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+// cuTensorMapEncodeTiled, reached through the runtime so that nothing links
+// libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
   }
-  const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
-  bf16* ob = out + ((long)b * T + q0) * q_stride + (long)h * DH;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row + half * 8;
-    if (r >= q_rows) continue;
-    bf16* orow = ob + r * q_stride;
-#pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
-      *reinterpret_cast<uint32_t*>(orow + nt * 8 + t4 * 2) =
-          pack_bf16(o[nt][2 * half] / den[half], o[nt][2 * half + 1] / den[half]);
-    }
-  }
+  return fn;
+}
+
+// (batch, seq, heads, dh) bf16 as a 4-D map (dh, heads, seq, batch); boxes
+// of 64 head dims x 1 head x `rows` positions, 128-byte swizzle.  Rows past
+// `seq` read as zeros, so a tile never reaches into the next sequence.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int dh,
+                     int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)heads * dh * 2,
+                                 (cuuint64_t)seq * heads * dh * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kCB, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int DH>
@@ -277,23 +500,48 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* k
                        void* out, int B, int T, int S, int H, int Hkv, int causal,
                        int window, float softcap, int q_offset, cudaStream_t stream) {
   constexpr int smem = FwdSmem<DH>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err = make_map(&tm_q, q, B, T, H, DH, kBQ);
+  if (err == cudaSuccess) err = make_map(&tm_k, k, B, S, Hkv, DH, kBK);
+  if (err == cudaSuccess) err = make_map(&tm_v, v, B, S, Hkv, DH, kBK);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<DH><<<grid, kFwdThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      kv_len, static_cast<bf16*>(out), T, S, H, Hkv, causal, window, softcap,
+      tm_q, tm_k, tm_v, kv_len, static_cast<bf16*>(out), T, S, H, Hkv, causal, window, softcap,
       1.0f / sqrtf(static_cast<float>(DH)), q_offset);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Decode: grid (Hkv, B), 8 warps; warp w walks keys w*4, w*4 + 32, ... with
-// its own online softmax, then the warps' partial results are merged.
+// Decode: grid (n_split, Hkv, B), one thread-block cluster of n_split blocks
+// along x per (batch, KV head).  Block `split` streams the cache slots
+// [split * chunk, min((split + 1) * chunk, kv_len[b])) through a ring of
+// kDecStages tiles of kDecTile K rows and kDecTile V rows (cp.async, 16
+// bytes a thread), serving all G query heads of its KV head.  Warp w takes
+// rows 2w and 2w + 1 of every tile, both at once, with its own online
+// softmax; the block merges its warps, then the cluster's blocks share the
+// outputs, each merging every block's (m, l, acc) through distributed
+// shared memory.
 // ---------------------------------------------------------------------------
 constexpr int kDecWarps = 8;
-constexpr int kDecUnroll = 4;
+constexpr int kDecThreads = kDecWarps * 32;
+constexpr int kDecTile = 2 * kDecWarps;  // keys per ring stage
+constexpr int kDecStages = 4;
+constexpr int kDecMaxSplit = 8;  // the portable cluster size
+
+template <int DH>
+struct DecSmem {
+  // ring: [stage][K, V][kDecTile][DH] bf16
+  static constexpr int STAGE_ELEMS = 2 * kDecTile * DH;
+  static constexpr int BYTES = kDecStages * STAGE_ELEMS * 2;
+};
 
 // One lane's 8 head dims of a K/V/q row (16 bytes) as floats.
 __device__ __forceinline__ void load_row(const bf16* p, float (&f)[8]) {
@@ -307,26 +555,71 @@ __device__ __forceinline__ void load_row(const bf16* p, float (&f)[8]) {
   }
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Three blocks an SM (<= 85 registers, 3 x 66 KB of shared memory): then
+// every cluster of the fixed-round shape is resident at once (see
+// flash_attn_decode_max_clusters) and no split waits for a second wave.
 template <int DH, int G>
-__global__ void __launch_bounds__(kDecWarps * 32)
+__global__ void __launch_bounds__(kDecThreads, 3)
 flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ kv_len,
-                    bf16* __restrict__ out, int S, int H, int Hkv, float softcap,
+                    bf16* __restrict__ out, int S, int H, int Hkv, int chunk, float softcap,
                     float scale) {
   constexpr int EPL = DH / 32;  // head dims per lane
   static_assert(EPL == 8, "load_row reads 8 head dims per lane");
-  __shared__ float sm_m[kDecWarps][G];
-  __shared__ float sm_l[kDecWarps][G];
-  __shared__ float sm_acc[kDecWarps][DH];
+  constexpr int CHUNKS = DH / 8;  // 16-byte pieces of a row
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  bf16* ring = reinterpret_cast<bf16*>(dsmem);
+  // this block's merged partial, read by every block of the cluster
+  __shared__ float part_m[G], part_l[G];
+  __shared__ __align__(16) float part_acc[G][DH];
 
-  const int hk = blockIdx.x, b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = min(S, kv_len[b]);
+  const int s_begin = split * chunk;
+  const int s_end = min(n, s_begin + chunk);  // empty split: s_end <= s_begin
+  const int n_tiles = s_end > s_begin ? (s_end - s_begin + kDecTile - 1) / kDecTile : 0;
   const long kv_stride = (long)Hkv * DH;
-  const bf16* kb = k + (long)b * S * kv_stride + (long)hk * DH + lane * EPL;
-  const bf16* vb = v + (long)b * S * kv_stride + (long)hk * DH + lane * EPL;
-  const bf16* qb = q + ((long)b * H + (long)hk * G) * DH + lane * EPL;
+  const bf16* kb = k + (long)b * S * kv_stride + (long)hk * DH;
+  const bf16* vb = v + (long)b * S * kv_stride + (long)hk * DH;
 
+  // K and V rows of tile t into ring stage t % kDecStages; rows past s_end
+  // are not loaded (and never read)
+  auto issue = [&](int t) {
+    if (t < n_tiles) {
+      bf16* stage = ring + (t % kDecStages) * DecSmem<DH>::STAGE_ELEMS;
+      for (int c = threadIdx.x; c < 2 * kDecTile * CHUNKS; c += kDecThreads) {
+        const int which = c / (kDecTile * CHUNKS);
+        const int r = (c / CHUNKS) % kDecTile, col = (c % CHUNKS) * 8;
+        const int key = s_begin + t * kDecTile + r;
+        if (key < s_end) {
+          const bf16* src = (which ? vb : kb) + key * kv_stride + col;
+          cp_async16(stage + (which * kDecTile + r) * DH + col, src);
+        }
+      }
+    }
+    cp_async_commit();  // one group per tile, empty or not
+  };
+
+#pragma unroll
+  for (int t = 0; t < kDecStages - 1; ++t) issue(t);
+
+  const bf16* qb = q + ((long)b * H + (long)hk * G) * DH + lane * EPL;
   float qf[G][EPL];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) load_row(qb + gi * DH, qf[gi]);
@@ -339,74 +632,192 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < EPL; ++e) acc[gi][e] = 0.f;
   }
 
-  for (int s0 = warp * kDecUnroll; s0 < n; s0 += kDecWarps * kDecUnroll) {
-    float kf[kDecUnroll][EPL], vf[kDecUnroll][EPL];
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kDecStages - 2>();  // tile t has landed (this thread's part)
+    __syncthreads();                  // ... every thread's; stage t-1 is free
+    issue(t + kDecStages - 1);
+    // this warp's two rows of the tile, updated together: one rescale of
+    // (l, acc) for both keys, the dot products reduced side by side
+    const bf16* stage = ring + (t % kDecStages) * DecSmem<DH>::STAGE_ELEMS;
+    const int r0 = 2 * warp, key0 = s_begin + t * kDecTile + r0;
+    if (key0 >= s_end) continue;  // uniform across the warp
+    const bool has1 = key0 + 1 < s_end;
+    // scores first (K rows), then the V rows: the two are never live at once
+    float p[G][2], alpha[G];
+    {
+      float kf[2][EPL];
+      load_row(stage + r0 * DH + lane * EPL, kf[0]);
+      if (has1) {
+        load_row(stage + (r0 + 1) * DH + lane * EPL, kf[1]);
+      } else {  // the slot was not loaded: keep its garbage out of the dot
 #pragma unroll
-    for (int u = 0; u < kDecUnroll; ++u) {
-      if (s0 + u < n) {
-        load_row(kb + (s0 + u) * kv_stride, kf[u]);
-        load_row(vb + (s0 + u) * kv_stride, vf[u]);
+        for (int e = 0; e < EPL; ++e) kf[1][e] = 0.f;
       }
-    }
-#pragma unroll
-    for (int u = 0; u < kDecUnroll; ++u) {
-      if (s0 + u >= n) break;  // uniform across the warp
+      float dot[G][2];
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
-        float dot = 0.f;
+        dot[gi][0] = dot[gi][1] = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) dot = fmaf(qf[gi][e], kf[u][e], dot);
+        for (int e = 0; e < EPL; ++e) {
+          dot[gi][0] = fmaf(qf[gi][e], kf[0][e], dot[gi][0]);
+          dot[gi][1] = fmaf(qf[gi][e], kf[1][e], dot[gi][1]);
+        }
+      }
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        const float sc = apply_softcap(dot * scale, softcap);
-        const float m_new = fmaxf(m[gi], sc);
-        const float alpha = expf(m[gi] - m_new);
-        const float p = expf(sc - m_new);
-        l[gi] = l[gi] * alpha + p;
+      for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[gi][e] = fmaf(p, vf[u][e], acc[gi][e] * alpha);
+        for (int gi = 0; gi < G; ++gi) {
+          dot[gi][0] += __shfl_xor_sync(0xffffffffu, dot[gi][0], off);
+          dot[gi][1] += __shfl_xor_sync(0xffffffffu, dot[gi][1], off);
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const float s0 = softcap > 0.f ? tanhf(dot[gi][0] * scale) * softcap : dot[gi][0] * scale;
+        const float s1 = !has1 ? kMask : softcap > 0.f ? tanhf(dot[gi][1] * scale) * softcap
+                                                       : dot[gi][1] * scale;
+        const float m_new = fmaxf(m[gi], fmaxf(s0, s1));
+        const float ml = m_new * kLog2e;
+        alpha[gi] = exp2f(fmaf(m[gi], kLog2e, -ml));
+        p[gi][0] = exp2f(fmaf(s0, kLog2e, -ml));
+        p[gi][1] = exp2f(fmaf(s1, kLog2e, -ml));
+        l[gi] = l[gi] * alpha[gi] + p[gi][0] + p[gi][1];
         m[gi] = m_new;
       }
     }
+    float vf[2][EPL];
+    load_row(stage + (kDecTile + r0) * DH + lane * EPL, vf[0]);
+    if (has1) {
+      load_row(stage + (kDecTile + r0 + 1) * DH + lane * EPL, vf[1]);
+    } else {  // p[gi][1] is 0, but 0 * garbage could be NaN
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) vf[1][e] = 0.f;
+    }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        acc[gi][e] = fmaf(p[gi][1], vf[1][e], fmaf(p[gi][0], vf[0][e], acc[gi][e] * alpha[gi]));
+    }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: reuse it for the warps' partials
 
-  // merge the warps' (m, l, acc) per query head
-  bf16* ob = out + ((long)b * H + (long)hk * G) * DH;
+  // merge the warps' (m, l, acc) into the block's partial
+  float* w_m = reinterpret_cast<float*>(dsmem);  // [kDecWarps][G]
+  float* w_l = w_m + kDecWarps * G;               // [kDecWarps][G]
+  float* w_acc = w_l + kDecWarps * G;             // [kDecWarps][G][DH]
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     if (lane == 0) {
-      sm_m[warp][gi] = m[gi];
-      sm_l[warp][gi] = l[gi];
+      w_m[warp * G + gi] = m[gi];
+      w_l[warp * G + gi] = l[gi];
     }
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][lane * EPL + e] = acc[gi][e];
-    __syncthreads();
-    if (threadIdx.x < DH) {
-      float mm = kMask;
-#pragma unroll
-      for (int w = 0; w < kDecWarps; ++w) mm = fmaxf(mm, sm_m[w][gi]);
-      float den = 0.f, num = 0.f;
-#pragma unroll
-      for (int w = 0; w < kDecWarps; ++w) {
-        const float f = expf(sm_m[w][gi] - mm);
-        den += sm_l[w][gi] * f;
-        num += sm_acc[w][threadIdx.x] * f;
-      }
-      ob[gi * DH + threadIdx.x] = __float2bfloat16_rn(num / fmaxf(den, 1e-30f));
-    }
-    __syncthreads();
+    for (int e = 0; e < EPL; ++e) w_acc[(warp * G + gi) * DH + lane * EPL + e] = acc[gi][e];
   }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * DH; i += kDecThreads) {
+    const int gi = i / DH, d = i % DH;
+    float mm = kMask;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) mm = fmaxf(mm, w_m[w * G + gi]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float f = exp2f((w_m[w * G + gi] - mm) * kLog2e);
+      den += w_l[w * G + gi] * f;
+      num += w_acc[(w * G + gi) * DH + d] * f;
+    }
+    part_acc[gi][d] = num;
+    if (d == 0) {
+      part_m[gi] = mm;
+      part_l[gi] = den;
+    }
+  }
+
+  // merge the splits: the blocks of the cluster share the G * DH outputs,
+  // each reading every block's partial; an empty split has m = -1e30 and
+  // l = acc = 0, so its weight exp(m - M) is 0 (or, when every split is
+  // empty, the output is 0 / 1e-30 = 0)
+  cluster.sync();
+  const int n_split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  bf16* ob = out + ((long)b * H + (long)hk * G) * DH;
+  for (int i = rank * kDecThreads + threadIdx.x; i < G * DH; i += n_split * kDecThreads) {
+    const int gi = i / DH, d = i % DH;
+    float mr[kDecMaxSplit];
+    float mm = kMask;
+#pragma unroll
+    for (int r = 0; r < kDecMaxSplit; ++r) {
+      mr[r] = r < n_split ? *cluster.map_shared_rank(&part_m[gi], r) : kMask;
+      mm = fmaxf(mm, mr[r]);
+    }
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int r = 0; r < kDecMaxSplit; ++r) {
+      if (r < n_split) {
+        const float f = exp2f((mr[r] - mm) * kLog2e);
+        den += *cluster.map_shared_rank(&part_l[gi], r) * f;
+        num += *cluster.map_shared_rank(&part_acc[gi][d], r) * f;
+      }
+    }
+    ob[gi * DH + d] = __float2bfloat16_rn(num / fmaxf(den, 1e-30f));
+  }
+  cluster.sync();  // no block leaves while another still reads its partial
+}
+
+// The decode kernel's launch: grid (n_split, Hkv, B), clusters of n_split
+// along x, the ring as dynamic shared memory (attributes set once).
+template <int DH, int G>
+cudaError_t decode_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B, int Hkv,
+                          int n_split, cudaStream_t stream) {
+  constexpr int smem = DecSmem<DH>::BYTES;
+  static_assert(smem >= (kDecWarps * G * (DH + 2)) * 4, "warp partials reuse the ring");
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_kernel<DH, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    // all of the SM's 228 KB as shared memory: room for three blocks
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_decode_kernel<DH, G>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  if (n_split < 1 || n_split > kDecMaxSplit) return cudaErrorInvalidValue;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(n_split, Hkv, B);
+  cfg->blockDim = dim3(kDecThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = n_split;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 template <int DH, int G>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* kv_len,
-                            void* out, int B, int S, int H, int Hkv, float softcap,
-                            cudaStream_t stream) {
-  const dim3 grid(Hkv, B);
-  flash_decode_kernel<DH, G><<<grid, kDecWarps * 32, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      kv_len, static_cast<bf16*>(out), S, H, Hkv, softcap,
-      1.0f / sqrtf(static_cast<float>(DH)));
+                          void* out, int B, int S, int H, int Hkv, int n_split, int chunk,
+                          float softcap, cudaStream_t stream) {
+  if (chunk < 1) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = decode_config<DH, G>(&cfg, &attr, B, Hkv, n_split, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(
+      &cfg, flash_decode_kernel<DH, G>, static_cast<const bf16*>(q),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v), kv_len,
+      static_cast<bf16*>(out), S, H, Hkv, chunk, softcap,
+      // the scale folded into the softcap's argument: tanh(s * scale / cap) * cap
+      softcap > 0.f ? 1.0f / (sqrtf(static_cast<float>(DH)) * softcap)
+                    : 1.0f / sqrtf(static_cast<float>(DH)));
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -430,13 +841,27 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, const void* kv_l
 }
 
 // q (B,1,H,dh), k/v (B,S,Hkv,dh), out (B,1,H,dh): bf16, contiguous.
-// kv_len: (B,) int32, required.  softcap <= 0: none.
+// kv_len: (B,) int32, required.  softcap <= 0: none.  The cache slots are cut
+// into n_split (1..8) ranges of `chunk` slots (decode_split_plan in the launcher).
 int flash_attn_decode(const void* q, const void* k, const void* v, const void* kv_len, void* out,
-                      int B, int S, int H, int Hkv, int dh, float softcap, void* stream) {
+                      int B, int S, int H, int Hkv, int dh, int n_split, int chunk, float softcap,
+                      void* stream) {
   const int* kvl = static_cast<const int*>(kv_len);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dh != 256 || H != 2 * Hkv) return cudaErrorInvalidValue;
-  return launch_decode<256, 2>(q, k, v, kvl, out, B, S, H, Hkv, softcap, st);
+  return launch_decode<256, 2>(q, k, v, kvl, out, B, S, H, Hkv, n_split, chunk, softcap,
+                                st);
+}
+
+// How many of flash_attn_decode's clusters of n_split blocks the card holds
+// at once (cudaOccupancyMaxActiveClusters): a diagnostic for the split plan.
+int flash_attn_decode_max_clusters(int n_split, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = decode_config<256, 2>(&cfg, &attr, 1, 1, n_split, nullptr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(flash_decode_kernel<256, 2>), &cfg);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -3,7 +3,8 @@ kernel of the JAX package (all three are ported).
 
 - flash_attention: fused online-softmax GQA attention (causal, sliding
   window, logit softcap, per-sequence kv_len) — CUDA C++ for sm_90a in
-  ``csrc/flash_attention.cu``.
+  ``csrc/flash_attention.cu``: prefill on ``wgmma`` fed by TMA, decode split
+  over the cache in one thread-block cluster a (batch, KV head).
 - ssd_scan: the Mamba-2 SSD chunked scan (train forward; the backward
   recomputes through the plain chunked scan) — CUDA C++ for sm_90a in
   ``csrc/ssd_scan.cu``.

@@ -1,18 +1,25 @@
-"""ctypes launchers for the hand-written CUDA flash attention kernel
+"""ctypes launchers for the hand-written CUDA flash attention kernels
 (``csrc/flash_attention.cu``), the port of the Pallas TPU kernel
 ``repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas``.
 
-``flash_attn_fwd`` (prefill) and ``flash_attn_decode`` (one query token
-against a KV cache) take CUDA bf16 tensors only: they check device, dtype,
-shape, contiguity and alignment, raise on anything else, allocate the output
-with ``torch.empty``, launch on PyTorch's current stream without
-synchronising, and raise if the launch reports a CUDA error.  The library
-is built with ``nvcc`` and loaded at the first call, never at import.
+``flash_attn_fwd`` (prefill) runs ``wgmma`` fed by TMA: a block of 128
+query rows, K / V tiles of 64 keys in a two-stage ring; the C side builds
+the tensor maps on every call.  ``flash_attn_decode`` (one query token
+against a KV cache) cuts the cache into the splits of
+:func:`decode_split_plan` (a pure function of B, Hkv and S: it never reads
+``kv_len``), one thread-block cluster per (batch, KV head) that merges its
+splits in the same launch.  Both take CUDA bf16 tensors only: they check
+device, dtype, shape, contiguity and alignment, raise on anything else,
+allocate the output with ``torch.empty``, launch one kernel on PyTorch's
+current stream without synchronising, and raise if the launch reports a
+CUDA error.  The library is built with ``nvcc`` and loaded at the first
+call, never at import.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from functools import lru_cache
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,7 +31,32 @@ from .. import build
 HEAD_DIMS = (256,)
 DECODE_GROUPS = (2,)
 
+# flash_attn_fwd's launch: a block of two consumer warpgroups and one
+# producer warpgroup takes 128 query rows of one (batch, head)
+FWD_BLOCK_Q = 128
+FWD_THREADS = 384
+
+# flash_attn_decode's split over the cache: the H100 has 132 SMs and takes
+# three of the kernel's blocks on each, so the plan aims at >= 2 * 132
+# blocks; a cluster holds at most 8 blocks (the portable size), and a split
+# gets at least DECODE_MIN_CHUNK slots.
+DECODE_TARGET_BLOCKS = 2 * 132
+DECODE_MAX_SPLIT = 8
+DECODE_MIN_CHUNK = 16
+
 _lib = None
+
+
+@lru_cache(maxsize=None)
+def decode_split_plan(B: int, Hkv: int, S: int) -> Tuple[int, int]:
+    """(n_split, chunk) of ``flash_attn_decode``: split i of each (batch,
+    KV head) takes the cache slots [i * chunk, min((i + 1) * chunk, S)),
+    clipped to kv_len on the card.  A pure function of the shapes: it never
+    reads kv_len, which would cost a device-to-host sync a call."""
+    want = -(-DECODE_TARGET_BLOCKS // max(B * Hkv, 1))
+    n_split = max(1, min(DECODE_MAX_SPLIT, want,
+                         -(-S // DECODE_MIN_CHUNK)))
+    return n_split, -(-S // n_split)
 
 
 def _library():
@@ -36,12 +68,25 @@ def _library():
         lib.flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                        f, i, p]
         lib.flash_attn_fwd.restype = i
-        lib.flash_attn_decode.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+        lib.flash_attn_decode.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                          f, p]
         lib.flash_attn_decode.restype = i
+        lib.flash_attn_decode_max_clusters.argtypes = [i, p]
+        lib.flash_attn_decode_max_clusters.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def decode_max_clusters(n_split: int) -> int:
+    """How many clusters of ``n_split`` decode blocks the current card holds
+    at once (CUDA's occupancy query; a diagnostic, not used by the launch)."""
+    lib = _library()
+    n = ctypes.c_int()
+    _raise_on(lib, "decode_max_clusters",
+              lib.flash_attn_decode_max_clusters(n_split, ctypes.byref(n)))
+    return n.value
 
 
 def _check(name: str, **tensors) -> None:
@@ -146,11 +191,12 @@ def flash_attn_decode(q, k, v, kv_len, *, softcap: Optional[float] = None):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    n_split, chunk = decode_split_plan(B, Hkv, S)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attn_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), B, S, H, Hkv, dh,
+            out.data_ptr(), B, S, H, Hkv, dh, n_split, chunk,
             0.0 if softcap is None else float(softcap),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, "flash_attn_decode", err)

@@ -22,6 +22,8 @@ from repro.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention_decode as jax_fa_decode)
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    decode_split_plan)
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
 from repro_torch.telemetry import trace  # noqa: E402
 
@@ -103,6 +105,101 @@ def test_decode_op_ragged_kv_len_matches_jax_kernel(dtype, softcap):
                                kv_len=torch.from_numpy(kvl)),
            jax_ref(jq, jk, jv, causal=False, softcap=softcap,
                    kv_len=jnp.asarray(kvl)), DTYPES[dtype][2])
+
+
+def _split_ranges(B, Hkv, S):
+    """The cache ranges the decode kernel's splits take: split i of each
+    (batch, KV head) reads [i * chunk, min((i + 1) * chunk, S)), clipped to
+    kv_len on the card."""
+    n_split, chunk = decode_split_plan(B, Hkv, S)
+    return [(min(i * chunk, S), min((i + 1) * chunk, S))
+            for i in range(n_split)]
+
+
+SPLIT_SHAPES = [
+    # B, Hkv, S: the main path's decode shapes, then small and large ones
+    (8, 4, 1089), (8, 4, 97), (1, 4, 97), (8, 4, 2048), (8, 4, 8192),
+    (3, 2, 80), (1, 4, 8), (1, 4, 17), (1, 1, 1), (64, 16, 4096),
+]
+
+
+@pytest.mark.parametrize("B,Hkv,S", SPLIT_SHAPES)
+def test_decode_split_plan_covers_cache_once(B, Hkv, S):
+    """flash_attn_decode's host-side plan: 1-8 splits (one cluster) whose
+    ranges cover [0, S) exactly once, and at least two blocks an SM where
+    the shape allows it."""
+    n_split, chunk = decode_split_plan(B, Hkv, S)
+    assert 1 <= n_split <= 8 and chunk >= 1
+    covered = np.zeros(S, np.int64)
+    for lo, hi in _split_ranges(B, Hkv, S):
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert B * Hkv * n_split >= min(2 * 132, B * Hkv * 8, B * Hkv * -(-S // 16))
+
+
+def _split_merge_decode(q, k, v, kv_len, softcap):
+    """Decode as the CUDA kernel cuts it: the plain math on each split of
+    the plan (an empty split keeps m = -1e30, l = acc = 0), then the
+    kernel's merge out = sum_i acc_i e^(m_i - M) / max(sum_i l_i e^(m_i - M),
+    1e-30), M = max_i m_i.  f32 on torch tensors."""
+    B, _, H, dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    out = torch.zeros(B, 1, H, dh)
+    for b in range(B):
+        n = min(S, int(kv_len[b]))
+        for hk in range(Hkv):
+            qh = q[b, 0, hk * G:(hk + 1) * G].float()
+            ms, ls, accs = [], [], []
+            for lo, hi in _split_ranges(B, Hkv, S):
+                hi = min(hi, n)
+                if hi <= lo:
+                    ms.append(torch.full((G,), -1e30))
+                    ls.append(torch.zeros(G))
+                    accs.append(torch.zeros(G, dh))
+                    continue
+                s = qh @ k[b, lo:hi, hk].float().T / dh ** 0.5
+                if softcap is not None:
+                    s = torch.tanh(s / softcap) * softcap
+                m = s.max(-1).values
+                p = torch.exp(s - m[:, None])
+                ms.append(m)
+                ls.append(p.sum(-1))
+                accs.append(p @ v[b, lo:hi, hk].float())
+            m_all = torch.stack(ms)
+            f = torch.exp(m_all - m_all.max(0).values)
+            den = (torch.stack(ls) * f).sum(0)
+            num = (torch.stack(accs) * f[:, :, None]).sum(0)
+            out[b, 0, hk * G:(hk + 1) * G] = num / torch.clamp(den, min=1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+SPLIT_MERGE_CASES = [
+    # B, S, H, Hkv, dh, kv_len: splits of 16 (S 80, 5 splits) and 25 (S 200,
+    # 8 splits) slots; kv_len 1 leaves every split but the first empty
+    (3, 80, 4, 2, 32, [1, 37, 80]),
+    (3, 80, 4, 2, 32, [15, 16, 17]),
+    (2, 200, 2, 1, 32, [24, 25]),
+    (2, 200, 2, 1, 32, [26, 200]),
+    (1, 200, 4, 2, 16, [175]),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_MERGE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_decode_split_merge_matches_jax_kernel(case, dtype, softcap):
+    """The split-then-merge of flash_attn_decode (its plan, the plain math
+    per split, its merge formula) == JAX's flash_attention_decode (the
+    Pallas kernel in interpret mode), empty splits included."""
+    B, S, H, Hkv, dh, kvl = case
+    assert decode_split_plan(B, Hkv, S)[0] > 1
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, 1, S, H, Hkv, dh, 3), dtype)
+    kvl = np.array(kvl, np.int32)
+    want = jax_fa_decode(jq, jk, jv, jnp.asarray(kvl), softcap=softcap,
+                         block_k=32)
+    _close(_split_merge_decode(tq, tk, tv, kvl, softcap), want,
+           DTYPES[dtype][2])
 
 
 def test_ops_reject_mixed_devices():

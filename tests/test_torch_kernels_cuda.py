@@ -11,6 +11,9 @@ most one bf16 rounding (atol 1e-3, rtol 8e-3); prefill also rounds P to bf16
 for the P.V product (atol 8e-3, rtol 1.6e-2).  The library is built for the
 ported config's shapes only: d_head 256, and two query heads per KV head
 for decode.  Cases with q scaled by 20 push the scores into the softcap.
+Prefill covers ragged and whole 128-row query tiles and window edges inside
+a tile; decode covers kv_len on every boundary of the wrapper's split plan
++-1, kv_len 1 (every split but the first empty), B 1 and B 8, and S 8192.
 
 The SSD scan (``csrc/ssd_scan.cu``) is held against ``ssd_reference`` at
 the mamba2-1.3b training shape (B 8, T 512, H 64, P 64, G 1, N 128, chunk
@@ -33,6 +36,8 @@ pytestmark = pytest.mark.cuda
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    decode_split_plan)
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_reference  # noqa: E402
@@ -70,6 +75,17 @@ FWD_CASES = [
     (2, 1000, 1000, 8, 4, True, 256, 50.0, 0, 1.0),
     (1, 77, 77, 8, 4, True, 16, 50.0, 0, 20.0),
     (1, 8, 8, 8, 4, True, 4096, 50.0, 0, 1.0),
+    # ragged and whole 128-row query tiles
+    (1, 127, 127, 8, 4, True, None, 50.0, 0, 1.0),
+    (1, 128, 128, 8, 4, True, 4096, 50.0, 0, 1.0),
+    (2, 129, 129, 8, 4, True, 64, 50.0, 0, 1.0),
+    (1, 200, 200, 8, 4, False, None, 50.0, 0, 1.0),
+    # the fixed rounds' prefill: local (window 4096) and global layers
+    (8, 1024, 1024, 8, 4, True, 4096, 50.0, 0, 1.0),
+    (8, 1024, 1024, 8, 4, True, None, 50.0, 0, 1.0),
+    # a window edge that crosses a 64-key tile inside a 128-row query tile
+    (1, 256, 256, 8, 4, True, 100, 50.0, 0, 1.0),
+    (1, 200, 328, 8, 4, True, 96, 50.0, 128, 20.0),
 ]
 
 
@@ -88,11 +104,30 @@ def test_flash_attn_fwd_vs_reference(case, cuda):
     torch.testing.assert_close(out.float(), ref.float(), **FWD_TOL)
 
 
+def _split_boundary_cases(B, S, Hkv=4):
+    """kv_len at every boundary of the wrapper's split plan, +-1, and at 1
+    and S, B at a time (a short last batch is padded with kv_len 1)."""
+    n_split, chunk = decode_split_plan(B, Hkv, S)
+    vals = sorted({1, S} | {i * chunk + d for i in range(1, n_split)
+                            for d in (-1, 0, 1)})
+    return [(S, (vals[i:i + B] + [1] * B)[:B], 1.0)
+            for i in range(0, len(vals), B)]
+
+
 @pytest.mark.parametrize("S,kvl,scale", [
     (2048, [1, 37, 1089, 2048, 5, 2000], 1.0),
     (2048, [1, 37, 1089, 2048, 5, 2000], 20.0),
     (97, [1, 9, 64, 96, 97, 40], 1.0),
     (97, [33], 20.0),
+    # kv_len 1: every split but the first is empty
+    (1089, [1] * 8, 1.0),
+    (97, [1], 1.0),
+    (8192, [1, 4095, 8192, 1024, 1025, 7168, 7169, 3000], 1.0),
+    (8192, [8192], 20.0),
+    *_split_boundary_cases(8, 1089),
+    *_split_boundary_cases(8, 97),
+    *_split_boundary_cases(1, 97),
+    *_split_boundary_cases(8, 8192),
 ])
 def test_flash_attn_decode_vs_reference(S, kvl, scale, cuda):
     B, Hkv = len(kvl), 4
