@@ -39,9 +39,12 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    where the carry between chunks matters, and dt x 10 so that exp(cum)
    underflows inside a chunk, within ``ssd_tolerance``; sensitivity checks
    show the bound catches a dropped inter-chunk carry, a causal mask off by
-   one, dt left out of M and an undecayed state; then its time beside its
-   plain version and its bound (no single PyTorch call computes the scan:
-   library_ms null).  Then the sum-tree sampler (``tree_sample_blocked``,
+   one, dt left out of M and an undecayed state; then its grid against how
+   many blocks the card holds at once, and its time at the training shape
+   as device time (a replayed CUDA graph of the calls; the back-to-back
+   time of eager calls beside it) beside its plain version and its bound
+   (bytes at 3.35 TB/s against flops at the bf16 tensor-core rate; no
+   single PyTorch call computes the scan: library_ms null).  Then the sum-tree sampler (``tree_sample_blocked``,
    csrc/sum_tree.cu) against its plain version (``sample_plain``) and the
    f64 flat oracle on sum trees at the rainbow example's shape (8192
    leaves, batch 64) and the replay bench's (2^14, 2^17, 2^20 leaves x
@@ -90,8 +93,9 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    per PPO update and per RL iteration against the unprofiled wall time of
    the same work (the idle share), and checks that prefill and a decode
    step run exactly one attention kernel a layer (printing its device
-   time a launch) — last, since the profiler slows every later launch of
-   the process;
+   time a launch), and lists each kernel launch of one ssd_scan call at the
+   training shape with its device time — last, since the profiler slows
+   every later launch of the process;
 9. the ``kernels`` JSON line (launch counts from phases 4-7, the largest
    error of phase 3, times), then ``{"ok": true, "device": {...}}`` last.
 """
@@ -122,13 +126,16 @@ CONT = {"requests": 16, "slots": 8, "prompt_min": 8, "prompt_len": 64,
 LOGIT_TOL = 0.25
 # SSD scan (csrc/ssd_scan.cu) against ssd_reference: both compute in f32
 # and round y to bf16 once, so they differ by the order of f32 sums, by
-# the rounding of the chunk cumsum, and by one bf16 spacing of y where the
-# two f32 values straddle a rounding point.  Per element:
+# the rounding of the chunk cumsum, by the kernel's f32 operands entering
+# the tensor cores as hi / lo bf16 pairs (at most 2^-17 of each operand
+# left out), and by one bf16 spacing of y where the two f32 values
+# straddle a rounding point.  Per element:
 #   |y - y_ref| <= 2^-7 |y_ref| + eps * y_abs,   |S - S_ref| <= eps * S_abs,
 #   eps = 2^-14 + 2^-19 * max|cum|,
 # where y_abs, S_abs are ssd_reference of |x|, dt, A, |B|, |C| (the sum of
 # the magnitudes of every term) and max|cum| is the largest |cumsum(dt*A)|
-# within a chunk: 2^-14 covers f32 sums of <= 512 terms with margin, and
+# within a chunk: 2^-14 covers f32 sums of <= 512 terms and the hi / lo
+# residue with margin, and
 # 2^-19 * max|cum| eight roundings of the cumsum on each side (an absolute
 # error in cum_q - cum_k is a relative error of exp(cum_q - cum_k)).
 SSD_TPU_KERNEL = "src/repro/kernels/ssd_scan/ssd_scan.py:69"
@@ -199,6 +206,8 @@ from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_reference  # noqa: E402
+from repro_torch.kernels.ssd_scan.ssd_scan import (  # noqa: E402
+    occupancy as ssd_occupancy)
 from repro_torch.kernels.sum_tree import ops as st_ops  # noqa: E402
 from repro_torch.kernels.sum_tree import ref as st_ref  # noqa: E402
 from repro_torch.kernels.sum_tree.sum_tree import sample_plain  # noqa: E402
@@ -739,17 +748,25 @@ def ssd_kernel_phase():
     nbytes = (2 * B * T * H * P * 2 + B * T * H * 4 + H * 4
               + 2 * B * T * G * N * 2 + B * H * P * N * 4)
     sets = [ssd_inputs(B, T, gen) for _ in range(copies_for(nbytes))]
-    ms = time_ms([lambda s=s: ssd_ops.ssd_scan(*s, chunk=256) for s in sets])
-    plain = time_ms([lambda s=s: ssd_reference(*s, chunk=256)
-                     for s in sets[:2]], iters=4)
+    fns = [lambda s=s: ssd_ops.ssd_scan(*s, chunk=256) for s in sets]
+    ms, call = graph_ms(fns), time_ms(fns)
+    plain = graph_ms([lambda s=s: ssd_reference(*s, chunk=256)
+                      for s in sets[:2]], iters=4)
     flops = ssd_flops(B, T, H, P, G, N, 256)
-    t = dict(ms=ms, plain_ms=plain, library_ms=None,
-             bound=bound_ms(nbytes, flops, PEAK_F32_FLOPS))
+    t = dict(ms=ms, call_ms=call, plain_ms=plain, library_ms=None,
+             bound=bound_ms(nbytes, flops))
+    per_sm, blocks = ssd_occupancy(H, B)
+    waves = blocks / (per_sm * torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    print(f"  ssd_scan grid: {blocks} blocks of 512 threads (batch, head; "
+          f"two warp groups over P's columns for the state); the card holds "
+          f"{per_sm} an SM at once: {waves:.2f} waves")
     print(f"  ssd_scan [B{B} T{T} H{H} P{P} G{G} N{N} chunk 256]: kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {t['bound'][0]:.4f} ms "
-          f"({t['bound'][1]}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP "
-          f"at the f32 rate), library_ms none (no single PyTorch call "
-          f"computes the scan)")
+          f"{ms:.4f} ms (device, graph replay; {call:.4f} ms a call back to "
+          f"back), plain {plain:.4f} ms, bound {t['bound'][0]:.4f} ms "
+          f"({t['bound'][1]}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+          f"{flops / 1e9:.2f} GFLOP at the bf16 tensor-core rate), "
+          "library_ms none (no single PyTorch call computes the scan)")
     return worst, t
 
 
@@ -927,6 +944,38 @@ def profile_training(training):
         for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
             print(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count}  "
                   f"{e.key[:90]}")
+        for e in evs:  # the port's kernel, wherever it ranks
+            if "ssd_scan" in e.key:
+                print(f"    ssd_scan: {e.self_device_time_total / 1e3:.3f} ms "
+                      f"x{e.count} ({e.self_device_time_total / e.count:.2f} "
+                      f"us a launch) of the {busy:.3f} ms")
+
+
+def profile_ssd():
+    """Each kernel that one ssd_scan call at the training shape launches,
+    with its device time a launch (torch.profiler over 20 calls; the
+    profiler may miss the first launches of a window, so the count it
+    recorded is printed beside)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    inp = ssd_inputs(8, 512, torch.Generator(device=DEV).manual_seed(SEED))
+    n = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            ssd_ops.ssd_scan(*inp, chunk=256)
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and "ssd_" in e.key]
+    if not ks:
+        print("  ssd_scan launches: device time not measured (the profiler "
+              "recorded no ssd kernel)")
+        return
+    print(f"  ssd_scan call [B8 T512 H64]: {len(ks)} kernel(s) a call")
+    for e in ks:
+        print(f"    {e.key[:60]}: {e.self_device_time_total / e.count:.2f} "
+              f"us of device time a launch (profiler: {e.count} launches "
+              f"recorded over {n} calls)")
 
 
 # ---------------------------------------------------------------------------
@@ -1327,6 +1376,7 @@ def main() -> None:
     print("profile: where the time goes (not the main path's counts)")
     profile_phase(cfg, params, prompts)
     profile_training(training)
+    profile_ssd()
     profile_rl(rl_work, st_timing)
     # the main path is the fixed rounds plus the continuous run (attention)
     # and the training run (ssd_scan); the kernel-vs-ref comparisons

@@ -17,10 +17,12 @@ a tile; decode covers kv_len on every boundary of the wrapper's split plan
 
 The SSD scan (``csrc/ssd_scan.cu``) is held against ``ssd_reference`` at
 the mamba2-1.3b training shape (B 8, T 512, H 64, P 64, G 1, N 128, chunk
-256), one chunk (T 256), ragged T 500 and T < 256, with the error model of
-chip_smoke.py: |y - ref| <= 2^-7 |ref| + eps y_abs and |S - ref| <=
-eps S_abs, eps = 2^-14 + 2^-19 max|cum| (y_abs, S_abs: the scan of |x|,
-|B|, |C|).  It is built for P 64, N 128, one group and chunk 256 only.
+256), one chunk (T 256), ragged T 500 and T < 256, and at the edges of its
+tiles (T 1, 63, 64, 65, 255, 257 and 1024 = four chunks; B 1; G 2 at H
+64), with the error model of chip_smoke.py: |y - ref| <= 2^-7 |ref| + eps
+y_abs and |S - ref| <= eps S_abs, eps = 2^-14 + 2^-19 max|cum| (y_abs,
+S_abs: the scan of |x|, |B|, |C|).  It is built for P 64, N 128 and chunk
+256 only, with any number of groups that divides the heads.
 
 The sum-tree sampler (``csrc/sum_tree.cu``) is held against its plain
 version and the f64 flat oracle on sum trees at the rainbow example's shape
@@ -160,21 +162,18 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                                    torch.full((1,), 8, device=cuda))
 
 
-def _ssd_inputs(B, T, device, dt_scale=1.0, H=64, seed=2):
+def _ssd_inputs(B, T, device, dt_scale=1.0, H=64, G=1, seed=2):
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = torch.randn(B, T, H, 64, generator=g).to(device, torch.bfloat16)
     dt = torch.nn.functional.softplus(torch.randn(B, T, H, generator=g))
     A = -torch.linspace(1.0, 16.0, H)
-    Bm = (torch.randn(B, T, 1, 128, generator=g) * 0.5).to(device, torch.bfloat16)
-    Cm = (torch.randn(B, T, 1, 128, generator=g) * 0.5).to(device, torch.bfloat16)
+    Bm = (torch.randn(B, T, G, 128, generator=g) * 0.5).to(device, torch.bfloat16)
+    Cm = (torch.randn(B, T, G, 128, generator=g) * 0.5).to(device, torch.bfloat16)
     return x, (dt * dt_scale).to(device), A.to(device), Bm, Cm
 
 
-@pytest.mark.parametrize("B,T,dt_scale", [(8, 512, 1.0), (8, 256, 1.0),
-                                          (8, 500, 1.0), (2, 100, 1.0),
-                                          (4, 512, 0.01)])
-def test_ssd_scan_vs_reference(B, T, dt_scale, cuda):
-    x, dt, A, Bm, Cm = _ssd_inputs(B, T, cuda, dt_scale)
+def _check_ssd_scan(B, T, dt_scale, G, device):
+    x, dt, A, Bm, Cm = _ssd_inputs(B, T, device, dt_scale, G=G)
     chunk = min(256, T)
     n0 = ssd_ops.ssd_scan.launches
     y, s = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
@@ -193,6 +192,23 @@ def test_ssd_scan_vs_reference(B, T, dt_scale, cuda):
     assert ((s - sr).abs() <= eps * sa).all()
 
 
+@pytest.mark.parametrize("B,T,dt_scale", [(8, 512, 1.0), (8, 256, 1.0),
+                                          (8, 500, 1.0), (2, 100, 1.0),
+                                          (4, 512, 0.01)])
+def test_ssd_scan_vs_reference(B, T, dt_scale, cuda):
+    _check_ssd_scan(B, T, dt_scale, 1, cuda)
+
+
+# the edges of the kernel's 16-row steps, 64-row ring tiles and 256-row
+# chunks; one batch row; two groups of 32 heads
+@pytest.mark.parametrize("B,T,G", [(2, 1, 1), (2, 63, 1), (2, 64, 1),
+                                   (2, 65, 1), (2, 255, 1), (2, 257, 1),
+                                   (2, 1024, 1), (1, 512, 1), (2, 512, 2),
+                                   (2, 300, 2)])
+def test_ssd_scan_tile_edges_vs_reference(B, T, G, cuda):
+    _check_ssd_scan(B, T, 1.0, G, cuda)
+
+
 def test_ssd_scan_rejects_shapes_it_was_not_built_for(cuda):
     x, dt, A, Bm, Cm = _ssd_inputs(1, 256, cuda)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -204,6 +220,9 @@ def test_ssd_scan_rejects_shapes_it_was_not_built_for(cuda):
     with pytest.raises(ValueError, match="built for head dim"):
         ssd_ops.ssd_scan(x, dt, A, Bm[..., :64].contiguous(),
                          Cm[..., :64].contiguous(), chunk=256)
+    with pytest.raises(ValueError, match="built for head dim"):
+        ssd_ops.ssd_scan(x, dt, A, Bm.expand(1, 256, 3, 128).contiguous(),
+                         Cm.expand(1, 256, 3, 128).contiguous(), chunk=256)
     with pytest.raises(ValueError, match="chunk"):
         ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
     with pytest.raises(ValueError, match="CPU or all on CUDA"):

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+F = torch.nn.functional
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -142,6 +143,133 @@ def test_ssd_scan_grads_only_what_is_asked():
     y, _ = ops.ssd_scan(x, *inp[1:], chunk=8)
     y.sum().backward()
     assert x.grad is not None and inp[1].grad is None
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's schedule (csrc/ssd_scan.cu), in plain torch
+# ---------------------------------------------------------------------------
+LOG2E = 1.4426950408889634
+
+
+def _hi_lo(v):
+    """f32 -> (hi, lo) as f32: hi = bf16(v), lo = bf16(v - hi)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _pair_mm(a, b):
+    """a @ b with the f32 operand ``a`` entering as a hi / lo bf16 pair: two
+    products into one f32 sum, as the kernel's two mma into one
+    accumulator (``b`` holds bf16 values)."""
+    hi, lo = _hi_lo(a)
+    return hi @ b + lo @ b
+
+
+def kernel_schedule_scan(x, dt, A, Bm, Cm, chunk, p_slice, step=16):
+    """The scan as csrc/ssd_scan.cu cuts it, in f32 on the CPU: one slice of
+    ``p_slice`` columns of P at a time (the state's slices, whose S^T the
+    kernel keeps in two warp groups' registers), the chunks in order, and
+    in a chunk 16-row steps.  The f32 operands M, S_prev and B w enter as
+    hi / lo bf16 pairs; C.B^T is an f32 sum of exact bf16 products; the
+    decay L uses log2 cumsums, masked before the exp on the diagonal steps
+    and split into exp(cum_q - cum_r) exp(cum_r - cum_k) below them (r: the
+    first row of q's 16-row tile).  x, B and C must hold bf16 values, as
+    the kernel's inputs do.  Returns (y f32 (B,T,H,P), state (B,H,P,N))."""
+    Bsz, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    nC = -(-T // chunk)
+    pad = nC * chunk - T
+    x = F.pad(x, (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)   # (B,H,T',P)
+    dt = F.pad(dt, (0, 0, 0, pad)).permute(0, 2, 1)          # (B,H,T')
+    Bh = F.pad(Bm, (0, 0, 0, 0, 0, pad)).repeat_interleave(rep, 2).permute(0, 2, 1, 3)
+    Ch = F.pad(Cm, (0, 0, 0, 0, 0, pad)).repeat_interleave(rep, 2).permute(0, 2, 1, 3)
+    qi = torch.arange(chunk)
+    tile = qi // step
+    below = tile[:, None] > tile[None, :]                    # steps below q's tile
+    diag = (tile[:, None] == tile[None, :]) & (qi[:, None] >= qi[None, :])
+    y = torch.zeros(Bsz, H, nC * chunk, P)
+    state = torch.zeros(Bsz, H, P, N)
+    for p0 in range(0, P, p_slice):
+        ps = slice(p0, p0 + p_slice)
+        st = torch.zeros(Bsz, H, N, p_slice)                 # S^T of the slice
+        for c in range(nC):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            xq, dq, Bq, Cq = x[:, :, sl, ps], dt[:, :, sl], Bh[:, :, sl], Ch[:, :, sl]
+            cum = torch.cumsum(dq * A[None, :, None], -1)
+            c2 = cum * LOG2E
+            cr = c2[..., step * tile]                         # c2 of each row's tile start
+            e_row = torch.exp2(c2 - cr)
+            e_col = torch.exp2(torch.where(below, cr[..., :, None] - c2[..., None, :], 0.0))
+            e_diag = torch.exp2(torch.where(diag, c2[..., :, None] - c2[..., None, :], 0.0))
+            L = torch.where(below, e_row[..., None] * e_col,
+                            torch.where(diag, e_diag, 0.0))
+            M = (Cq @ Bq.transpose(-1, -2)) * L * dq[..., None, :]
+            s_hi, s_lo = _hi_lo(st)
+            y_off = (Cq @ s_hi + Cq @ s_lo) * torch.exp2(c2)[..., None]
+            y[:, :, sl, ps] = y_off + _pair_mm(M, xq)
+            w = torch.exp(cum[..., -1:] - cum) * dq
+            st = st * torch.exp(cum[..., -1])[..., None, None] + \
+                _pair_mm((Bq * w[..., None]).transpose(-1, -2), xq)
+        state[:, :, ps] = st.transpose(-1, -2)
+    return y[:, :, :T].permute(0, 2, 1, 3), state
+
+
+def _bf16_valued(*arrays):
+    return [torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in arrays]
+
+
+@pytest.mark.parametrize("case", SSD_CASES + [RAGGED])
+def test_kernel_schedule_matches_jax(case):
+    """The kernel's cut of the scan (p-slices, chunks in order, 16-row
+    steps, hi / lo pairs, factored decays) against JAX's reference and its
+    Pallas kernel in interpret mode, on bf16-valued x, B and C (the
+    kernel's inputs), for every slice width of 8, P / 2 and P that divides
+    P, within the bound of test_ssd_forward_matches_jax."""
+    B, T, H, P, G, N, chunk, bh = case
+    x, dt, A, Bm, Cm = _ssd_inputs(B, T, H, P, G, N, seed=5)
+    x, Bm, Cm = _bf16_valued(x, Bm, Cm)
+    inp = (x, dt, A, Bm, Cm)
+    yr, sr = jax_ssd_reference(*map(jnp.asarray, inp), chunk=chunk)
+    yk, sk = jax_ssd_scan(*map(jnp.asarray, inp), chunk=chunk, block_h=bh,
+                          interpret=True)
+    yr, sr, yk, sk = map(j2n, (yr, sr, yk, sk))
+    for p_slice in sorted({8, P // 2, P} & {d for d in range(1, P + 1) if P % d == 0}):
+        y, s = kernel_schedule_scan(*_t(*inp), chunk, p_slice)
+        assert tuple(y.shape) == (B, T, H, P) and tuple(s.shape) == (B, H, P, N)
+        _check_y_state(t2n(y), t2n(s), yr, sr)
+        _check_y_state(t2n(y), t2n(s), yk, sk)
+
+
+def test_hi_lo_split_residual():
+    """v - hi - lo <= 2^-17 |v| + 2^-134 for f32 v up to bf16's largest
+    finite value.  bf16 keeps 8 significant bits: for v in [2^e, 2^(e+1)),
+    |v - hi| < 2^(e-8) is exact in f32, and lo = bf16(v - hi) rounds it by
+    at most 2^(e-17) <= 2^-17 |v| where lo is normal, by at most half of
+    bf16's subnormal spacing 2^-133 below (so |v| >= 2^-117 needs the
+    relative term alone).  Random signs and magnitudes over the whole
+    exponent range, values at bf16's largest and smallest normal, and f32
+    subnormals."""
+    r = np.random.RandomState(11)
+    n = 200_000
+    v = r.uniform(1, 2, n) * 2.0 ** r.randint(-149, 128, n) * r.choice([-1, 1], n)
+    bf16_max = float(torch.finfo(torch.bfloat16).max)
+    edges = np.concatenate([
+        bf16_max * (1 - r.uniform(0, 2 ** -9, 1000)),
+        2.0 ** -126 * r.uniform(0.5, 4, 1000),
+        2.0 ** -149 * r.randint(1, 2 ** 23, 1000),       # f32 subnormals
+        [bf16_max, -bf16_max, 2.0 ** -126, 2.0 ** -133, 2.0 ** -149, 0.0]])
+    v = np.clip(np.concatenate([v, edges, -edges]), -bf16_max, bf16_max)
+    t = torch.from_numpy(v.astype(np.float32))
+    hi, lo = _hi_lo(t)
+    assert torch.isfinite(hi).all() and torch.isfinite(lo).all()
+    res = (t.double() - hi.double() - lo.double()).abs()
+    mag = t.double().abs()
+    assert (res <= 2.0 ** -17 * mag + 2.0 ** -134).all()
+    big = mag >= 2.0 ** -117
+    assert (res[big] <= 2.0 ** -17 * mag[big]).all()
+    # the bound is reached: one bf16 rounding of v - hi is not 2^-18
+    assert float((res[big] / mag[big]).max()) > 2.0 ** -18
 
 
 # ---------------------------------------------------------------------------
