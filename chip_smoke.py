@@ -44,18 +44,27 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    as device time (a replayed CUDA graph of the calls; the back-to-back
    time of eager calls beside it) beside its plain version and its bound
    (bytes at 3.35 TB/s against flops at the bf16 tensor-core rate; no
-   single PyTorch call computes the scan: library_ms null).  Then the sum-tree sampler (``tree_sample_blocked``,
-   csrc/sum_tree.cu) against its plain version (``sample_plain``) and the
-   f64 flat oracle on sum trees at the rainbow example's shape (8192
-   leaves, batch 64) and the replay bench's (2^14, 2^17, 2^20 leaves x
-   256): exactly on integer priorities (u on boundaries, below 0, at and
-   beyond the total, runs of zero leaves, a zero block), by the rounding
-   rule of ``kernels/sum_tree/ref.agreement`` on real ones; sensitivity
-   checks show the checks catch '<' for '<=', a dropped clamp, a residual
-   that keeps the block base and a total taken from a stale root; then its
-   time at the example's shape and at 2^17 x 256 beside its plain version,
-   its bound (bytes) and a PyTorch yardstick of two calls (``cumsum`` +
-   ``searchsorted``, which the port never calls);
+   single PyTorch call computes the scan: library_ms null).  Then the
+   sum-tree sampler (``tree_sample_blocked``, csrc/sum_tree.cu) against its
+   plain version (``sample_plain``) and the f64 flat oracle on sum trees at
+   the rainbow example's shape (8192 leaves, batch 64), the replay bench's
+   (2^14, 2^17, 2^20 leaves x 256) and the edges of the kernel's layout
+   (``ST_SHAPES``: one block, 2048 and 8192 blocks, batches 1, 5 and 33),
+   and through ``sample_blocked`` directly at block sizes 1 to 512 and on
+   leaves 4 bytes off 16-byte alignment (``ST_EDGES``): exactly on integer
+   priorities (u on boundaries, below 0, at and beyond the total, runs of
+   zero leaves, a zero block), kernel == plain bit for bit there, by the
+   rounding rule of ``kernels/sum_tree/ref.agreement`` on real ones;
+   sensitivity checks show the checks catch '<' for '<=', a dropped clamp,
+   a residual that keeps the block base and a total taken from a stale
+   root; then its time at the example's shape, at 2^17 x 256 and at 2^20 x
+   64 (``ST_TIMED``) as device time (a replayed CUDA graph, the eager time
+   beside it) beside its plain version, its bound (bytes), the launch floor
+   (a replayed graph of as many one-element ``add_`` launches) and a
+   PyTorch yardstick of two calls (``cumsum`` + ``searchsorted``, which
+   the port never calls); then ``serve.main`` and ``train.main`` with
+   their default config (``--smoke``) on the card must refuse it before
+   drawing any weight, naming ``--full`` and ``--device cpu``;
 4. slice phase, fixed rounds: full-width gemma2-2b with random bf16 weights
    from a seeded generator on the card, through ``repro_torch.launch.serve
    .main`` (batch 8, prompt 1024, gen 64, two rounds); both kernel entry
@@ -93,8 +102,9 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    per PPO update and per RL iteration against the unprofiled wall time of
    the same work (the idle share), and checks that prefill and a decode
    step run exactly one attention kernel a layer (printing its device
-   time a launch), and lists each kernel launch of one ssd_scan call at the
-   training shape with its device time — last, since the profiler slows
+   time a launch), lists each kernel launch of one ssd_scan call at the
+   training shape with its device time, and gives the sum-tree kernel's
+   device time a launch at ``ST_TIMED`` — last, since the profiler slows
    every later launch of the process;
 9. the ``kernels`` JSON line (launch counts from phases 4-7, the largest
    error of phase 3, times), then ``{"ok": true, "device": {...}}`` last.
@@ -167,8 +177,22 @@ ROLL_STEPS = 8   # decode steps of the rollout the profile phase measures
 # the sum-tree sampler (phase 3) and the RL slice (phase 7)
 ST_TPU_KERNEL = "src/repro/kernels/sum_tree/sum_tree.py:49"
 ST_SOURCE = "src/repro_torch/csrc/sum_tree.cu"
-# (leaves, samples): the rainbow example's tree and the replay bench's
-ST_SHAPES = [(8192, 64), (2 ** 14, 256), (2 ** 17, 256), (2 ** 20, 256)]
+# correctness, (leaves, samples) of sum trees read through
+# tree_sample_blocked: the rainbow example's tree, the replay bench's, then
+# one block, 2048 blocks at the rainbow batch, 8192 blocks, and batches that
+# leave a block of four samples part-empty
+ST_SHAPES = [(8192, 64), (2 ** 14, 256), (2 ** 17, 256), (2 ** 20, 256),
+             (512, 5), (2 ** 20, 64), (2 ** 22, 33), (8192, 1), (8192, 33)]
+# ... and (n_blocks, bs, samples, offset) through sample_blocked directly:
+# block sizes the tree never gives, and leaves ``offset`` floats into their
+# buffer, 4 bytes off 16-byte alignment (the kernel's scalar-load path)
+ST_EDGES = [(2048, 1, 33, 0), (16, 16, 5, 0), (16, 100, 64, 0),
+            (3, 100, 256, 1), (4, 256, 1, 0), (1, 256, 33, 0),
+            (4, 256, 64, 1), (16, 512, 64, 1), (8192, 16, 256, 0),
+            (5, 132, 40, 0)]
+# timing, (leaves, samples): the rainbow example's tree (the main path),
+# the replay bench's, rlpyt's Atari replay (2^20) at the rainbow batch
+ST_TIMED = [(8192, 64), (2 ** 17, 256), (2 ** 20, 64)]
 RL = {"variant": "rainbow", "iters": 150, "bar_iters": 200, "bar_updates": 4,
       "big_capacity": 2 ** 20, "big_iters": 20, "profile_iters": 10}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -210,7 +234,8 @@ from repro_torch.kernels.ssd_scan.ssd_scan import (  # noqa: E402
     occupancy as ssd_occupancy)
 from repro_torch.kernels.sum_tree import ops as st_ops  # noqa: E402
 from repro_torch.kernels.sum_tree import ref as st_ref  # noqa: E402
-from repro_torch.kernels.sum_tree.sum_tree import sample_plain  # noqa: E402
+from repro_torch.kernels.sum_tree.sum_tree import (  # noqa: E402
+    sample_blocked, sample_plain)
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import backbones as bb  # noqa: E402
 from repro_torch.serving import DEFAULT_BUCKETS, poisson_trace  # noqa: E402
@@ -996,21 +1021,22 @@ def st_tree(size, integer, gen):
     return torch.cat([torch.zeros(1, device=DEV)] + levels[::-1])
 
 
-def st_positions(tree, batch, integer, gen):
-    """Stratified positions over the root, as replay/device.tree_sample
-    draws them; for integer priorities a quarter of them on boundaries, and
-    -1, 0, the total and the total + 3."""
-    size = tree.shape[0] // 2
-    total = float(tree[1])
+def st_positions(flat, total, batch, integer, gen):
+    """Stratified positions over ``total``, as replay/device.tree_sample
+    draws them; for integer priorities a quarter of them on boundaries of
+    the flat leaves, then -1, 0, the total and the total + 3 (as many of the
+    four as the batch holds)."""
     u = (torch.arange(batch, device=DEV)
          + torch.rand(batch, generator=gen, device=DEV)) / batch * total
     if integer:
-        cum = torch.cumsum(tree[size:].double(), 0)
+        cum = torch.cumsum(flat.double(), 0)
         u = u.floor()
         k = batch // 4
-        u[:k] = cum[torch.randint(0, size, (k,), generator=gen,
+        u[:k] = cum[torch.randint(0, flat.numel(), (k,), generator=gen,
                                   device=DEV)].float()
-        u[k:k + 4] = torch.tensor([-1.0, 0.0, total, total + 3.0], device=DEV)
+        m = min(4, batch - k)
+        u[k:k + m] = torch.tensor([-1.0, 0.0, total, total + 3.0],
+                                  device=DEV)[:m]
     return u.float()
 
 
@@ -1020,6 +1046,22 @@ def st_split(tree):
     bs = min(512, size)
     nb = size // bs
     return tree[size:].view(nb, bs), tree[nb:2 * nb]
+
+
+def st_rows(n_blocks, bs, offset, integer, gen):
+    """(leaves (n_blocks, bs) viewed ``offset`` floats into their buffer,
+    block sums) with a run of zero leaves and a zero block, for
+    sample_blocked called directly."""
+    size = n_blocks * bs
+    buf = torch.zeros(size + offset, device=DEV)
+    buf[offset:] = (torch.randint(0, 5, (size,), generator=gen,
+                                  device=DEV).float() if integer else
+                    torch.rand(size, generator=gen, device=DEV) * 2 + 0.01)
+    buf[offset + size // 3: offset + size // 3 + 300] = 0.0
+    if n_blocks > 2:
+        buf[offset + bs:offset + 2 * bs] = 0.0
+    leaves = buf[offset:].view(n_blocks, bs)
+    return leaves, leaves.sum(1)
 
 
 def st_faulty(leaves, bsums, u, fault, root):
@@ -1044,53 +1086,72 @@ def st_faulty(leaves, bsums, u, fault, root):
     return (blk * bs + inner).to(torch.int32), pr / total
 
 
+def st_hold(name, idx, prob, leaves, bsums, u, integer):
+    """The kernel's (idx, prob) and sample_plain's against the f64 oracle
+    (exact on integer priorities, where kernel == plain bit for bit, the
+    rounding rule on real ones); returns prob's max abs error."""
+    torch.cuda.synchronize()
+    flat = leaves.reshape(-1)
+    batch = u.shape[0]
+    pidx, pprob = sample_plain(leaves, bsums, u)
+    n_terms = st_ref.rounding_terms(*leaves.shape)
+    ks = st_ref.agreement(idx, prob, flat, u, n_terms=n_terms, exact=integer)
+    ps = st_ref.agreement(pidx, pprob, flat, u, n_terms=n_terms,
+                          exact=integer)
+    same = float((idx == pidx).float().mean())
+    p64 = flat.double().cpu()
+    ref = p64[idx.long().cpu().clamp(0, flat.numel() - 1)] / float(p64.sum())
+    err = float((prob.double().cpu() - ref).abs().max())
+    print(f"  {name} x {batch}: kernel vs oracle {ks['mismatches']}/{batch} "
+          f"indices differ ({ks['mismatches'] / batch:.4f}; rule violations "
+          f"{ks['violations']}), plain vs oracle {ps['mismatches']}, kernel "
+          f"== plain on {same:.4f}; prob max_abs_err {err:.3e}, "
+          f"{ks['prob_rel_err']:.4f} of its bound; delta {ks['delta']:.4g}")
+    if not (st_ref.agreement_ok(ks) and st_ref.agreement_ok(ps)):
+        fail(f"sum_tree {name}: kernel {ks} / plain {ps}")
+    if integer and not (torch.equal(idx, pidx) and torch.equal(prob, pprob)):
+        fail(f"sum_tree {name}: kernel and plain differ")
+    return err
+
+
 def sum_tree_kernel_phase():
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     worst = 0.0
-    print("kernel phase: sum_tree (tree_sample_blocked) vs sample_plain and "
-          "the f64 oracle (integer priorities: exact; real: an index may "
-          "differ from the oracle's only within delta = (n_blocks + 2 bs + "
-          "1) 2^-24 total of the boundary; prob within (n_blocks + 2 bs + "
-          "2) 2^-24 relative)")
+    print("kernel phase: sum_tree (tree_sample_blocked, sample_blocked) vs "
+          "sample_plain and the f64 oracle (integer priorities: exact, "
+          "kernel == plain bit for bit; real: an index may differ from the "
+          "oracle's only within delta = (n_blocks + 2 bs + 1) 2^-24 total of "
+          "the boundary; prob within (n_blocks + 2 bs + 2) 2^-24 relative)")
     keep = None
     for size, batch in ST_SHAPES:
         for integer in (True, False):
             tree = st_tree(size, integer, gen)
-            u = st_positions(tree, batch, integer, gen)
+            u = st_positions(tree[size:], float(tree[1]), batch, integer, gen)
             n0 = st_ops.tree_sample_blocked.launches
             idx, prob = st_ops.tree_sample_blocked(tree, u)
-            torch.cuda.synchronize()
             if st_ops.tree_sample_blocked.launches != n0 + 1:
                 fail(f"sum_tree {size}: the kernel did not launch")
             leaves, bsums = st_split(tree)
-            pidx, pprob = sample_plain(leaves, bsums, u)
-            n_terms = st_ref.rounding_terms(*leaves.shape)
-            ks = st_ref.agreement(idx, prob, tree[size:], u, n_terms=n_terms,
-                                  exact=integer)
-            ps = st_ref.agreement(pidx, pprob, tree[size:], u,
-                                  n_terms=n_terms, exact=integer)
-            same = float((idx == pidx).float().mean())
-            p64 = tree[size:].double().cpu()
-            ref = p64[idx.long().cpu().clamp(0, size - 1)] / float(p64.sum())
-            err = float((prob.double().cpu() - ref).abs().max())
-            worst = max(worst, err)
             kind = "integer" if integer else "real"
-            print(f"  {kind} priorities, {size} leaves x {batch}: kernel vs "
-                  f"oracle {ks['mismatches']}/{batch} indices differ "
-                  f"({ks['mismatches'] / batch:.4f}; rule violations "
-                  f"{ks['violations']}), plain vs oracle {ps['mismatches']}, "
-                  f"kernel == plain on {same:.4f}; prob max_abs_err "
-                  f"{err:.3e}, {ks['prob_rel_err']:.4f} of its bound; delta "
-                  f"{ks['delta']:.4g} (total {float(tree[1]):.6g})")
-            if not (st_ref.agreement_ok(ks) and st_ref.agreement_ok(ps)):
-                fail(f"sum_tree {kind} {size}: kernel {ks} / plain {ps}")
-            if integer and not (torch.equal(idx, pidx)
-                                and torch.equal(prob, pprob)):
-                fail(f"sum_tree integer {size}: kernel and plain differ")
+            worst = max(worst, st_hold(
+                f"{kind} priorities, tree of {size} leaves", idx, prob,
+                leaves, bsums, u, integer))
             if integer and size == 2 ** 17:
-                keep = (tree, u, leaves, bsums, n_terms)
-    tree, u, leaves, bsums, n_terms = keep
+                keep = (tree, u, leaves, bsums)
+    for n_blocks, bs, batch, offset in ST_EDGES:
+        for integer in (True, False):
+            leaves, bsums = st_rows(n_blocks, bs, offset, integer, gen)
+            u = st_positions(leaves.reshape(-1), float(bsums.double().sum()),
+                             batch, integer, gen)
+            idx, prob = sample_blocked(leaves, bsums, u)
+            kind = "integer" if integer else "real"
+            worst = max(worst, st_hold(
+                f"{kind} priorities, {n_blocks} blocks of {bs} leaves"
+                f"{f' {4 * offset} B off alignment' if offset else ''}",
+                idx, prob, leaves, bsums, u, integer))
+    tree, u, leaves, bsums = keep
     size = tree.shape[0] // 2
+    n_terms = st_ref.rounding_terms(*leaves.shape)
     root = bsums.sum() * 1.5   # a stale root: 1.5 x the sum of the block sums
     for fault, what in ((None, "no fault"), ("lt", "'<' for '<='"),
                         ("clamp", "clamp dropped (u >= total)"),
@@ -1104,20 +1165,36 @@ def sum_tree_kernel_phase():
               f"{'passes' if ok else 'caught'}")
         if ok != (fault is None):
             fail(f"sum_tree: the checks would not catch {what}")
+    return worst, st_times()
 
+
+def st_times():
+    """The sampler's time at each of ST_TIMED, as device time: the calls
+    (cycling through copies of the tree that together exceed L2, at least
+    one call a copy) captured in one CUDA graph and replayed.  Beside it the
+    eager back-to-back time (whose excess over the graph is the wrapper's
+    host time), the plain version, a PyTorch yardstick of two calls
+    (``cumsum`` + ``searchsorted``, index only, which the port never calls),
+    the bound, and the launch floor: a replayed graph of as many
+    one-element ``add_`` launches."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    floor_x = torch.zeros(1, device=DEV)
     timing = {}
-    for size, batch in ((8192, 64), (2 ** 17, 256)):
+    for size, batch in ST_TIMED:
         tree = st_tree(size, False, gen)
-        u = st_positions(tree, batch, False, gen)
+        u = st_positions(tree[size:], float(tree[1]), batch, False, gen)
         sets = [(tree.clone(), u.clone())
                 for _ in range(copies_for(tree.numel() * 4))]
-        ms = time_ms([lambda s=s: st_ops.tree_sample_blocked(*s)
-                      for s in sets], iters=200)
-        plain = time_ms([lambda s=s: sample_plain(*st_split(s[0]), s[1])
-                         for s in sets], iters=50)
-        lib = time_ms([lambda s=s: torch.searchsorted(
+        iters = max(200, len(sets))
+        kernel = [lambda s=s: st_ops.tree_sample_blocked(*s) for s in sets]
+        ms = graph_ms(kernel, iters=iters)
+        eager = time_ms(kernel, iters=iters)
+        plain = graph_ms([lambda s=s: sample_plain(*st_split(s[0]), s[1])
+                          for s in sets], iters=iters)
+        lib = graph_ms([lambda s=s: torch.searchsorted(
             torch.cumsum(s[0][size:], 0), s[1], right=True) for s in sets],
-            iters=50)
+            iters=iters)
+        floor = graph_ms([lambda: floor_x.add_(1.0)], iters=iters)
         leaves, bsums = st_split(tree)
         idx, _ = st_ops.tree_sample_blocked(tree, u)
         rows = int(torch.unique(idx.long() // leaves.shape[1]).numel())
@@ -1126,17 +1203,49 @@ def sum_tree_kernel_phase():
         nbytes = 4 * (bsums.numel() + rows * leaves.shape[1] + 3 * batch)
         flops = batch * (2 * leaves.shape[1] + math.ceil(
             math.log2(bsums.numel() + 1))) + bsums.numel()
-        timing[(size, batch)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                     bound=bound_ms(nbytes, flops,
-                                                    PEAK_F32_FLOPS),
-                                     nbytes=nbytes)
+        bound = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
+        timing[(size, batch)] = dict(ms=ms, eager_ms=eager, plain_ms=plain,
+                                     library_ms=lib, floor_ms=floor,
+                                     bound=bound, nbytes=nbytes)
         print(f"  sum_tree [{size} leaves, {bsums.numel()} blocks of "
-              f"{leaves.shape[1]}, {batch} samples, {rows} rows]: kernel "
-              f"{ms:.4f} ms a call, plain {plain:.4f} ms, bound "
-              f"{timing[(size, batch)]['bound'][0]:.6f} ms "
-              f"({timing[(size, batch)]['bound'][1]}: {nbytes} B), "
-              f"library_ms (cumsum + searchsorted, two calls) {lib:.4f} ms")
-    return worst, timing
+              f"{leaves.shape[1]}, {batch} samples, {rows} rows; graph of "
+              f"{iters} calls over {len(sets)} copies]: kernel {ms:.5f} ms "
+              f"a call (eager {eager:.5f} ms: host {eager - ms:.5f} ms), "
+              f"bound {bound[0]:.7f} ms ({bound[1]}: {nbytes} B), launch "
+              f"floor {floor:.5f} ms, plain {plain:.5f} ms, library_ms "
+              f"(cumsum + searchsorted, two calls) {lib:.5f} ms")
+    return timing
+
+
+def st_profile():
+    """The sampler's device time a launch at each of ST_TIMED, from
+    torch.profiler (run last: the profiler slows every later launch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_us = {}
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    for size, batch in ST_TIMED:
+        tree = st_tree(size, False, gen)
+        u = st_positions(tree[size:], float(tree[1]), batch, False, gen)
+        st_ops.tree_sample_blocked(tree, u)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(100):
+                st_ops.tree_sample_blocked(tree, u)
+            torch.cuda.synchronize()
+        ks = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and "sum_tree" in e.key]
+        if ks:
+            dev_us[(size, batch)] = (ks[0].self_device_time_total
+                                     / ks[0].count)
+            print(f"  sum_tree_sample_kernel device time [{size} leaves x "
+                  f"{batch}]: {dev_us[(size, batch)]:.3f} us a launch "
+                  f"(profiler, {ks[0].count} launches)")
+        else:
+            print(f"  sum_tree_sample_kernel device time [{size} leaves x "
+                  f"{batch}]: not measured (no CUDA kernel recorded)")
+    return dev_us
 
 
 # ---------------------------------------------------------------------------
@@ -1244,7 +1353,7 @@ def rl_phase(log_dir):
     return launches, (iterate, it_wall)
 
 
-def profile_rl(work, st_timing):
+def profile_rl(work):
     """Device busy time of RL iterations against their unprofiled wall
     time, and the sum-tree kernel's own device time per launch."""
     from torch.autograd import DeviceType
@@ -1259,7 +1368,7 @@ def profile_rl(work, st_timing):
     if not evs:
         print("  profile RL: device time not measured (the profiler recorded "
               "no CUDA kernels)")
-        return {}
+        return
     busy = sum(e.self_device_time_total for e in evs) / 1e3 / n
     kernels = sum(e.count for e in evs) / n
     print(f"  profile RL iteration (rainbow, collect 16 x 16 + 2 updates): "
@@ -1268,23 +1377,26 @@ def profile_rl(work, st_timing):
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms "
               f"x{e.count / n:.0f}  {e.key[:90]}")
-    dev_ms = {}
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
-    for size, batch in st_timing:
-        tree = st_tree(size, False, gen)
-        u = st_positions(tree, batch, False, gen)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(100):
-                st_ops.tree_sample_blocked(tree, u)
-            torch.cuda.synchronize()
-        ks = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and "sum_tree" in e.key]
-        if ks:
-            dev_ms[(size, batch)] = ks[0].self_device_time_total / 1e3 / ks[0].count
-            print(f"  sum_tree_sample_kernel device time [{size} leaves x "
-                  f"{batch}]: {dev_ms[(size, batch)] * 1e3:.3f} us a launch "
-                  f"(profiler, {ks[0].count} launches)")
-    return dev_ms
+    st_profile()
+
+
+def smoke_refused():
+    """The LM entry points' default config (--smoke) is refused on the card
+    before any weight is drawn: its shapes have no kernel instance."""
+    print("entry points: --smoke on cuda")
+    for name, mod, argv in (("serve", serve, ["--rounds", "1"]),
+                            ("train", train, ["--steps", "1"])):
+        held = torch.cuda.memory_allocated()
+        try:
+            mod.main(argv)
+        except ValueError as e:
+            msg = str(e)
+        else:
+            fail(f"{name}: --smoke ran on cuda")
+        if "--full" not in msg or "--device cpu" not in msg or \
+                torch.cuda.memory_allocated() != held:
+            fail(f"{name}: --smoke on cuda not refused up front: {msg}")
+        print(f"  {name}: refused before any weight was drawn: {msg}")
 
 
 def main() -> None:
@@ -1315,6 +1427,7 @@ def main() -> None:
     errs, used, timing = kernel_phase(cfg)
     ssd_worst, ssd_timing = ssd_kernel_phase()
     st_worst, st_timing = sum_tree_kernel_phase()
+    smoke_refused()
 
     with tempfile.TemporaryDirectory() as log_dir:
         print("slice phase: fixed rounds (full-width gemma2-2b, bf16)")
@@ -1377,7 +1490,7 @@ def main() -> None:
     profile_phase(cfg, params, prompts)
     profile_training(training)
     profile_ssd()
-    profile_rl(rl_work, st_timing)
+    profile_rl(rl_work)
     # the main path is the fixed rounds plus the continuous run (attention)
     # and the training run (ssd_scan); the kernel-vs-ref comparisons
     # between them do not count

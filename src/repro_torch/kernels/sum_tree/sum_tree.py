@@ -31,7 +31,7 @@ import torch
 from .. import build
 
 # what csrc/sum_tree.cu takes: one row of leaves per warp (16 a lane), and
-# the scanned block sums in 32 KB of shared memory
+# the scanned block sums in 33 KB of shared memory (one pad word every 32)
 MAX_BLOCK_SIZE = 512
 MAX_BLOCKS = 8192
 

@@ -15,7 +15,10 @@ Port of ``repro/launch/serve.py``.  Two modes:
 Entry points run on ``--device cuda`` (the default), where every attention
 call goes through the hand-written CUDA flash attention kernel unless
 ``--kernels ref`` asks for the plain PyTorch math; ``--device cpu`` runs the
-plain versions.  ``--profile[=DIR]`` writes a ``torch.profiler`` Chrome
+plain versions.  ``--smoke`` (the default config) runs only with ``--device
+cpu``: its attention head dim (16) has no kernel instance on the card yet,
+so on a CUDA device the parser's arguments are rejected up front and
+``--full`` is needed.  ``--profile[=DIR]`` writes a ``torch.profiler`` Chrome
 trace with the serving spans annotated.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
@@ -209,12 +212,25 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def reject_smoke_on_cuda(args) -> None:
+    """Raise if the parsed ``args`` ask for the smoke config on a CUDA
+    device: its attention shape (d_head 16) has no kernel instance built on
+    the card, so the first attention call would fail deep in the model."""
+    if args.smoke and torch.device(args.device).type == "cuda":
+        raise ValueError(
+            "--smoke runs only on the CPU: the smoke config's attention "
+            "(d_head 16) has no kernel instance on the card yet. Pass --full "
+            "for the full-size config on CUDA, or --device cpu for the smoke "
+            "config on the plain versions")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "
                            "pass --device cpu to run the plain versions")
+    reject_smoke_on_cuda(args)
 
     tracer = trace.configure(os.path.join(args.log_dir, "trace.jsonl")
                              if args.log_dir else None)

@@ -13,7 +13,10 @@ token-MDP environment: each iteration runs
 Entry points run on ``--device cuda`` (the default), where every SSD scan
 of ``forward_train`` goes through the hand-written CUDA kernel
 (``csrc/ssd_scan.cu``) unless ``--kernels ref`` asks for the plain PyTorch
-math; ``--device cpu`` runs the plain versions.  The forward of the update
+math; ``--device cpu`` runs the plain versions.  ``--smoke`` (the default
+config) runs only with ``--device cpu``: its SSD shape (P 16, N 16, chunk
+8) has no kernel instance on the card yet, so on a CUDA device the
+arguments are rejected up front and ``--full`` is needed.  The forward of the update
 is the ssm family's only (``--arch mamba2-1.3b``, the default); the dense
 family's needs the flash-attention backward, not ported yet.  Every
 iteration logs one row (console, CSV, JSONL under ``--log-dir``) with the
@@ -120,6 +123,19 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def reject_smoke_on_cuda(args) -> None:
+    """Raise if the parsed ``args`` ask for the smoke config on a CUDA
+    device: its SSD shape (P 16, N 16, chunk 8) has no kernel instance
+    built on the card, so the first SSD scan would fail deep in the
+    model."""
+    if args.smoke and torch.device(args.device).type == "cuda":
+        raise ValueError(
+            "--smoke runs only on the CPU: the smoke config's SSD scan (P 16, "
+            "N 16, chunk 8) has no kernel instance on the card yet. Pass "
+            "--full for the full-size config on CUDA, or --device cpu for "
+            "the smoke config on the plain versions")
+
+
 def main(argv=None):
     """Run ``--steps`` iterations; returns the trained ``LM``."""
     args = build_parser().parse_args(argv)
@@ -127,6 +143,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "
                            "pass --device cpu to run the plain versions")
+    reject_smoke_on_cuda(args)
     tracer = trace.configure(os.path.join(args.log_dir, "trace.jsonl")
                              if args.log_dir else None)
     if args.kernels:

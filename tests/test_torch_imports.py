@@ -100,6 +100,25 @@ def test_train_on_cuda_without_a_card_raises():
         train.main(["--steps", "0"])
 
 
+@pytest.mark.parametrize("entry", ["serve", "train"])
+def test_smoke_on_cuda_is_rejected_before_any_weight(entry):
+    """The smoke shapes have no kernel instance on the card: parsed
+    ``--device cuda`` with the default smoke config is refused by the entry
+    point's own check, naming --full and --device cpu; --full on CUDA and
+    the smoke config on the CPU pass it."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.launch.{entry}")
+    parse = mod.build_parser().parse_args
+    with pytest.raises(ValueError) as err:
+        mod.reject_smoke_on_cuda(parse([]))
+    assert "--full" in str(err.value) and "--device cpu" in str(err.value)
+    with pytest.raises(ValueError, match="--smoke runs only on the CPU"):
+        mod.reject_smoke_on_cuda(parse(["--device", "cuda:0", "--smoke"]))
+    mod.reject_smoke_on_cuda(parse(["--full"]))
+    mod.reject_smoke_on_cuda(parse(["--device", "cpu"]))
+    mod.reject_smoke_on_cuda(parse(["--device", "cpu", "--full"]))
+
+
 def test_every_kernel_source_is_built_and_ported():
     """Each csrc/*.cu is in build.SOURCES, and the registry's PORTED ops are
     exactly those with a kernel package."""

@@ -26,10 +26,15 @@ S_abs: the scan of |x|, |B|, |C|).  It is built for P 64, N 128 and chunk
 
 The sum-tree sampler (``csrc/sum_tree.cu``) is held against its plain
 version and the f64 flat oracle on sum trees at the rainbow example's shape
-(8192 leaves, batch 64) and the replay bench's (2^14, 2^17 and 2^20 leaves,
-256 samples): exactly on integer priorities (u on boundaries, below 0, at
-and beyond the total, over runs of zero leaves and a zero block), and by
-the rounding rule of ``kernels/sum_tree/ref.agreement`` on real ones.
+(8192 leaves, batch 64), the replay bench's (2^14, 2^17 and 2^20 leaves,
+256 samples) and at the edges of its layout: one block (512 leaves), 2048
+and 8192 blocks, batches 1, 5 and 33 (not a multiple of the four samples a
+block), and through ``sample_blocked`` directly block sizes 1, 16, 100 and
+256 and a leaves view 4 bytes off 16-byte alignment (the scalar-load path):
+exactly on integer priorities (u on boundaries, below 0, at and beyond the
+total, over runs of zero leaves and a zero block), kernel == plain bit for
+bit there, and by the rounding rule of ``kernels/sum_tree/ref.agreement``
+on real ones.
 """
 import pytest
 
@@ -244,40 +249,80 @@ def _tree(size, device, integer, seed=3):
     return tree.to(device)
 
 
-def _positions(tree, batch, integer, seed=4):
-    size = tree.shape[0] // 2
+def _positions(flat, total, batch, integer, seed=4):
+    """Stratified positions over ``total``; for integer priorities a quarter
+    of them on boundaries of the flat leaves, then -1, 0, the total and the
+    total + 3 (as many of the four as the batch holds)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    total = float(tree[1])
     u = (torch.arange(batch) + torch.rand(batch, generator=g)) / batch * total
     if integer:
-        c = torch.cumsum(tree[size:].double().cpu(), 0)
+        c = torch.cumsum(flat.double().cpu(), 0)
         u = u.floor()
         k = batch // 4
-        u[:k] = c[torch.randint(0, size, (k,), generator=g)].float()
-        u[k:k + 4] = torch.tensor([-1.0, 0.0, total, total + 3.0])
-    return u.float().to(tree.device)
+        u[:k] = c[torch.randint(0, flat.numel(), (k,), generator=g)].float()
+        m = min(4, batch - k)
+        u[k:k + m] = torch.tensor([-1.0, 0.0, total, total + 3.0])[:m]
+    return u.float().to(flat.device)
 
 
-@pytest.mark.parametrize("size,batch", [(8192, 64), (2 ** 14, 256),
-                                        (2 ** 17, 256), (2 ** 20, 256)])
-@pytest.mark.parametrize("integer", [True, False])
-def test_sum_tree_kernel_vs_plain_and_oracle(size, batch, integer, cuda):
-    tree = _tree(size, cuda, integer)
-    u = _positions(tree, batch, integer)
-    n0 = st_ops.tree_sample_blocked.launches
-    idx, prob = st_ops.tree_sample_blocked(tree, u)
+def _hold(idx, prob, leaves, bsums, flat, u, integer):
+    """The kernel's (idx, prob) and the plain version's against the f64
+    oracle over the flat leaves; on integer priorities kernel == plain."""
     torch.cuda.synchronize()
-    assert st_ops.tree_sample_blocked.launches == n0 + 1
-    bs = min(512, size)
-    leaves = tree[size:].view(-1, bs)
-    pidx, pprob = sample_plain(leaves, tree[leaves.shape[0]:2 * leaves.shape[0]], u)
-    n_terms = st_ref.rounding_terms(leaves.shape[0], bs)
+    pidx, pprob = sample_plain(leaves, bsums, u)
+    n_terms = st_ref.rounding_terms(*leaves.shape)
     for i, p in ((idx, prob), (pidx, pprob)):
-        stats = st_ref.agreement(i, p, tree[size:], u, n_terms=n_terms,
+        stats = st_ref.agreement(i, p, flat, u, n_terms=n_terms,
                                  exact=integer)
         assert st_ref.agreement_ok(stats), stats
     if integer:
         assert torch.equal(idx, pidx) and torch.equal(prob, pprob)
+
+
+@pytest.mark.parametrize("size,batch", [
+    (8192, 64), (2 ** 14, 256), (2 ** 17, 256), (2 ** 20, 256),
+    # one block, 2048 and 8192 blocks; batches that leave a block part-empty
+    (512, 5), (2 ** 20, 64), (2 ** 22, 33), (8192, 1), (8192, 33)])
+@pytest.mark.parametrize("integer", [True, False])
+def test_sum_tree_kernel_vs_plain_and_oracle(size, batch, integer, cuda):
+    tree = _tree(size, cuda, integer)
+    u = _positions(tree[size:], float(tree[1]), batch, integer)
+    n0 = st_ops.tree_sample_blocked.launches
+    idx, prob = st_ops.tree_sample_blocked(tree, u)
+    assert st_ops.tree_sample_blocked.launches == n0 + 1
+    bs = min(512, size)
+    leaves = tree[size:].view(-1, bs)
+    _hold(idx, prob, leaves, tree[leaves.shape[0]:2 * leaves.shape[0]],
+          tree[size:], u, integer)
+
+
+@pytest.mark.parametrize("n_blocks,bs,batch,offset", [
+    (2048, 1, 33, 0), (16, 16, 5, 0), (16, 100, 64, 0), (3, 100, 256, 1),
+    (4, 256, 1, 0), (1, 256, 33, 0), (4, 256, 64, 1), (16, 512, 64, 1),
+    (8192, 16, 256, 0), (5, 132, 40, 0)])
+@pytest.mark.parametrize("integer", [True, False])
+def test_sum_tree_kernel_block_sizes_vs_plain_and_oracle(
+        n_blocks, bs, batch, offset, integer, cuda):
+    """``sample_blocked`` directly at block sizes the tree layout never
+    gives (1, 16, 100, 132, 256) and on a leaves view ``offset`` floats
+    into its buffer: at 4 bytes off 16-byte alignment the kernel takes its
+    scalar-load path even where bs % 4 == 0."""
+    g = torch.Generator(device="cpu").manual_seed(n_blocks + bs + batch)
+    size = n_blocks * bs
+    flat = (torch.randint(0, 5, (size,), generator=g).float() if integer
+            else torch.rand(size, generator=g) * 2 + 0.01)
+    flat[size // 3: size // 3 + 300] = 0.0
+    if n_blocks > 2:
+        flat[bs:2 * bs] = 0.0
+    buf = torch.zeros(size + offset, device=cuda)
+    buf[offset:] = flat.to(cuda)
+    leaves = buf[offset:].view(n_blocks, bs)
+    assert leaves.data_ptr() % 16 == 4 * offset
+    bsums = leaves.sum(1)
+    u = _positions(leaves.reshape(-1), float(bsums.double().sum()), batch,
+                   integer)
+    idx, prob = sample_blocked(leaves, bsums, u)
+    _hold(idx, prob, leaves, bsums, leaves.reshape(-1), u, integer)
 
 
 def test_sum_tree_kernel_rejects_what_it_does_not_take(cuda):

@@ -37,8 +37,15 @@ from repro_torch.replay import device as treplay  # noqa: E402
 from repro_torch.replay.interface import DeviceReplay  # noqa: E402
 from repro_torch.telemetry import trace  # noqa: E402
 
+# (capacity, block size, batch): then the CUDA kernel's layout edges --
+# block sizes 1, 16, 100, 256 and 512, 1, 16, 2048 and 8192 blocks, and
+# batches 1, 5 and 33 (not a multiple of its four samples a block)
 SUMTREE_CASES = [(1024, 64, 256), (4096, 512, 128), (1000, 128, 64),
-                 (64, 8, 32)]
+                 (64, 8, 32),
+                 (2048, 1, 33), (256, 16, 5), (1600, 100, 64), (512, 256, 1),
+                 (512, 512, 256), (2048 * 8, 8, 64), (8192 * 16, 16, 64)]
+# rlpyt's Atari replay: 2^20 leaves in 2048 blocks of 512
+RLPYT_CASE = (2 ** 20, 512, 256)
 
 
 def _t(x):
@@ -58,11 +65,10 @@ def _integer_case(cap, bs, batch, seed):
     cum = np.cumsum(pr.astype(np.float64))
     total = cum[-1]
     u = rs.randint(0, int(total), size=batch).astype(np.float32)
-    u[: batch // 4] = cum[rs.randint(0, n_blocks * bs, size=batch // 4)]
-    u[batch // 4] = -1.0
-    u[batch // 4 + 1] = total
-    u[batch // 4 + 2] = total + 3.0
-    u[batch // 4 + 3] = 0.0
+    k = batch // 4
+    u[:k] = cum[rs.randint(0, n_blocks * bs, size=k)]
+    m = min(4, batch - k)   # as many of the four as the batch holds
+    u[k:k + m] = np.array([-1.0, total, total + 3.0, 0.0])[:m]
     return pr, u
 
 
@@ -88,7 +94,7 @@ def _plain(pr, bs, u):
     return sample_plain(leaves, leaves.sum(1), torch.from_numpy(u))
 
 
-@pytest.mark.parametrize("cap,bs,batch", SUMTREE_CASES)
+@pytest.mark.parametrize("cap,bs,batch", SUMTREE_CASES + [RLPYT_CASE])
 def test_plain_two_level_matches_pallas_on_integer_priorities(cap, bs, batch):
     pr, u = _integer_case(cap, bs, batch, seed=cap)
     jidx, jprob = _pallas(pr, bs, u)
@@ -115,6 +121,25 @@ def test_plain_two_level_matches_pallas_on_real_priorities(cap, bs, batch):
         assert tref.agreement_ok(stats), stats
     same = tidx.numpy() == jidx
     assert same.mean() > 0.99
+    np.testing.assert_allclose(tprob.numpy()[same], jprob[same], rtol=2.5e-7)
+
+
+def test_plain_two_level_matches_pallas_at_rlpyt_scale_on_real_priorities():
+    """At 2048 blocks of 512 the two sides sum each row in different orders
+    over many more terms, so indices near a boundary differ more often than
+    the 1 % the test above allows (seed cap + 1: 5 of 256, 2.0 %): both
+    sides within the rounding rule of the f64 oracle, and each other's prob
+    within 2 f32 ulps where the indices agree."""
+    cap, bs, batch = RLPYT_CASE
+    pr, u = _real_case(cap, bs, batch, seed=cap + 1)
+    n_terms = tref.rounding_terms(pr.size // bs, bs)
+    jidx, jprob = _pallas(pr, bs, u)
+    tidx, tprob = _plain(pr, bs, u)
+    for idx, prob in ((tidx, tprob), (_t(jidx), _t(jprob))):
+        stats = tref.agreement(idx, prob, torch.from_numpy(pr),
+                               torch.from_numpy(u), n_terms=n_terms, exact=False)
+        assert tref.agreement_ok(stats), stats
+    same = tidx.numpy() == jidx
     np.testing.assert_allclose(tprob.numpy()[same], jprob[same], rtol=2.5e-7)
 
 
