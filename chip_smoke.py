@@ -97,16 +97,25 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    -0.6).  Then the rainbow configuration at rlpyt's Atari replay scale
    (capacity 2^20, 0.43 GB of Catch transitions on the card; warm-up 512,
    20 iterations), where the kernel samples over 2048 blocks;
-8. on the same weights, a ``torch.profiler`` pass measures the device's
+8. slice phase, PG: PPO on CartPole through ``python -m
+   repro_torch.examples.quickstart``'s ``main`` at its settings (16 envs x
+   horizon 64, 4 epochs x 4 minibatches, 50 iterations, a row every 10,
+   an EvalSampler of 8 greedy envs, sentinels): every logged number
+   finite, ``sent_nonfinite_params`` 0 and ``eval_avg_return`` in every
+   row; no kernel launches on this path (it runs none).  Then the two
+   CartPole bars of tests/test_learning.py at seed 0, scored by 8
+   stochastic collects of the training sampler: PPO after 60 iterations >
+   100, A2C after 80 (horizon 32, GAE lambda 0.95) > 50;
+9. on the same weights, a ``torch.profiler`` pass measures the device's
    busy time per prefill, per decode step, per rollout of ROLL_STEPS steps,
-   per PPO update and per RL iteration against the unprofiled wall time of
-   the same work (the idle share), and checks that prefill and a decode
-   step run exactly one attention kernel a layer (printing its device
-   time a launch), lists each kernel launch of one ssd_scan call at the
-   training shape with its device time, and gives the sum-tree kernel's
-   device time a launch at ``ST_TIMED`` — last, since the profiler slows
-   every later launch of the process;
-9. the ``kernels`` JSON line (launch counts from phases 4-7, the largest
+   per PPO update, per RL iteration and per PPO CartPole iteration against
+   the unprofiled wall time of the same work (the idle share), and checks
+   that prefill and a decode step run exactly one attention kernel a layer
+   (printing its device time a launch), lists each kernel launch of one
+   ssd_scan call at the training shape with its device time, and gives the
+   sum-tree kernel's device time a launch at ``ST_TIMED`` — last, since the
+   profiler slows every later launch of the process;
+10. the ``kernels`` JSON line (launch counts from phases 4-7, the largest
    error of phase 3, times), then ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -195,6 +204,7 @@ ST_EDGES = [(2048, 1, 33, 0), (16, 16, 5, 0), (16, 100, 64, 0),
 ST_TIMED = [(8192, 64), (2 ** 17, 256), (2 ** 20, 64)]
 RL = {"variant": "rainbow", "iters": 150, "bar_iters": 200, "bar_updates": 4,
       "big_capacity": 2 ** 20, "big_iters": 20, "profile_iters": 10}
+PG = {"iters": 50, "log_interval": 10, "profile_iters": 5}  # the quickstart
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -223,6 +233,7 @@ from repro_torch.algos.pg.ppo import make_lm_ppo_train_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.envs.token_lm import make_token_lm  # noqa: E402
 from repro_torch.examples import catch_dqn_variants as catch_dqn  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
@@ -1340,7 +1351,7 @@ def rl_phase(log_dir):
 
     def iterate(n=RL["profile_iters"]):
         for _ in range(n):
-            state["ts"], state["ss"], state["rs"], _ = runner.loop.iteration(
+            state["ts"], state["ss"], state["rs"], _, _ = runner.loop.iteration(
                 state["ts"], state["ss"], state["rs"], state["gen"])
         torch.cuda.synchronize()
 
@@ -1378,6 +1389,106 @@ def profile_rl(work):
         print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms "
               f"x{e.count / n:.0f}  {e.key[:90]}")
     st_profile()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: PPO and A2C on CartPole (the quickstart and the learning bars)
+# ---------------------------------------------------------------------------
+KERNEL_COUNTERS = (ops.flash_attention, ops.flash_attention_decode,
+                   ssd_ops.ssd_scan, st_ops.tree_sample_blocked)
+
+
+def pg_phase(log_dir):
+    t_phase = time.perf_counter()
+    pg_dir = str(Path(log_dir) / "quickstart")
+    print(f"slice phase: PPO on CartPole (the quickstart: {PG['iters']} "
+          "iterations of 16 envs x horizon 64, EvalSampler, sentinels)")
+    for c in KERNEL_COUNTERS:
+        c.launches = 0
+    t0 = time.perf_counter()
+    final = quickstart.main(["--device", "cuda", "--seed", str(SEED),
+                             "--iters", str(PG["iters"]), "--log-dir", pg_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {c.__name__: c.launches for c in KERNEL_COUNTERS}
+    rows = finite_rows(Path(pg_dir) / "progress.jsonl", "quickstart")
+    if len(rows) != PG["iters"] // PG["log_interval"]:
+        fail(f"quickstart logged {len(rows)} rows")
+    for r in rows:
+        if "eval_avg_return" not in r or r["sent_nonfinite_params"] != 0:
+            fail(f"quickstart iter {r['iter']}: eval_avg_return "
+                 f"{r.get('eval_avg_return')}, sent_nonfinite_params "
+                 f"{r.get('sent_nonfinite_params')}")
+        print(f"  iter {r['iter']:.0f}: avg_return {r['avg_return']:.2f}, "
+              f"eval_avg_return {r['eval_avg_return']:.2f} "
+              f"({r['eval_episodes']:.0f} episodes), samples_per_sec "
+              f"{r['samples_per_sec']:.1f}, loss {r['loss']:.4f}, "
+              f"sent_update_norm {r['sent_update_norm']:.4f}")
+    print(f"  {wall:.2f} s for {PG['iters']} iterations with {len(rows)} "
+          f"evaluations; "
+          f"final stats {final}; kernel launches {launched}")
+    if any(launched.values()):
+        fail(f"the PPO path launched a kernel: {launched}")
+
+    bars = {}
+    for name, bar in quickstart.BARS.items():
+        t0 = time.perf_counter()
+        ret = quickstart.learning_bar(name, seed=SEED, device=DEV)
+        bars[name] = ret
+        print(f"  learning bar {name}: {bar['iters']} iterations of 16 x "
+              f"{bar['horizon']}, eval return {ret:.2f} (bar "
+              f"{bar['threshold']:g}); {time.perf_counter() - t0:.2f} s")
+        if not ret > bar["threshold"]:
+            fail(f"CartPole {name} return {ret} <= {bar['threshold']}")
+
+    # unprofiled wall time of quickstart iterations for the profile phase
+    _, runner = quickstart.make_runner(2, log_interval=2,
+                                       logger=Logger(sinks=()))
+    ts, ss, _ = runner.run(SEED, device=DEV)
+    state = {"ts": ts, "ss": ss,
+             "gen": torch.Generator(device=DEV).manual_seed(SEED + 3)}
+
+    def iterate(n=PG["profile_iters"]):
+        for _ in range(n):
+            state["ts"], state["ss"], _, _, _ = runner.loop.iteration(
+                state["ts"], state["ss"], None, state["gen"])
+        torch.cuda.synchronize()
+
+    iterate(2)
+    t0 = time.perf_counter()
+    iterate()
+    it_wall = (time.perf_counter() - t0) * 1e3 / PG["profile_iters"]
+    print(f"  one quickstart iteration (collect 16 x 64, 16 PPO minibatch "
+          f"updates, sentinels): {it_wall:.3f} ms unprofiled; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return (iterate, it_wall)
+
+
+def profile_pg(work):
+    """Device busy time of quickstart iterations against their unprofiled
+    wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    iterate, wall = work
+    n = PG["profile_iters"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        iterate()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        print("  profile PPO CartPole: device time not measured (the profiler "
+              "recorded no CUDA kernels)")
+        return
+    busy = sum(e.self_device_time_total for e in evs) / 1e3 / n
+    kernels = sum(e.count for e in evs) / n
+    print(f"  profile PPO CartPole iteration (collect 16 x 64 + 16 updates + "
+          f"sentinels): wall {wall:.3f} ms unprofiled, device busy "
+          f"{busy:.3f} ms ({kernels:.0f} kernels), idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms "
+              f"x{e.count / n:.0f}  {e.key[:90]}")
 
 
 def smoke_refused():
@@ -1484,6 +1595,8 @@ def main() -> None:
         ssd_launches, training = train_phase(log_dir)
         torch.cuda.empty_cache()
         rl_launches, rl_work = rl_phase(log_dir)
+        torch.cuda.empty_cache()
+        pg_work = pg_phase(log_dir)
 
     # last, because the profiler slows every later launch of the process
     print("profile: where the time goes (not the main path's counts)")
@@ -1491,6 +1604,7 @@ def main() -> None:
     profile_training(training)
     profile_ssd()
     profile_rl(rl_work)
+    profile_pg(pg_work)
     # the main path is the fixed rounds plus the continuous run (attention)
     # and the training run (ssd_scan); the kernel-vs-ref comparisons
     # between them do not count

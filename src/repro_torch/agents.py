@@ -1,6 +1,7 @@
 """Concrete agents (paper §6.1): model + distribution -> step function.
 
-Port of the DQN agent of ``repro/agents.py``.  An agent step is a function
+Port of the categorical policy-gradient and DQN agents of
+``repro/agents.py``.  An agent step is a function
     step(params, generator, obs, prev_action, prev_reward, state)
         -> (action, agent_info dict, new_state)
 that the serial sampler calls once per env step on a (B, ...) batch; the
@@ -13,7 +14,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .core.distributions import EpsilonGreedy
+from .core.distributions import Categorical, EpsilonGreedy
 
 F32 = torch.float32
 
@@ -27,6 +28,30 @@ class AgentDef(NamedTuple):
     # greedy/deterministic counterpart of ``step`` for offline evaluation
     # (paper §2.1 eval mode); same signature.
     eval_step: Optional[Callable] = None
+
+
+def make_categorical_pg_agent(model) -> AgentDef:
+    """A2C/PPO agent over Discrete actions; info: logp, value."""
+    dist = Categorical(dim=None)
+
+    def step(params, generator, obs, prev_action, prev_reward, state):
+        logits, value = model.apply(params, obs, prev_action, prev_reward)
+        action = dist.sample(generator, logits)
+        logp = dist.log_likelihood(action, logits)
+        return action, {"logp": logp, "value": value}, state
+
+    def value(params, obs, prev_action, prev_reward, state):
+        _, v = model.apply(params, obs, prev_action, prev_reward)
+        return v
+
+    def eval_step(params, generator, obs, prev_action, prev_reward, state):
+        logits, value = model.apply(params, obs, prev_action, prev_reward)
+        action = dist.mode(logits)
+        logp = dist.log_likelihood(action, logits)
+        return action, {"logp": logp, "value": value}, state
+
+    return AgentDef(model.init, step, value, model.initial_state,
+                    eval_step=eval_step)
 
 
 def make_dqn_agent(model, n_actions: int, *, n_atoms: int = 0,

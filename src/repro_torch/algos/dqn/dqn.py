@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
-from ...core.algorithm import OptInfo, TrainState
+from ...core.algorithm import OptInfo, TrainState, grads_of
 from ...core.batch_spec import BatchSpec
 from ...train.optim import Optimizer
 
@@ -138,13 +138,7 @@ class DQN:
     # ------------------------------------------------------------------
     def grads(self, params, target_params, batch):
         """(loss, aux, grads): grads a list in ``tree_leaves(params)`` order."""
-        leaves, spec = pytree.tree_flatten(params)
-        work = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss, aux = self.loss(pytree.tree_unflatten(work, spec),
-                                  target_params, batch)
-            grads = torch.autograd.grad(loss, work)
-        return loss.detach(), aux, list(grads)
+        return grads_of(self.loss, params, target_params, batch)
 
     def update(self, train_state: TrainState, batch, generator=None):
         target = train_state.extra["target"]

@@ -1,19 +1,137 @@
-"""LM-scale PPO train step, port of
-``repro/algos/pg/ppo.py::make_lm_ppo_train_step``.
+"""PPO (paper §1.1), port of ``repro/algos/pg/ppo.py``: the rlpyt-style
+``PPO`` class (clipped surrogate, minibatch epochs) and the LM-scale
+``make_lm_ppo_train_step``.
 
-Single device: the JAX ``maybe_cast`` (``cfg.cast_weights_bf16``) and
-``param_pspecs`` sharding constraints are mesh-only and dropped; the
-rlpyt-style minibatch ``PPO`` class waits for the RL slice.
+``PPO.update`` runs epochs x minibatches gradient steps, eagerly, over one
+permutation of the T*B samples per epoch; the optimizer writes the params
+IN PLACE.  Single device: the JAX ``maybe_cast``
+(``cfg.cast_weights_bf16``) and ``param_pspecs`` sharding constraints of
+the LM step are mesh-only and dropped.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
+from ...core.algorithm import OptInfo, TrainState, grads_of
+from ...core.batch_spec import BatchSpec
 from ...models import backbones as bb
 from ...train.optim import Optimizer
+from .gae import gae_associative, gae_scan
 
 F32 = torch.float32
+
+
+class PPO:
+    batch_spec = BatchSpec("rollout", ("observation", "prev_action",
+                                       "prev_reward", "action", "reward",
+                                       "done", "value", "logp_old",
+                                       "bootstrap_value"))
+
+    def __init__(self, apply_fn: Callable, optimizer: Optimizer, *,
+                 distribution, gamma=0.99, gae_lambda=0.95,
+                 clip_eps=0.2, value_coeff=0.5, entropy_coeff=0.01,
+                 epochs=4, minibatches=4, normalize_advantage=True,
+                 value_clip: Optional[float] = None, associative_gae=False):
+        self.apply = apply_fn
+        self.opt = optimizer
+        self.dist = distribution
+        self.gamma, self.lam = gamma, gae_lambda
+        self.clip_eps = clip_eps
+        self.vc, self.ec = value_coeff, entropy_coeff
+        self.epochs, self.minibatches = epochs, minibatches
+        self.norm_adv = normalize_advantage
+        self.value_clip = value_clip
+        self.gae = gae_associative if associative_gae else gae_scan
+
+    def init_train_state(self, generator, params) -> TrainState:
+        return TrainState(step=0, params=params,
+                          opt_state=self.opt.init(pytree.tree_leaves(params)),
+                          extra=None)
+
+    # -- advantage computation on the full (T, B) batch ---------------------
+    def compute_advantages(self, batch):
+        return self.gae(batch["reward"], batch["value"],
+                        batch["bootstrap_value"], batch["done"],
+                        gamma=self.gamma, lam=self.lam)
+
+    def loss(self, params, mb):
+        logits, value = self.apply(params, mb["observation"],
+                                   mb.get("prev_action"), mb.get("prev_reward"))
+        logp = self.dist.log_likelihood(mb["action"], logits)
+        ratio = torch.exp(logp - mb["logp_old"])
+        adv = mb["advantage"]
+        if self.norm_adv:
+            # JAX's std is the population std
+            adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        surr1 = ratio * adv
+        surr2 = torch.clamp(ratio, 1 - self.clip_eps, 1 + self.clip_eps) * adv
+        pi_loss = -torch.mean(torch.minimum(surr1, surr2))
+        if self.value_clip is not None:
+            v_old = mb["value"]
+            v_clip = v_old + torch.clamp(value - v_old, -self.value_clip,
+                                         self.value_clip)
+            v_loss = 0.5 * torch.mean(torch.maximum(
+                torch.square(value - mb["return_"]),
+                torch.square(v_clip - mb["return_"])))
+        else:
+            v_loss = 0.5 * torch.mean(torch.square(value - mb["return_"]))
+        ent = torch.mean(self.dist.entropy(logits))
+        total = pi_loss + self.vc * v_loss - self.ec * ent
+        clipfrac = torch.mean((torch.abs(ratio - 1.0) > self.clip_eps).to(F32))
+        return total, {"pi_loss": pi_loss, "v_loss": v_loss, "entropy": ent,
+                       "clipfrac": clipfrac,
+                       "approx_kl": torch.mean(mb["logp_old"] - logp)}
+
+    def update(self, train_state: TrainState, batch, generator=None, *,
+               perms=None):
+        """batch: time-major (T, B) with observation/action/reward/done/value/
+        logp_old/bootstrap_value.  Runs epochs x minibatches gradient steps;
+        epoch e visits the samples in the order ``perms[e]`` (drawn from
+        ``generator`` when None; a test passes JAX's).  The minibatch size is
+        n // minibatches: the remainder of each permutation is dropped."""
+        adv, ret = self.compute_advantages(batch)
+        T, B = batch["reward"].shape
+        n = T * B
+        flat = {
+            "observation": batch["observation"].flatten(0, 1),
+            "action": batch["action"].flatten(0, 1),
+            "logp_old": batch["logp_old"].reshape(n),
+            "advantage": adv.reshape(n),
+            "return_": ret.reshape(n),
+            "value": batch["value"].reshape(n),
+        }
+        if "prev_action" in batch:
+            flat["prev_action"] = batch["prev_action"].flatten(0, 1)
+            flat["prev_reward"] = batch["prev_reward"].reshape(n)
+        if perms is None:
+            perms = [torch.randperm(n, generator=generator,
+                                    device=generator.device)
+                     for _ in range(self.epochs)]
+        mb_size = n // self.minibatches
+        leaves = pytree.tree_leaves(train_state.params)
+        opt_state = train_state.opt_state
+        losses, gnorms, auxes = [], [], []
+        for e in range(self.epochs):
+            perm = torch.as_tensor(perms[e], device=adv.device).long()
+            for i in range(self.minibatches):
+                idx = perm[i * mb_size:(i + 1) * mb_size]
+                mb = {k: v[idx] for k, v in flat.items()}
+                loss, aux, grads = grads_of(self.loss, train_state.params, mb)
+                _, opt_state, gnorm = self.opt.update(grads, opt_state, leaves)
+                losses.append(loss)
+                gnorms.append(gnorm)
+                auxes.append(aux)
+        ts = TrainState(step=train_state.step + 1, params=train_state.params,
+                        opt_state=opt_state, extra=None)
+        extra = {k: torch.mean(torch.stack([a[k] for a in auxes]))
+                 for k in auxes[0]}
+        info = OptInfo(loss=torch.mean(torch.stack(losses)),
+                       grad_norm=torch.mean(torch.stack(gnorms)), extra=extra)
+        return ts, info
 
 
 def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,

@@ -8,6 +8,9 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
+import torch
+from torch.utils import _pytree as pytree
+
 from .batch_spec import BatchSpec
 from .narrtup import namedarraytuple
 
@@ -38,3 +41,15 @@ class Algorithm:
 
     def update(self, train_state: TrainState, batch, generator=None):
         raise NotImplementedError
+
+
+def grads_of(loss_fn, params, *args):
+    """(loss, aux, grads) of ``loss_fn(params, *args) -> (loss, aux)``:
+    grads a list in ``tree_leaves(params)`` order, loss and aux detached."""
+    leaves, spec = pytree.tree_flatten(params)
+    work = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss, aux = loss_fn(pytree.tree_unflatten(work, spec), *args)
+        grads = torch.autograd.grad(loss, work)
+    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
+            list(grads))

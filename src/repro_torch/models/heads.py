@@ -1,10 +1,11 @@
-"""Heads attached to a trunk's hidden states, port of the DQN part of
-``repro/models/heads.py`` (paper §6.1 'Model' outputs).
+"""Heads attached to a trunk's hidden states, port of the DQN and
+policy-gradient parts of ``repro/models/heads.py`` (paper §6.1 'Model'
+outputs).
 
 Pure functions over small param dicts of tensors — ``{"w": (d_in, d_out),
 "b": (d_out,)}`` per linear layer, the JAX layout — so the JAX parameter
-pytrees carry over leaf for leaf (``models/convert.py``).  The PG and
-continuous-control heads wait for their slices.
+pytrees carry over leaf for leaf (``models/convert.py``).  The
+continuous-control heads wait for their slice.
 """
 from __future__ import annotations
 
@@ -58,3 +59,17 @@ def q_head(p, h, n_actions, *, dueling=False, n_atoms=0):
             a = a - torch.mean(a, dim=-1, keepdim=True)
         return v + a
     return a
+
+
+# ---------------------------------------------------------------------------
+# Policy-gradient heads
+# ---------------------------------------------------------------------------
+
+def init_pg_head(generator, d_in, n_actions):
+    return {"pi": init_linear(generator, d_in, n_actions),
+            "v": init_linear(generator, d_in, 1)}
+
+
+def pg_head(p, h):
+    """h: (..., d) -> (policy logits (..., A), value (...,) in f32)."""
+    return linear(p["pi"], h), linear(p["v"], h.to(F32))[..., 0]

@@ -1,6 +1,7 @@
-"""Small RL models, port of the DQN part of ``repro/models/rl_models.py``:
-an MLP trunk (state observations) and a conv trunk (vision), each under a Q
-head with optional dueling and C51 atoms — the paper's original model scale.
+"""Small RL models, port of the DQN and policy-gradient parts of
+``repro/models/rl_models.py``: an MLP trunk (state observations) and a conv
+trunk (vision), each under a policy/value head or a Q head with optional
+dueling and C51 atoms — the paper's original model scale.
 
 Models are built by *factories* that close over static config and return
 ``Model(init, apply)``: ``init(generator)`` draws a params pytree (nested
@@ -11,8 +12,8 @@ or [T, B] leading dims.
 
 The conv trunk keeps the JAX layouts at its interface — NHWC observations,
 HWIO kernels — and permutes to NCHW / OIHW for ``F.conv2d`` inside, so
-converted JAX weights compute the same function.  The PG, continuous and
-recurrent factories wait for their slices.
+converted JAX weights compute the same function.  The continuous and
+recurrent factories wait for their slice.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.leading_dims import infer_leading_dims, restore_leading_dims
-from .heads import dense_init, init_linear, init_q_head, linear, q_head
+from .heads import (dense_init, init_linear, init_pg_head, init_q_head, linear,
+                    pg_head, q_head)
 
 
 class Model(NamedTuple):
@@ -81,6 +83,37 @@ def conv_trunk(p, x, strides=(4, 2, 1)):
 # ---------------------------------------------------------------------------
 # Model factories
 # ---------------------------------------------------------------------------
+
+def make_pg_mlp(obs_dim: int, n_actions: int, hidden=(64, 64)) -> Model:
+    def init(generator):
+        return {"trunk": init_mlp_trunk(generator, obs_dim, hidden),
+                "head": init_pg_head(generator, hidden[-1], n_actions)}
+
+    def apply(params, observation, prev_action=None, prev_reward=None):
+        lead, T, B, obs = infer_leading_dims(observation, 1)
+        h = mlp_trunk(params["trunk"], obs)
+        logits, value = pg_head(params["head"], h)
+        return restore_leading_dims((logits, value), lead, T, B)
+
+    return Model(init, apply)
+
+
+def make_pg_conv(in_ch: int, n_actions: int, img_hw=(84, 84),
+                 channels=(32, 64, 64), kernels=(8, 4, 3), strides=(4, 2, 1),
+                 d_out=512) -> Model:
+    def init(generator):
+        return {"trunk": init_conv_trunk(generator, in_ch, img_hw, channels,
+                                         kernels, strides, d_out),
+                "head": init_pg_head(generator, d_out, n_actions)}
+
+    def apply(params, observation, prev_action=None, prev_reward=None):
+        lead, T, B, obs = infer_leading_dims(observation, 3)
+        h = conv_trunk(params["trunk"], obs.to(torch.float32), strides)
+        logits, value = pg_head(params["head"], h)
+        return restore_leading_dims((logits, value), lead, T, B)
+
+    return Model(init, apply)
+
 
 def make_q_mlp(obs_dim: int, n_actions: int, hidden=(64, 64), *,
                dueling=False, n_atoms=0) -> Model:

@@ -1,4 +1,4 @@
-"""Runners of the port: the per-iteration TrainLoop and the off-policy
-shell over it."""
+"""Runners of the port: the per-iteration TrainLoop and the on- and
+off-policy shells over it."""
 from .train_loop import TrainLoop  # noqa: F401
-from .minibatch import OffPolicyRunner  # noqa: F401
+from .minibatch import OffPolicyRunner, OnPolicyRunner  # noqa: F401

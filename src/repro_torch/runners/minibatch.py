@@ -1,13 +1,14 @@
-"""Synchronous off-policy runner (paper §2.2 arrangement, Fig. 2), port of
-``OffPolicyRunner`` in ``repro/runners/minibatch.py``: a thin shell over
-the per-iteration TrainLoop.
+"""Synchronous runners (paper §2.2 arrangement, Fig. 2), port of
+``repro/runners/minibatch.py``: thin shells over the per-iteration
+TrainLoop.
 
-collect -> insert into a device-resident ReplayLike -> k updates (the
-paper's replay-ratio knob), after a warm-up that fills the replay to
-``min_replay`` through the same collect+insert.  The algorithm is fed
-through its declarative BatchSpec.  ``OnPolicyRunner`` waits for the PPO
-half of slice 3; checkpoints, restore, the mesh and evaluation samplers for
-their ROADMAP items (TrainLoop raises for them).
+OnPolicyRunner: collect -> update.  OffPolicyRunner: collect -> insert into
+a device-resident ReplayLike -> k updates (the paper's replay-ratio knob),
+after a warm-up that fills the replay to ``min_replay`` through the same
+collect+insert.  Both feed the algorithm through its declarative BatchSpec.
+Both train on the card unless the caller asks for the CPU, and raise
+without one.  Checkpoints and restore wait for ROADMAP Queue 1 item 8, the
+mesh for item 12 (TrainLoop raises for them).
 """
 from __future__ import annotations
 
@@ -17,7 +18,55 @@ import torch
 
 from ..replay.interface import DeviceReplay, ReplayLike, transition_example
 from ..utils.logger import Logger
-from .train_loop import TrainLoop
+from .train_loop import TrainLoop, _not_ported
+
+
+def _generators(seed: int, device):
+    """Three generators on ``device``, seeded seed, seed+1 and seed+2 (params
+    and train state, sampler, updates); raises for a CUDA device without
+    a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device cuda but no CUDA device is available; "
+                           "pass device='cpu' to run the plain versions")
+    return [torch.Generator(device=device).manual_seed(seed + i)
+            for i in range(3)]
+
+
+class OnPolicyRunner:
+    """A2C/PPO: sampler batches feed the algorithm directly."""
+
+    def __init__(self, sampler, algo, *, n_iterations: int,
+                 log_interval: int = 10, logger: Optional[Logger] = None,
+                 ckpt_dir: Optional[str] = None, ckpt_interval: int = 0,
+                 eval_sampler=None, sentinels: bool = False,
+                 nan_guard: bool = False):
+        if ckpt_dir or ckpt_interval:
+            raise _not_ported("checkpointing", "item 8")
+        self.sampler, self.algo = sampler, algo
+        self.n_iterations = n_iterations
+        self.log_interval = log_interval
+        self.logger = logger or Logger()
+        self.eval_sampler = eval_sampler
+        self.loop = TrainLoop(sampler, algo, sentinels=sentinels,
+                              nan_guard=nan_guard)
+
+    def run(self, seed: int, params=None, restore: bool = False, *,
+            device="cuda"):
+        """Train from ``seed`` on ``device``; returns (train_state,
+        sampler_state, last_info)."""
+        if restore:
+            raise _not_ported("restore from a checkpoint", "item 8")
+        gens = _generators(seed, device)
+        if params is None:
+            params = self.sampler.agent.init_params(gens[0])
+        train_state = self.algo.init_train_state(gens[0], params)
+        sampler_state = self.sampler.init(gens[1])
+        train_state, sampler_state, _, last_info = self.loop.drive(
+            gens[2], train_state, sampler_state, None,
+            n_iterations=self.n_iterations, log_interval=self.log_interval,
+            logger=self.logger, eval_sampler=self.eval_sampler)
+        return train_state, sampler_state, last_info
 
 
 class OffPolicyRunner:
@@ -49,11 +98,7 @@ class OffPolicyRunner:
         ``self.replay_state``.  Parameters, sampler and replay draw from three
         generators seeded ``seed``, ``seed + 1`` and ``seed + 2``."""
         device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device cuda but no CUDA device is available; "
-                               "pass device='cpu' to run the plain versions")
-        gens = [torch.Generator(device=device).manual_seed(seed + i)
-                for i in range(3)]
+        gens = _generators(seed, device)
         if params is None:
             params = self.sampler.agent.init_params(gens[0])
         train_state = self.algo.init_train_state(gens[0], params)

@@ -1,19 +1,28 @@
 """Synchronous training loop, port of ``repro/runners/train_loop.py`` in its
 per-iteration form (JAX's ``fuse=False``).
 
-One iteration is collect -> insert -> k x (sample -> update -> priority
-update), eager, on the device of the sampler's generator; the host reads
-device values only at log boundaries.  The loop is algorithm-agnostic over
-replayed algorithms: it consumes the algorithm's declarative ``BatchSpec``
-(core/batch_spec.py) through ``make_algo_batch`` and a ``ReplayLike``
-backend (replay/interface.py).
+On-policy (spec.mode == "rollout"): collect -> bootstrap value ->
+``make_algo_batch`` -> update.  Replayed (spec.mode == "transition"):
+collect -> insert -> k x (sample -> update -> priority update).  Each
+iteration runs eagerly on the device of the sampler's generator.  The loop
+is algorithm-agnostic: it consumes the algorithm's declarative
+``BatchSpec`` (core/batch_spec.py) through ``make_algo_batch`` and, for
+replayed algorithms, a ``ReplayLike`` backend (replay/interface.py).
+
+The host reads device values only at window ends: a window runs to the
+next log boundary.  With ``sentinels`` each iteration's Sentinels stay on
+the device and the window's stack is read once at its end; with
+``nan_guard`` that read names the first iteration whose params went
+non-finite (``NonFiniteError`` and a ``nan_guard`` trace event).  No
+iteration waits for the device.  ``drive``'s ``eval_sampler`` evaluates at
+every log boundary on a generator forked from the training one, and the
+log row gains its ``eval_*`` and the sentinels' ``sent_*`` columns.
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
 Queue 1 item when asked for: the scan-fused window (``fuse=True``; CUDA
 graphs over the iteration are its counterpart, item 14), the SPMD mesh and
-the compressed all-reduce (``mesh=``, ``compress=``; item 12), and from
-slice 3 part 2 the on-policy iteration (A2C, PPO), periodic evaluation, the
-sentinels and NaN guard, and checkpoints.
+the compressed all-reduce (``mesh=``, ``compress=``; item 12), and
+checkpoints (item 8).
 """
 from __future__ import annotations
 
@@ -21,11 +30,18 @@ import time
 from typing import Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..core.batch_spec import make_algo_batch
+from ..core.tree import tree_stack
 from ..replay.interface import ReplayLike
+from ..samplers.eval import fold_seed
+from ..telemetry import sentinels as sentinels_mod
 from ..telemetry import trace
+from ..telemetry.sentinels import NonFiniteError
 from ..utils.logger import Logger
+
+EVAL_FORK = 0xE7A1  # the eval stream's fold-in constant, as in JAX
 
 
 def _not_ported(what: str, item: str):
@@ -34,7 +50,7 @@ def _not_ported(what: str, item: str):
 
 
 class TrainLoop:
-    """Synchronous loop over sampler + replayed algo + device replay."""
+    """Synchronous loop over sampler + algo (+ device replay)."""
 
     def __init__(self, sampler, algo, *, replay: Optional[ReplayLike] = None,
                  batch_size: Optional[int] = None,
@@ -50,24 +66,22 @@ class TrainLoop:
         if mesh is not None or compress:
             raise _not_ported("the SPMD mesh and compressed all-reduce",
                               "item 12")
-        if sentinels or nan_guard:
-            raise _not_ported("sentinels and the NaN guard",
-                              "slice 3 part 2, item 6")
-        if spec.on_policy:
-            raise _not_ported("the on-policy iteration (A2C, PPO)",
-                              "slice 3 part 2, item 4")
         if spec.mode == "sequence":
             raise ValueError("sequence-mode algorithms (R2D1) need the host "
                              "sequence replay")
-        if replay is None or not replay.device_resident:
-            raise ValueError("replayed algorithms need a device-resident "
-                             "ReplayLike")
-        if batch_size is None:
-            raise ValueError("replayed algorithms need batch_size")
+        if spec.replayed:
+            if replay is None or not replay.device_resident:
+                raise ValueError("replayed algorithms need a device-resident "
+                                 "ReplayLike")
+            if batch_size is None:
+                raise ValueError("replayed algorithms need batch_size")
         self.sampler, self.algo, self.spec = sampler, algo, spec
         self.replay = replay
         self.batch_size = batch_size
         self.k = updates_per_collect
+        # nan_guard implies sentinels (the guard reads the nonfinite channel)
+        self.nan_guard = nan_guard
+        self.sentinels_on = sentinels or nan_guard
         self.tracer = trace.get_tracer()
 
     # -- one iteration -------------------------------------------------------
@@ -87,28 +101,74 @@ class TrainLoop:
             replay_state, idx, *(info.extra[k] for k in self.spec.priority_keys))
         return train_state, replay_state, info
 
+    def on_policy_update(self, train_state, sampler_state, batch, generator,
+                         *, draws=None):
+        """bootstrap value at the batch boundary -> algo batch -> update.
+        ``draws`` replaces the algorithm's permutations (PPO; tests)."""
+        bootstrap = self.sampler.bootstrap_value(train_state.params,
+                                                 sampler_state)
+        algo_batch = make_algo_batch(self.spec, batch,
+                                     {"bootstrap_value": bootstrap})
+        kw = {} if draws is None else {"perms": draws}
+        return self.algo.update(train_state, algo_batch, generator, **kw)
+
     def iteration(self, train_state, sampler_state, replay_state, generator):
-        sampler_state, replay_state = self.collect_insert(
-            train_state.params, sampler_state, replay_state)
-        info = None
-        for _ in range(self.k):
-            train_state, replay_state, info = self.update_step(
-                train_state, replay_state, generator)
-        return train_state, sampler_state, replay_state, info
+        """One iteration; returns (ts, ss, rs, info, sentinels-or-None)."""
+        prev = None
+        if self.sentinels_on:
+            # the optimizer updates the params in place: keep a copy for
+            # the update norm
+            prev = pytree.tree_map(lambda p: p.detach().clone(),
+                                   train_state.params)
+        if self.spec.on_policy:
+            sampler_state, batch = self.sampler.collect(train_state.params,
+                                                        sampler_state)
+            train_state, info = self.on_policy_update(
+                train_state, sampler_state, batch, generator)
+        else:
+            sampler_state, replay_state = self.collect_insert(
+                train_state.params, sampler_state, replay_state)
+            info = None
+            for _ in range(self.k):
+                train_state, replay_state, info = self.update_step(
+                    train_state, replay_state, generator)
+        sent = None
+        if self.sentinels_on:
+            sent = sentinels_mod.compute(
+                prev, train_state.params, info.loss, info.grad_norm,
+                replay_state,
+                self.sampler.horizon * self.sampler.n_envs)
+        return train_state, sampler_state, replay_state, info, sent
+
+    def run_window(self, train_state, sampler_state, replay_state, generator,
+                   n: int):
+        """``n`` iterations; returns (ts, ss, rs, last info, stacked
+        sentinels or None).  Reads nothing on the host."""
+        info, sents = None, []
+        for _ in range(n):
+            train_state, sampler_state, replay_state, info, sent = \
+                self.iteration(train_state, sampler_state, replay_state,
+                               generator)
+            sents.append(sent)
+        stacked = tree_stack(sents) if self.sentinels_on else None
+        return train_state, sampler_state, replay_state, info, stacked
 
     # -- host driver -----------------------------------------------------------
     def drive(self, generator, train_state, sampler_state, replay_state, *,
               n_iterations: int, log_interval: int, logger: Logger,
               start_iter: int = 0, ckpt_dir: Optional[str] = None,
               ckpt_interval: int = 0, eval_sampler=None):
-        """Run iterations to ``n_iterations``, logging one row every
-        ``log_interval``.  Returns (ts, ss, rs, last_info)."""
+        """Run windows to ``n_iterations``, logging one row every
+        ``log_interval``.  Returns (ts, ss, rs, last_info).
+
+        ``eval_sampler`` (samplers/eval.py) evaluates at every log
+        boundary on a generator seeded ``fold_seed(fold_seed(s, 0xE7A1),
+        it)`` from the training generator's seed ``s``: no training draw
+        moves.  Its metrics land in the row under an ``eval_`` prefix."""
         if ckpt_dir or ckpt_interval:
-            raise _not_ported("checkpointing", "slice 3 part 2, item 8")
-        if eval_sampler is not None:
-            raise _not_ported("periodic evaluation (samplers/eval.py)",
-                              "slice 3 part 2, item 5")
+            raise _not_ported("checkpointing", "item 8")
         steps_per_iter = self.sampler.horizon * self.sampler.n_envs
+        eval_seed = fold_seed(generator.initial_seed(), EVAL_FORK)
         tracer = self.tracer
         t0 = time.time()
         since_log = 0
@@ -118,10 +178,18 @@ class TrainLoop:
             boundary = min(it + log_interval - (it % log_interval), n_iterations)
             with tracer.span("collect_train_window", iter_start=it,
                              iters=boundary - it):
-                for _ in range(boundary - it):
-                    train_state, sampler_state, replay_state, last_info = \
-                        self.iteration(train_state, sampler_state,
-                                       replay_state, generator)
+                (train_state, sampler_state, replay_state, last_info,
+                 sents) = self.run_window(train_state, sampler_state,
+                                          replay_state, generator,
+                                          boundary - it)
+            if sents is not None and self.nan_guard:
+                # the ONLY in-window read: one small stacked channel
+                hit = sentinels_mod.first_nonfinite_iter(sents)
+                if hit is not None:
+                    bad_iter, n_bad = it + hit[0], hit[1]
+                    tracer.emit("nan_guard", "train_loop",
+                                iteration=bad_iter, n_bad=n_bad)
+                    raise NonFiniteError(bad_iter, n_bad)
             since_log += boundary - it
             it = boundary
             if it % log_interval == 0:
@@ -137,6 +205,15 @@ class TrainLoop:
                     row = {"iter": it, "loss": last_info.loss,
                            "grad_norm": last_info.grad_norm,
                            "samples_per_sec": sps, **stats, **extra}
+                    if sents is not None:
+                        row.update(sentinels_mod.summarize(sents))
+                    if eval_sampler is not None:
+                        with tracer.span("eval", iteration=it):
+                            gen = torch.Generator(
+                                device=generator.device).manual_seed(
+                                    fold_seed(eval_seed, it))
+                            em = eval_sampler.run(train_state.params, gen)
+                        row.update({f"eval_{k}": v for k, v in em.items()})
                     logger.record(it * steps_per_iter, row)
                 tracer.memory_snapshot(f"log_boundary_{it}")
                 t0, since_log = time.time(), 0

@@ -3,7 +3,7 @@
 Agent and batched envs on one device: a Python loop over the horizon
 replaces JAX's ``lax.scan``, the env batch dim replaces its ``vmap``, and
 action selection stays batched on the device.  Produces a time-major (T, B)
-RolloutBatch with agent_info (q) and per-episode return tracking
+RolloutBatch with agent_info (logp/value or q) and per-episode return tracking
 (TrajectoryInfo of §6.1) carried in the state as device tensors, so a
 collect never waits for the device.  The state's ``generator`` supplies
 the agent's and the envs' randomness and is advanced in place.
@@ -108,12 +108,22 @@ class SerialSampler:
         batch = pytree.tree_map(lambda *xs: torch.stack(xs), *steps)
         return s, batch
 
+    @torch.no_grad()
+    def bootstrap_value(self, params, state: SamplerState):
+        return self.agent.value(params, state.obs, state.prev_action,
+                                state.prev_reward, state.agent_state)
+
     @staticmethod
     def traj_stats(state: SamplerState):
         n = torch.clamp(state.completed_count, min=1).to(F32)
         return {"avg_return": state.completed_return_sum / n,
                 "avg_len": state.completed_len_sum / n,
                 "episodes": state.completed_count}
+
+    @staticmethod
+    def full_agent_state(state: SamplerState):
+        """Agent recurrent state at the CURRENT batch boundary, full width."""
+        return state.agent_state
 
     @staticmethod
     def reset_stats(state: SamplerState) -> SamplerState:

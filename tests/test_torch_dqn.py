@@ -314,13 +314,17 @@ def test_off_policy_runner_rainbow_short_run():
 
 
 def test_train_loop_refuses_what_is_not_ported():
+    """fuse, the mesh, compress and checkpoints still raise, naming their
+    ROADMAP item; sentinels and the NaN guard are ported (their tests are
+    in tests/test_torch_pg.py) and construct."""
     _, _, loop = _rainbow(64)
     args = (loop.sampler, loop.algo)
     kw = dict(replay=loop.replay, batch_size=8)
-    for bad in (dict(fuse=True), dict(mesh=object()), dict(compress="int8"),
-                dict(sentinels=True), dict(nan_guard=True)):
+    for bad in (dict(fuse=True), dict(mesh=object()), dict(compress="int8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrainLoop(*args, **kw, **bad)
+    for ok in (dict(sentinels=True), dict(nan_guard=True)):
+        assert TrainLoop(*args, **kw, **ok).sentinels_on
     with pytest.raises(ValueError, match="batch_size"):
         TrainLoop(*args, replay=loop.replay)
     with pytest.raises(NotImplementedError, match="checkpoint"):
