@@ -106,17 +106,35 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    CartPole bars of tests/test_learning.py at seed 0, scored by 8
    stochastic collects of the training sampler: PPO after 60 iterations >
    100, A2C after 80 (horizon 32, GAE lambda 0.95) > 50;
-9. on the same weights, a ``torch.profiler`` pass measures the device's
+9. slice phase, QPG: DDPG, TD3 and SAC on Pendulum through
+   ``repro_torch.examples.pendulum_qpg``'s ``make_runner`` (the JAX
+   factories' width: hidden 256 x 256, twin critics; 8 envs x horizon 32,
+   capacity 2^20 (rlpyt's 1e6 MuJoCo replay rounded up), batch 256, warm-up
+   1024, 20 iterations of 8 updates): every logged number, param and
+   target finite, TD3's actor bit-unchanged by every odd update and moved
+   by the even ones, SAC's alpha finite and positive, no kernel launched
+   (uniform replay).  TD3 and SAC again with ``prioritized=True`` (10
+   iterations): one ``sum_tree_sample`` launch per replay sample.  Then the
+   SAC bar of tests/test_learning.py at seed 0 (hidden 64, capacity 16384,
+   batch 128, 160 iterations of 32 updates, init_alpha 0.2): the initial
+   policy's return below -500 and the trained one's above it + 100.  Then
+   checkpoints on the card: a SAC runner of 4 iterations saving every 2,
+   its train and replay states restored onto the card bit for bit, and a
+   second runner given ``restore=True`` and 6 iterations resuming at 4 and
+   ending at step 6 x 8;
+10. on the same weights, a ``torch.profiler`` pass measures the device's
    busy time per prefill, per decode step, per rollout of ROLL_STEPS steps,
-   per PPO update, per RL iteration and per PPO CartPole iteration against
+   per PPO update, per RL iteration, per PPO CartPole iteration and per SAC
+   update (at the bar's width and at full width) against
    the unprofiled wall time of the same work (the idle share), and checks
    that prefill and a decode step run exactly one attention kernel a layer
    (printing its device time a launch), lists each kernel launch of one
    ssd_scan call at the training shape with its device time, and gives the
    sum-tree kernel's device time a launch at ``ST_TIMED`` — last, since the
    profiler slows every later launch of the process;
-10. the ``kernels`` JSON line (launch counts from phases 4-7, the largest
-   error of phase 3, times), then ``{"ok": true, "device": {...}}`` last.
+11. the ``kernels`` JSON line (launch counts from phases 4-7 and 9, the
+   largest error of phase 3, times), then ``{"ok": true, "device": {...}}``
+   last.
 """
 import json
 import math
@@ -205,6 +223,11 @@ ST_TIMED = [(8192, 64), (2 ** 17, 256), (2 ** 20, 64)]
 RL = {"variant": "rainbow", "iters": 150, "bar_iters": 200, "bar_updates": 4,
       "big_capacity": 2 ** 20, "big_iters": 20, "profile_iters": 10}
 PG = {"iters": 50, "log_interval": 10, "profile_iters": 5}  # the quickstart
+# the QPG slice (phase 9): full width (the JAX factories' defaults), the
+# prioritized reruns, the checkpoint runs (iterations before / after the
+# restore), SAC updates timed a profile
+QPG = {"algos": ("ddpg", "td3", "sac"), "iters": 20, "prio_iters": 10,
+       "ckpt_iters": (4, 6), "ckpt_interval": 2, "profile_updates": 20}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -223,6 +246,7 @@ sys.path.insert(0, str(REPO / "src"))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.utils import _pytree as pytree  # noqa: E402
 
 if not torch.cuda.is_available():
     fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -233,6 +257,7 @@ from repro_torch.algos.pg.ppo import make_lm_ppo_train_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.envs.token_lm import make_token_lm  # noqa: E402
 from repro_torch.examples import catch_dqn_variants as catch_dqn  # noqa: E402
+from repro_torch.examples import pendulum_qpg  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
@@ -251,6 +276,7 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import backbones as bb  # noqa: E402
 from repro_torch.serving import DEFAULT_BUCKETS, poisson_trace  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
+from repro_torch.train.checkpoint import restore_checkpoint  # noqa: E402
 from repro_torch.utils.logger import Logger  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -1491,6 +1517,223 @@ def profile_pg(work):
               f"x{e.count / n:.0f}  {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: DDPG, TD3 and SAC on Pendulum (full width, prioritized, the SAC
+# bar, checkpoints on the card)
+# ---------------------------------------------------------------------------
+def qpg_params_finite(ts) -> bool:
+    leaves = [x for x in pytree.tree_leaves(
+        (ts.params, ts.extra)) if torch.is_tensor(x)]
+    return bool(torch.stack([torch.isfinite(x).all() for x in leaves]).all())
+
+
+def watch_td3_actor(algo):
+    """Wrap ``algo.update`` to record, per update, its step and the largest
+    change of any actor param (device tensors, read once at the end)."""
+    update, seen = algo.update, []
+
+    def watched(ts, batch, generator=None):
+        before = [p.clone() for p in
+                  pytree.tree_leaves(ts.params["actor"])]
+        ts, info = update(ts, batch, generator)
+        moved = torch.stack([(p - b).abs().max() for p, b in zip(
+            pytree.tree_leaves(ts.params["actor"]), before)])
+        seen.append((ts.step, moved.max()))
+        return ts, info
+
+    algo.update = watched
+    return seen
+
+
+def qpg_run(name, log_dir, n_iterations, **kw):
+    """One full-width run of ``name`` through OffPolicyRunner; fails unless
+    every logged number, param and target is finite (and, for TD3, the
+    actor is bit-unchanged by every odd update).  Returns (runner, train
+    state, sampler state, rows, wall s)."""
+    run_dir = Path(log_dir) / f"qpg_{name}"
+    sampler, runner, init = pendulum_qpg.make_runner(
+        name, n_iterations, logger=Logger(str(run_dir), sinks=("jsonl",)),
+        **kw)
+    seen = watch_td3_actor(runner.algo) if name == "td3" else None
+    params = init(torch.Generator(device=DEV).manual_seed(SEED))
+    t0 = time.perf_counter()
+    ts, ss, info = runner.run(SEED, params=params, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = finite_rows(run_dir / "progress.jsonl", f"qpg {name}")
+    if len(rows) != n_iterations // 10 or not qpg_params_finite(ts):
+        fail(f"qpg {name}: {len(rows)} rows, params finite "
+             f"{qpg_params_finite(ts)}")
+    if seen is not None:
+        moved = {step: float(m) for step, m in seen}
+        odd = [s for s, m in moved.items() if s % 2 and m != 0.0]
+        if odd or not any(m > 0 for s, m in moved.items() if s % 2 == 0):
+            fail(f"td3: actor moved on odd steps {odd[:5]} or never on even")
+        print(f"  td3: actor bit-unchanged by {len(moved) // 2} odd updates, "
+              f"moved by the even ones (largest change "
+              f"{max(moved.values()):.3e})")
+    return runner, ts, ss, rows, wall
+
+
+def qpg_phase(log_dir):
+    t_phase = time.perf_counter()
+    launches, work = {}, {}
+    n_up = 8
+    print(f"slice phase: DDPG / TD3 / SAC on Pendulum (hidden 256 x 256, "
+          f"twin critics, 8 envs x 32, capacity 2^20, batch 256, "
+          f"{QPG['iters']} iterations of {n_up} updates)")
+    for name in QPG["algos"]:
+        for c in KERNEL_COUNTERS:
+            c.launches = 0
+        runner, ts, ss, rows, wall = qpg_run(name, log_dir, QPG["iters"])
+        launched = {c.__name__: c.launches for c in KERNEL_COUNTERS}
+        r = rows[-1]
+        extra = (f", alpha {r['alpha']:.4f}, entropy {r['entropy']:.4f}"
+                 if name == "sac" else "")
+        print(f"  {name}: {wall:.2f} s with warm-up; last row samples_per_sec "
+              f"{r['samples_per_sec']:.1f}, loss {r['loss']:.4f}, actor_loss "
+              f"{r['actor_loss']:.4f}, avg_return {r['avg_return']:.2f}"
+              f"{extra}; step {ts.step}; kernel launches {launched}")
+        if ts.step != QPG["iters"] * n_up or any(launched.values()):
+            fail(f"qpg {name}: step {ts.step}, launches {launched}")
+        if name == "sac":
+            alpha = float(torch.exp(ts.extra["log_alpha"]))
+            if not (math.isfinite(alpha) and alpha > 0):
+                fail(f"sac: alpha {alpha}")
+        del runner, ts, ss
+        torch.cuda.empty_cache()
+
+    print(f"slice phase: TD3 and SAC prioritized (capacity 2^20, "
+          f"{QPG['prio_iters']} iterations)")
+    for name in ("td3", "sac"):
+        st_ops.tree_sample_blocked.launches = 0
+        runner, ts, _, rows, wall = qpg_run(
+            name, str(Path(log_dir) / "prio"), QPG["prio_iters"],
+            prioritized=True)
+        n = st_ops.tree_sample_blocked.launches
+        launches[f"{name} prioritized"] = n
+        want = QPG["prio_iters"] * n_up
+        leaves = runner.replay_state.tree[2 ** 20:]
+        print(f"  {name}: {n} sum_tree launches (want {want}: one per "
+              f"sample); {wall:.2f} s; loss {rows[-1]['loss']:.4f}; "
+              f"{int(torch.unique(leaves[:runner.replay_state.filled]).numel())}"
+              f" distinct priorities")
+        if n != want:
+            fail(f"{name} prioritized: {n} sum_tree launches, want {want}")
+        del runner, ts
+        torch.cuda.empty_cache()
+
+    bar = pendulum_qpg.BAR
+    print(f"slice phase: the SAC bar of test_sac_improves_pendulum (hidden "
+          f"64, {bar['iters']} iterations of {bar['updates_per_collect']} "
+          f"updates, batch {bar['batch_size']})")
+    t0 = time.perf_counter()
+    before, after = pendulum_qpg.learning_bar(SEED, device=DEV)
+    bar_wall = time.perf_counter() - t0
+    n_updates = bar["iters"] * bar["updates_per_collect"]
+    print(f"  before {before:.2f} (bar < {bar['before_max']:g}), after "
+          f"{after:.2f} (bar > before + {bar['gain']:g}); {bar_wall:.2f} s "
+          f"for {n_updates} updates and {bar['iters']} collects")
+    if not (before < bar["before_max"] and after > before + bar["gain"]):
+        fail(f"SAC pendulum bar: {before} -> {after}")
+
+    print(f"slice phase: SAC checkpoints on the card ({QPG['ckpt_iters'][0]} "
+          f"iterations saving every {QPG['ckpt_interval']}, then restore and "
+          f"run to {QPG['ckpt_iters'][1]})")
+    with tempfile.TemporaryDirectory() as ckpt:
+        kw = dict(ckpt_dir=ckpt, ckpt_interval=QPG["ckpt_interval"],
+                  logger=Logger(sinks=()))
+        _, r1, init = pendulum_qpg.make_runner("sac", QPG["ckpt_iters"][0],
+                                               **kw)
+        t0 = time.perf_counter()
+        ts1, _, _ = r1.run(SEED, params=init(torch.Generator(
+            device=DEV).manual_seed(SEED)), device=DEV)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        saved = (ts1, r1.replay_state)
+        t0 = time.perf_counter()
+        restored, manifest = restore_checkpoint(ckpt, saved, device=DEV)
+        t_restore = time.perf_counter() - t0
+        pairs = list(zip(pytree.tree_leaves(restored),
+                         pytree.tree_leaves(saved)))
+        tensors = [(a, b) for a, b in pairs if torch.is_tensor(b)]
+        same = all(torch.equal(a, b) and a.device.type == DEV.type
+                   for a, b in tensors) and \
+            all(a == b for a, b in pairs if not torch.is_tensor(b))
+        nbytes = sum(b.numel() * b.element_size() for _, b in tensors)
+        _, r2, _ = pendulum_qpg.make_runner("sac", QPG["ckpt_iters"][1], **kw)
+        ts2, _, _ = r2.run(SEED, params=init(torch.Generator(
+            device=DEV).manual_seed(SEED + 9)), restore=True, device=DEV)
+        want = QPG["ckpt_iters"][1] * n_up
+        print(f"  run with 2 saves {t_run:.2f} s; restore of {len(pairs)} "
+              f"leaves ({nbytes / 1e6:.1f} MB) onto {DEV}: {t_restore:.3f} s, "
+              f"equal bit for bit: {same}; iteration "
+              f"{manifest['extra']['iteration']}; resumed run ends at step "
+              f"{ts2.step} (want {want})")
+        if not same or manifest["extra"]["iteration"] != QPG["ckpt_iters"][0] \
+                or ts2.step != want:
+            fail("sac checkpoint: restore not bit-exact on the card or the "
+                 f"resumed run ended at step {ts2.step}")
+        del r1, r2, ts1, ts2, saved, restored
+    torch.cuda.empty_cache()
+
+    # unprofiled wall time of SAC updates for the profile phase, at the
+    # bar's width and at full width
+    n = QPG["profile_updates"]
+    for label, kw in (("hidden 64, batch 128", {k: bar[k] for k in (
+            "hidden", "replay_capacity", "batch_size", "min_replay")}),
+            ("hidden 256, batch 256", {})):
+        _, runner, init = pendulum_qpg.make_runner(
+            "sac", 1, updates_per_collect=1, logger=Logger(sinks=()), **kw)
+        ts, _, _ = runner.run(SEED, params=init(torch.Generator(
+            device=DEV).manual_seed(SEED)), device=DEV)
+        state = {"ts": ts, "rs": runner.replay_state,
+                 "gen": torch.Generator(device=DEV).manual_seed(SEED + 3)}
+
+        def update(k=n, runner=runner, state=state):
+            for _ in range(k):
+                state["ts"], state["rs"], _ = runner.loop.update_step(
+                    state["ts"], state["rs"], state["gen"])
+            torch.cuda.synchronize()
+
+        update(3)
+        t0 = time.perf_counter()
+        update()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        work[label] = (update, wall)
+        print(f"  one SAC update ({label}: sample, three losses and "
+              f"backward passes, three Adam steps, Polyak): {wall:.3f} ms "
+              "unprofiled")
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, work
+
+
+def profile_qpg(work):
+    """Device busy time of SAC updates against their unprofiled wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = QPG["profile_updates"]
+    for label, (update, wall) in work.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            update()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        if not evs:
+            print(f"  profile SAC update ({label}): device time not measured "
+                  "(the profiler recorded no CUDA kernels)")
+            continue
+        busy = sum(e.self_device_time_total for e in evs) / 1e3 / n
+        kernels = sum(e.count for e in evs) / n
+        print(f"  profile SAC update ({label}): wall {wall:.3f} ms "
+              f"unprofiled, device busy {busy:.3f} ms ({kernels:.0f} "
+              f"kernels), idle share {max(0.0, 1 - busy / wall):.3f}")
+        for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms "
+                  f"x{e.count / n:.0f}  {e.key[:90]}")
+
+
 def smoke_refused():
     """The LM entry points' default config (--smoke) is refused on the card
     before any weight is drawn: its shapes have no kernel instance."""
@@ -1597,6 +1840,8 @@ def main() -> None:
         rl_launches, rl_work = rl_phase(log_dir)
         torch.cuda.empty_cache()
         pg_work = pg_phase(log_dir)
+        torch.cuda.empty_cache()
+        qpg_launches, qpg_work = qpg_phase(log_dir)
 
     # last, because the profiler slows every later launch of the process
     print("profile: where the time goes (not the main path's counts)")
@@ -1605,6 +1850,7 @@ def main() -> None:
     profile_ssd()
     profile_rl(rl_work)
     profile_pg(pg_work)
+    profile_qpg(qpg_work)
     # the main path is the fixed rounds plus the continuous run (attention)
     # and the training run (ssd_scan); the kernel-vs-ref comparisons
     # between them do not count
@@ -1626,7 +1872,8 @@ def main() -> None:
         "bound_by": ssd_timing["bound"][1], "library_ms": None})
     # the main path's shape: the rainbow example's tree (8192 leaves, 64)
     t = st_timing[(8192, 64)]
-    print(f"sum_tree launches on the RL path: {rl_launches}")
+    rl_launches.update(qpg_launches)
+    print(f"sum_tree launches on the RL paths: {rl_launches}")
     kernels.append({
         "name": "sum_tree_sample", "route": "cuda", "source": ST_SOURCE,
         "replaces": ST_TPU_KERNEL, "launches": sum(rl_launches.values()),

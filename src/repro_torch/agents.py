@@ -1,12 +1,14 @@
 """Concrete agents (paper §6.1): model + distribution -> step function.
 
-Port of the categorical policy-gradient and DQN agents of
-``repro/agents.py``.  An agent step is a function
+Port of the feed-forward agents of ``repro/agents.py``: categorical and
+Gaussian policy gradient, DQN, and the DDPG / TD3 and SAC actors.  An agent
+step is a function
     step(params, generator, obs, prev_action, prev_reward, state)
         -> (action, agent_info dict, new_state)
 that the serial sampler calls once per env step on a (B, ...) batch; the
-randomness comes from the ``torch.Generator`` it is given.  The PG,
-continuous-control and recurrent agents wait for their slices.
+randomness comes from the ``torch.Generator`` it is given.  The DDPG and
+SAC agents take the algorithm's combined ``{"actor", "critic"}`` params (or
+the actor's alone).  The recurrent agent waits for its slice.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .core.distributions import Categorical, EpsilonGreedy
+from .core.distributions import (Categorical, EpsilonGreedy, Gaussian,
+                                 SquashedGaussian)
 
 F32 = torch.float32
 
@@ -54,6 +57,32 @@ def make_categorical_pg_agent(model) -> AgentDef:
                     eval_step=eval_step)
 
 
+def make_gaussian_pg_agent(model, act_dim: int) -> AgentDef:
+    """PPO-continuous agent (state obs); ``model.apply`` returns
+    ((mean, log_std), value)."""
+    dist = Gaussian(act_dim)
+
+    def step(params, generator, obs, prev_action, prev_reward, state):
+        (mean, log_std), value = model.apply(params, obs, prev_action,
+                                             prev_reward)
+        action = dist.sample(generator, mean, log_std)
+        logp = dist.log_likelihood(action, mean, log_std)
+        return action, {"logp": logp, "value": value}, state
+
+    def value(params, obs, prev_action, prev_reward, state):
+        _, v = model.apply(params, obs, prev_action, prev_reward)
+        return v
+
+    def eval_step(params, generator, obs, prev_action, prev_reward, state):
+        (mean, log_std), value = model.apply(params, obs, prev_action,
+                                             prev_reward)
+        logp = dist.log_likelihood(mean, mean, log_std)
+        return mean, {"logp": logp, "value": value}, state
+
+    return AgentDef(model.init, step, value, model.initial_state,
+                    eval_step=eval_step)
+
+
 def make_dqn_agent(model, n_actions: int, *, n_atoms: int = 0,
                    v_min=-10.0, v_max=10.0) -> AgentDef:
     """Epsilon-greedy DQN agent; epsilon is carried in the agent state as a
@@ -88,3 +117,48 @@ def make_dqn_agent(model, n_actions: int, *, n_atoms: int = 0,
 
     return AgentDef(model.init, step, value, initial_state,
                     eval_step=eval_step)
+
+
+def _actor_params(params):
+    return params["actor"] if isinstance(params, dict) and "actor" in params \
+        else params
+
+
+def _no_value(params, obs, prev_action, prev_reward, state):
+    raise NotImplementedError("QPG agents bootstrap via the critic in the "
+                              "algorithm")
+
+
+def make_ddpg_agent(actor_model, act_dim: int, *, expl_noise=0.1) -> AgentDef:
+    """Deterministic actor plus Gaussian exploration noise, clipped to
+    [-1, 1] (DDPG / TD3)."""
+    def step(params, generator, obs, prev_action, prev_reward, state):
+        mu = actor_model.apply(_actor_params(params), obs)
+        noise = expl_noise * torch.randn(mu.shape, generator=generator,
+                                         device=mu.device, dtype=mu.dtype)
+        return torch.clamp(mu + noise, -1.0, 1.0), {}, state
+
+    def eval_step(params, generator, obs, prev_action, prev_reward, state):
+        return actor_model.apply(_actor_params(params), obs), {}, state
+
+    return AgentDef(actor_model.init, step, _no_value,
+                    actor_model.initial_state, eval_step=eval_step)
+
+
+def make_sac_agent(actor_model, act_dim: int) -> AgentDef:
+    dist = SquashedGaussian(act_dim)
+
+    def step(params, generator, obs, prev_action, prev_reward, state):
+        mean, log_std = actor_model.apply(_actor_params(params), obs)
+        action, logp = dist.sample_with_logprob(generator, mean, log_std)
+        return action, {"logp": logp}, state
+
+    def eval_step(params, generator, obs, prev_action, prev_reward, state):
+        """Deterministic squashed mean (standard SAC evaluation policy)."""
+        mean, _ = actor_model.apply(_actor_params(params), obs)
+        action = torch.tanh(mean)
+        return action, {"logp": torch.zeros(action.shape[:1], dtype=F32,
+                                            device=action.device)}, state
+
+    return AgentDef(actor_model.init, step, _no_value,
+                    actor_model.initial_state, eval_step=eval_step)

@@ -1,5 +1,5 @@
 """Environments of the port, batched torch counterparts of ``repro/envs``
-(so far: CartPole, Catch and the token MDP of LM-PPO training).
+(CartPole, Pendulum, Catch and the token MDP of LM-PPO training).
 
 Every env is a pair of functions (reset, step) over explicit state dicts of
 (B,) tensors.  ``step`` auto-resets on done (the returned obs is the first
@@ -9,10 +9,12 @@ fields every step, including ``timeout`` for time-limit value bootstrapping.
 from .base import EnvSpec, EnvInfo  # noqa: F401
 from .cartpole import make_cartpole
 from .catch import make_catch
+from .pendulum import make_pendulum
 from .token_lm import make_token_lm
 
 REGISTRY = {
     "cartpole": make_cartpole,
+    "pendulum": make_pendulum,
     "catch": make_catch,
     "token_lm": make_token_lm,
 }

@@ -1,11 +1,10 @@
-"""Heads attached to a trunk's hidden states, port of the DQN and
-policy-gradient parts of ``repro/models/heads.py`` (paper §6.1 'Model'
-outputs).
+"""Heads attached to a trunk's hidden states, port of
+``repro/models/heads.py`` (paper §6.1 'Model' outputs): DQN, policy-gradient
+and continuous-control (DDPG / TD3 / SAC) heads.
 
 Pure functions over small param dicts of tensors — ``{"w": (d_in, d_out),
 "b": (d_out,)}`` per linear layer, the JAX layout — so the JAX parameter
-pytrees carry over leaf for leaf (``models/convert.py``).  The
-continuous-control heads wait for their slice.
+pytrees carry over leaf for leaf (``models/convert.py``).
 """
 from __future__ import annotations
 
@@ -73,3 +72,26 @@ def init_pg_head(generator, d_in, n_actions):
 def pg_head(p, h):
     """h: (..., d) -> (policy logits (..., A), value (...,) in f32)."""
     return linear(p["pi"], h), linear(p["v"], h.to(F32))[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Continuous-control heads (DDPG / TD3 / SAC)
+# ---------------------------------------------------------------------------
+
+def init_mu_head(generator, d_in, act_dim):
+    return {"mu": init_linear(generator, d_in, act_dim)}
+
+
+def mu_head(p, h):
+    return torch.tanh(linear(p["mu"], h))
+
+
+def init_gaussian_head(generator, d_in, act_dim):
+    return {"mean": init_linear(generator, d_in, act_dim),
+            "log_std": init_linear(generator, d_in, act_dim)}
+
+
+def gaussian_head(p, h, log_std_min=-20.0, log_std_max=2.0):
+    mean = linear(p["mean"], h)
+    log_std = torch.clamp(linear(p["log_std"], h), log_std_min, log_std_max)
+    return mean, log_std

@@ -1,7 +1,8 @@
-"""Small RL models, port of the DQN and policy-gradient parts of
+"""Small RL models, port of the feed-forward part of
 ``repro/models/rl_models.py``: an MLP trunk (state observations) and a conv
 trunk (vision), each under a policy/value head or a Q head with optional
-dueling and C51 atoms — the paper's original model scale.
+dueling and C51 atoms, and the continuous-control actors and twin Q critic
+of DDPG / TD3 / SAC — the paper's original model scale.
 
 Models are built by *factories* that close over static config and return
 ``Model(init, apply)``: ``init(generator)`` draws a params pytree (nested
@@ -12,8 +13,10 @@ or [T, B] leading dims.
 
 The conv trunk keeps the JAX layouts at its interface — NHWC observations,
 HWIO kernels — and permutes to NCHW / OIHW for ``F.conv2d`` inside, so
-converted JAX weights compute the same function.  The continuous and
-recurrent factories wait for their slice.
+converted JAX weights compute the same function.  The critic keeps JAX's
+stacked layout (its ``init`` is a ``vmap``): every leaf has a leading
+``n_critics`` axis, and ``apply`` runs all critics with one batched product
+a layer.  The recurrent factories wait for their slice.
 """
 from __future__ import annotations
 
@@ -21,9 +24,11 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
 from ..core.leading_dims import infer_leading_dims, restore_leading_dims
-from .heads import (dense_init, init_linear, init_pg_head, init_q_head, linear,
+from .heads import (dense_init, gaussian_head, init_gaussian_head, init_linear,
+                    init_mu_head, init_pg_head, init_q_head, linear, mu_head,
                     pg_head, q_head)
 
 
@@ -148,5 +153,67 @@ def make_q_conv(in_ch: int, n_actions: int, img_hw=(84, 84), *,
         q = q_head(params["head"], h, n_actions, dueling=dueling,
                    n_atoms=n_atoms)
         return restore_leading_dims(q, lead, T, B)
+
+    return Model(init, apply)
+
+
+# ---------------------------------------------------------------------------
+# Continuous control (DDPG/TD3/SAC): separate actor + critic factories
+# ---------------------------------------------------------------------------
+
+def make_ddpg_actor(obs_dim: int, act_dim: int, hidden=(256, 256)) -> Model:
+    def init(generator):
+        return {"trunk": init_mlp_trunk(generator, obs_dim, hidden),
+                "head": init_mu_head(generator, hidden[-1], act_dim)}
+
+    def apply(params, observation, prev_action=None, prev_reward=None):
+        lead, T, B, obs = infer_leading_dims(observation, 1)
+        h = mlp_trunk(params["trunk"], obs, act=F.relu)
+        return restore_leading_dims(mu_head(params["head"], h), lead, T, B)
+
+    return Model(init, apply)
+
+
+def make_sac_actor(obs_dim: int, act_dim: int, hidden=(256, 256)) -> Model:
+    def init(generator):
+        return {"trunk": init_mlp_trunk(generator, obs_dim, hidden),
+                "head": init_gaussian_head(generator, hidden[-1], act_dim)}
+
+    def apply(params, observation, prev_action=None, prev_reward=None):
+        lead, T, B, obs = infer_leading_dims(observation, 1)
+        h = mlp_trunk(params["trunk"], obs, act=F.relu)
+        mean, log_std = gaussian_head(params["head"], h)
+        return restore_leading_dims((mean, log_std), lead, T, B)
+
+    return Model(init, apply)
+
+
+def make_q_critic(obs_dim: int, act_dim: int, hidden=(256, 256),
+                  n_critics=2) -> Model:
+    """Twin Q critics (TD3/SAC); q(s, a) -> (n_critics, *lead) stacked."""
+    def init_one(generator):
+        return {"trunk": init_mlp_trunk(generator, obs_dim + act_dim, hidden),
+                "head": init_linear(generator, hidden[-1], 1)}
+
+    def init(generator):
+        return pytree.tree_map(lambda *xs: torch.stack(xs),
+                               *[init_one(generator) for _ in range(n_critics)])
+
+    def stacked_linear(p, x):
+        """x (n_critics, N, d) -> (n_critics, N, k): every critic's layer in
+        one batched product."""
+        return torch.baddbmm(p["b"][:, None, :].to(x.dtype), x,
+                             p["w"].to(x.dtype))
+
+    def apply(params, observation, action):
+        lead, T, B, obs = infer_leading_dims(observation, 1)
+        _, _, _, act = infer_leading_dims(action, 1)
+        sa = torch.cat([obs, act.to(obs.dtype)], dim=-1)
+        x = sa.expand((params["head"]["w"].shape[0],) + tuple(sa.shape))
+        for lp in params["trunk"]:
+            x = F.relu(stacked_linear(lp, x))
+        qs = stacked_linear(params["head"], x)[..., 0]   # (n_critics, T*B)
+        qs = restore_leading_dims(qs.transpose(0, 1), lead, T, B)
+        return torch.movedim(qs, -1, 0)                   # (n_critics, *lead)
 
     return Model(init, apply)

@@ -7,8 +7,10 @@ a device-resident ReplayLike -> k updates (the paper's replay-ratio knob),
 after a warm-up that fills the replay to ``min_replay`` through the same
 collect+insert.  Both feed the algorithm through its declarative BatchSpec.
 Both train on the card unless the caller asks for the CPU, and raise
-without one.  Checkpoints and restore wait for ROADMAP Queue 1 item 8, the
-mesh for item 12 (TrainLoop raises for them).
+without one.  With ``ckpt_dir`` / ``ckpt_interval`` the loop saves a
+checkpoint (the train state; off-policy, the train and replay states) every
+``ckpt_interval`` iterations, and ``run(restore=True)`` resumes from the
+latest one at its iteration.  The mesh waits for ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ from typing import Optional
 import torch
 
 from ..replay.interface import DeviceReplay, ReplayLike, transition_example
+from ..train.checkpoint import latest_step, restore_checkpoint
 from ..utils.logger import Logger
-from .train_loop import TrainLoop, _not_ported
+from .train_loop import TrainLoop
 
 
 def _generators(seed: int, device):
@@ -41,42 +44,49 @@ class OnPolicyRunner:
                  ckpt_dir: Optional[str] = None, ckpt_interval: int = 0,
                  eval_sampler=None, sentinels: bool = False,
                  nan_guard: bool = False):
-        if ckpt_dir or ckpt_interval:
-            raise _not_ported("checkpointing", "item 8")
         self.sampler, self.algo = sampler, algo
         self.n_iterations = n_iterations
         self.log_interval = log_interval
         self.logger = logger or Logger()
+        self.ckpt_dir, self.ckpt_interval = ckpt_dir, ckpt_interval
         self.eval_sampler = eval_sampler
         self.loop = TrainLoop(sampler, algo, sentinels=sentinels,
                               nan_guard=nan_guard)
 
     def run(self, seed: int, params=None, restore: bool = False, *,
             device="cuda"):
-        """Train from ``seed`` on ``device``; returns (train_state,
-        sampler_state, last_info)."""
-        if restore:
-            raise _not_ported("restore from a checkpoint", "item 8")
+        """Train from ``seed`` on ``device`` (with ``restore``, from the
+        latest checkpoint in ``ckpt_dir`` and its iteration, if there is
+        one); returns (train_state, sampler_state, last_info)."""
         gens = _generators(seed, device)
         if params is None:
             params = self.sampler.agent.init_params(gens[0])
         train_state = self.algo.init_train_state(gens[0], params)
+        start_iter = 0
+        if restore and self.ckpt_dir and latest_step(self.ckpt_dir) is not None:
+            train_state, manifest = restore_checkpoint(
+                self.ckpt_dir, train_state, device=device)
+            start_iter = manifest["extra"].get("iteration", 0)
         sampler_state = self.sampler.init(gens[1])
         train_state, sampler_state, _, last_info = self.loop.drive(
             gens[2], train_state, sampler_state, None,
             n_iterations=self.n_iterations, log_interval=self.log_interval,
-            logger=self.logger, eval_sampler=self.eval_sampler)
+            logger=self.logger, start_iter=start_iter,
+            ckpt_dir=self.ckpt_dir, ckpt_interval=self.ckpt_interval,
+            eval_sampler=self.eval_sampler)
         return train_state, sampler_state, last_info
 
 
 class OffPolicyRunner:
-    """DQN over a device-resident ReplayLike, one iteration at a time."""
+    """DQN / DDPG / TD3 / SAC over a device-resident ReplayLike, one
+    iteration at a time."""
 
     def __init__(self, sampler, algo, *, replay_capacity: int,
                  batch_size: int, n_iterations: int, updates_per_collect: int = 1,
                  min_replay: int = 1000, prioritized: bool = False,
                  beta: float = 0.4,
                  log_interval: int = 10, logger: Optional[Logger] = None,
+                 ckpt_dir: Optional[str] = None, ckpt_interval: int = 0,
                  agent_state_kwargs: Optional[dict] = None,
                  replay: Optional[ReplayLike] = None):
         self.sampler, self.algo = sampler, algo
@@ -84,6 +94,7 @@ class OffPolicyRunner:
         self.min_replay = min_replay
         self.log_interval = log_interval
         self.logger = logger or Logger()
+        self.ckpt_dir, self.ckpt_interval = ckpt_dir, ckpt_interval
         self.agent_state_kwargs = agent_state_kwargs or {}
         self.replay = replay if replay is not None else DeviceReplay(
             replay_capacity, prioritized=prioritized, beta=beta)
@@ -92,11 +103,16 @@ class OffPolicyRunner:
                               updates_per_collect=updates_per_collect)
         self.replay_state = None
 
-    def run(self, seed: int, params=None, *, device="cuda"):
+    def run(self, seed: int, params=None, restore: bool = False, *,
+            device="cuda"):
         """Train from ``seed`` on ``device``; returns (train_state,
         sampler_state, last_info) and keeps the final replay state in
         ``self.replay_state``.  Parameters, sampler and replay draw from three
-        generators seeded ``seed``, ``seed + 1`` and ``seed + 2``."""
+        generators seeded ``seed``, ``seed + 1`` and ``seed + 2``.  With
+        ``restore`` the train and replay states come from the latest
+        checkpoint in ``ckpt_dir`` (if there is one), training resumes at its
+        iteration, and the warm-up is skipped when the restored replay
+        already holds ``min_replay`` transitions."""
         device = torch.device(device)
         gens = _generators(seed, device)
         if params is None:
@@ -105,10 +121,15 @@ class OffPolicyRunner:
         sampler_state = self.sampler.init(gens[1], self.agent_state_kwargs)
         replay_state = self.replay.init(
             transition_example(self.sampler.env, device=device))
+        start_iter, warm = 0, 0
+        if restore and self.ckpt_dir and latest_step(self.ckpt_dir) is not None:
+            (train_state, replay_state), manifest = restore_checkpoint(
+                self.ckpt_dir, (train_state, replay_state), device=device)
+            start_iter = manifest["extra"].get("iteration", 0)
+            warm = replay_state.filled
 
         # fill to min_replay before training, through the same collect+insert
         steps_per_iter = self.sampler.horizon * self.sampler.n_envs
-        warm = 0
         while warm < self.min_replay:
             sampler_state, replay_state = self.loop.collect_insert(
                 train_state.params, sampler_state, replay_state)
@@ -116,6 +137,8 @@ class OffPolicyRunner:
         train_state, sampler_state, replay_state, last_info = self.loop.drive(
             gens[2], train_state, sampler_state, replay_state,
             n_iterations=self.n_iterations, log_interval=self.log_interval,
-            logger=self.logger)
+            logger=self.logger, start_iter=start_iter,
+            ckpt_dir=self.ckpt_dir, ckpt_interval=self.ckpt_interval,
+            ckpt_payload=lambda ts, rs: (ts, rs))
         self.replay_state = replay_state
         return train_state, sampler_state, last_info

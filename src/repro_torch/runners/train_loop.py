@@ -17,17 +17,19 @@ non-finite (``NonFiniteError`` and a ``nan_guard`` trace event).  No
 iteration waits for the device.  ``drive``'s ``eval_sampler`` evaluates at
 every log boundary on a generator forked from the training one, and the
 log row gains its ``eval_*`` and the sentinels' ``sent_*`` columns.
+With ``ckpt_dir`` and ``ckpt_interval`` a window also ends at every
+checkpoint boundary, where ``drive`` saves the train state (or
+``ckpt_payload(train_state, replay_state)``) in JAX's checkpoint format.
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
 Queue 1 item when asked for: the scan-fused window (``fuse=True``; CUDA
-graphs over the iteration are its counterpart, item 14), the SPMD mesh and
-the compressed all-reduce (``mesh=``, ``compress=``; item 12), and
-checkpoints (item 8).
+graphs over the iteration are its counterpart, item 14), and the SPMD mesh
+and the compressed all-reduce (``mesh=``, ``compress=``; item 12).
 """
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch.utils import _pytree as pytree
@@ -39,6 +41,7 @@ from ..samplers.eval import fold_seed
 from ..telemetry import sentinels as sentinels_mod
 from ..telemetry import trace
 from ..telemetry.sentinels import NonFiniteError
+from ..train.checkpoint import save_checkpoint
 from ..utils.logger import Logger
 
 EVAL_FORK = 0xE7A1  # the eval stream's fold-in constant, as in JAX
@@ -157,16 +160,17 @@ class TrainLoop:
     def drive(self, generator, train_state, sampler_state, replay_state, *,
               n_iterations: int, log_interval: int, logger: Logger,
               start_iter: int = 0, ckpt_dir: Optional[str] = None,
-              ckpt_interval: int = 0, eval_sampler=None):
+              ckpt_interval: int = 0,
+              ckpt_payload: Optional[Callable] = None, eval_sampler=None):
         """Run windows to ``n_iterations``, logging one row every
-        ``log_interval``.  Returns (ts, ss, rs, last_info).
+        ``log_interval`` and saving a checkpoint every ``ckpt_interval``
+        (with ``ckpt_dir``; its manifest's ``extra`` holds the iteration).
+        Returns (ts, ss, rs, last_info).
 
         ``eval_sampler`` (samplers/eval.py) evaluates at every log
         boundary on a generator seeded ``fold_seed(fold_seed(s, 0xE7A1),
         it)`` from the training generator's seed ``s``: no training draw
         moves.  Its metrics land in the row under an ``eval_`` prefix."""
-        if ckpt_dir or ckpt_interval:
-            raise _not_ported("checkpointing", "item 8")
         steps_per_iter = self.sampler.horizon * self.sampler.n_envs
         eval_seed = fold_seed(generator.initial_seed(), EVAL_FORK)
         tracer = self.tracer
@@ -175,7 +179,11 @@ class TrainLoop:
         last_info = None
         it = start_iter
         while it < n_iterations:
-            boundary = min(it + log_interval - (it % log_interval), n_iterations)
+            boundary = it + log_interval - (it % log_interval)
+            if ckpt_dir and ckpt_interval:
+                boundary = min(boundary,
+                               it + ckpt_interval - (it % ckpt_interval))
+            boundary = min(boundary, n_iterations)
             with tracer.span("collect_train_window", iter_start=it,
                              iters=boundary - it):
                 (train_state, sampler_state, replay_state, last_info,
@@ -217,4 +225,10 @@ class TrainLoop:
                     logger.record(it * steps_per_iter, row)
                 tracer.memory_snapshot(f"log_boundary_{it}")
                 t0, since_log = time.time(), 0
+            if ckpt_dir and ckpt_interval and it % ckpt_interval == 0:
+                with tracer.span("checkpoint", iteration=it):
+                    payload = (train_state if ckpt_payload is None
+                               else ckpt_payload(train_state, replay_state))
+                    save_checkpoint(ckpt_dir, it, payload,
+                                    extra={"iteration": it})
         return train_state, sampler_state, replay_state, last_info

@@ -1,22 +1,29 @@
-"""Optimizers from scratch: Adam and SGD with global-norm clipping.
+"""Optimizers from scratch: Adam / AdamW and SGD with global-norm clipping,
+LR schedules, Polyak target-network updates.
 
-Port of the single-device part of ``repro/train/optim.py`` (AdamW's
-weight decay, the schedules other than ``constant`` and the cross-replica
-wrappers are not ported yet), as plain
-functions on lists of tensors with the JAX formulas (bias correction, and
-``eps`` outside the square root).  ``Optimizer(init, update)`` keeps the JAX
+Port of the single-device part of ``repro/train/optim.py`` (the
+cross-replica wrappers wait for ROADMAP Queue 1 item 12), as plain
+functions on lists of tensors with the JAX formulas (bias correction,
+``eps`` outside the square root, decoupled weight decay added to the
+step).  ``Optimizer(init, update)`` keeps the JAX
 interface: ``init(params) -> OptState`` and
 ``update(grads, state, params) -> (params, state, grad_norm)``.
 
 Unlike JAX, ``update`` writes the new parameters and moments IN PLACE (into
 the tensors of ``params`` and ``state``) and returns them: at 1.4 B
 parameters a second copy of the weights and moments would cost 17 GB.
+A schedule is a function of the step as a 0-d f32 tensor, and returns the
+rate on the step's device; ``update`` builds its per-step scalars once, on
+the params' device, so no step copies a scalar from the host per tensor.
 """
 from __future__ import annotations
 
 from typing import Callable, List, NamedTuple, Optional
 
+import math
+
 import torch
+from torch.utils import _pytree as pytree
 
 F32 = torch.float32
 
@@ -33,7 +40,19 @@ class Optimizer(NamedTuple):
 
 
 def constant(lr: float):
-    return lambda step: torch.tensor(lr, dtype=F32)
+    return lambda step: torch.full((), lr, dtype=F32, device=step.device)
+
+
+def linear_warmup_cosine(peak_lr: float, warmup: int, total: int,
+                         final_frac: float = 0.1):
+    def sched(step):
+        step = step.to(F32)
+        warm = peak_lr * torch.clamp(step / max(warmup, 1), max=1.0)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = peak_lr * (final_frac + (1 - final_frac) * 0.5 * (
+            1 + torch.cos(math.pi * prog)))
+        return torch.where(step < warmup, warm, cos)
+    return sched
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -61,8 +80,15 @@ def _clip_or_norm(grads, grad_clip):
     return list(grads), global_norm(grads)
 
 
+def _step_scalar(step: int, device) -> torch.Tensor:
+    """The step as a 0-d f32 tensor made on ``device`` (a fill, not a copy
+    from the host)."""
+    return torch.full((), float(step), dtype=F32, device=device)
+
+
 def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-         grad_clip: Optional[float] = None) -> Optimizer:
+         weight_decay: float = 0.0, grad_clip: Optional[float] = None
+         ) -> Optimizer:
     sched = lr if callable(lr) else constant(lr)
 
     def init(params):
@@ -75,17 +101,19 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         params = list(params)
         grads, gnorm = _clip_or_norm(grads, grad_clip)
         step = state.step + 1
-        step_f = torch.tensor(float(step), dtype=F32)
+        dev = params[0].device
+        step_f = _step_scalar(step, dev)
         lr_t = sched(step_f)
-        bc1 = 1 - torch.tensor(b1, dtype=F32) ** step_f
-        bc2 = 1 - torch.tensor(b2, dtype=F32) ** step_f
+        bc1 = 1 - torch.full((), b1, dtype=F32, device=dev) ** step_f
+        bc2 = 1 - torch.full((), b2, dtype=F32, device=dev) ** step_f
         for p, g, m, v in zip(params, grads, state.mu, state.nu):
-            dev = p.device
             g = g.to(F32)
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * torch.square(g))
-            delta = (m / bc1.to(dev)) / (torch.sqrt(v / bc2.to(dev)) + eps)
-            p.copy_((p.to(F32) - lr_t.to(dev) * delta).to(p.dtype))
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if weight_decay:
+                delta = delta + weight_decay * p.to(F32)
+            p.copy_((p.to(F32) - lr_t * delta).to(p.dtype))
         return params, OptState(step=step, mu=state.mu, nu=state.nu), gnorm
 
     return Optimizer(init, update)
@@ -103,10 +131,18 @@ def sgd(lr, momentum: float = 0.0, grad_clip: Optional[float] = None
         params = list(params)
         grads, gnorm = _clip_or_norm(grads, grad_clip)
         step = state.step + 1
-        lr_t = sched(torch.tensor(float(step), dtype=F32))
+        lr_t = sched(_step_scalar(step, params[0].device))
         for p, g, m in zip(params, grads, state.mu):
             m.copy_(momentum * m + g.to(F32))
-            p.copy_((p.to(F32) - lr_t.to(p.device) * m).to(p.dtype))
+            p.copy_((p.to(F32) - lr_t * m).to(p.dtype))
         return params, OptState(step=step, mu=state.mu, nu=None), gnorm
 
     return Optimizer(init, update)
+
+
+def soft_update(target, online, tau: float):
+    """Polyak averaging for target networks (DDPG/TD3/SAC): new f32 tensors
+    ``(1 - tau) * target + tau * online``, leaf by leaf, as in JAX (the
+    online params are never aliased)."""
+    return pytree.tree_map(
+        lambda t, o: (1 - tau) * t.to(F32) + tau * o.to(F32), target, online)

@@ -39,7 +39,7 @@ from repro_torch.models import rl_models as trl  # noqa: E402
 from repro_torch.models.convert import rl_params_from_jax  # noqa: E402
 from repro_torch.replay import device as treplay  # noqa: E402
 from repro_torch.replay.interface import DeviceReplay  # noqa: E402
-from repro_torch.runners import TrainLoop  # noqa: E402
+from repro_torch.runners import OffPolicyRunner, TrainLoop  # noqa: E402
 from repro_torch.samplers import SerialSampler  # noqa: E402
 from repro_torch.telemetry import trace  # noqa: E402
 from repro_torch.train.optim import adam  # noqa: E402
@@ -314,9 +314,10 @@ def test_off_policy_runner_rainbow_short_run():
 
 
 def test_train_loop_refuses_what_is_not_ported():
-    """fuse, the mesh, compress and checkpoints still raise, naming their
-    ROADMAP item; sentinels and the NaN guard are ported (their tests are
-    in tests/test_torch_pg.py) and construct."""
+    """fuse, the mesh and compress still raise, naming their ROADMAP item;
+    sentinels, the NaN guard and checkpoints are ported (their tests are in
+    tests/test_torch_pg.py and tests/test_torch_checkpoint.py) and
+    construct."""
     _, _, loop = _rainbow(64)
     args = (loop.sampler, loop.algo)
     kw = dict(replay=loop.replay, batch_size=8)
@@ -327,9 +328,10 @@ def test_train_loop_refuses_what_is_not_ported():
         assert TrainLoop(*args, **kw, **ok).sentinels_on
     with pytest.raises(ValueError, match="batch_size"):
         TrainLoop(*args, replay=loop.replay)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        loop.drive(None, None, None, None, n_iterations=1, log_interval=1,
-                   logger=_Rows(), ckpt_dir="x", ckpt_interval=1)
+    _, runner = example.make_runner("rainbow", 1, replay_capacity=64)
+    assert OffPolicyRunner(runner.sampler, runner.algo, replay_capacity=64,
+                           batch_size=8, n_iterations=1, ckpt_dir="x",
+                           ckpt_interval=1).ckpt_dir == "x"
 
 
 def test_example_defaults_to_cuda_and_runs_on_cpu(capsys):

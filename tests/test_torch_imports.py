@@ -127,3 +127,17 @@ def test_every_kernel_source_is_built_and_ported():
         p.stem for p in (PORT / "csrc").glob("*.cu"))
     assert registry.PORTED == registry.OPS == ("attention", "ssd", "sum_tree")
     assert "unported" not in registry.describe("cuda").values()
+
+
+def test_walk_covers_the_qpg_slice_and_its_runners_default_to_the_card():
+    """The QPG slice's modules are among the files the import walk checks,
+    and the runners it trains through default to the card."""
+    import inspect
+    from repro_torch.runners import OffPolicyRunner, OnPolicyRunner
+    walked = {f.relative_to(PORT).as_posix() for f in _port_files()[:-1]}
+    assert {"algos/qpg/__init__.py", "algos/qpg/ddpg.py", "algos/qpg/td3.py",
+            "algos/qpg/sac.py", "envs/pendulum.py", "train/checkpoint.py",
+            "examples/pendulum_qpg.py"} <= walked
+    for runner in (OffPolicyRunner, OnPolicyRunner):
+        device = inspect.signature(runner.run).parameters["device"]
+        assert device.default == "cuda"

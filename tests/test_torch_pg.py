@@ -770,15 +770,23 @@ def test_off_policy_sentinels_read_the_replay():
 # runner and entry point
 # ---------------------------------------------------------------------------
 
-def test_on_policy_runner_defaults_to_cuda_and_refuses_checkpoints():
+def test_on_policy_runner_defaults_to_cuda_and_refuses_checkpoints(tmp_path):
+    """The runner defaults to the card.  Checkpoints are no longer refused
+    (their tests are in tests/test_torch_checkpoint.py): ``restore=True``
+    with no checkpoint to restore trains from iteration 0, and ``ckpt_dir``
+    constructs and saves."""
     _, runner = _a2c_runner(1, 1, _Rows())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             runner.run(0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        runner.run(0, restore=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _a2c_runner(1, 1, _Rows(), ckpt_dir="x", ckpt_interval=1)
+    ts, _, _ = runner.run(0, restore=True, device="cpu")
+    assert ts.step == 1
+    _, runner = _a2c_runner(2, 1, _Rows(), ckpt_dir=str(tmp_path),
+                            ckpt_interval=1)
+    ts, _, _ = runner.run(0, restore=True, device="cpu")
+    assert ts.step == 2
+    assert sorted(p.name for p in tmp_path.glob("*.json")) == [
+        "step_0000000001.json", "step_0000000002.json"]
 
 
 def test_quickstart_defaults_and_cpu_run(tmp_path, capsys):
