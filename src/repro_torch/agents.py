@@ -1,14 +1,15 @@
 """Concrete agents (paper §6.1): model + distribution -> step function.
 
-Port of the feed-forward agents of ``repro/agents.py``: categorical and
-Gaussian policy gradient, DQN, and the DDPG / TD3 and SAC actors.  An agent
+Port of ``repro/agents.py``: categorical and Gaussian policy gradient,
+DQN, the recurrent R2D1 agent, and the DDPG / TD3 and SAC actors.  An agent
 step is a function
     step(params, generator, obs, prev_action, prev_reward, state)
         -> (action, agent_info dict, new_state)
 that the serial sampler calls once per env step on a (B, ...) batch; the
 randomness comes from the ``torch.Generator`` it is given.  The DDPG and
 SAC agents take the algorithm's combined ``{"actor", "critic"}`` params (or
-the actor's alone).  The recurrent agent waits for its slice.
+the actor's alone).  The recurrent R2D1 agent carries its LSTM state and
+epsilon in the agent state and feeds its time-major model T = 1 slices.
 """
 from __future__ import annotations
 
@@ -116,6 +117,37 @@ def make_dqn_agent(model, n_actions: int, *, n_atoms: int = 0,
         return torch.argmax(q, dim=-1), {"q": q}, state
 
     return AgentDef(model.init, step, value, initial_state,
+                    eval_step=eval_step)
+
+
+def make_r2d1_agent(model, n_actions: int) -> AgentDef:
+    """Recurrent epsilon-greedy agent: carries LSTM state (paper §6.3);
+    model.apply is time-major — the sampler feeds T=1 slices."""
+    eg = EpsilonGreedy(n_actions)
+
+    def q_step(params, obs, prev_action, prev_reward, state):
+        q, lstm_state = model.apply(params, obs[None], prev_action[None],
+                                    prev_reward[None], state["lstm"])
+        return q[0], {"lstm": lstm_state, "epsilon": state["epsilon"]}
+
+    def step(params, generator, obs, prev_action, prev_reward, state):
+        q, state = q_step(params, obs, prev_action, prev_reward, state)
+        return eg.sample(generator, q, state["epsilon"]), {"q": q}, state
+
+    def value(params, obs, prev_action, prev_reward, state):
+        q, _ = q_step(params, obs, prev_action, prev_reward, state)
+        return torch.amax(q, dim=-1)
+
+    def initial_state(batch, epsilon=0.05, *, device="cpu"):
+        return {"lstm": model.initial_state(batch, device=device),
+                "epsilon": torch.full((batch,), epsilon, dtype=F32,
+                                      device=device)}
+
+    def eval_step(params, generator, obs, prev_action, prev_reward, state):
+        q, state = q_step(params, obs, prev_action, prev_reward, state)
+        return torch.argmax(q, dim=-1), {"q": q}, state
+
+    return AgentDef(model.init, step, value, initial_state, recurrent=True,
                     eval_step=eval_step)
 
 

@@ -1,2 +1,3 @@
-"""Deep Q-learning of the port (so far DQN and its variants)."""
+"""Deep Q-learning of the port: DQN and its variants, and R2D1."""
 from .dqn import DQN, huber  # noqa: F401
+from .r2d1 import R2D1  # noqa: F401

@@ -27,6 +27,20 @@ def tree_select(pred, on_true, on_false):
     return _map(lambda a, b: torch.where(pred, a, b), on_true, on_false)
 
 
+def jax_order_leaves(tree):
+    """A tree's leaves in JAX's flattening order: dict keys sorted, tuples
+    (named or not) and lists in order, ``None`` no leaf.  Works on any
+    leaves (numpy arrays too); files that number leaves (the host replay's
+    ``state_dict``) use it to match the JAX package's numbering."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in jax_order_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for sub in tree for x in jax_order_leaves(sub)]
+    return [tree]
+
+
 def tree_zeros_like(tree, dtype=None):
     return _map(lambda x: torch.zeros_like(x, dtype=dtype), tree)
 

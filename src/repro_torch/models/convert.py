@@ -14,9 +14,10 @@ matrices in the compute dtype computes the same thing for serving; training
 asks for f32 master weights with ``requires_grad=True``.
 
 ``rl_params_from_jax`` carries the parameter pytree of a small RL model
-(``repro.models.rl_models``: ``make_q_conv``, ``make_q_mlp``) into the
-port's ``models/rl_models.py``, whose params are the same nested dicts and
-lists of arrays: a leaf-for-leaf copy into f32 tensors.
+(``repro.models.rl_models``: the Q, PG and continuous models, and
+``make_recurrent_q`` with its ``lstm/{wx,wh,b}``) into the port's
+``models/rl_models.py``, whose params are the same nested dicts and lists
+of arrays: a leaf-for-leaf copy into f32 tensors.
 """
 from __future__ import annotations
 

@@ -16,7 +16,15 @@ HWIO kernels — and permutes to NCHW / OIHW for ``F.conv2d`` inside, so
 converted JAX weights compute the same function.  The critic keeps JAX's
 stacked layout (its ``init`` is a ``vmap``): every leaf has a leading
 ``n_critics`` axis, and ``apply`` runs all critics with one batched product
-a layer.  The recurrent factories wait for their slice.
+a layer.
+
+The LSTM of the recurrent agents (paper §6.3) keeps JAX's layout and
+arithmetic: ``wx`` (d_in, 4H) used as ``x @ wx``, ``wh`` (H, 4H), one
+bias, gates i, f, g, o in that order, and +1 inside the forget sigmoid.  It
+runs as plain tensor ops one step at a time, as JAX's ``lax.scan`` does;
+``nn.LSTM`` / cuDNN keep another weight layout and no forget offset.
+``make_recurrent_q`` (R2D1) feeds it ``[trunk h, one_hot(prev_action),
+prev_reward]``; its ``apply`` is time-major and returns ``(q, state)``.
 """
 from __future__ import annotations
 
@@ -30,6 +38,9 @@ from ..core.leading_dims import infer_leading_dims, restore_leading_dims
 from .heads import (dense_init, gaussian_head, init_gaussian_head, init_linear,
                     init_mu_head, init_pg_head, init_q_head, linear, mu_head,
                     pg_head, q_head)
+
+
+F32 = torch.float32
 
 
 class Model(NamedTuple):
@@ -83,6 +94,43 @@ def conv_trunk(p, x, strides=(4, 2, 1)):
         x = F.relu(F.conv2d(x, w, stride=st))
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten as NHWC
     return F.relu(linear(p["proj"], x))
+
+
+# ---------------------------------------------------------------------------
+# LSTM cell (recurrent agents, paper §6.3) — plain tensor ops, cuDNN-free
+# ---------------------------------------------------------------------------
+
+def init_lstm(generator, d_in: int, d_hidden: int):
+    return {
+        "wx": dense_init((d_in, 4 * d_hidden), d_in, generator),
+        "wh": dense_init((d_hidden, 4 * d_hidden), d_hidden, generator),
+        "b": torch.zeros((4 * d_hidden,), dtype=F32, device=generator.device),
+    }
+
+
+def lstm_step(p, x, state):
+    """x: (B, d_in); state: (h, c) each (B, d_hidden)."""
+    h, c = state
+    gates = x @ p["wx"].to(x.dtype) + h @ p["wh"].to(x.dtype) + \
+        p["b"].to(x.dtype)
+    i, f, g, o = torch.chunk(gates, 4, dim=-1)
+    c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h, (h, c)
+
+
+def lstm_seq(p, xs, state):
+    """xs: (T, B, d_in) -> (T, B, H), final state; a loop over time."""
+    hs = []
+    for x in xs:
+        h, state = lstm_step(p, x, state)
+        hs.append(h)
+    return torch.stack(hs), state
+
+
+def lstm_zero_state(d_hidden: int, batch: int, dtype=F32, *, device="cpu"):
+    return (torch.zeros((batch, d_hidden), dtype=dtype, device=device),
+            torch.zeros((batch, d_hidden), dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +203,42 @@ def make_q_conv(in_ch: int, n_actions: int, img_hw=(84, 84), *,
         return restore_leading_dims(q, lead, T, B)
 
     return Model(init, apply)
+
+
+def make_recurrent_q(obs_dim_or_ch, n_actions: int, *, conv=False, d_lstm=256,
+                     img_hw=(84, 84), dueling=True, trunk_hidden=(256,),
+                     channels=(32, 64, 64), kernels=(8, 4, 3),
+                     strides=(4, 2, 1), d_conv_out=512) -> Model:
+    """R2D1-style recurrent Q model: trunk -> [h, prev_a_onehot, prev_r] ->
+    LSTM -> Q.
+
+    apply() is time-major: (T, B, ...) observation, returns (q (T,B,A),
+    state)."""
+    def init(generator):
+        trunk = (init_conv_trunk(generator, obs_dim_or_ch, img_hw, channels,
+                                 kernels, strides, d_conv_out) if conv
+                 else init_mlp_trunk(generator, obs_dim_or_ch, trunk_hidden))
+        d_trunk = d_conv_out if conv else trunk_hidden[-1]
+        return {"trunk": trunk,
+                "lstm": init_lstm(generator, d_trunk + n_actions + 1, d_lstm),
+                "head": init_q_head(generator, d_lstm, n_actions,
+                                    dueling=dueling)}
+
+    def apply(params, observation, prev_action, prev_reward, state):
+        T, B = observation.shape[:2]
+        obs = observation.reshape((T * B,) + tuple(observation.shape[2:]))
+        h = (conv_trunk(params["trunk"], obs.to(torch.float32), strides)
+             if conv else mlp_trunk(params["trunk"], obs, act=F.relu))
+        h = h.reshape(T, B, -1)
+        pa = F.one_hot(prev_action.long(), n_actions).to(h.dtype)
+        xs = torch.cat([h, pa, prev_reward[..., None].to(h.dtype)], dim=-1)
+        hs, state = lstm_seq(params["lstm"], xs, state)
+        return q_head(params["head"], hs, n_actions, dueling=dueling), state
+
+    def initial_state(batch, *, device="cpu"):
+        return lstm_zero_state(d_lstm, batch, device=device)
+
+    return Model(init, apply, initial_state=initial_state)
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,46 @@
 """One replay interface (init/insert/sample/update_priorities) so runners
-are replay-backend-agnostic; port of the device-resident part of
-``repro/replay/interface.py``.
+are replay-backend-agnostic; port of ``repro/replay/interface.py`` (the
+sharded views wait for ROADMAP Queue 1 item 12).
 
-``DeviceReplay`` is the torch ring of ``replay/device.py`` on the device.
-It speaks RolloutBatch on insert and returns ``(sample, indices,
-is_weights)`` from ``sample``, so the runner's only other contact with
-replay data is ``make_algo_batch(algo.batch_spec, sample, ...)``.  The host
-buffers (``HostTransitionReplay``, ``HostSequenceReplay``), ``LockedReplay``
-and the sharded views wait for the async and distributed slices.
+Backends:
+- ``DeviceReplay``         — the torch ring of ``replay/device.py`` on the
+  device (the TrainLoop path).
+- ``HostTransitionReplay`` — numpy n-step buffers (replay/host.py); the
+  paper's shared-memory buffer for the asynchronous runner.  State is the
+  buffer object itself, mutated in place and returned for signature parity.
+- ``HostSequenceReplay``   — numpy sequence buffer with periodic stored
+  recurrent state (R2D1).
+- ``LockedReplay``         — one lock around a host backend, so the async
+  runner's copier thread inserts while its learner samples.
+
+All backends speak RolloutBatch on insert — each converts to its own
+storage layout — and return ``(sample, indices, is_weights)`` from
+``sample``, so the runner's only other contact with replay data is
+``make_algo_batch(algo.batch_spec, sample, ...)``.  The host backends
+return numpy samples; the runner moves them to its learner's device.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..core.batch_spec import rollout_to_transitions
 from . import device as dreplay
+from .host import PrioritizedReplayBuffer, SequenceSamples, TransitionSamples
 
 F32 = torch.float32
+
+
+def host_tree(x):
+    """Device -> host copy of a tree (the async memory-copier role): every
+    tensor leaf becomes a numpy array, synchronously (the copy has landed
+    when this returns); numpy leaves pass through and ``None`` stays."""
+    return pytree.tree_map(
+        lambda leaf: leaf.detach().cpu().numpy()
+        if isinstance(leaf, torch.Tensor) else leaf, x)
 
 
 def transition_example(env, *, device="cpu") -> dict:
@@ -92,3 +114,108 @@ class DeviceReplay(ReplayLike):
         (td_abs,) = priorities
         return dreplay.update_priorities(state, indices, td_abs,
                                          alpha=self.alpha)
+
+
+class HostTransitionReplay(ReplayLike):
+    """Wraps Uniform/Prioritized/Frame host buffers; ``state`` is the buffer."""
+
+    device_resident = False
+
+    def __init__(self, buffer):
+        self.buffer = buffer
+
+    def init(self, example=None):
+        return self.buffer
+
+    def insert(self, state, rollout, **extras):
+        b = host_tree(rollout)
+        samples = TransitionSamples(
+            observation=b.observation, action=b.action, reward=b.reward,
+            done=b.done, timeout=b.timeout)
+        state.append_samples(samples, next_obs=b.next_observation
+                             if state.store_next_obs else None)
+        return state
+
+    def sample(self, state, rng, batch_size: int):
+        hb = state.sample_batch(batch_size, rng)
+        indices = hb.pop("indices")
+        weights = hb.pop("is_weights")
+        return hb, indices, weights
+
+    def update_priorities(self, state, indices, *priorities):
+        if isinstance(state, PrioritizedReplayBuffer):
+            (td_abs,) = priorities
+            state.update_priorities(indices, host_tree(td_abs))
+        return state
+
+
+class HostSequenceReplay(ReplayLike):
+    """Wraps SequenceReplayBuffer; insert takes the block-start recurrent
+    state via ``init_state=`` (periodic storage, paper §6.3)."""
+
+    device_resident = False
+
+    def __init__(self, buffer):
+        self.buffer = buffer
+
+    def init(self, example=None):
+        return self.buffer
+
+    def insert(self, state, rollout, *, init_state=None, **extras):
+        b = host_tree(rollout)
+        samples = SequenceSamples(
+            observation=b.observation, prev_action=b.prev_action,
+            prev_reward=b.prev_reward, action=b.action, reward=b.reward,
+            done=b.done, init_state=host_tree(init_state))
+        state.append_samples(samples)
+        return state
+
+    def sample(self, state, rng, batch_size: int):
+        hb = state.sample_batch(batch_size, rng)
+        indices = hb.pop("indices")
+        weights = hb.pop("is_weights")
+        return hb, indices, weights
+
+    def update_priorities(self, state, indices, *priorities):
+        td_max, td_mean = host_tree(priorities)
+        state.update_priorities(indices, td_max, td_mean)
+        return state
+
+
+class LockedReplay(ReplayLike):
+    """Concurrent-safe view over a host ReplayLike (the async memory-copier
+    hand-off, paper §2.3): one RLock serializes insert / sample /
+    update_priorities so the copier thread can append while the learner
+    samples.  The lock guards only the host-side numpy mutation — callers
+    should materialize device batches (``host_tree``) BEFORE insert, and
+    priorities before ``update_priorities``, so no device wait ever happens
+    under the lock.
+    """
+
+    device_resident = False
+
+    def __init__(self, inner: ReplayLike):
+        if inner.device_resident:
+            raise TypeError("LockedReplay wraps host backends")
+        self.inner = inner
+        self.lock = threading.RLock()
+
+    @property
+    def buffer(self):
+        return self.inner.buffer
+
+    def init(self, example=None):
+        with self.lock:
+            return self.inner.init(example)
+
+    def insert(self, state, rollout, **extras):
+        with self.lock:
+            return self.inner.insert(state, rollout, **extras)
+
+    def sample(self, state, rng, batch_size: int):
+        with self.lock:
+            return self.inner.sample(state, rng, batch_size)
+
+    def update_priorities(self, state, indices, *priorities):
+        with self.lock:
+            return self.inner.update_priorities(state, indices, *priorities)

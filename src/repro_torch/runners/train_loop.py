@@ -71,7 +71,7 @@ class TrainLoop:
                               "item 12")
         if spec.mode == "sequence":
             raise ValueError("sequence-mode algorithms (R2D1) need the host "
-                             "sequence replay")
+                             "sequence replay — use AsyncR2D1Runner")
         if spec.replayed:
             if replay is None or not replay.device_resident:
                 raise ValueError("replayed algorithms need a device-resident "

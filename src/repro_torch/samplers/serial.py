@@ -69,42 +69,52 @@ class SerialSampler:
             completed_count=torch.zeros((), dtype=torch.int32, device=dev),
         )
 
+    def select(self, params, s: SamplerState):
+        """Action selection on the current obs; returns (action, info, s')."""
+        action, info, agent_state = self.agent.step(
+            params, s.generator, s.obs, s.prev_action, s.prev_reward,
+            s.agent_state)
+        return action, info, s._replace(agent_state=agent_state)
+
+    def step_envs(self, s: SamplerState, action, info):
+        """Step the envs with a selected action; returns (s', the step's
+        RolloutBatch)."""
+        B = self.n_envs
+        env_state, obs2, reward, done, env_info = self.env.step(
+            s.env_state, action, s.generator)
+        # episode bookkeeping (TrajectoryInfo)
+        ep_return = s.ep_return + reward
+        ep_len = s.ep_len + 1
+        d = done.to(F32)
+        completed_return_sum = s.completed_return_sum + torch.sum(d * ep_return)
+        completed_len_sum = s.completed_len_sum + torch.sum(d * ep_len)
+        completed_count = s.completed_count + torch.sum(done.to(torch.int32))
+        ep_return = ep_return * (1.0 - d)
+        ep_len = ep_len * (1 - done.to(torch.int32))
+        out = RolloutBatch(
+            observation=s.obs, prev_action=s.prev_action,
+            prev_reward=s.prev_reward, action=action, reward=reward,
+            done=done, timeout=env_info.timeout,
+            next_observation=env_info.terminal_obs, agent_info=info)
+        # prev_action/reward reset to null at episode boundary (paper §6.3)
+        nd = 1.0 - d
+        prev_action = (action * nd.to(action.dtype).reshape(
+            (B,) + (1,) * (action.dim() - 1))).to(action.dtype)
+        prev_reward = reward * nd
+        return SamplerState(env_state, obs2, prev_action, prev_reward,
+                            s.agent_state, s.generator, ep_return, ep_len,
+                            completed_return_sum, completed_len_sum,
+                            completed_count), out
+
     @torch.no_grad()
     def collect(self, params, state: SamplerState):
         """One sampling batch: returns (state', RolloutBatch (T, B))."""
-        B = self.n_envs
-        gen = state.generator
         s = state
         steps = []
         for _ in range(self.horizon):
-            action, info, agent_state = self.agent.step(
-                params, gen, s.obs, s.prev_action, s.prev_reward, s.agent_state)
-            env_state, obs2, reward, done, env_info = self.env.step(
-                s.env_state, action, gen)
-            # episode bookkeeping (TrajectoryInfo)
-            ep_return = s.ep_return + reward
-            ep_len = s.ep_len + 1
-            d = done.to(F32)
-            completed_return_sum = s.completed_return_sum + torch.sum(d * ep_return)
-            completed_len_sum = s.completed_len_sum + torch.sum(d * ep_len)
-            completed_count = s.completed_count + torch.sum(done.to(torch.int32))
-            ep_return = ep_return * (1.0 - d)
-            ep_len = ep_len * (1 - done.to(torch.int32))
-
-            steps.append(RolloutBatch(
-                observation=s.obs, prev_action=s.prev_action,
-                prev_reward=s.prev_reward, action=action, reward=reward,
-                done=done, timeout=env_info.timeout,
-                next_observation=env_info.terminal_obs, agent_info=info))
-            # prev_action/reward reset to null at episode boundary (paper §6.3)
-            nd = 1.0 - d
-            prev_action = (action * nd.to(action.dtype).reshape(
-                (B,) + (1,) * (action.dim() - 1))).to(action.dtype)
-            prev_reward = reward * nd
-            s = SamplerState(env_state, obs2, prev_action, prev_reward,
-                             agent_state, gen, ep_return, ep_len,
-                             completed_return_sum, completed_len_sum,
-                             completed_count)
+            action, info, s = self.select(params, s)
+            s, out = self.step_envs(s, action, info)
+            steps.append(out)
         batch = pytree.tree_map(lambda *xs: torch.stack(xs), *steps)
         return s, batch
 

@@ -15,6 +15,13 @@ replay ring's ``cursor`` and ``filled``) are stored as 0-d int32 arrays, as
 JAX stores its int32 steps, and come back as ints; ``None`` is no leaf, as
 in JAX.  No generator state is saved (JAX saves no PRNG key).  Elastic
 re-sharding (``shardings=``) waits for ROADMAP Queue 1 item 12.
+
+The port's optimizers keep their moments as flat lists in the params' leaf
+order, JAX's as trees shaped like the params.  ``save_checkpoint`` writes
+every ``TrainState`` it meets in JAX's layout and ``restore_checkpoint``
+reads it back into the port's, so every runner writes one layout and a whole
+train state (params, optimizer state, targets) saved by one package
+restores in the other.
 """
 from __future__ import annotations
 
@@ -26,6 +33,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+from ..core.algorithm import TrainState
+from .optim import OptState
 
 _INT32 = np.iinfo(np.int32)
 
@@ -57,11 +67,57 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _moment_owners(train_state):
+    """The params each optimizer state of ``train_state`` steps: the whole
+    params for a single OptState (DQN, R2D1, A2C, PPO); for a dict of them
+    (DDPG / TD3 / SAC) ``params[key]``, or ``extra["log_" + key]`` (SAC's
+    alpha)."""
+    opt, params = train_state.opt_state, train_state.params
+    if isinstance(opt, OptState):
+        return params
+    return {k: params[k] if k in params else train_state.extra[f"log_{k}"]
+            for k in opt}
+
+
+def _map_opt(train_state, fn):
+    opt = train_state.opt_state
+    if opt is None:
+        return train_state
+    owners = _moment_owners(train_state)
+    if isinstance(opt, OptState):
+        return train_state._replace(opt_state=fn(opt, owners))
+    return train_state._replace(
+        opt_state={k: fn(opt[k], owners[k]) for k in opt})
+
+
+def _moments_as(state: OptState, fn) -> OptState:
+    return state._replace(mu=None if state.mu is None else fn(state.mu),
+                          nu=None if state.nu is None else fn(state.nu))
+
+
+def _to_tree(state, owner):
+    spec = pytree.tree_structure(owner)
+    return _moments_as(state, lambda m: pytree.tree_unflatten(m, spec))
+
+
+def _to_list(state, owner):
+    return _moments_as(state, pytree.tree_leaves)
+
+
+def _each_train_state(tree, fn):
+    """``tree`` with ``_map_opt(ts, fn)`` for every TrainState ``ts`` in it;
+    the tensors are shared."""
+    return pytree.tree_map(
+        lambda x: _map_opt(x, fn) if isinstance(x, TrainState) else x, tree,
+        is_leaf=lambda x: isinstance(x, TrainState))
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
                     extra: Optional[dict] = None) -> str:
     """Write ``tree`` as ``step_{step:010d}.npz`` / ``.json`` in
     ``ckpt_dir``; returns the ``.npz`` path."""
     os.makedirs(ckpt_dir, exist_ok=True)
+    tree = _each_train_state(tree, _to_tree)
     arrays, manifest_leaves = {}, []
     for i, (path, leaf) in enumerate(_leaves(tree)):
         name = f"leaf_{i}"
@@ -123,7 +179,8 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any, *,
             raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     with open(os.path.join(ckpt_dir, f"step_{step:010d}.json")) as f:
         manifest = json.load(f)
-    flat, spec = pytree.tree_flatten_with_path(tree_like)
+    flat, spec = pytree.tree_flatten_with_path(
+        _each_train_state(tree_like, _to_tree))
     n = sum(leaf is not None for _, leaf in flat)
     if n != manifest["n_leaves"]:
         raise ValueError(f"tree has {n} leaves, checkpoint "
@@ -143,4 +200,5 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any, *,
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} vs "
                                  f"model {tuple(np.shape(like))}")
             out.append(_restored(arr, like, device))
-    return pytree.tree_unflatten(out, spec), manifest
+    return _each_train_state(pytree.tree_unflatten(out, spec),
+                             _to_list), manifest

@@ -2,7 +2,8 @@
 round trip of the port's train and replay states (ints come back as ints,
 leaves matched by path, on the device asked for); a params tree saved by
 JAX's ``save_checkpoint`` restored by the port and one saved by the port
-restored by JAX, with identical values; ``TrainLoop.drive`` saving at every
+restored by JAX, with identical values; a whole SAC train state crossing
+both ways in JAX's layout; ``TrainLoop.drive`` saving at every
 ``ckpt_interval`` inside a ``checkpoint`` span; on- and off-policy restore
 (the mirrors of tests/test_train_loop.py's restore tests, including the
 start-iteration regression) and a SAC restore whose replay skips the
@@ -154,6 +155,91 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
                                       err_msg=jax.tree_util.keystr(path))
         assert np.asarray(a).dtype == np.asarray(b).dtype
+
+
+def _by_path(flat):
+    return {"/".join(str(getattr(p, "key", getattr(p, "idx", getattr(
+        p, "name", p)))) for p in path): np.asarray(x) for path, x in flat}
+
+
+def test_sac_train_state_crosses_both_ways_in_jax_layout(tmp_path):
+    """Every runner writes JAX's layout: the off-policy runner's SAC
+    checkpoint (three Adam states, one over the 0-d log_alpha) restores in
+    JAX with each moment at its param's path, and a JAX-saved SAC train
+    state of random values restores into the port, moments back as lists in
+    the params' leaf order."""
+    from repro.algos.qpg.sac import SAC as JSAC
+    from repro.train import optim as joptim
+
+    _, runner, init = _qpg_runner(tmp_path / "port", 2)
+    ts, _, _ = runner.run(0, params=init(torch.Generator().manual_seed(0)),
+                          device="cpu")
+    (got, _), _ = tckpt.restore_checkpoint(
+        str(tmp_path / "port"), (ts, runner.replay_state))
+    _equal(got, ts)
+    jalgo = JSAC(jrl.make_sac_actor(3, 1, (8,)).apply,
+                 jrl.make_q_critic(3, 1, (8,)).apply,
+                 joptim.adam(1e-3, grad_clip=1.0),
+                 joptim.adam(1e-3, grad_clip=1.0), act_dim=1)
+    ka, kc = jax.random.split(jax.random.PRNGKey(0))
+    jts = jalgo.init_train_state(jax.random.PRNGKey(1), {
+        "actor": jrl.make_sac_actor(3, 1, (8,)).init(ka),
+        "critic": jrl.make_q_critic(3, 1, (8,)).init(kc)})
+
+    def port_flat(t):
+        """(path, leaf) of a port train state, each moment at the path of
+        the param it belongs to, as JAX lays it out."""
+        out = [(path, x.numpy() if torch.is_tensor(x) else x)
+               for path, x in pytree.tree_flatten_with_path(t)[0]
+               if not (getattr(path[0], "name", None) == "opt_state"
+                       and getattr(path[2], "name", None) in ("mu", "nu"))]
+        for k, state in t.opt_state.items():
+            owner = t.params[k] if k in t.params else t.extra[f"log_{k}"]
+            for field in ("mu", "nu"):
+                for (p, _), m in zip(pytree.tree_flatten_with_path(owner)[0],
+                                     getattr(state, field)):
+                    out.append(((pytree.GetAttrKey("opt_state"),
+                                 pytree.MappingKey(k),
+                                 pytree.GetAttrKey(field)) + tuple(p),
+                                m.numpy()))
+        return _by_path(out)
+
+    def manifest_paths(ckpt_dir, prefix=""):
+        step = tckpt.latest_step(ckpt_dir)
+        with open(os.path.join(ckpt_dir, f"step_{step:010d}.json")) as f:
+            return sorted(leaf["path"][len(prefix):]
+                          for leaf in json.load(f)["leaves"]
+                          if leaf["path"].startswith(prefix))
+
+    # the runner's own file holds the train state at JAX's leaf paths
+    jckpt.save_checkpoint(str(tmp_path / "jax"), 1, jts)
+    assert manifest_paths(str(tmp_path / "port"), "0/") == manifest_paths(
+        str(tmp_path / "jax"))
+    # port -> JAX, value for value
+    tckpt.save_checkpoint(str(tmp_path / "p2j"), 2, ts)
+    jgot, _ = jckpt.restore_checkpoint(
+        str(tmp_path / "p2j"), jax.tree_util.tree_map(jnp.zeros_like, jts))
+    want, have = port_flat(ts), _by_path(
+        jax.tree_util.tree_flatten_with_path(jgot)[0])
+    assert sorted(want) == sorted(have)
+    for k in want:
+        np.testing.assert_array_equal(have[k], want[k], err_msg=k)
+
+    # JAX -> port, from random values so no two leaves agree by chance
+    rng = np.random.default_rng(0)
+    jrand = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(rng.integers(1, 9, a.shape).astype(a.dtype)
+                              if a.dtype == jnp.int32 else
+                              rng.standard_normal(a.shape).astype(a.dtype)),
+        jts)
+    jckpt.save_checkpoint(str(tmp_path / "j2p"), 3, jrand)
+    pgot, _ = tckpt.restore_checkpoint(str(tmp_path / "j2p"), ts)
+    want, have = _by_path(jax.tree_util.tree_flatten_with_path(jrand)[0]), \
+        port_flat(pgot)
+    assert sorted(want) == sorted(have)
+    for k in want:
+        np.testing.assert_array_equal(have[k], want[k], err_msg=k)
+    assert isinstance(pgot.opt_state["alpha"].mu, list)
 
 
 def _a2c_runner(tmp, n_iterations):

@@ -141,3 +141,23 @@ def test_walk_covers_the_qpg_slice_and_its_runners_default_to_the_card():
     for runner in (OffPolicyRunner, OnPolicyRunner):
         device = inspect.signature(runner.run).parameters["device"]
         assert device.default == "cuda"
+
+
+def test_walk_covers_the_r2d1_and_async_slice_and_it_defaults_to_the_card():
+    """The R2D1 / async slice's modules are among the files the import walk
+    checks (no ``jax``, no ``repro``), and its runners and example twins
+    default to the card."""
+    import inspect
+    from repro_torch.examples import mujoco_style_sac, r2d1_recurrent
+    from repro_torch.runners import AsyncR2D1Runner, AsyncRunner
+    walked = {f.relative_to(PORT).as_posix() for f in _port_files()[:-1]}
+    assert {"algos/dqn/r2d1.py", "samplers/alternating.py",
+            "replay/sum_tree.py", "replay/host.py", "replay/interface.py",
+            "train/vtrace.py", "launch/mesh.py", "runners/async_rl.py",
+            "models/rl_models.py", "agents.py", "examples/r2d1_recurrent.py",
+            "examples/mujoco_style_sac.py"} <= walked
+    for runner in (AsyncRunner, AsyncR2D1Runner):
+        device = inspect.signature(runner.run).parameters["device"]
+        assert device.default == "cuda"
+    for example in (r2d1_recurrent, mujoco_style_sac):
+        assert example.build_parser().get_default("device") == "cuda"
