@@ -20,8 +20,12 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    kv_len, at the fixed-round shape (S 1089), and at the continuous run's
    B 8 slot batch and B 1 prompt-tail steps (S 97, ragged kv_len); decode
    also at kv_len on every boundary of its split plan +-1 and at kv_len 1
-   (every split but the first empty).  One case per entry point scales q
-   by 20 so that the scores reach the softcap.  Sensitivity checks show
+   (every split but the first empty); prefill also at the gemma2 training
+   shape (B 8, T 256, local and global layers), where the
+   ``autograd.Function``'s backward (the reference's vjp) must equal
+   autograd through ``attention_reference`` bit for bit, and a perturbed
+   saved k must be caught.  One case per entry point scales q by 20 so
+   that the scores reach the softcap.  Sensitivity checks show
    that the tolerance would catch a dropped softcap, a window or causal
    edge off by one, one key lost from kv_len and one decode split's
    partial lost in the merge.  Then each entry point's grid (and for
@@ -30,8 +34,9 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    and B 1, S 97) beside its plain version, its bound and one PyTorch
    library call (``scaled_dot_product_attention``, without softcap: not
    the same function, a yardstick only — the port never calls it), all
-   as device time: the calls captured in one CUDA graph and replayed, so
-   that the host's cost of a call does not hide a faster kernel (the
+   as device time (prefill also at the gemma2 training shape, B 8, T
+   256): the calls captured in one CUDA graph and replayed, so that the
+   host's cost of a call does not hide a faster kernel (the
    back-to-back time of eager calls is printed beside it).  Then the SSD
    scan (``ssd_scan``) against ``ssd_reference`` on the card at the
    mamba2-1.3b training shape (B 8, T 512, H 64, P 64, G 1, N 128, chunk
@@ -62,9 +67,13 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    beside it) beside its plain version, its bound (bytes), the launch floor
    (a replayed graph of as many one-element ``add_`` launches) and a
    PyTorch yardstick of two calls (``cumsum`` + ``searchsorted``, which
-   the port never calls); then ``serve.main`` and ``train.main`` with
-   their default config (``--smoke``) on the card must refuse it before
-   drawing any weight, naming ``--full`` and ``--device cpu``;
+   the port never calls); then the entry points' smoke configs on the
+   card: ``train.main``'s default (smoke gemma2-2b, attention d_head 16),
+   smoke mamba2-1.3b training (SSD P 16, N 16, chunk 8) and ``serve.main
+   --arch gemma2-2b`` must be refused before any weight is drawn, naming
+   the missing instance, ``--full`` and ``--device cpu``; ``serve.main``'s
+   default (smoke mamba2-1.3b, no kernel on its path) serves one round on
+   the card and launches nothing;
 4. slice phase, fixed rounds: full-width gemma2-2b with random bf16 weights
    from a seeded generator on the card, through ``repro_torch.launch.serve
    .main`` (batch 8, prompt 1024, gen 64, two rounds); both kernel entry
@@ -75,12 +84,30 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
 5. slice phase, continuous: 16 Poisson requests over 8 slots (prompts 8-64,
    gen 4-32) through ``serve.main --continuous``; every request must get
    its max_tokens;
+6a. slice phase, training: full-width gemma2-2b (26 layers, d_model 2304,
+   vocab 256 000, 3.204 B parameters as f32 master weights from a seeded
+   generator, bf16 compute; the token env's table-free chain) through
+   ``train.main``'s default arch (``--full``, batch 8, horizon 256, two PPO
+   steps): ``flash_attn_fwd`` launches exactly 2 x 26 an update (forward
+   and the recompute of each checkpointed superblock) and
+   ``flash_attn_decode`` 26 a rollout step (257 a rollout), peak memory <=
+   ``PEAK_GIB``, every metric finite; then ``train_checks`` with
+   ``attention=ref`` as the plain route, within ``GEMMA_TRAIN_TOL``, at a
+   4-layer cut and at 26 layers (as phase 6);
+5a. slice phase, serving the default arch: full-width mamba2-1.3b
+   (``serve.main --full``: fixed rounds at batch 8, prompt 1024, gen 64,
+   two rounds, then the continuous run of phase 5): every request served,
+   no kernel launched (the prefill passes the cache's state, so the scan
+   is the plain chunked one, as in JAX); at a 4-layer cut the prefill's
+   last logits and states against a token-by-token ``decode_step``
+   teacher-force of the first round's prompts within
+   ``SSM_PREFILL_TOL``;
 6. slice phase, training: full-width mamba2-1.3b (48 layers, d_model 2048,
    random f32 master weights from a seeded generator, bf16 compute) through
    ``repro_torch.launch.train.main`` (batch 8, horizon 512, two PPO steps of
-   rollout + GAE + Adam update); the SSD kernel must launch and every
-   logged metric be finite.  Then, on the same weights and first rollout,
-   at full depth and at a 4-layer depth cut of the same width: the
+   rollout + GAE + Adam update); the SSD kernel must launch exactly 2 x 48
+   an update and every logged metric be finite.  Then, on the same weights
+   and first rollout, at full depth and at a 4-layer depth cut of the same width: the
    serve-path logp (decode_step, no kernel) against the train-path logp
    (forward_train through the kernel), both against the plain route's
    (``ssd=ref``) on the same data, and the kernel route against
@@ -149,9 +176,10 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    on one seed (params within 1e-4, JAX's bound), and an R2D1 checkpoint
    with its replay sidecar saved on the card and restored (buffer and
    train state bit for bit, resumed at the saved iteration, then run on);
-12. on the same weights, a ``torch.profiler`` pass measures the device's
-   busy time per prefill, per decode step, per rollout of ROLL_STEPS steps,
-   per PPO update, per RL iteration, per PPO CartPole iteration, per SAC
+12. on the same weights (drawn again), a ``torch.profiler`` pass measures
+   the device's busy time per prefill, per decode step, per rollout of
+   ROLL_STEPS steps and per PPO update (gemma2-2b and mamba2-1.3b), per RL
+   iteration, per PPO CartPole iteration, per SAC
    update (at the bar's width and at full width), per full-width R2D1
    update and per async SAC learner update against
    the unprofiled wall time of the same work (the idle share), and checks
@@ -160,8 +188,9 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    ssd_scan call at the training shape with its device time, and gives the
    sum-tree kernel's device time a launch at ``ST_TIMED`` — last, since the
    profiler slows every later launch of the process;
-13. the ``kernels`` JSON line (launch counts from phases 4-7 and 9, the
-   largest error of phase 3, times; phases 8, 10 and 11 launch none), then
+13. the ``kernels`` JSON line (launch counts from phases 4-7, 6a and 9, the
+   largest error of phase 3, times at the serving shape; phases 5a, 8, 10
+   and 11 launch none), then
    ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -170,6 +199,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -228,6 +258,46 @@ SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
 TRAIN_TOL = {48: {"logp_mean": 1.0, "loss_rel": 5e-2, "grad_norm_rel": None},
              4: {"logp_mean": 5e-2, "loss_rel": 2e-3, "grad_norm_rel": 5e-2}}
 TRAIN = {"batch": 8, "horizon": 512, "steps": 2}
+# the gemma2-2b training slice (phase 6a).  Sized for one 80 GB card: f32
+# master weights, gradients and two Adam moments are 16 B a parameter, 51.3
+# GB for 3.204 B, and the logits chain over B x T x 256 000 costs about 30
+# B an element, 16 GB at B 8 x T 256 (31 GB at T 512 would not fit).
+# PEAK_GIB is the limit of the run's max_memory_allocated; above it the
+# horizon is halved, never a width or the depth.
+GEMMA_TRAIN = {"batch": 8, "horizon": 256, "steps": 2}
+PEAK_GIB = 76.0
+# Its checks, kernel route (flash_attn_fwd forward and recompute, the
+# reference's vjp backward, flash_attn_decode in the rollout) against
+# attention=ref on the same weights and first rollout.  gemma2 is not
+# chaotic in depth as mamba2 is (post-norms and softcaps): on the CPU,
+# before the first chip run, at d_model 576 (a quarter of the width) with
+# the vocabulary, batch 2 x horizon 64, seeds 0 and 1, the routes' plain
+# versions gave a mean |serve logp - train logp| of 0.0018-0.0026 (the
+# reference route) and 0.0082-0.0090 (the chunked ref route, which rounds P
+# to bf16 as the kernel does) at 4 layers, 0.0077-0.0099 and 0.0156-0.0157
+# at 26; loss within 1.3e-5 and grad_norm within 1.7e-4 relative.  So:
+# - 4 layers: the mean gap through the kernel held absolutely at 5e-2
+#   (5x the ref route's), loss at 1e-3 and grad_norm at 1e-2 relative
+#   (60x-250x the measured: the card's products round in other orders);
+# - 26 layers: held relative to the ref route as phase 6 does (the kernel
+#   route's gap within 1.25x / 2x of the ref route's mean / max, its
+#   distance from the ref route's train logp within 1.5x / 2x), the mean
+#   gap at 0.1, loss at 1e-3 and grad_norm at 2e-2.
+GEMMA_TRAIN_TOL = {
+    26: {"logp_mean": 0.1, "loss_rel": 1e-3, "grad_norm_rel": 2e-2},
+    4: {"logp_mean": 5e-2, "loss_rel": 1e-3, "grad_norm_rel": 1e-2}}
+# mamba2-1.3b serving (phase 5a): the fixed rounds' shape; its prefill takes
+# the plain chunked scan (the cache's state passed in), so no kernel runs.
+# At a 4-layer cut the prefill's last logits, conv and SSM states are held
+# against a token-by-token decode_step teacher-force of the same prompt,
+# each as max |diff| / max |teacher-forced|: both paths round to bf16 at
+# other places (the scan keeps a chunk's y in f32, the recurrence rounds
+# every step) through 4 layers and 1 024 steps of state.  On the CPU at full
+# width (B 2, T 1024, seeds 0 and 1): logits 0.009-0.020, conv 0.018-0.019,
+# ssm 0.016-0.022 (5 bf16 spacings of the largest entry); the bound is 8e-2,
+# about 20 spacings.
+SSM_SERVE = {"batch": 8, "prompt_len": 1024, "gen": 64, "rounds": 2}
+SSM_PREFILL_TOL = 8e-2
 ROLL_STEPS = 8   # decode steps of the rollout the profile phase measures
 # the sum-tree sampler (phase 3) and the RL slice (phase 7)
 ST_TPU_KERNEL = "src/repro/kernels/sum_tree/sum_tree.py:49"
@@ -471,6 +541,11 @@ def kernel_phase(cfg):
     for B, T, window in ((4, 1024, 256), (4, 1000, 4096), (4, 1000, 256),
                          (8, 1024, cfg.window), (8, 1024, None)):
         fwd_case(B, T, window)
+    # the gemma2 training forward (phase 6a): local and global layers; its
+    # backward is the reference's vjp, held bit for bit
+    for window in (cfg.window, None):
+        backward_check(*fwd_case(GEMMA_TRAIN["batch"], GEMMA_TRAIN["horizon"],
+                                 window)[:4], gen)
     q, k, v, kw, want = fwd_case(4, 1024, 4096)
     must_differ("flash_attn_fwd", "causal edge one key late",
                 attention_reference(q, k, v, **{**kw, "q_offset": 1}), want)
@@ -542,30 +617,32 @@ def kernel_phase(cfg):
                                     kv_len=(kv_len - 1) // chunk * chunk),
                 want)
 
-    timing = {}
-    # prefill at the fixed-round shape (local layer, window 4096 >= T)
-    B, T = 8, 1024
-    nbytes = 2 * (2 * B * T * H * dh + 2 * B * T * Hkv * dh)
-    sets = [(randn(B, T, H, dh, gen=gen), randn(B, T, Hkv, dh, gen=gen),
-             randn(B, T, Hkv, dh, gen=gen)) for _ in range(copies_for(nbytes))]
-    kw = dict(causal=True, window=cfg.window, softcap=cap)
-    fns = [lambda s=s: ops.flash_attention(*s, **kw) for s in sets]
-    ms, call = graph_ms(fns), time_ms(fns)
-    plain = graph_ms([lambda s=s: attention_reference(*s, **kw)
-                      for s in sets[:2]], iters=4)
-    lib = graph_ms([lambda s=s: F.scaled_dot_product_attention(
-        s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
-        is_causal=True, enable_gqa=True) for s in sets])
-    flops = 4 * dh * B * H * valid_pairs(T, T, True, cfg.window)
-    timing["flash_attn_fwd"] = dict(ms=ms, call_ms=call, plain_ms=plain,
-                                    library_ms=lib,
-                                    shape=f"B{B} T{T} H{H} Hkv{Hkv} dh{dh} "
-                                          f"causal window {cfg.window} "
-                                          f"softcap {cap}",
-                                    bound=bound_ms(nbytes, flops))
-    timing["grid"] = {"flash_attn_fwd": (f"({-(-T // FWD_BLOCK_Q)}, {H}, "
-                                         f"{B}) x {FWD_THREADS} threads, "
-                                         "cluster 1")}
+    timing = {"grid": {}}
+    # prefill at the fixed-round shape (local layer, window 4096 >= T), then
+    # at the gemma2 training forward's (B 8, T 256)
+    for key, B, T in (("flash_attn_fwd", 8, 1024),
+                      ("flash_attn_fwd B8 T256", GEMMA_TRAIN["batch"],
+                       GEMMA_TRAIN["horizon"])):
+        nbytes = 2 * (2 * B * T * H * dh + 2 * B * T * Hkv * dh)
+        sets = [(randn(B, T, H, dh, gen=gen), randn(B, T, Hkv, dh, gen=gen),
+                 randn(B, T, Hkv, dh, gen=gen))
+                for _ in range(copies_for(nbytes))]
+        kw = dict(causal=True, window=cfg.window, softcap=cap)
+        fns = [lambda s=s: ops.flash_attention(*s, **kw) for s in sets]
+        ms, call = graph_ms(fns), time_ms(fns)
+        plain = graph_ms([lambda s=s: attention_reference(*s, **kw)
+                          for s in sets[:2]], iters=4)
+        lib = graph_ms([lambda s=s: F.scaled_dot_product_attention(
+            s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
+            is_causal=True, enable_gqa=True) for s in sets])
+        flops = 4 * dh * B * H * valid_pairs(T, T, True, cfg.window)
+        timing[key] = dict(ms=ms, call_ms=call, plain_ms=plain,
+                           library_ms=lib,
+                           shape=f"B{B} T{T} H{H} Hkv{Hkv} dh{dh} causal "
+                                 f"window {cfg.window} softcap {cap}",
+                           bound=bound_ms(nbytes, flops))
+        timing["grid"][key] = (f"({-(-T // FWD_BLOCK_Q)}, {H}, {B}) x "
+                               f"{FWD_THREADS} threads, cluster 1")
     # decode at the fixed-round shape (S 1089, kv_len of the 64 decode
     # steps), then at the continuous run's slot batch and prompt-tail steps
     for key, B, S, lo in (("flash_attn_decode", 8, S_fixed, 1025),
@@ -610,9 +687,52 @@ def kernel_phase(cfg):
     return errs, used, timing
 
 
+def backward_check(q, k, v, kw, gen):
+    """The autograd.Function's backward on the kernel route against autograd
+    through attention_reference on the same (q, k, v, g): dq, dk and dv bit
+    for bit (the same math on the same inputs).  Then the Function's own
+    backward fed a saved k with one element moved must differ."""
+    g = randn(*q.shape, gen=gen)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = ops.flash_attention.launches
+    got = torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves, g)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_reference(*ref, **kw), ref, g)
+    torch.cuda.synchronize()
+    if ops.flash_attention.launches != n0 + 1:
+        fail("backward check: the kernel route did not launch flash_attn_fwd")
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    print(f"  backward B{q.shape[0]} T{q.shape[1]} window {kw['window']}: "
+          f"dq, dk, dv bit-identical to autograd through "
+          f"attention_reference: {same}")
+    if not all(same):
+        fail(f"backward at window {kw['window']}: the Function's gradients "
+             "differ from the reference's vjp")
+    k_bad = k.clone()
+    k_bad[0, 5, 0, 0] += 1.0
+    ctx = types.SimpleNamespace(saved_tensors=(q, k_bad, v), opts=(
+        kw["causal"], kw["window"], kw["softcap"], kw.get("q_offset", 0)))
+    bad = ops._FlashAttention.backward(ctx, g)[:3]
+    caught = not all(torch.equal(a, b) for a, b in zip(bad, want))
+    print(f"  sensitivity: saved k perturbed in one element -> "
+          f"{'caught' if caught else 'NOT caught'}")
+    if not caught:
+        fail("backward check: a perturbed saved k goes unnoticed")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: kernel route vs --kernels ref on the same weights and prompts
 # ---------------------------------------------------------------------------
+def served_weights(cfg):
+    """The weights the fixed rounds' serve.main drew and its first round's
+    prompts (B 8, prompt 1024), drawn again from the same seeds."""
+    params = bb.init_lm(cfg, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(SEED))
+    prompts = serve.make_prompts(
+        cfg, 8, 1024, torch.Generator(device=DEV).manual_seed(SEED + 1), DEV)
+    return params, prompts
+
+
 def kernel_vs_ref(cfg, params, prompts, gen):
     batch, prompt_len = prompts.shape
     prefill, decode = serve.make_phases(cfg, batch, prompt_len, gen,
@@ -646,6 +766,98 @@ def kernel_vs_ref(cfg, params, prompts, gen):
     first = float((out["cuda"][2][:, 0] == out["ref"][2][:, 0]).float().mean())
     print(f"  greedy-token agreement over {gen} steps: {agree:.4f} "
           f"(first step {first:.4f})")
+
+
+# ---------------------------------------------------------------------------
+# phase 5a: mamba2-1.3b serving (no kernel: the prefill takes the plain scan)
+# ---------------------------------------------------------------------------
+def ssm_prefill_check(cfg, prompts):
+    """The prefill's last logits, conv and SSM states against a
+    token-by-token decode_step teacher-force of the same prompts, each as
+    max |diff| / max |teacher-forced|, within SSM_PREFILL_TOL."""
+    B, T = prompts.shape
+    params = bb.init_lm(cfg, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(SEED))
+    with torch.inference_mode():
+        cache = bb.init_cache(cfg, B, T + 1, device=DEV)
+        hidden, cache = bb.prefill(params, prompts, cfg, cache)
+        got = {"logits": bb.lm_logits(params, hidden, cfg)[:, -1].float(),
+               "conv": cache["conv"], "ssm": cache["ssm"]}
+        forced = bb.init_cache(cfg, B, T + 1, device=DEV)
+        for t in range(T):
+            hidden, forced = bb.decode_step(params, forced, prompts[:, t], cfg)
+        want = {"logits": bb.lm_logits(params, hidden, cfg)[:, 0].float(),
+                "conv": forced["conv"], "ssm": forced["ssm"]}
+    if not torch.equal(cache["lengths"], forced["lengths"]):
+        fail("ssm prefill: lengths differ from the teacher-forced decode's")
+    for name in got:
+        a, b = got[name].float(), want[name].float()
+        if not torch.isfinite(a).all():
+            fail(f"ssm prefill: non-finite {name}")
+        rel = float((a - b).abs().max() / b.abs().max())
+        print(f"  {cfg.n_layers} layers, B{B} prompt {T}: prefill vs "
+              f"teacher-forced decode, {name}: max |diff| / max |value| "
+              f"{rel:.3e} (tolerance {SSM_PREFILL_TOL})")
+        if rel > SSM_PREFILL_TOL:
+            fail(f"ssm prefill {name} differs from the teacher-forced decode")
+
+
+def ssm_serve_phase(log_dir):
+    """serve.main's default arch (mamba2-1.3b) at full width: fixed rounds
+    and the continuous run; every request served, no kernel launched."""
+    cfg = get_config(serve.build_parser().get_default("arch"))
+    run = SSM_SERVE
+    log_dir = str(Path(log_dir) / cfg.name)
+    print(f"slice phase: serving {cfg.name} (the default arch; full width, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, bf16) fixed rounds "
+          f"(batch {run['batch']}, prompt {run['prompt_len']}, gen "
+          f"{run['gen']}, {run['rounds']} rounds)")
+    t_phase = time.perf_counter()
+    zero_kernel_counters()
+    toks = serve.main(["--full", "--device", "cuda", "--batch",
+                       str(run["batch"]), "--prompt-len",
+                       str(run["prompt_len"]), "--gen", str(run["gen"]),
+                       "--rounds", str(run["rounds"]), "--seed", str(SEED),
+                       "--log-dir", log_dir])
+    if tuple(toks.shape) != (run["batch"], run["gen"]) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.padded_vocab:
+        fail(f"{cfg.name} fixed rounds: bad tokens {tuple(toks.shape)}")
+    torch.cuda.empty_cache()
+    print(f"slice phase: serving {cfg.name} continuous ({CONT['requests']} "
+          f"requests, {CONT['slots']} slots)")
+    args = ["--full", "--device", "cuda", "--continuous", "--seed",
+            str(SEED), "--log-dir", log_dir]
+    for key, val in CONT.items():
+        args += ["--" + key.replace("_", "-"), str(val)]
+    summary = serve.main(args)
+    trace = poisson_trace(
+        SEED, CONT["requests"], CONT["rate"],
+        prompt_len_range=(CONT["prompt_min"], CONT["prompt_len"]),
+        max_tokens_range=(CONT["gen_min"], CONT["gen"]), vocab=cfg.vocab)
+    want = sum(r.max_tokens for r in trace)
+    if summary["n_finished"] != len(trace) or \
+            summary["generated_tokens"] != want:
+        fail(f"{cfg.name} continuous: {summary['n_finished']} finished, "
+             f"{summary['generated_tokens']} tokens, expected {len(trace)} / "
+             f"{want}")
+    print(f"  p50 latency {summary['p50_latency_s']:.4f} s, p99 latency "
+          f"{summary['p99_latency_s']:.4f} s, ttft p50 "
+          f"{summary.get('ttft_p50_s', float('nan')):.4f} s, decode "
+          f"{summary['decode_tok_per_sec']:.1f} tok/s, every request got its "
+          "max_tokens")
+    launches = kernel_launches()
+    print(f"  kernel launches in {cfg.name} serving: {launches}")
+    if any(launches.values()):
+        fail(f"{cfg.name} serving launched a kernel: {launches} (its prefill "
+             "takes the plain scan, its decode step plain ops)")
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, n_layers=4)
+    prompts = serve.make_prompts(  # serve.main's first round's prompts
+        cut, run["batch"], run["prompt_len"],
+        torch.Generator(device=DEV).manual_seed(SEED + 1), DEV)
+    ssm_prefill_check(cut, prompts)
+    torch.cuda.empty_cache()
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def profile_phase(cfg, params, prompts, steps=8):
@@ -912,25 +1124,32 @@ def ssd_kernel_phase():
 
 
 # ---------------------------------------------------------------------------
-# phase 6: LM-PPO training of mamba2-1.3b
+# phases 6a and 6: LM-PPO training of gemma2-2b and of mamba2-1.3b
 # ---------------------------------------------------------------------------
-def train_checks(cfg, tol):
-    """Serve-path vs train-path logp and kernel route vs ssd=ref on the
-    weights and first rollout that train.main draws for ``cfg``.  Returns
-    (params, batch)."""
+# the registry op each arch's training holds against op=ref, and its counter
+TRAIN_OP = {"dense": ("attention", ops.flash_attention),
+            "ssm": ("ssd", ssd_ops.ssd_scan)}
+
+
+def train_checks(cfg, tol, run):
+    """Serve-path vs train-path logp and the kernel route vs op=ref on the
+    weights and first rollout that train.main draws for ``cfg`` at ``run``'s
+    batch and horizon.  Returns the rollout's batch."""
     L = cfg.n_layers
-    env = make_token_lm(vocab=cfg.vocab, episode_len=TRAIN["horizon"],
+    op, counter = TRAIN_OP[cfg.family]
+    kern, plain = f"{op}=cuda", f"{op}=ref"
+    env = make_token_lm(vocab=cfg.vocab, episode_len=run["horizon"],
                         device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     params = bb.init_lm(cfg, device=DEV, generator=gen, dtype=torch.float32,
                         requires_grad=True)
-    rollout = train.make_lm_rollout(cfg, env, TRAIN["batch"],
-                                    TRAIN["horizon"], device=DEV)
+    rollout = train.make_lm_rollout(cfg, env, run["batch"], run["horizon"],
+                                    device=DEV)
     traj, v_last = rollout(params, gen)
     batch = train.build_batch(traj, v_last)
-    del traj
+    del traj, env
     logp = {}
-    for spec in ("ssd=cuda", "ssd=ref"):
+    for spec in (kern, plain):
         with registry.override(spec), torch.no_grad():
             hidden, _ = bb.forward_train(params, batch["tokens"], cfg)
             logits = bb.lm_logits(params, hidden, cfg).float()
@@ -938,9 +1157,9 @@ def train_checks(cfg, tol):
                                       batch["actions"].long()[..., None])[
                                           ..., 0]
             del hidden, logits
-    gaps = {"serve vs train (kernel)": logp["ssd=cuda"] - batch["logp_old"],
-            "serve vs train (ssd=ref)": logp["ssd=ref"] - batch["logp_old"],
-            "train kernel vs train ssd=ref": logp["ssd=cuda"] - logp["ssd=ref"]}
+    gaps = {"serve vs train (kernel)": logp[kern] - batch["logp_old"],
+            f"serve vs train ({plain})": logp[plain] - batch["logp_old"],
+            f"train kernel vs train {plain}": logp[kern] - logp[plain]}
     st = {}
     for name, d in gaps.items():
         d = d.abs().flatten()
@@ -958,18 +1177,18 @@ def train_checks(cfg, tol):
         if not ok:
             fail(f"{L} layers: {what}")
     out = {}
-    for spec in ("ssd=cuda", "ssd=ref"):
+    for spec in (kern, plain):
         with registry.override(spec):
             opt = optim.sgd(0.0)   # weights stay as they are
             step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003)
-            n0 = ssd_ops.ssd_scan.launches
+            n0 = counter.launches
             _, _, m = step(params, opt.init(params.parameters()), batch)
             torch.cuda.synchronize()
             out[spec] = ({k: float(v) for k, v in m.items()},
-                         ssd_ops.ssd_scan.launches - n0)
-    (mk, nk), (mr, nr) = out["ssd=cuda"], out["ssd=ref"]
+                         counter.launches - n0)
+    (mk, nk), (mr, nr) = out[kern], out[plain]
     print(f"  {L} layers: kernel route loss {mk['loss']:.6f} grad_norm "
-          f"{mk['grad_norm']:.4f} ({nk} launches); ssd=ref loss "
+          f"{mk['grad_norm']:.4f} ({nk} launches); {plain} loss "
           f"{mr['loss']:.6f} grad_norm {mr['grad_norm']:.4f} ({nr})")
     if nk != 2 * L or nr != 0:
         fail(f"{L} layers: {nk} kernel launches on the kernel route (want "
@@ -982,88 +1201,128 @@ def train_checks(cfg, tol):
         print(f"    {k}: relative difference {rel:.3e} (tolerance "
               f"{'none: printed only' if lim is None else lim})")
         if lim is not None and rel > lim:
-            fail(f"{L} layers: kernel route and ssd=ref differ in {k}")
-    return params, batch, env
+            fail(f"{L} layers: kernel route and {plain} differ in {k}")
+    return batch
 
 
-def train_phase(log_dir):
-    cfg = get_config("mamba2-1.3b")
+def lm_work(cfg, run, batch):
+    """The work the profile phase measures on seeded weights: ROLL_STEPS
+    decode steps of the rollout (plus its bootstrap step) and one Adam
+    update on ``batch``.  Weights and optimizer state live as long as the
+    returned closures, so each phase drops them and the profile phase draws
+    them again (two full-width trainings do not fit the card together)."""
+    env = make_token_lm(vocab=cfg.vocab, episode_len=run["horizon"],
+                        device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = bb.init_lm(cfg, device=DEV, generator=gen, dtype=torch.float32,
+                        requires_grad=True)
+    short = train.make_lm_rollout(cfg, env, run["batch"], ROLL_STEPS,
+                                  device=DEV)
+    opt = optim.adam(3e-4, grad_clip=1.0)
+    state = [opt.init(params.parameters())]
+    step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003)
+
+    def update():
+        _, state[0], _ = step(params, state[0], batch)
+
+    return {"rollout": lambda: short(params, gen), "update": update}
+
+
+def lm_walls(work):
+    """Unprofiled wall time (ms) of each piece of ``work``, the second of
+    two runs (the first warms the allocator's cache)."""
+    walls = {}
+    for name, fn in work.items():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t0) * 1e3
+    return walls
+
+
+def lm_train_phase(arch, run, tol, argv_arch, log_dir):
+    """train.main at full width for ``run``'s steps, its launch counts, peak
+    memory and metrics, then ``train_checks`` at a 4-layer cut and at full
+    depth.  Returns (launches by kernel, profile spec)."""
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    log_dir = str(Path(log_dir) / arch)
     n_params = sum(p.numel() for p in bb.LM(cfg, device="meta",
                                              dtype=torch.float32).parameters())
-    print(f"slice phase: LM-PPO training (full-width mamba2-1.3b, "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} params, "
-          f"batch {TRAIN['batch']}, horizon {TRAIN['horizon']}, "
-          f"{TRAIN['steps']} steps)")
+    print(f"slice phase: LM-PPO training (full-width {arch}, {L} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}, {n_params} params, "
+          f"batch {run['batch']}, horizon {run['horizon']}, {run['steps']} "
+          "steps)")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ssd_ops.ssd_scan.launches = 0
-    params = train.main(["--arch", "mamba2-1.3b", "--full", "--device",
-                         "cuda", "--batch", str(TRAIN["batch"]), "--horizon",
-                         str(TRAIN["horizon"]), "--steps", str(TRAIN["steps"]),
-                         "--seed", str(SEED), "--log-dir", log_dir])
-    launches = ssd_ops.ssd_scan.launches
-    peak = torch.cuda.max_memory_allocated()
+    zero_kernel_counters()
+    t0 = t_phase = time.perf_counter()
+    params = train.main(argv_arch + [
+        "--full", "--device", "cuda", "--batch", str(run["batch"]),
+        "--horizon", str(run["horizon"]), "--steps", str(run["steps"]),
+        "--seed", str(SEED), "--log-dir", log_dir])
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     del params
     torch.cuda.empty_cache()
-    print(f"  ssd_scan launches in the training run: {launches}")
-    if launches == 0:
-        fail("ssd_scan never launched on the training run")
+    print(f"  launches in the training run: {launches}; max_memory_allocated "
+          f"{peak:.2f} GiB (limit {PEAK_GIB}); {wall:.1f} s")
+    steps, T = run["steps"], run["horizon"]
+    if cfg.family == "dense":
+        want = {"flash_attention": 2 * L * steps,
+                "flash_attention_decode": L * (T + 1) * steps}
+    else:
+        want = {"ssd_scan": 2 * L * steps}
+    want = {k: want.get(k, 0) for k in launches}
+    if launches != want:
+        fail(f"training launches {launches}, expected {want} (forward + "
+             "recompute a layer an update; a decode step a layer a rollout "
+             "step)")
+    if peak > PEAK_GIB:
+        fail(f"training peak {peak:.2f} GiB > {PEAK_GIB} GiB")
     rows = [json.loads(ln) for ln in
             (Path(log_dir) / "progress.jsonl").read_text().splitlines()]
-    if len(rows) != TRAIN["steps"]:
-        fail(f"training logged {len(rows)} rows")
+    if len(rows) != steps or [r["step"] for r in rows] != \
+            list(range(1, steps + 1)):
+        fail(f"training logged rows {[r['step'] for r in rows]}")
     for r in rows:
         bad = [k for k, v in r.items() if isinstance(v, float)
                and not math.isfinite(v)]
         if bad:
             fail(f"training step {r['step']}: non-finite {bad}")
-    last = rows[-1]
-    print(f"  step {last['step']}: samples_per_sec "
-          f"{last['samples_per_sec']:.2f}, rollout {last['rollout_s']:.3f} s, "
-          f"update {last['update_s']:.3f} s, loss {last['loss']:.5f}, "
-          f"grad_norm {last['grad_norm']:.3f}, entropy "
-          f"{last['entropy']:.4f}; max_memory_allocated {peak / 2**30:.2f} "
-          f"GiB")
+    for r in rows:
+        print(f"  step {r['step']}: samples_per_sec "
+              f"{r['samples_per_sec']:.2f}, rollout_s {r['rollout_s']:.3f}, "
+              f"update_s {r['update_s']:.3f}, loss {r['loss']:.5f}, "
+              f"grad_norm {r['grad_norm']:.3f}, entropy {r['entropy']:.4f}")
     print("  checks on the same weights and first rollout")
-    small = train_checks(dataclasses.replace(cfg, n_layers=4), TRAIN_TOL[4])
-    del small
+    train_checks(dataclasses.replace(cfg, n_layers=4), tol[4], run)
     torch.cuda.empty_cache()
-    params, batch, env = train_checks(cfg, TRAIN_TOL[48])
+    batch = train_checks(cfg, tol[L], run)
     torch.cuda.empty_cache()
-    # unprofiled wall times for the profile phase, each after a warm-up:
-    # ROLL_STEPS decode steps of the rollout (plus its bootstrap step) ...
-    short = train.make_lm_rollout(cfg, env, TRAIN["batch"], ROLL_STEPS,
-                                  device=DEV)
-    gen = torch.Generator(device=DEV).manual_seed(SEED)
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        short(params, gen)
-        torch.cuda.synchronize()
-        roll_wall = (time.perf_counter() - t0) * 1e3
-    # ... and one Adam update (the warm-up also fills the allocator's cache)
-    opt = optim.adam(3e-4, grad_clip=1.0)
-    state = opt.init(params.parameters())
-    step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003)
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, state, _ = step(params, state, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    walls = {"rollout": roll_wall, "update": wall}
-    work = {"rollout": lambda: short(params, gen),
-            "update": lambda: step(params, state, batch)}
-    return launches, (work, walls)
+    work = lm_work(cfg, run, batch)
+    walls = lm_walls(work)
+    del work
+    torch.cuda.empty_cache()
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, (arch, cfg, run, batch, walls)
 
 
-def profile_training(training):
+def profile_training(spec):
     """Device busy time of ROLL_STEPS rollout steps and of one PPO update
-    against their unprofiled wall times (the idle share)."""
+    against their unprofiled wall times (the idle share), on weights drawn
+    again (``lm_work``) and warmed once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    work, walls = training
+    arch, cfg, run, batch, walls = spec
+    work = lm_work(cfg, run, batch)
     for name, fn in work.items():
+        fn()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
@@ -1078,18 +1337,21 @@ def profile_training(training):
             continue
         busy = sum(e.self_device_time_total for e in evs) / 1e3
         n = sum(e.count for e in evs)
-        print(f"  profile {name} (mamba2-1.3b, B{TRAIN['batch']}, {what}): "
+        print(f"  profile {name} ({arch}, B{run['batch']}, {what}): "
               f"wall {walls[name]:.3f} ms unprofiled, device busy "
               f"{busy:.3f} ms ({n} kernels), idle share "
               f"{max(0.0, 1 - busy / walls[name]):.3f}")
         for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
             print(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count}  "
                   f"{e.key[:90]}")
-        for e in evs:  # the port's kernel, wherever it ranks
-            if "ssd_scan" in e.key:
-                print(f"    ssd_scan: {e.self_device_time_total / 1e3:.3f} ms "
-                      f"x{e.count} ({e.self_device_time_total / e.count:.2f} "
-                      f"us a launch) of the {busy:.3f} ms")
+        for e in evs:  # the port's kernels, wherever they rank
+            if any(k in e.key for k in ("ssd_scan", "flash_")):
+                us = e.self_device_time_total / e.count
+                print(f"    {e.key[:40]}: {e.self_device_time_total / 1e3:.3f}"
+                      f" ms x{e.count} ({us:.2f} us a launch) of the "
+                      f"{busy:.3f} ms")
+    del work
+    torch.cuda.empty_cache()
 
 
 def profile_ssd():
@@ -2092,11 +2354,17 @@ def async_phase(log_dir):
 
 
 def smoke_refused():
-    """The LM entry points' default config (--smoke) is refused on the card
-    before any weight is drawn: its shapes have no kernel instance."""
+    """A smoke config whose path needs a kernel instance the card lacks is
+    refused on the card before any weight is drawn (train's default,
+    gemma2; mamba2's training; serve --arch gemma2-2b); serve's default,
+    smoke mamba2, needs none and serves one round on the card."""
     print("entry points: --smoke on cuda")
-    for name, mod, argv in (("serve", serve, ["--rounds", "1"]),
-                            ("train", train, ["--steps", "1"])):
+    for name, mod, argv in (
+            ("train", train, ["--steps", "1"]),
+            ("train --arch mamba2-1.3b", train,
+             ["--arch", "mamba2-1.3b", "--steps", "1"]),
+            ("serve --arch gemma2-2b", serve,
+             ["--arch", "gemma2-2b", "--rounds", "1"])):
         held = torch.cuda.memory_allocated()
         try:
             mod.main(argv)
@@ -2105,9 +2373,20 @@ def smoke_refused():
         else:
             fail(f"{name}: --smoke ran on cuda")
         if "--full" not in msg or "--device cpu" not in msg or \
+                "no kernel instance" not in msg or \
                 torch.cuda.memory_allocated() != held:
             fail(f"{name}: --smoke on cuda not refused up front: {msg}")
         print(f"  {name}: refused before any weight was drawn: {msg}")
+    zero_kernel_counters()
+    toks = serve.main(["--rounds", "1"])
+    launches = kernel_launches()
+    default = serve.build_parser().get_default
+    if tuple(toks.shape) != (default("batch"), default("gen")) or \
+            any(launches.values()):
+        fail(f"serve's default (smoke {default('arch')}) on cuda: tokens "
+             f"{tuple(toks.shape)}, launches {launches}")
+    print(f"  serve (default: smoke {default('arch')}): one round on the "
+          f"card, tokens {tuple(toks.shape)}, no kernel launched")
 
 
 def main() -> None:
@@ -2144,9 +2423,10 @@ def main() -> None:
         print("slice phase: fixed rounds (full-width gemma2-2b, bf16)")
         ops.flash_attention.launches = 0
         ops.flash_attention_decode.launches = 0
-        toks = serve.main(["--full", "--device", "cuda", "--batch", "8",
-                           "--prompt-len", "1024", "--gen", "64", "--rounds",
-                           "2", "--seed", str(SEED), "--log-dir", log_dir])
+        toks = serve.main(["--arch", "gemma2-2b", "--full", "--device",
+                           "cuda", "--batch", "8", "--prompt-len", "1024",
+                           "--gen", "64", "--rounds", "2", "--seed",
+                           str(SEED), "--log-dir", log_dir])
         fixed = {"flash_attn_fwd": ops.flash_attention.launches,
                  "flash_attn_decode": ops.flash_attention_decode.launches}
         print(f"  launches in the fixed rounds: {fixed}")
@@ -2156,18 +2436,15 @@ def main() -> None:
                 int(toks.max()) >= cfg.padded_vocab:
             fail(f"fixed rounds: bad tokens {tuple(toks.shape)}")
         torch.cuda.empty_cache()
-        params = bb.init_lm(cfg, device=DEV, generator=torch.Generator(
-            device=DEV).manual_seed(SEED))  # the weights serve.main drew
-        prompts = serve.make_prompts(  # and its first round's prompts
-            cfg, 8, 1024, torch.Generator(device=DEV).manual_seed(SEED + 1),
-            DEV)
+        params, prompts = served_weights(cfg)
         kernel_vs_ref(cfg, params, prompts, 64)
+        del params, prompts  # drawn again for the profile phase
         torch.cuda.empty_cache()
 
         print(f"slice phase: continuous batching ({CONT['requests']} "
               f"requests, {CONT['slots']} slots)")
-        args = ["--full", "--device", "cuda", "--continuous", "--seed",
-                str(SEED), "--log-dir", log_dir]
+        args = ["--arch", "gemma2-2b", "--full", "--device", "cuda",
+                "--continuous", "--seed", str(SEED), "--log-dir", log_dir]
         for key, val in CONT.items():
             args += ["--" + key.replace("_", "-"), str(val)]
         ops.flash_attention.launches = 0
@@ -2192,7 +2469,15 @@ def main() -> None:
               f"{summary['decode_tok_per_sec']:.1f} tok/s, every request got "
               "its max_tokens")
         torch.cuda.empty_cache()
-        ssd_launches, training = train_phase(log_dir)
+        gemma_launches, gemma_training = lm_train_phase(
+            "gemma2-2b", GEMMA_TRAIN, GEMMA_TRAIN_TOL, [], log_dir)
+        torch.cuda.empty_cache()
+        ssm_serve_phase(log_dir)
+        torch.cuda.empty_cache()
+        mamba_launches, training = lm_train_phase(
+            "mamba2-1.3b", TRAIN, TRAIN_TOL, ["--arch", "mamba2-1.3b"],
+            log_dir)
+        ssd_launches = mamba_launches["ssd_scan"]
         torch.cuda.empty_cache()
         rl_launches, rl_work = rl_phase(log_dir)
         torch.cuda.empty_cache()
@@ -2206,7 +2491,11 @@ def main() -> None:
 
     # last, because the profiler slows every later launch of the process
     print("profile: where the time goes (not the main path's counts)")
+    params, prompts = served_weights(cfg)
     profile_phase(cfg, params, prompts)
+    del params, prompts
+    torch.cuda.empty_cache()
+    profile_training(gemma_training)
     profile_training(training)
     profile_ssd()
     profile_rl(rl_work)
@@ -2219,10 +2508,16 @@ def main() -> None:
     fn, wall = async_work
     profile_work("async SAC learner update (hidden 64, batch 128)", fn, wall,
                  ASYNC["profile_updates"])
-    # the main path is the fixed rounds plus the continuous run (attention)
-    # and the training run (ssd_scan); the kernel-vs-ref comparisons
-    # between them do not count
-    launches = {k: fixed[k] + cont[k] for k in fixed}
+    # the main path is the fixed rounds, the continuous run and the gemma2
+    # training run (attention) and the mamba2 training run (ssd_scan); the
+    # kernel-vs-ref comparisons between them do not count
+    launches = {
+        "flash_attn_fwd": fixed["flash_attn_fwd"] + cont["flash_attn_fwd"]
+        + gemma_launches["flash_attention"],
+        "flash_attn_decode": fixed["flash_attn_decode"]
+        + cont["flash_attn_decode"] + gemma_launches["flash_attention_decode"]}
+    print(f"attention launches on the main path: {launches} (fixed rounds "
+          f"{fixed}, continuous {cont}, gemma2 training {gemma_launches})")
     kernels = []
     for name in ("flash_attn_fwd", "flash_attn_decode"):
         t = timing[name]

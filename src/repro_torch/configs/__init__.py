@@ -2,9 +2,9 @@
 
 Each module defines ``config()`` (the exact published configuration) and
 ``smoke_config()`` (a reduced same-family configuration for CPU tests).
-Only the archs the PyTorch port runs are listed (gemma2-2b serving,
-mamba2-1.3b training); the rest of the JAX package's zoo is still to be
-ported (see ROADMAP.md).
+Only the archs the PyTorch port runs are listed (gemma2-2b and
+mamba2-1.3b, each served and trained); the rest of the JAX package's zoo
+is still to be ported (see ROADMAP.md).
 """
 from __future__ import annotations
 

@@ -12,17 +12,23 @@ Port of ``repro/launch/serve.py``.  Two modes:
   through ``serving/engine.py`` and report p50/p99 request latency,
   time-to-first-token and decode tokens/sec (``serve.jsonl``).
 
-Entry points run on ``--device cuda`` (the default), where every attention
-call goes through the hand-written CUDA flash attention kernel unless
-``--kernels ref`` asks for the plain PyTorch math; ``--device cpu`` runs the
-plain versions.  ``--smoke`` (the default config) runs only with ``--device
-cpu``: its attention head dim (16) has no kernel instance on the card yet,
-so on a CUDA device the parser's arguments are rejected up front and
-``--full`` is needed.  ``--profile[=DIR]`` writes a ``torch.profiler`` Chrome
-trace with the serving spans annotated.
+``--arch`` defaults to ``mamba2-1.3b``, as in JAX; ``gemma2-2b`` is the
+other ported model.  Entry points run on ``--device cuda`` (the default),
+where every attention call of a dense model goes through the hand-written
+CUDA flash attention kernel unless ``--kernels ref`` asks for the plain
+PyTorch math; ``--device cpu`` runs the plain versions.  An ssm model
+serves without a kernel: its prefill passes the cache state, so the scan
+is the plain chunked one, as in JAX, and its decode step is plain ops.
+``--smoke`` (the default config) runs on the card where its shapes need no
+kernel instance the card lacks: mamba2's needs none; gemma2's attention
+(d_head 16) has no instance yet, so on a CUDA device those arguments are
+rejected up front and ``--full`` is needed.  ``--profile[=DIR]`` writes a
+``torch.profiler`` Chrome trace with the serving spans annotated.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --batch 8 --prompt-len 1024 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+      --full --batch 8 --prompt-len 1024 --gen 64
   PYTHONPATH=src python -m repro_torch.launch.serve --full --continuous \\
       --requests 16 --rate 16 --gen 32
 """
@@ -166,7 +172,7 @@ def _run_continuous(args, cfg, params, tracer, registry):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--arch", default="mamba2-1.3b")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CUDA kernels run on 'cuda', "
                          "'cpu' runs the plain PyTorch versions")
@@ -214,14 +220,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 def reject_smoke_on_cuda(args) -> None:
     """Raise if the parsed ``args`` ask for the smoke config on a CUDA
-    device: its attention shape (d_head 16) has no kernel instance built on
-    the card, so the first attention call would fail deep in the model."""
-    if args.smoke and torch.device(args.device).type == "cuda":
+    device and its serving path needs a kernel instance the card's library
+    lacks (``registry.missing_instance``), which would otherwise fail deep
+    in the model."""
+    if not (args.smoke and torch.device(args.device).type == "cuda"):
+        return
+    missing = kernel_registry.missing_instance(get_smoke_config(args.arch),
+                                               training=False)
+    if missing:
         raise ValueError(
-            "--smoke runs only on the CPU: the smoke config's attention "
-            "(d_head 16) has no kernel instance on the card yet. Pass --full "
-            "for the full-size config on CUDA, or --device cpu for the smoke "
-            "config on the plain versions")
+            f"--smoke runs only on the CPU for --arch {args.arch}: its "
+            f"smoke config's {missing} has no kernel instance on the card "
+            "yet. Pass --full for the full-size config on CUDA, or --device "
+            "cpu for the smoke config on the plain versions")
 
 
 def main(argv=None):
@@ -243,27 +254,14 @@ def main(argv=None):
     gen_ = torch.Generator(device=device).manual_seed(args.seed)
     params = bb.init_lm(cfg, device=device, generator=gen_)
 
-    prof = None
-    if args.profile is not None:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.start()
     try:
-        if args.continuous:
-            out = _run_continuous(args, cfg, params, tracer, registry)
-        else:
-            out = _run_fixed(args, cfg, params, tracer, registry)
+        with trace.chrome_trace(args.profile, args.log_dir, device,
+                                "serve_trace.json"):
+            if args.continuous:
+                out = _run_continuous(args, cfg, params, tracer, registry)
+            else:
+                out = _run_fixed(args, cfg, params, tracer, registry)
     finally:
-        if prof is not None:
-            prof.stop()
-            profile_dir = args.profile or os.path.join(args.log_dir or ".",
-                                                       "profile")
-            os.makedirs(profile_dir, exist_ok=True)
-            path = os.path.join(profile_dir, "serve_trace.json")
-            prof.export_chrome_trace(path)
-            print(f"profiler trace written to {path}")
         registry.close()
     return out
 

@@ -4,27 +4,35 @@ Port of the single-device, per-iteration path of ``repro/launch/train.py``
 (its ``fuse_window == 1`` branch).  The policy IS a language model over the
 token-MDP environment: each iteration runs
 
-- a rollout: ``horizon`` batched ``decode_step``s with the SSM cache, one
-  sampled token per sequence per step (the serving path);
+- a rollout: ``horizon`` batched ``decode_step``s with the KV / SSM cache,
+  one sampled token per sequence per step (the serving path);
 - GAE over the (T, B) trajectory, advantages normalised over the batch;
 - one PPO update through ``forward_train``, ``lm_logits``, ``value_out`` and
   Adam (lr ``--lr``, global-norm clip 1.0, entropy coefficient 0.003).
 
-Entry points run on ``--device cuda`` (the default), where every SSD scan
-of ``forward_train`` goes through the hand-written CUDA kernel
-(``csrc/ssd_scan.cu``) unless ``--kernels ref`` asks for the plain PyTorch
-math; ``--device cpu`` runs the plain versions.  ``--smoke`` (the default
-config) runs only with ``--device cpu``: its SSD shape (P 16, N 16, chunk
-8) has no kernel instance on the card yet, so on a CUDA device the
-arguments are rejected up front and ``--full`` is needed.  The forward of the update
-is the ssm family's only (``--arch mamba2-1.3b``, the default); the dense
-family's needs the flash-attention backward, not ported yet.  Every
+``--arch`` defaults to ``gemma2-2b``, as in JAX; ``mamba2-1.3b`` is the
+other ported model.  Entry points run on ``--device cuda`` (the default),
+where every attention call (gemma2: ``flash_attn_fwd`` in the update's
+forward and its recompute, ``flash_attn_decode`` in the rollout) and every
+SSD scan of the update (mamba2) goes through its hand-written CUDA kernel
+unless ``--kernels ref`` asks for the plain PyTorch math; ``--device cpu``
+runs the plain versions.  ``--smoke`` (the default config) runs on the card
+only where its shapes have kernel instances: gemma2's (attention d_head 16)
+and mamba2's (SSD P 16, N 16, chunk 8) have none yet, so on a CUDA device
+the arguments are rejected up front and ``--full`` is needed.  Every
 iteration logs one row (console, CSV, JSONL under ``--log-dir``) with the
 PPO metrics, ``samples_per_sec`` and the rollout and update wall times.
+``--ckpt-dir`` / ``--ckpt-interval`` save ``(params, opt_state)`` in JAX's
+layout every N steps and ``--restore`` resumes from the latest one (either
+package's); ``--profile[=DIR]`` writes a ``torch.profiler`` Chrome trace
+with the telemetry spans as ranges.  JAX's ``--fuse-window`` (its scanned
+window of steps) has no counterpart yet (ROADMAP Queue 1 item 14).
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --full --batch 8 \\
-      --horizon 512 --steps 2
+      --horizon 256 --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
+      --full --batch 8 --horizon 512 --steps 2
 """
 from __future__ import annotations
 
@@ -44,6 +52,8 @@ from ..models import backbones as bb
 from ..models.config import ModelConfig
 from ..serving.engine import sample, sync
 from ..telemetry import trace
+from ..train.checkpoint import (latest_step, restore_lm_checkpoint,
+                                save_lm_checkpoint)
 from ..train.optim import adam
 from ..utils.logger import Logger
 
@@ -105,7 +115,7 @@ def build_batch(traj, v_last):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--arch", default="gemma2-2b")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CUDA kernels run on 'cuda', "
                          "'cpu' runs the plain PyTorch versions")
@@ -117,23 +127,35 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-interval", type=int, default=0)
+    ap.add_argument("--restore", action="store_true")
     ap.add_argument("--kernels", default=None,
                     help="kernel backend spec (REPRO_TORCH_KERNELS syntax: "
-                         "'ref', 'cuda', 'ssd=ref', ...)")
+                         "'ref', 'cuda', 'attention=ref', 'ssd=ref', ...)")
+    ap.add_argument("--profile", nargs="?", const="", default=None,
+                    metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the run "
+                         "into DIR (default <log-dir>/profile); the host "
+                         "phases appear as the telemetry spans")
     return ap
 
 
 def reject_smoke_on_cuda(args) -> None:
     """Raise if the parsed ``args`` ask for the smoke config on a CUDA
-    device: its SSD shape (P 16, N 16, chunk 8) has no kernel instance
-    built on the card, so the first SSD scan would fail deep in the
-    model."""
-    if args.smoke and torch.device(args.device).type == "cuda":
+    device and its training path needs a kernel instance the card's
+    library lacks (``registry.missing_instance``), which would otherwise
+    fail deep in the model."""
+    if not (args.smoke and torch.device(args.device).type == "cuda"):
+        return
+    missing = kernel_registry.missing_instance(get_smoke_config(args.arch),
+                                               training=True)
+    if missing:
         raise ValueError(
-            "--smoke runs only on the CPU: the smoke config's SSD scan (P 16, "
-            "N 16, chunk 8) has no kernel instance on the card yet. Pass "
-            "--full for the full-size config on CUDA, or --device cpu for "
-            "the smoke config on the plain versions")
+            f"--smoke runs only on the CPU for --arch {args.arch}: its "
+            f"smoke config's {missing} has no kernel instance on the card "
+            "yet. Pass --full for the full-size config on CUDA, or --device "
+            "cpu for the smoke config on the plain versions")
 
 
 def main(argv=None):
@@ -161,29 +183,44 @@ def main(argv=None):
     rollout = make_lm_rollout(cfg, env, args.batch, args.horizon,
                               device=device)
     train_step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003)
+    start = 0
+    if args.restore and args.ckpt_dir and \
+            latest_step(args.ckpt_dir) is not None:
+        opt_state, manifest = restore_lm_checkpoint(args.ckpt_dir, params,
+                                                    opt_state, cfg)
+        start = manifest["step"]
+        print(f"restored step {start}")
     try:
-        for step in range(args.steps):
-            sync(device)
-            t0 = time.perf_counter()
-            with tracer.span("rollout", step=step):
-                traj, v_last = rollout(params, gen)
+        with trace.chrome_trace(args.profile, args.log_dir, device,
+                                "train_trace.json"):
+            for step in range(start, args.steps):
                 sync(device)
-            t1 = time.perf_counter()
-            with tracer.span("update", step=step):
-                batch = build_batch(traj, v_last)
-                params, opt_state, metrics = train_step(params, opt_state,
-                                                        batch)
-                sync(device)
-            t2 = time.perf_counter()
-            with tracer.span("log", step=step + 1):
-                logger.record(step + 1, {
-                    "avg_reward": float(torch.mean(traj["reward"])),
-                    **{k: float(v) for k, v in metrics.items()},
-                    "samples_per_sec": args.batch * args.horizon / (t2 - t0),
-                    "rollout_s": t1 - t0,
-                    "update_s": t2 - t1,
-                })
-            tracer.memory_snapshot(f"step_{step + 1}")
+                t0 = time.perf_counter()
+                with tracer.span("rollout", step=step):
+                    traj, v_last = rollout(params, gen)
+                    sync(device)
+                t1 = time.perf_counter()
+                with tracer.span("update", step=step):
+                    batch = build_batch(traj, v_last)
+                    params, opt_state, metrics = train_step(params,
+                                                            opt_state, batch)
+                    sync(device)
+                t2 = time.perf_counter()
+                with tracer.span("log", step=step + 1):
+                    logger.record(step + 1, {
+                        "avg_reward": float(torch.mean(traj["reward"])),
+                        **{k: float(v) for k, v in metrics.items()},
+                        "samples_per_sec":
+                            args.batch * args.horizon / (t2 - t0),
+                        "rollout_s": t1 - t0,
+                        "update_s": t2 - t1,
+                    })
+                tracer.memory_snapshot(f"step_{step + 1}")
+                if args.ckpt_dir and args.ckpt_interval and \
+                        (step + 1) % args.ckpt_interval == 0:
+                    with tracer.span("checkpoint", step=step + 1):
+                        save_lm_checkpoint(args.ckpt_dir, step + 1, params,
+                                           opt_state, cfg)
     finally:
         logger.close()
     return params

@@ -1,9 +1,9 @@
 """Backbones of the ported families, in PyTorch.
 
-Port of two families of ``repro/models/backbones.py``: the dense family's
-serving path (prefill / decode, with and without ``alt_local_global``,
-gemma2's local/global layer pairs) and the ssm family's (mamba2) training
-forward and decode step:
+Port of two families of ``repro/models/backbones.py``, dense (gemma2's
+local/global layer pairs with ``alt_local_global``, plain dense without) and
+ssm (mamba2), each on both paths: the training forward and the serving
+prefill / decode step.
 
 - ``LM`` is an ``nn.Module`` with the JAX leaves as parameters.  The JAX
   params stack each superblock's leaves with a leading dim; here layer
@@ -19,11 +19,9 @@ forward and decode step:
   ``lengths`` ``(B,)`` int32 — and are updated IN PLACE: ``prefill`` and
   ``decode_step`` write into the tensors of the cache they are given and
   return a new dict holding those same tensors plus a new ``lengths``.
-- ``forward_train`` covers the ssm family (the dense family's needs the
-  flash-attention backward, not ported yet); ``cfg.remat`` checkpoints each
-  layer with ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
-  ``jax.checkpoint`` over the scanned superblock.  ``prefill`` covers the
-  dense family only.
+- ``forward_train``: with ``cfg.remat`` each superblock is checkpointed
+  with ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+  ``jax.checkpoint`` over the scanned superblocks.
 - Single-device only: the JAX sharding constraints are identities on one
   device and are dropped.
 """
@@ -62,7 +60,8 @@ def superblock_layout(cfg: ModelConfig):
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported to "
                                   f"repro_torch yet (ported: "
-                                  f"{PORTED_FAMILIES})")
+                                  f"{PORTED_FAMILIES}; the others are ROADMAP "
+                                  "Queue 1 item 10)")
     if cfg.family == "dense" and cfg.alt_local_global:
         if cfg.n_layers % 2:
             raise ValueError("alt_local_global needs an even n_layers")
@@ -174,30 +173,57 @@ def value_out(params, hidden):
 # ---------------------------------------------------------------------------
 # Training path
 # ---------------------------------------------------------------------------
+def _dense_layer_train(p, x, cfg: ModelConfig, *, window=None):
+    """One dense layer over a sequence; returns (x, (k, v)), the layer's
+    unrepeated K/V heads for the prefill cache."""
+    h = rmsnorm(p.attn_norm, x)
+    # positions=None: contiguous from 0, eligible for the flash kernel
+    a, kv = attention_train(p.attn, h, cfg, positions=None, window=window)
+    if cfg.post_norm:
+        a = rmsnorm(p.attn_post_norm, a)
+    x = x + a
+    h = rmsnorm(p.mlp_norm, x)
+    m = mlp(p.mlp, h)
+    if cfg.post_norm:
+        m = rmsnorm(p.mlp_post_norm, m)
+    return x + m, kv
+
+
 def _ssm_layer_train(p, x, cfg: ModelConfig):
     h = rmsnorm(p.norm, x)
     y, _ = ssd_block_train(p.ssd, h, cfg)
     return x + y
 
 
-def forward_train(params, tokens, cfg: ModelConfig):
-    """tokens:(B,T) -> (hidden (B,T,D) in the compute dtype, aux scalar).
+def _superblock_train(x, cfg: ModelConfig, *layers):
+    """One superblock forward (JAX's ``apply_superblock_train`` of the
+    ported families): gemma2's local then global layer, or one plain dense
+    or ssm layer."""
+    if cfg.family == "ssm":
+        return _ssm_layer_train(layers[0], x, cfg)
+    if cfg.alt_local_global:
+        local, glob = layers
+        x, _ = _dense_layer_train(local, x, cfg, window=cfg.window)
+        return _dense_layer_train(glob, x, cfg)[0]
+    return _dense_layer_train(layers[0], x, cfg, window=cfg.window)[0]
 
-    The ssm family only.  With ``cfg.remat`` each layer's activations are
-    dropped after its forward and recomputed in the backward
-    (``torch.utils.checkpoint``, non-reentrant), so every SSD scan of an
-    update runs twice."""
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"forward_train of family {cfg.family!r} is not ported to "
-            "repro_torch yet (ssm only: the dense family needs the "
-            "flash-attention backward)")
+
+def forward_train(params, tokens, cfg: ModelConfig):
+    """tokens:(B,T) -> (hidden (B,T,D) in the compute dtype, aux scalar 0).
+
+    With ``cfg.remat`` each superblock's activations are dropped after its
+    forward and recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant), so every attention kernel and SSD scan of an update
+    runs twice."""
+    n_sb, per_block, _ = superblock_layout(cfg)
     x = embed(params, tokens, cfg)
-    for lp in params.layers:
+    for i in range(n_sb):
+        layers = params.layers[i * per_block:(i + 1) * per_block]
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_ssm_layer_train, lp, x, cfg, use_reentrant=False)
+            x = checkpoint(_superblock_train, x, cfg, *layers,
+                           use_reentrant=False)
         else:
-            x = _ssm_layer_train(lp, x, cfg)
+            x = _superblock_train(x, cfg, *layers)
     x = rmsnorm(params.final_norm, x)
     return x, torch.zeros((), dtype=F32, device=x.device)
 
@@ -308,29 +334,28 @@ def _fill_kv(cache_k, cache_v, k, v, window):
 def prefill(params, tokens, cfg: ModelConfig, cache):
     """Run the full-sequence forward, returning (last_hidden (B,1,D), cache).
 
-    The cache must be freshly initialized (lengths == 0); its K/V tensors
-    are filled in place.  The dense family only."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"prefill of family {cfg.family!r} is not "
-                                  "ported to repro_torch yet (dense only)")
+    The cache must be freshly initialized (lengths == 0); its tensors are
+    filled in place.  The ssm family passes each layer's cache state into
+    ``ssd_block_train``, so its scan is the plain chunked one, as in JAX
+    (the SSD kernel covers the zero-state training shape only)."""
     B, T = tokens.shape
     x = embed(params, tokens, cfg)
     new_cache = dict(cache)
-    for i, (lp, window) in enumerate(zip(params.layers, layer_windows(cfg))):
-        h = rmsnorm(lp.attn_norm, x)
-        # positions=None: contiguous from 0, eligible for the flash kernel
-        a, (k, v) = attention_train(lp.attn, h, cfg, positions=None,
-                                    window=window)
-        if cfg.post_norm:
-            a = rmsnorm(lp.attn_post_norm, a)
-        x = x + a
-        h = rmsnorm(lp.mlp_norm, x)
-        m = mlp(lp.mlp, h)
-        if cfg.post_norm:
-            m = rmsnorm(lp.mlp_post_norm, m)
-        x = x + m
-        kn, vn, sb = _cache_slot(cfg, i)
-        _fill_kv(cache[kn][sb], cache[vn][sb], k, v, window)
+    if cfg.family == "ssm":
+        for i, lp in enumerate(params.layers):
+            h = rmsnorm(lp.norm, x)
+            y, (ncs, nss) = ssd_block_train(lp.ssd, h, cfg,
+                                            conv_state=cache["conv"][i],
+                                            ssm_state=cache["ssm"][i])
+            cache["conv"][i].copy_(ncs)
+            cache["ssm"][i].copy_(nss)
+            x = x + y
+    else:
+        for i, (lp, window) in enumerate(zip(params.layers,
+                                             layer_windows(cfg))):
+            x, (k, v) = _dense_layer_train(lp, x, cfg, window=window)
+            kn, vn, sb = _cache_slot(cfg, i)
+            _fill_kv(cache[kn][sb], cache[vn][sb], k, v, window)
     new_cache["lengths"] = cache["lengths"] + T
     x_last = rmsnorm(params.final_norm, x[:, -1:, :])
     return x_last, new_cache

@@ -13,6 +13,11 @@ weight to the compute dtype right before its product, so storing the
 matrices in the compute dtype computes the same thing for serving; training
 asks for f32 master weights with ``requires_grad=True``.
 
+``params_to_jax`` is its inverse: the port's tensors, named as in
+``LM.named_parameters()`` (the params themselves, or an optimizer's moments
+in the params' order), stacked back into JAX's nested dict, so a
+checkpoint written from the port has JAX's layout (``train/checkpoint.py``).
+
 ``rl_params_from_jax`` carries the parameter pytree of a small RL model
 (``repro.models.rl_models``: the Q, PG and continuous models, and
 ``make_recurrent_q`` with its ``lstm/{wx,wh,b}``) into the port's
@@ -21,7 +26,7 @@ of arrays: a leaf-for-leaf copy into f32 tensors.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +47,20 @@ def _flatten(tree, prefix=""):
     return out
 
 
+def _jax_leaf(name: str, cfg: ModelConfig, per_block: int):
+    """(JAX leaf name, superblock index or None) of the port's parameter
+    ``name``."""
+    if not name.startswith("layers."):
+        return name.replace(".", "/"), None
+    _, idx, rest = name.split(".", 2)
+    i = int(idx)
+    if cfg.alt_local_global:
+        prefix = f"blocks/{'local' if i % 2 == 0 else 'global'}/"
+    else:
+        prefix = "blocks/"
+    return prefix + rest.replace(".", "/"), i // per_block
+
+
 def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
                     dtype=torch.float32, requires_grad: bool = False) -> LM:
     """JAX ``init_lm`` params (nested dict of numpy arrays) -> ``LM``.
@@ -51,17 +70,8 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
     lm = LM(cfg, device=device, dtype=dtype)
     targets = {}  # jax leaf name -> list of (torch param, index or None)
     for name, p in lm.named_parameters():
-        if name.startswith("layers."):
-            _, idx, rest = name.split(".", 2)
-            i = int(idx)
-            if cfg.alt_local_global:
-                jax_name = f"blocks/{'local' if i % 2 == 0 else 'global'}/"
-            else:
-                jax_name = "blocks/"
-            jax_name += rest.replace(".", "/")
-            targets.setdefault(jax_name, []).append((p, i // per_block))
-        else:
-            targets.setdefault(name.replace(".", "/"), []).append((p, None))
+        jax_name, sb = _jax_leaf(name, cfg, per_block)
+        targets.setdefault(jax_name, []).append((p, sb))
     missing = sorted(set(targets) - set(leaves))
     extra = sorted(set(leaves) - set(targets))
     if missing or extra:
@@ -80,6 +90,53 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
                                      f"{tuple(p.shape)}")
                 p.copy_(torch.from_numpy(np.array(val)))
     return lm.requires_grad_(requires_grad)
+
+
+def params_to_jax(named: Iterable[Tuple[str, torch.Tensor]],
+                  cfg: ModelConfig) -> Dict:
+    """The inverse of ``params_from_jax``: ``(name, tensor)`` pairs named as
+    in ``LM.named_parameters()`` -> JAX's nested dict, each superblock leaf
+    stacked over its superblocks (new tensors; the others are the given
+    ones, detached)."""
+    n_sb, per_block, _ = superblock_layout(cfg)
+    stacks: Dict[str, list] = {}
+    tree: Dict = {}
+    for name, t in named:
+        jax_name, sb = _jax_leaf(name, cfg, per_block)
+        if sb is None:
+            _set(tree, jax_name, t.detach())
+        else:
+            stacks.setdefault(jax_name, [None] * n_sb)[sb] = t.detach()
+    for jax_name, parts in stacks.items():
+        _set(tree, jax_name, torch.stack(parts))
+    return tree
+
+
+def _set(tree: Dict, path: str, value) -> None:
+    *parents, leaf = path.split("/")
+    for part in parents:
+        tree = tree.setdefault(part, {})
+    tree[leaf] = value
+
+
+def _get(tree: Dict, path: str):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def params_of_jax(tree: Dict, names: Iterable[str],
+                  cfg: ModelConfig) -> List[torch.Tensor]:
+    """The tensors of JAX's nested dict ``tree`` in the order of ``names``
+    (``LM.named_parameters()`` names): views of its leaves, a superblock
+    leaf indexed at the parameter's superblock."""
+    _, per_block, _ = superblock_layout(cfg)
+    out = []
+    for name in names:
+        jax_name, sb = _jax_leaf(name, cfg, per_block)
+        leaf = _get(tree, jax_name)
+        out.append(leaf if sb is None else leaf[sb])
+    return out
 
 
 def rl_params_from_jax(np_params, *, device="cpu"):

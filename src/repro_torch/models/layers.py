@@ -2,8 +2,8 @@
 
 Port of ``repro/models/layers.py``: rmsnorm, RoPE, GQA attention with
 sliding window + softcap, KV-cache decode attention and the SwiGLU MLP (the
-dense family's serving path), and the Mamba-2 SSD mixer (the ssm family's
-training forward and decode step).  Each layer is an ``nn.Module`` holding
+dense family's serving and training paths), and the Mamba-2 SSD mixer (the
+ssm family's).  Each layer is an ``nn.Module`` holding
 parameters named after the JAX leaves; the math lives in plain functions
 over (module, tensor) with the JAX signatures, so the backbones, the serving
 engine and the trainer port line for line.
@@ -191,7 +191,11 @@ def attention_train(params, x, cfg: ModelConfig, *, positions=None,
 
     Kernel dispatch: the flash kernel covers the contiguous causal layout
     (positions=None, i.e. contiguous from 0); explicit positions and
-    non-causal calls stay on the chunked ``ref`` path."""
+    non-causal calls stay on the chunked ``ref`` path.  Both routes are
+    differentiable: the kernel route through ``flash_attention``'s
+    ``autograd.Function`` (the kernel needs contiguous K / V; its backward
+    is reference math, as JAX's ``custom_vjp``), the ``ref`` route through
+    plain autograd."""
     B, T, D = x.shape
     q = _proj(x, params.wq)
     k = _proj(x, params.wk)

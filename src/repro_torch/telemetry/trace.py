@@ -99,3 +99,30 @@ def configure(path: Optional[str] = None) -> Tracer:
     _global_tracer.close()
     _global_tracer = Tracer(path)
     return _global_tracer
+
+
+@contextmanager
+def chrome_trace(profile: Optional[str], log_dir: Optional[str], device,
+                 filename: str):
+    """The entry points' ``--profile[=DIR]``: run the body under
+    ``torch.profiler`` (the CPU, and CUDA on a CUDA device; the tracer's
+    spans appear as ranges) and write its Chrome trace to
+    ``DIR/filename`` (DIR defaults to ``<log_dir>/profile``).  ``profile``
+    None runs the body unprofiled."""
+    if profile is None:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        out_dir = profile or os.path.join(log_dir or ".", "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, filename)
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path}")

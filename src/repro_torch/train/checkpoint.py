@@ -22,6 +22,14 @@ every ``TrainState`` it meets in JAX's layout and ``restore_checkpoint``
 reads it back into the port's, so every runner writes one layout and a whole
 train state (params, optimizer state, targets) saved by one package
 restores in the other.
+
+An LM (``models/backbones.LM``) keeps one module per layer where JAX stacks
+each superblock's leaves.  ``save_lm_checkpoint`` writes ``(params,
+opt_state)`` as JAX's ``launch/train.py`` does, in JAX's layout: stacked
+``blocks``, moments shaped like the params (``models/convert.py``
+``params_to_jax``), staged through host memory; ``restore_lm_checkpoint``
+reads such a checkpoint, from either package, back into the LM's
+parameters and moments in place.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..core.algorithm import TrainState
+from ..models.convert import params_of_jax, params_to_jax
 from .optim import OptState
 
 _INT32 = np.iinfo(np.int32)
@@ -202,3 +211,49 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any, *,
             out.append(_restored(arr, like, device))
     return _each_train_state(pytree.tree_unflatten(out, spec),
                              _to_list), manifest
+
+
+def _lm_tree(params, opt_state: OptState, cfg, fn):
+    """``(params, opt_state)`` of an LM in JAX's layout, each tensor passed
+    through ``fn`` before it is stacked."""
+    names = [n for n, _ in params.named_parameters()]
+
+    def tree(tensors):
+        return params_to_jax(((n, fn(t)) for n, t in zip(names, tensors)),
+                             cfg)
+
+    return (tree([p for _, p in params.named_parameters()]),
+            _moments_as(opt_state, tree))
+
+
+def save_lm_checkpoint(ckpt_dir: str, step: int, params, opt_state: OptState,
+                       cfg, *, extra: Optional[dict] = None) -> str:
+    """Write an LM's ``(params, opt_state)`` in JAX's layout; returns the
+    ``.npz`` path."""
+    return save_checkpoint(ckpt_dir, step,
+                           _lm_tree(params, opt_state, cfg,
+                                    lambda t: t.detach().cpu()),
+                           extra=extra)
+
+
+@torch.no_grad()
+def restore_lm_checkpoint(ckpt_dir: str, params, opt_state: OptState, cfg, *,
+                          step: Optional[int] = None):
+    """Restore an LM checkpoint (JAX's layout, written by either package)
+    into ``params`` and ``opt_state``'s moments in place, leaf by leaf
+    through host memory; returns (opt_state with the saved step,
+    manifest)."""
+    like = _lm_tree(params, opt_state, cfg,
+                    lambda t: torch.empty_like(t, device="meta"))
+    (ptree, saved), manifest = restore_checkpoint(ckpt_dir, like, step=step,
+                                                  device="cpu")
+    names = [n for n, _ in params.named_parameters()]
+    dests = [p for _, p in params.named_parameters()]
+    srcs = params_of_jax(ptree, names, cfg)
+    for moments, tree in ((opt_state.mu, saved.mu), (opt_state.nu, saved.nu)):
+        if moments is not None:
+            dests += moments
+            srcs += params_of_jax(tree, names, cfg)
+    for dst, src in zip(dests, srcs):
+        dst.copy_(src)
+    return opt_state._replace(step=saved.step), manifest

@@ -80,7 +80,7 @@ def test_serve_defaults_to_cuda():
     from repro_torch.launch import serve
     ap = serve.build_parser()
     assert ap.get_default("device") == "cuda"
-    assert ap.get_default("arch") == "gemma2-2b"
+    assert ap.get_default("arch") == "mamba2-1.3b"  # JAX's serve default
 
 
 def test_serve_on_cuda_without_a_card_raises():
@@ -102,21 +102,39 @@ def test_train_on_cuda_without_a_card_raises():
 
 @pytest.mark.parametrize("entry", ["serve", "train"])
 def test_smoke_on_cuda_is_rejected_before_any_weight(entry):
-    """The smoke shapes have no kernel instance on the card: parsed
-    ``--device cuda`` with the default smoke config is refused by the entry
-    point's own check, naming --full and --device cpu; --full on CUDA and
-    the smoke config on the CPU pass it."""
+    """A smoke config whose path needs a kernel instance the card lacks is
+    refused by the entry point's own check, naming the instance, --full and
+    --device cpu: gemma2's (attention d_head 16) in both entry points,
+    mamba2's (SSD P 16, N 16, chunk 8) in training.  --full on CUDA and the
+    smoke config on the CPU pass it."""
     import importlib
     mod = importlib.import_module(f"repro_torch.launch.{entry}")
     parse = mod.build_parser().parse_args
-    with pytest.raises(ValueError) as err:
-        mod.reject_smoke_on_cuda(parse([]))
-    assert "--full" in str(err.value) and "--device cpu" in str(err.value)
-    with pytest.raises(ValueError, match="--smoke runs only on the CPU"):
-        mod.reject_smoke_on_cuda(parse(["--device", "cuda:0", "--smoke"]))
-    mod.reject_smoke_on_cuda(parse(["--full"]))
-    mod.reject_smoke_on_cuda(parse(["--device", "cpu"]))
-    mod.reject_smoke_on_cuda(parse(["--device", "cpu", "--full"]))
+    refused = [["--arch", "gemma2-2b"]]
+    if entry == "train":
+        refused += [[], ["--arch", "mamba2-1.3b"]]
+    for argv in refused:
+        with pytest.raises(ValueError) as err:
+            mod.reject_smoke_on_cuda(parse(argv))
+        msg = str(err.value)
+        assert "--full" in msg and "--device cpu" in msg
+        assert ("d_head 16" in msg) != ("P 16, N 16, chunk 8" in msg)
+        with pytest.raises(ValueError, match="--smoke runs only on the CPU"):
+            mod.reject_smoke_on_cuda(parse(["--device", "cuda:0", "--smoke"]
+                                           + argv))
+        mod.reject_smoke_on_cuda(parse(["--full"] + argv))
+        mod.reject_smoke_on_cuda(parse(["--device", "cpu"] + argv))
+        mod.reject_smoke_on_cuda(parse(["--device", "cpu", "--full"] + argv))
+
+
+def test_serve_smoke_mamba2_is_not_refused_on_cuda():
+    """Smoke mamba2 serving runs no kernel (its prefill takes the plain
+    scan, its decode step plain ops), so serve's default arch passes the
+    check on a CUDA device."""
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args([])
+    assert args.arch == "mamba2-1.3b" and args.smoke and args.device == "cuda"
+    serve.reject_smoke_on_cuda(args)
 
 
 def test_every_kernel_source_is_built_and_ported():

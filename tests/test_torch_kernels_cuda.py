@@ -15,6 +15,18 @@ Prefill covers ragged and whole 128-row query tiles and window edges inside
 a tile; decode covers kv_len on every boundary of the wrapper's split plan
 +-1, kv_len 1 (every split but the first empty), B 1 and B 8, and S 8192.
 
+Training: at the gemma2-2b training shape (B 8, T 256, H 8, Hkv 4, causal,
+window 4096 and none, softcap 50) the ``autograd.Function``'s backward on
+the kernel route equals autograd through ``attention_reference`` bit for
+bit (the same math on the same saved inputs).  A 2-layer cut of gemma2-2b
+at full width (d_model 2304, vocab 256 000, f32 master weights, bf16
+compute, remat) runs ``forward_train`` and its backward on the kernel route
+against ``attention=ref``: 4 kernel launches (2 forward, 2 recomputed) and
+none on ref, and the hidden states within 2e-2, the loss within 1e-2 and
+every parameter's gradient within 5e-2 of the ref route's, each relative
+in L2 norm (the routes round attention to bf16 at other places: a few bf16
+spacings, 2^-8 each, per element before two layers amplify them).
+
 The SSD scan (``csrc/ssd_scan.cu``) is held against ``ssd_reference`` at
 the mamba2-1.3b training shape (B 8, T 512, H 64, P 64, G 1, N 128, chunk
 256), one chunk (T 256), ragged T 500 and T < 256, and at the edges of its
@@ -36,12 +48,16 @@ total, over runs of zero leaves and a zero block), kernel == plain bit for
 bit there, and by the rounding rule of ``kernels/sum_tree/ref.agreement``
 on real ones.
 """
+import dataclasses
+
 import pytest
 
 pytestmark = pytest.mark.cuda
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     decode_split_plan)
@@ -52,6 +68,7 @@ from repro_torch.kernels.sum_tree import ops as st_ops  # noqa: E402
 from repro_torch.kernels.sum_tree import ref as st_ref  # noqa: E402
 from repro_torch.kernels.sum_tree.sum_tree import (sample_blocked,  # noqa: E402
                                                    sample_plain)
+from repro_torch.models import backbones as bb  # noqa: E402
 
 FWD_TOL = dict(atol=8e-3, rtol=1.6e-2)
 DECODE_TOL = dict(atol=1e-3, rtol=8e-3)
@@ -90,6 +107,9 @@ FWD_CASES = [
     # the fixed rounds' prefill: local (window 4096) and global layers
     (8, 1024, 1024, 8, 4, True, 4096, 50.0, 0, 1.0),
     (8, 1024, 1024, 8, 4, True, None, 50.0, 0, 1.0),
+    # the gemma2 training forward (batch 8, horizon 256)
+    (8, 256, 256, 8, 4, True, 4096, 50.0, 0, 1.0),
+    (8, 256, 256, 8, 4, True, None, 50.0, 0, 1.0),
     # a window edge that crosses a 64-key tile inside a 128-row query tile
     (1, 256, 256, 8, 4, True, 100, 50.0, 0, 1.0),
     (1, 200, 328, 8, 4, True, 96, 50.0, 128, 20.0),
@@ -109,6 +129,58 @@ def test_flash_attn_fwd_vs_reference(case, cuda):
     ref = attention_reference(q, k, v, causal=causal, window=window,
                               softcap=softcap, q_offset=qoff)
     torch.testing.assert_close(out.float(), ref.float(), **FWD_TOL)
+
+
+@pytest.mark.parametrize("window", [4096, None])
+def test_flash_attention_backward_bit_exact_at_training_shape(window, cuda):
+    q, k, v = _qkv(8, 256, 256, 8, 4, 256, cuda, seed=5)
+    g = _qkv(8, 256, 256, 8, 4, 256, cuda, seed=6)[0]
+    kw = dict(causal=True, window=window, softcap=50.0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = ops.flash_attention.launches
+    got = torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves, g)
+    assert ops.flash_attention.launches == n0 + 1
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_reference(*ref_leaves, **kw),
+                               ref_leaves, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def test_dense_forward_train_kernel_vs_ref_two_layers_full_width(cuda):
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=2)
+    assert cfg.remat
+    lm = bb.init_lm(cfg, device=cuda, dtype=torch.float32, requires_grad=True,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 257), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    params = list(lm.parameters())
+    out = {}
+    for spec in ("attention=cuda", "attention=ref"):
+        n0 = ops.flash_attention.launches
+        with registry.override(spec):
+            hidden, _ = bb.forward_train(lm, toks[:, :-1], cfg)
+            logp = torch.log_softmax(bb.lm_logits(lm, hidden, cfg).float(), -1)
+            loss = (-torch.gather(logp, -1, toks[:, 1:, None].long()).mean()
+                    + bb.value_out(lm, hidden).square().mean())
+            grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        out[spec] = (hidden.detach(), loss.detach(), grads,
+                     ops.flash_attention.launches - n0)
+        del logp
+    (hk, lk, gk, nk), (hr, lr, gr, nr) = out.values()
+    assert (nk, nr) == (2 * cfg.n_layers, 0)
+    assert torch.isfinite(hk).all() and torch.isfinite(lk)
+    assert _rel(hk, hr) <= 2e-2
+    assert abs(float(lk - lr)) <= 1e-2 * abs(float(lr))
+    for (name, _), a, b in zip(lm.named_parameters(), gk, gr):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= 5e-2, name
 
 
 def _split_boundary_cases(B, S, Hkv=4):

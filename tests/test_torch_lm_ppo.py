@@ -1,4 +1,5 @@
-"""Port parity for the LM-PPO training slice on the CPU (smoke mamba2).
+"""Port parity for the LM-PPO training slice on the CPU (smoke mamba2 and
+smoke gemma2).
 
 The same inputs, made from a seed with numpy, go through the JAX function
 and its counterpart in the port:
@@ -25,8 +26,28 @@ and the invariants the JAX tests hold, in the port:
 - ``n_microbatches`` 1 and 2 give the same SGD step (3e-3) and loss (1e-5)
   (tests/test_algos.py:204-235, on the smoke mamba2 instead of glm4, whose
   training is not ported);
-- ``train.main(["--device", "cpu", "--steps", "3"])`` runs and logs finite
-  metrics.
+- ``train.main(["--device", "cpu", "--arch", "mamba2-1.3b", "--steps",
+  "3"])`` runs and logs finite metrics.
+
+The dense family (smoke gemma2, local / global layer pairs), against JAX on
+the same params and batch, on both routes (the JAX kernel in interpret mode
+against the port's kernel route, ``ref`` against ``ref``):
+
+- ``forward_train``'s hidden states, ``lm_logits`` and ``value_out`` in f32
+  within 1e-4 (measured 3e-6: sums in another order);
+- one ``make_lm_ppo_train_step`` in f32 (the kernel route with ``remat``,
+  so the backward runs the recompute and the reference vjp): metrics within
+  1e-4 relative, params as in the mamba2 test;
+- remat and no remat give bit-identical gradients (the recompute is the
+  forward); serve-path logp == train-path logp (atol 5e-2, as JAX's test);
+- the ``lm_ppo_end2end`` twin at ``test_lm_ppo_pipeline_exact_and_stable``'s
+  budget (60 steps, batch 16, horizon 16, lr 1e-3) keeps the reward of a
+  fresh rollout above the uniform floor's -6.5;
+- LM checkpoints: one written by JAX's ``save_checkpoint`` of ``(params,
+  opt_state)`` restores into the port's LM and Adam state, and the port's
+  restores in JAX, with equal values (a checkpoint copies bytes);
+  ``train.main``'s ``--ckpt-dir`` / ``--ckpt-interval`` / ``--restore``
+  resume at the saved step and ``--profile`` writes a Chrome trace.
 """
 import dataclasses
 import json
@@ -45,16 +66,25 @@ from repro.algos.pg.ppo import make_lm_ppo_train_step as jax_ppo_step  # noqa: E
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.envs.token_lm import chain_log_probs as jax_chain  # noqa: E402
 from repro.envs.token_lm import make_token_lm as jax_make_token_lm  # noqa: E402
+from repro.kernels import registry as jax_registry  # noqa: E402
 from repro.models import backbones as jbb  # noqa: E402
+from repro.train import checkpoint as jckpt  # noqa: E402
 from repro.train import optim as joptim  # noqa: E402
 from repro_torch.algos.pg import gae as tgae  # noqa: E402
 from repro_torch.algos.pg.ppo import make_lm_ppo_train_step  # noqa: E402
 from repro_torch.envs import token_lm  # noqa: E402
+from repro_torch.examples import lm_ppo_end2end  # noqa: E402
+from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import backbones as bb  # noqa: E402
+from repro_torch.models.convert import params_of_jax  # noqa: E402
+from repro_torch.train import checkpoint as tckpt  # noqa: E402
 from repro_torch.train import optim as toptim  # noqa: E402
 
 ARCH = "mamba2-1.3b"
+DENSE = "gemma2-2b"
+# JAX registry spec, port registry spec: the kernel route, the plain one
+BACKENDS = {"kernel": ("interpret", "cuda"), "ref": ("ref", "ref")}
 V = 256
 
 
@@ -97,6 +127,34 @@ def test_chain_log_probs_in_row_blocks(monkeypatch):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
     torch.testing.assert_close(torch.logsumexp(got, 1), torch.zeros(37),
                                atol=1e-5, rtol=0)
+
+
+def test_table_free_chain_above_table_max(monkeypatch):
+    """Above TABLE_MAX_VOCAB the env holds no (V, V) table: its rewards are
+    the rows of ``chain_rows``, a fixed chain of (seed, V) -- rows
+    normalised (logsumexp 0 within 1e-5), each row the same wherever it
+    sits in a batch, N(0, 1) draws (over 90 000 draws: std within 2 %, the
+    share within one sigma 0.6827 +- 0.01), another seed another chain."""
+    Vs = 300
+    monkeypatch.setattr(token_lm, "TABLE_MAX_VOCAB", 256)
+    table = token_lm.chain_rows(torch.arange(Vs), Vs, 1.0, 3)
+    torch.testing.assert_close(torch.logsumexp(table, 1), torch.zeros(Vs),
+                               atol=1e-5, rtol=0)
+    z = table - table.mean(1, keepdim=True)
+    assert abs(float(z.std()) - 1.0) < 0.02
+    assert abs(float((z.abs() < 1).float().mean()) - 0.6827) < 0.01
+    torch.testing.assert_close(
+        token_lm.chain_rows(torch.tensor([5, 7, 5]), Vs, 1.0, 3),
+        table[[5, 7, 5]], atol=1e-6, rtol=0)
+    assert not torch.allclose(token_lm.chain_rows(torch.tensor([5]), Vs,
+                                                  1.0, 4), table[5:6])
+    env = token_lm.make_token_lm(vocab=Vs, episode_len=5, seed=3)
+    gen = torch.Generator().manual_seed(0)
+    state, obs = env.reset(16, gen)
+    act = torch.randint(0, Vs, (16,), generator=gen, dtype=torch.int32)
+    _, _, reward, _, _ = env.step(state, act, gen)
+    torch.testing.assert_close(reward, table[obs.long(), act.long()],
+                               atol=1e-6, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -285,8 +343,9 @@ def test_lm_ppo_microbatch_invariance():
 
 
 def test_train_main_on_cpu_logs_finite_metrics(tmp_path):
-    lm = train.main(["--device", "cpu", "--steps", "3", "--batch", "4",
-                     "--horizon", "8", "--log-dir", str(tmp_path)])
+    lm = train.main(["--device", "cpu", "--arch", ARCH, "--steps", "3",
+                     "--batch", "4", "--horizon", "8", "--log-dir",
+                     str(tmp_path)])
     rows = [json.loads(ln) for ln in
             (tmp_path / "progress.jsonl").read_text().splitlines()]
     assert [r["step"] for r in rows] == [1, 2, 3]
@@ -301,4 +360,183 @@ def test_train_main_on_cpu_logs_finite_metrics(tmp_path):
 def test_train_defaults():
     ap = train.build_parser()
     assert ap.get_default("device") == "cuda"
-    assert ap.get_default("arch") == "mamba2-1.3b"
+    assert ap.get_default("arch") == "gemma2-2b"
+
+
+# ---------------------------------------------------------------------------
+# the dense family (smoke gemma2)
+# ---------------------------------------------------------------------------
+def _dense(remat=False, seed=0):
+    jc = dataclasses.replace(jax_smoke(DENSE), compute_dtype="float32",
+                             remat=remat)
+    return jc, torch_cfg(jc), jbb.init_lm(jax.random.PRNGKey(seed), jc)
+
+
+def _named_jax(jax_tree, lm, cfg):
+    """The JAX params tree as numpy, by the port's parameter names."""
+    names = [n for n, _ in lm.named_parameters()]
+    return dict(zip(names, params_of_jax(to_numpy(jax_tree), names, cfg)))
+
+
+@pytest.mark.parametrize("backend", list(BACKENDS))
+def test_dense_forward_train_matches_jax(backend):
+    jc, tc, params = _dense()
+    lm = port_lm(params, jc)
+    toks = np.random.RandomState(0).randint(0, V, (2, 24)).astype(np.int32)
+    jspec, tspec = BACKENDS[backend]
+    with jax_registry.override(jspec):
+        jh, _ = jax.jit(lambda p, t: jbb.forward_train(p, t, jc))(
+            params, jnp.asarray(toks))
+        want = (jh, jbb.lm_logits(params, jh, jc), jbb.value_out(params, jh))
+    with registry.override(tspec), torch.no_grad():
+        th, aux = bb.forward_train(lm, torch.from_numpy(toks), tc)
+        got = (th, bb.lm_logits(lm, th, tc), bb.value_out(lm, th))
+    assert float(aux) == 0.0
+    for name, a, b in zip(("hidden", "logits", "value"), got, want):
+        np.testing.assert_allclose(t2n(a), j2n(b), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("backend", list(BACKENDS))
+def test_dense_lm_ppo_train_step_matches_jax(backend):
+    remat = backend == "kernel"
+    jc, tc, params = _dense(remat=remat)
+    lm = port_lm(params, jc, requires_grad=True)
+    batch = _ppo_batch()
+    lr = 1e-3
+    jspec, tspec = BACKENDS[backend]
+    jopt = joptim.adam(lr, grad_clip=1.0)
+    with jax_registry.override(jspec):
+        jp, _, jm = jax.jit(jax_ppo_step(jc, jopt, entropy_coeff=0.003))(
+            params, jopt.init(params),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    topt = toptim.adam(lr, grad_clip=1.0)
+    with registry.override(tspec):
+        lm, _, tm = make_lm_ppo_train_step(tc, topt, entropy_coeff=0.003)(
+            lm, topt.init(lm.parameters()),
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+    for k in tm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    want = _named_jax(jp, lm, tc)
+    n_flip = n_all = 0
+    for name, p in lm.named_parameters():
+        err = np.abs(t2n(p) - want[name])
+        assert err.max() <= 1e-5 + 2 * lr, name
+        n_flip += int((err > 1e-5).sum())
+        n_all += err.size
+    assert n_flip <= 1e-3 * n_all, (n_flip, n_all)
+
+
+def test_dense_remat_gradients_equal_plain():
+    """Checkpointed superblocks recompute the same forward: the gradients
+    of both routes with and without remat are bit-identical."""
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, V, (2, 20)).astype(np.int32))
+    for spec in ("cuda", "ref"):
+        grads = []
+        for remat in (False, True):
+            jc, tc, params = _dense(remat=remat)
+            lm = port_lm(params, jc, requires_grad=True)
+            with registry.override(spec):
+                hidden, _ = bb.forward_train(lm, toks, tc)
+                loss = (bb.lm_logits(lm, hidden, tc).square().mean()
+                        + bb.value_out(lm, hidden).square().mean())
+                grads.append(torch.autograd.grad(loss, list(lm.parameters())))
+        for a, b in zip(*grads):
+            assert torch.equal(a, b), spec
+
+
+def test_dense_serve_logp_equals_train_logp():
+    cfg = torch_cfg(jax_smoke(DENSE))
+    env = token_lm.make_token_lm(vocab=cfg.vocab, episode_len=16)
+    lm = bb.init_lm(cfg, device="cpu", generator=torch.Generator().manual_seed(0),
+                    dtype=torch.float32, requires_grad=True)
+    roll = train.make_lm_rollout(cfg, env, 8, 16, device="cpu")
+    traj, _ = roll(lm, torch.Generator().manual_seed(123))
+    tokens, actions = traj["tokens"].T, traj["actions"].T
+    with torch.no_grad():
+        hidden, _ = bb.forward_train(lm, tokens, cfg)
+        logits = bb.lm_logits(lm, hidden, cfg).float()
+    logp_train = torch.gather(torch.log_softmax(logits, -1), -1,
+                              actions.long()[..., None])[..., 0]
+    np.testing.assert_allclose(t2n(logp_train), t2n(traj["logp"].T),
+                               atol=5e-2)
+
+
+def test_lm_ppo_end2end_learning_bar():
+    """tests/test_learning.py::test_lm_ppo_pipeline_exact_and_stable's bar
+    on the twin's model (smoke gemma2): after 60 steps at batch 16, horizon
+    16, lr 1e-3, a fresh rollout's mean reward stays above -6.5 (the
+    uniform policy's is about -6.2)."""
+    lm = lm_ppo_end2end.main(["--device", "cpu", "--steps", "60", "--batch",
+                              "16", "--horizon", "16"])
+    cfg = torch_cfg(jax_smoke(DENSE))
+    env = token_lm.make_token_lm(vocab=cfg.vocab, episode_len=16)
+    roll = train.make_lm_rollout(cfg, env, 16, 16, device="cpu")
+    traj, _ = roll(lm, torch.Generator().manual_seed(123))
+    r = float(torch.mean(traj["reward"]))
+    assert np.isfinite(r) and r > -6.5, r
+
+
+def test_lm_checkpoint_crosses_both_ways(tmp_path):
+    jc, tc, params = _dense()
+    r = np.random.RandomState(6)
+
+    def rand(a):
+        return jnp.asarray(r.randn(*np.shape(a)).astype(np.float32))
+
+    jstate = joptim.OptState(step=jnp.asarray(7, jnp.int32),
+                             mu=jax.tree_util.tree_map(rand, params),
+                             nu=jax.tree_util.tree_map(
+                                 lambda a: jnp.abs(rand(a)), params))
+    jckpt.save_checkpoint(str(tmp_path / "jax"), 5, (params, jstate))
+    lm = bb.init_lm(tc, device="cpu", generator=torch.Generator().manual_seed(1),
+                    dtype=torch.float32, requires_grad=True)
+    state = toptim.adam(1e-3).init(lm.parameters())
+    state, manifest = tckpt.restore_lm_checkpoint(str(tmp_path / "jax"), lm,
+                                                  state, tc)
+    assert manifest["step"] == 5 and state.step == 7
+    names = [n for n, _ in lm.named_parameters()]
+    for tree, got in ((params, [p for _, p in lm.named_parameters()]),
+                      (jstate.mu, state.mu), (jstate.nu, state.nu)):
+        for want, t in zip(params_of_jax(to_numpy(tree), names, tc), got):
+            np.testing.assert_array_equal(t2n(t), want)
+    tckpt.save_lm_checkpoint(str(tmp_path / "port"), 6, lm, state, tc)
+    zeros = jax.tree_util.tree_map(jnp.zeros_like, params)
+    like = (zeros, joptim.OptState(step=jnp.asarray(0, jnp.int32), mu=zeros,
+                                   nu=zeros))
+    (jp, js), manifest = jckpt.restore_checkpoint(str(tmp_path / "port"), like)
+    assert manifest["step"] == 6 and int(js.step) == 7
+    for a, b in zip(jax.tree_util.tree_leaves((params, jstate.mu, jstate.nu)),
+                    jax.tree_util.tree_leaves((jp, js.mu, js.nu))):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_train_main_checkpoints_restore_and_profile(tmp_path, capsys):
+    ck = str(tmp_path / "ck")
+    common = ["--device", "cpu", "--batch", "2", "--horizon", "4",
+              "--ckpt-dir", ck, "--ckpt-interval", "1"]
+    lm = train.main(common + ["--steps", "2", "--log-dir",
+                              str(tmp_path / "a"), "--profile"])
+    assert tckpt.latest_step(ck) == 2
+    assert (tmp_path / "a" / "profile" / "train_trace.json").stat().st_size
+    spans = [json.loads(ln)["name"] for ln in
+             (tmp_path / "a" / "trace.jsonl").read_text().splitlines()]
+    assert spans.count("checkpoint") == 2
+    cfg = torch_cfg(jax_smoke(DENSE))
+    fresh = bb.init_lm(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(9),
+                       dtype=torch.float32, requires_grad=True)
+    state, _ = tckpt.restore_lm_checkpoint(
+        ck, fresh, toptim.adam(1e-3).init(fresh.parameters()), cfg)
+    assert state.step == 2
+    for a, b in zip(fresh.parameters(), lm.parameters()):
+        assert torch.equal(a, b)
+    train.main(common + ["--steps", "3", "--restore", "--log-dir",
+                         str(tmp_path / "b")])
+    assert "restored step 2" in capsys.readouterr().out
+    rows = [json.loads(ln) for ln in
+            (tmp_path / "b" / "progress.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [3]
+    assert tckpt.latest_step(ck) == 3

@@ -16,8 +16,16 @@ Within the port (the spec is tests/test_serving.py): continuous-vs-static
 token identity, slot-reuse bit identity, bucketed prefill + tail == batched
 prefill, the active mask freezing lengths, EOS retirement, and
 ``poisson_trace`` equal to JAX's for the same seed.
+
+The ssm family (smoke mamba2): the prefill's last hidden state, its conv and
+SSM states and 8 greedy decode steps against JAX's in f32 within 1e-4 (the
+scan sums in another order); slot reuse bit-identical and a bucketed
+``write_prefill_at`` equal to a batch prefill (logits and states within
+2e-4, f32), as for gemma2; ``serve.main`` on the CPU with its default arch
+(mamba2-1.3b, as JAX's).
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -40,6 +48,7 @@ from repro_torch.serving import (ContinuousBatchEngine, SlotCache,  # noqa: E402
                                  make_decode_block, poisson_trace)
 
 ARCH = "gemma2-2b"
+SSM = "mamba2-1.3b"
 BACKENDS = {"kernel": ("interpret", "cuda"), "ref": ("ref", "ref")}
 B, T, GEN = 2, 20, 8          # T > window 16: the local ring buffer wraps
 S = T + GEN + 1
@@ -132,6 +141,34 @@ def test_gemma2_slice_bf16_matches_jax(backend):
         assert float(np.max(np.abs(got - want))) <= 4 * ulp
 
 
+@pytest.mark.parametrize("backend", list(BACKENDS))
+def test_ssm_prefill_matches_jax(backend):
+    """mamba2 prefill (the cache's states passed in: the plain chunked scan
+    on both sides), then 8 greedy decode steps from its cache."""
+    jcfg = dataclasses.replace(jax_smoke(SSM), compute_dtype="float32")
+    cfg = torch_cfg(jcfg)
+    params = jbb.init_lm(jax.random.PRNGKey(2), jcfg)
+    lm = port_lm(params, jcfg)
+    prompts = _prompts(cfg.vocab, seed=2)
+    jspec, tspec = BACKENDS[backend]
+    jcache, jlogits, jtoks = _jax_serve(jcfg, params, prompts, jspec, GEN)
+    tcache, tlogits, ttoks = _port_serve(cfg, lm, prompts, tspec, jtoks)
+    assert set(tcache) == set(jcache) == {"lengths", "conv", "ssm"}
+    for name in jcache:
+        np.testing.assert_allclose(tcache[name], j2n(jcache[name]),
+                                   atol=1e-4, rtol=1e-4, err_msg=name)
+    for step, (got, want) in enumerate(zip(tlogits, jlogits)):
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4,
+                                   err_msg=f"step {step}")
+    np.testing.assert_array_equal(np.stack(ttoks), np.stack(jtoks))
+    jh, _ = jbb.prefill(params, jnp.asarray(prompts), jcfg,
+                        jbb.init_cache(jcfg, B, S))
+    with torch.inference_mode():
+        th, _ = bb.prefill(lm, torch.from_numpy(prompts), cfg,
+                           bb.init_cache(cfg, B, S, device="cpu"))
+    np.testing.assert_allclose(t2n(th), j2n(jh), atol=1e-4, rtol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # within the port
 # ---------------------------------------------------------------------------
@@ -154,10 +191,7 @@ def _greedy_blocks(cfg, params, slots, active, remaining, n_blocks, block=4):
     return np.concatenate(out, axis=0)
 
 
-def test_slot_reuse_bit_identity():
-    """Retire a slot, re-prefill it: decode must equal a fresh batch that
-    only ever saw the new request (ring-window + global caches)."""
-    cfg = get_smoke_config(ARCH)
+def _check_slot_reuse(cfg):
     params = _lm(cfg)
     rng = np.random.RandomState(1)
     p_a, p_b, p_c = (rng.randint(0, cfg.vocab, n).astype(np.int32)
@@ -181,11 +215,19 @@ def test_slot_reuse_bit_identity():
                                       slot0(fresh_slots.cache[name]))
 
 
-def test_write_prefill_matches_batch_prefill():
-    """Bucketed single-prompt prefill + exact tail advance lands the same
-    next-token logits as a full-prompt batched prefill (f32: the two paths
-    only sum in different orders)."""
-    cfg = dataclasses.replace(get_smoke_config(ARCH), compute_dtype="float32")
+def test_slot_reuse_bit_identity():
+    """Retire a slot, re-prefill it: decode must equal a fresh batch that
+    only ever saw the new request (ring-window + global caches)."""
+    _check_slot_reuse(get_smoke_config(ARCH))
+
+
+def test_mamba2_slot_reuse_bit_identity():
+    """The same for the ssm cache (conv and SSM states)."""
+    _check_slot_reuse(get_smoke_config(SSM))
+
+
+def _check_write_prefill(arch):
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
     params = _lm(cfg)
     prompt = np.random.RandomState(2).randint(0, cfg.vocab, 21).astype(np.int32)
     slots = SlotCache(cfg, 2, MAX_CONTEXT, device="cpu", buckets=(8, 16))
@@ -196,11 +238,25 @@ def test_write_prefill_matches_batch_prefill():
                                    cache)
         ref = t2n(bb.lm_logits(params, hidden, cfg)[:, -1])[0]
     np.testing.assert_allclose(t2n(slots.logits)[1], ref, rtol=2e-4, atol=2e-4)
-    for name in ("k_local", "v_local", "k_global", "v_global"):
-        np.testing.assert_allclose(t2n(slots.cache[name][:, 1]),
-                                   t2n(cache[name][:, 0]), rtol=2e-4,
-                                   atol=2e-4, err_msg=name)
+    for name in cache:
+        if name != "lengths":
+            np.testing.assert_allclose(t2n(slots.cache[name][:, 1]),
+                                       t2n(cache[name][:, 0]), rtol=2e-4,
+                                       atol=2e-4, err_msg=name)
     assert list(slots.lengths()) == [0, 21]
+
+
+def test_write_prefill_matches_batch_prefill():
+    """Bucketed single-prompt prefill + exact tail advance lands the same
+    next-token logits as a full-prompt batched prefill (f32: the two paths
+    only sum in different orders)."""
+    _check_write_prefill(ARCH)
+
+
+def test_mamba2_write_prefill_matches_batch_prefill():
+    """The same for the ssm cache: the bucket's prefill scan and the tail's
+    decode recurrence land the batch prefill's states."""
+    _check_write_prefill(SSM)
 
 
 def test_decode_step_active_mask_freezes_lengths():
@@ -274,6 +330,23 @@ def test_poisson_trace_equals_jax():
 def test_serve_main_cpu_end_to_end(tmp_path):
     """serve.main on the CPU: fixed rounds and the continuous service,
     with the serving schema landing in serve.jsonl."""
+    toks = serve.main(["--device", "cpu", "--arch", ARCH, "--rounds", "1",
+                       "--batch", "2", "--prompt-len", "16", "--gen", "4",
+                       "--log-dir", str(tmp_path)])
+    assert tuple(toks.shape) == (2, 4)
+    summary = serve.main(["--device", "cpu", "--arch", ARCH, "--continuous",
+                          "--requests", "4", "--rate", "1000", "--slots", "2",
+                          "--prompt-len", "16", "--gen", "6", "--log-dir",
+                          str(tmp_path)])
+    assert summary["n_finished"] == 4 and summary["decode_tok_per_sec"] > 0
+    rows = (tmp_path / "serve.jsonl").read_text().splitlines()
+    assert len(rows) == 2 and "p99_latency_s" in rows[1]
+
+
+def test_serve_main_cpu_default_arch_is_mamba2(tmp_path):
+    """serve.main's default arch is JAX's (mamba2-1.3b): fixed rounds and
+    the continuous service on the CPU, every request served."""
+    assert serve.build_parser().get_default("arch") == SSM
     toks = serve.main(["--device", "cpu", "--rounds", "1", "--batch", "2",
                        "--prompt-len", "16", "--gen", "4",
                        "--log-dir", str(tmp_path)])
@@ -282,5 +355,6 @@ def test_serve_main_cpu_end_to_end(tmp_path):
                           "--rate", "1000", "--slots", "2", "--prompt-len",
                           "16", "--gen", "6", "--log-dir", str(tmp_path)])
     assert summary["n_finished"] == 4 and summary["decode_tok_per_sec"] > 0
-    rows = (tmp_path / "serve.jsonl").read_text().splitlines()
-    assert len(rows) == 2 and "p99_latency_s" in rows[1]
+    rows = [json.loads(r) for r in
+            (tmp_path / "serve.jsonl").read_text().splitlines()]
+    assert [r["arch"] for r in rows] == [SSM, SSM]
