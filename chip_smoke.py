@@ -67,13 +67,32 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    beside it) beside its plain version, its bound (bytes), the launch floor
    (a replayed graph of as many one-element ``add_`` launches) and a
    PyTorch yardstick of two calls (``cumsum`` + ``searchsorted``, which
-   the port never calls); then the entry points' smoke configs on the
-   card: ``train.main``'s default (smoke gemma2-2b, attention d_head 16),
-   smoke mamba2-1.3b training (SSD P 16, N 16, chunk 8) and ``serve.main
-   --arch gemma2-2b`` must be refused before any weight is drawn, naming
-   the missing instance, ``--full`` and ``--device cpu``; ``serve.main``'s
-   default (smoke mamba2-1.3b, no kernel on its path) serves one round on
-   the card and launches nothing;
+   the port never calls);
+3b. instance phase: every attention instance beside gemma2-2b's against
+   ``attention_reference`` within ``TOL``, each at its config's serving
+   shape (``SLICE6``: qwen2-moe-a2.7b dh 128 G 1, mixtral-8x7b dh 128 G 4
+   window 4096, glm4-9b dh 128 G 16, phi3-mini-3.8b dh 96 G 1, granite-34b
+   dh 128 G 48 at prefill B 8, T 1024 and decode B 8, S 1089 with ragged
+   kv_len; ``SMOKE6``: the smoke qwen2-moe, mixtral (window 16, under one
+   64-key tile) and granite, dh 16 with G 1, 2 and 4 at B 8, T 64, S 97),
+   at the continuous run's B 1 prompts and B 8 / B 1 decode steps, with
+   the softcap reached (q x 20), and for decode at kv_len on every
+   boundary of the split plan +-1 and at kv_len 1; the sensitivity checks
+   (softcap dropped, causal edge one key late, window one key wider, one
+   key lost, one split lost in the merge) at dh 128 G 1 and G 16 and at
+   dh 16; then each instance's time at each serving shape as a replayed
+   graph beside its plain version, its bound and SDPA, and the decode
+   grid against the clusters the card holds at once;
+3c. the entry points' smoke configs on the card: smoke mamba2-1.3b
+   training (SSD P 16, N 16, chunk 8) must be refused before any weight
+   is drawn, naming the missing instance, ``--full`` and ``--device cpu``;
+   ``train.main``'s default (smoke gemma2-2b) and ``train --arch
+   qwen2-moe-a2.7b`` take three PPO steps, ``serve --arch gemma2-2b`` and
+   ``--arch granite-34b`` serve one round and the ``serve_decode`` twin's
+   default (smoke mixtral-8x7b) its three, each launching its d_head 16
+   instances exactly once a layer a prefill, a training forward and a
+   decode step; ``serve.main``'s default (smoke mamba2-1.3b, no kernel on
+   its path) serves one round and launches nothing;
 4. slice phase, fixed rounds: full-width gemma2-2b with random bf16 weights
    from a seeded generator on the card, through ``repro_torch.launch.serve
    .main`` (batch 8, prompt 1024, gen 64, two rounds); both kernel entry
@@ -84,6 +103,18 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
 5. slice phase, continuous: 16 Poisson requests over 8 slots (prompts 8-64,
    gen 4-32) through ``serve.main --continuous``; every request must get
    its max_tokens;
+5b. slice phase, the moe family and the other dense configs, at full
+   width with random bf16 weights through ``serve.main --full``:
+   qwen2-moe-a2.7b (the slice's main path: 24 layers, 60 routed experts
+   top-4 and 4 shared) two fixed rounds at B 8, prompt 1024, gen 64 and
+   the continuous run of phase 5; mixtral-8x7b (cut to 8 of 32 layers),
+   glm4-9b, phi3-mini-3.8b and granite-34b (cut to 24 of 88 layers) one
+   round each (``DEPTH_CUT``, ``--layers``): both entry points launch
+   exactly once a layer a prefill and a decode step, peak memory, the
+   prefill time and the decode step's wall printed; then each config's
+   route check at ``ROUTE_LAYERS`` layers against ``--kernels ref`` on the
+   same weights and prompts (dense: prefill and first-step logits within
+   LOGIT_TOL; moe: see ``moe_route_check`` and ``ROUTE_AGREE_MARGIN``);
 6a. slice phase, training: full-width gemma2-2b (26 layers, d_model 2304,
    vocab 256 000, 3.204 B parameters as f32 master weights from a seeded
    generator, bf16 compute; the token env's table-free chain) through
@@ -177,7 +208,8 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    with its replay sidecar saved on the card and restored (buffer and
    train state bit for bit, resumed at the saved iteration, then run on);
 12. on the same weights (drawn again), a ``torch.profiler`` pass measures
-   the device's busy time per prefill, per decode step, per rollout of
+   the device's busy time per prefill, per decode step (gemma2-2b, then
+   qwen2-moe-a2.7b at full width), per rollout of
    ROLL_STEPS steps and per PPO update (gemma2-2b and mamba2-1.3b), per RL
    iteration, per PPO CartPole iteration, per SAC
    update (at the bar's width and at full width), per full-width R2D1
@@ -190,7 +222,8 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    profiler slows every later launch of the process;
 13. the ``kernels`` JSON line (launch counts from phases 4-7, 6a and 9, the
    largest error of phase 3, times at the serving shape; phases 5a, 8, 10
-   and 11 launch none), then
+   and 11 launch none; one entry an instance of phase 3b, its launches from
+   phases 3c and 5b, timed at the first config that runs it), then
    ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -219,6 +252,39 @@ CONT = {"requests": 16, "slots": 8, "prompt_min": 8, "prompt_len": 64,
 # after the softcap): both routes round attention to bf16 at other places
 # and the difference passes through 26 layers of random weights.
 LOGIT_TOL = 0.25
+# slice 6: the configs whose attention instances run beside gemma2-2b's (dh
+# 256, G 2), served at full width (random bf16 weights) with the fixed
+# rounds' shape, B 8, prompt 1024, gen 64 (decode S 1089); qwen2-moe-a2.7b,
+# the slice's main path, at full depth, fixed rounds and the continuous run
+# of CONT; the others one round each, two cut in depth to fit one 80 GB
+# card (88.0 GiB of granite-34b and 87.0 GiB of mixtral-8x7b bf16 weights
+# at full depth; DEPTH_CUT keeps 24.8 and 22.1 GiB).
+SLICE6 = ("qwen2-moe-a2.7b", "mixtral-8x7b", "glm4-9b", "phi3-mini-3.8b",
+          "granite-34b")
+SERVE6 = {"batch": 8, "prompt_len": 1024, "gen": 64}
+DEPTH_CUT = {"mixtral-8x7b": 8, "granite-34b": 24}
+# ... and the smoke configs that hold the d_head 16 instances (decode G 1,
+# 2 and 4) at serve's default shape (B 8, prompt 64, gen 32: S 97)
+SMOKE6 = ("qwen2-moe-a2.7b", "mixtral-8x7b", "granite-34b")
+SMOKE_SERVE = {"batch": 8, "prompt_len": 64, "gen": 32}
+# the route check of each slice-6 config (kernel route vs --kernels ref on
+# the same weights and prompts) at ROUTE_LAYERS layers of the full width,
+# bf16 logits within LOGIT_TOL.  In a moe layer the two routes' rounding
+# can move a router input across a near-tie and send a token to another
+# expert, and the token's later layers then see other inputs; the logits
+# are compared on the tokens whose top-k sets (and kept choices) agree in
+# every layer, as do those of the earlier tokens of their sequence that
+# causal attention reads.  The share of (token, layer) routings that agree
+# is set by rounding alone, not by the kernel: on an H100 at 4 layers,
+# B 8 x 1024, qwen2-moe's kernel route agreed with the ref route on
+# 0.8961 (0.968, 0.920, 0.871, 0.826 by layer) and the kernel's plain
+# version (attention_reference in its place) on 0.8999; mixtral's on
+# 0.9740 and 0.9746; a route whose causal edge lets each query see one key
+# ahead agreed on 0.554 and 0.810.  So the kernel route's share must reach
+# the plain version's, measured in the same run, less ROUTE_AGREE_MARGIN,
+# and that faulty route must fall below the same bound.
+ROUTE_LAYERS = 4
+ROUTE_AGREE_MARGIN = 0.02
 # SSD scan (csrc/ssd_scan.cu) against ssd_reference: both compute in f32
 # and round y to bf16 once, so they differ by the order of f32 sums, by
 # the rounding of the chunk cumsum, by the kernel's f32 operands entering
@@ -367,7 +433,7 @@ import numpy as np  # noqa: E402
 from repro_torch.agents import make_categorical_pg_agent  # noqa: E402
 from repro_torch.algos import A2C, R2D1  # noqa: E402
 from repro_torch.algos.pg.ppo import make_lm_ppo_train_step  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.distributions import Categorical  # noqa: E402
 from repro_torch.envs import make_env  # noqa: E402
 from repro_torch.envs.token_lm import make_token_lm  # noqa: E402
@@ -376,6 +442,7 @@ from repro_torch.examples import mujoco_style_sac  # noqa: E402
 from repro_torch.examples import pendulum_qpg  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.examples import r2d1_recurrent  # noqa: E402
+from repro_torch.examples import serve_decode  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
@@ -391,6 +458,8 @@ from repro_torch.kernels.sum_tree.sum_tree import (  # noqa: E402
     sample_blocked, sample_plain)
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import backbones as bb  # noqa: E402
+from repro_torch.models import layers as tl  # noqa: E402
+from repro_torch.models.layers import record_routing  # noqa: E402
 from repro_torch.models.rl_models import make_pg_mlp, make_recurrent_q  # noqa: E402
 from repro_torch.replay.host import SequenceSamples  # noqa: E402
 from repro_torch.runners import AsyncRunner, TrainLoop  # noqa: E402
@@ -623,68 +692,92 @@ def kernel_phase(cfg):
     for key, B, T in (("flash_attn_fwd", 8, 1024),
                       ("flash_attn_fwd B8 T256", GEMMA_TRAIN["batch"],
                        GEMMA_TRAIN["horizon"])):
-        nbytes = 2 * (2 * B * T * H * dh + 2 * B * T * Hkv * dh)
-        sets = [(randn(B, T, H, dh, gen=gen), randn(B, T, Hkv, dh, gen=gen),
-                 randn(B, T, Hkv, dh, gen=gen))
-                for _ in range(copies_for(nbytes))]
-        kw = dict(causal=True, window=cfg.window, softcap=cap)
-        fns = [lambda s=s: ops.flash_attention(*s, **kw) for s in sets]
-        ms, call = graph_ms(fns), time_ms(fns)
-        plain = graph_ms([lambda s=s: attention_reference(*s, **kw)
-                          for s in sets[:2]], iters=4)
-        lib = graph_ms([lambda s=s: F.scaled_dot_product_attention(
-            s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
-            is_causal=True, enable_gqa=True) for s in sets])
-        flops = 4 * dh * B * H * valid_pairs(T, T, True, cfg.window)
-        timing[key] = dict(ms=ms, call_ms=call, plain_ms=plain,
-                           library_ms=lib,
-                           shape=f"B{B} T{T} H{H} Hkv{Hkv} dh{dh} causal "
-                                 f"window {cfg.window} softcap {cap}",
-                           bound=bound_ms(nbytes, flops))
-        timing["grid"][key] = (f"({-(-T // FWD_BLOCK_Q)}, {H}, {B}) x "
-                               f"{FWD_THREADS} threads, cluster 1")
+        timing[key], timing["grid"][key] = fwd_timing(cfg, B, T, gen)
     # decode at the fixed-round shape (S 1089, kv_len of the 64 decode
     # steps), then at the continuous run's slot batch and prompt-tail steps
     for key, B, S, lo in (("flash_attn_decode", 8, S_fixed, 1025),
                           ("flash_attn_decode B8 S97", 8, S_cont, 1),
                           ("flash_attn_decode B1 S97", 1, S_cont, 1)):
-        kvl = torch.randint(lo, S, (B,), generator=gen, device=DEV)
-        kv_len = kvl.to(torch.int32)
-        n_kv = int(kvl.sum())
-        nbytes = 2 * (2 * B * H * dh + 2 * n_kv * Hkv * dh) + 4 * B
-        sets = [(randn(B, 1, H, dh, gen=gen), randn(B, S, Hkv, dh, gen=gen),
-                 randn(B, S, Hkv, dh, gen=gen))
-                for _ in range(copies_for(2 * 2 * B * S * Hkv * dh))]
-        mask = (torch.arange(S, device=DEV)[None, :]
-                < kvl[:, None])[:, None, None]
-        fns = [lambda s=s: ops.flash_attention_decode(*s, kv_len, softcap=cap)
-               for s in sets]
-        ms, call = graph_ms(fns, iters=200), time_ms(fns, iters=200)
-        plain = graph_ms([lambda s=s: attention_reference(
-            *s, causal=False, softcap=cap, kv_len=kv_len) for s in sets],
-            iters=20)
-        lib = graph_ms([lambda s=s: F.scaled_dot_product_attention(
-            s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
-            attn_mask=mask, enable_gqa=True) for s in sets], iters=200)
-        flops = 4 * dh * H * n_kv
-        n_split, chunk = decode_split_plan(B, Hkv, S)
-        timing["grid"][key] = (
-            f"({n_split}, {Hkv}, {B}) x 256 threads, cluster {n_split} "
+        timing[key], timing["grid"][key] = decode_timing(cfg, B, S, lo, gen)
+    print_timing(timing)
+    return errs, used, timing
+
+
+def fwd_timing(cfg, B, T, gen):
+    """flash_attn_fwd at (B, T) and ``cfg``'s heads, window and softcap: the
+    kernel as a replayed graph (and back to back), its plain version, its
+    bound and SDPA (causal, no window or softcap: the same function only
+    where the config has neither inside T).  Returns (timing, grid)."""
+    H, Hkv, dh, cap = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.softcap_attn
+    nbytes = 2 * (2 * B * T * H * dh + 2 * B * T * Hkv * dh)
+    sets = [(randn(B, T, H, dh, gen=gen), randn(B, T, Hkv, dh, gen=gen),
+             randn(B, T, Hkv, dh, gen=gen))
+            for _ in range(copies_for(nbytes))]
+    kw = dict(causal=True, window=cfg.window, softcap=cap)
+    fns = [lambda s=s: ops.flash_attention(*s, **kw) for s in sets]
+    ms, call = graph_ms(fns), time_ms(fns)
+    plain = graph_ms([lambda s=s: attention_reference(*s, **kw)
+                      for s in sets[:2]], iters=4)
+    lib = graph_ms([lambda s=s: F.scaled_dot_product_attention(
+        s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
+        is_causal=True, enable_gqa=True) for s in sets])
+    flops = 4 * dh * B * H * valid_pairs(T, T, True, cfg.window)
+    return (dict(ms=ms, call_ms=call, plain_ms=plain, library_ms=lib,
+                 shape=f"B{B} T{T} H{H} Hkv{Hkv} dh{dh} causal window "
+                       f"{cfg.window} softcap {cap}",
+                 same=cap is None and (cfg.window is None or cfg.window >= T),
+                 bound=bound_ms(nbytes, flops)),
+            f"({-(-T // FWD_BLOCK_Q)}, {H}, {B}) x {FWD_THREADS} threads, "
+            "cluster 1")
+
+
+def decode_timing(cfg, B, S, lo, gen):
+    """flash_attn_decode at (B, S) with kv_len drawn from [lo, S) and
+    ``cfg``'s heads and softcap, timed as ``fwd_timing`` times prefill
+    (SDPA with a kv_len mask); the grid against the clusters the card holds
+    at once.  Returns (timing, grid)."""
+    H, Hkv, dh, cap = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.softcap_attn
+    kvl = torch.randint(lo, S, (B,), generator=gen, device=DEV)
+    kv_len = kvl.to(torch.int32)
+    n_kv = int(kvl.sum())
+    nbytes = 2 * (2 * B * H * dh + 2 * n_kv * Hkv * dh) + 4 * B
+    sets = [(randn(B, 1, H, dh, gen=gen), randn(B, S, Hkv, dh, gen=gen),
+             randn(B, S, Hkv, dh, gen=gen))
+            for _ in range(copies_for(2 * 2 * B * S * Hkv * dh))]
+    mask = (torch.arange(S, device=DEV)[None, :]
+            < kvl[:, None])[:, None, None]
+    fns = [lambda s=s: ops.flash_attention_decode(*s, kv_len, softcap=cap)
+           for s in sets]
+    ms, call = graph_ms(fns, iters=200), time_ms(fns, iters=200)
+    plain = graph_ms([lambda s=s: attention_reference(
+        *s, causal=False, softcap=cap, kv_len=kv_len) for s in sets],
+        iters=20)
+    lib = graph_ms([lambda s=s: F.scaled_dot_product_attention(
+        s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
+        attn_mask=mask, enable_gqa=True) for s in sets], iters=200)
+    flops = 4 * dh * H * n_kv
+    G = H // Hkv
+    n_split, chunk = decode_split_plan(B, Hkv, S)
+    threads = 256 if G <= 4 else 32 * 4 * (G // 16)
+    grid = (f"({n_split}, {Hkv}, {B}) x {threads} threads, cluster {n_split} "
             f"({chunk} slots a split); {B * Hkv} clusters, the card holds "
-            f"{decode_max_clusters(n_split)} at once")
-        timing[key] = dict(ms=ms, call_ms=call, plain_ms=plain, library_ms=lib,
-                           shape=f"B{B} S{S} H{H} Hkv{Hkv} dh{dh} "
-                                 f"kv_len sum {n_kv} softcap {cap}",
-                           bound=bound_ms(nbytes, flops))
+            f"{decode_max_clusters(n_split, dh, G)} at once")
+    return (dict(ms=ms, call_ms=call, plain_ms=plain, library_ms=lib,
+                 shape=f"B{B} S{S} H{H} Hkv{Hkv} dh{dh} kv_len sum {n_kv} "
+                       f"softcap {cap}",
+                 same=cap is None, bound=bound_ms(nbytes, flops)), grid)
+
+
+def print_timing(timing):
     for name, g in timing.pop("grid").items():
         print(f"  {name} grid {g}")
     for name, t in timing.items():
+        note = "" if t["same"] else \
+            " (no softcap or window: not the same function)"
         print(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms (device, "
               f"graph replay; {t['call_ms']:.4f} ms a call back to back), "
               f"plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
-              f"({t['bound'][1]}), library_ms (no softcap: not the same "
-              f"function) {t['library_ms']:.4f} ms")
-    return errs, used, timing
+              f"({t['bound'][1]}), library_ms{note} {t['library_ms']:.4f} ms")
 
 
 def backward_check(q, k, v, kw, gen):
@@ -2353,40 +2446,475 @@ def async_phase(log_dir):
     return (update, up_wall)
 
 
-def smoke_refused():
-    """A smoke config whose path needs a kernel instance the card lacks is
-    refused on the card before any weight is drawn (train's default,
-    gemma2; mamba2's training; serve --arch gemma2-2b); serve's default,
-    smoke mamba2, needs none and serves one round on the card."""
-    print("entry points: --smoke on cuda")
-    for name, mod, argv in (
-            ("train", train, ["--steps", "1"]),
-            ("train --arch mamba2-1.3b", train,
-             ["--arch", "mamba2-1.3b", "--steps", "1"]),
-            ("serve --arch gemma2-2b", serve,
-             ["--arch", "gemma2-2b", "--rounds", "1"])):
-        held = torch.cuda.memory_allocated()
-        try:
-            mod.main(argv)
-        except ValueError as e:
-            msg = str(e)
+# ---------------------------------------------------------------------------
+# slice 6: the attention instances of the moe family and the other dense
+# configs, their serving runs and route checks, the smoke entry points
+# ---------------------------------------------------------------------------
+def slice6_cfg(arch):
+    """The full-width config as chip_smoke serves it (DEPTH_CUT applied)."""
+    cfg = get_config(arch)
+    if arch in DEPTH_CUT:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUT[arch])
+    return cfg
+
+
+def instance(entry, cfg):
+    """The kernels line's name of ``cfg``'s instance of ``entry``; gemma2-2b's
+    (dh 256, G 2) keep the entry points' bare names."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    if cfg.d_head == 256:
+        return entry
+    if entry == "flash_attn_fwd":
+        return f"{entry} dh{cfg.d_head}"
+    return f"{entry} dh{cfg.d_head} G{G}"
+
+
+def instance_checks(cfg, run, gen, errs, sensitivity):
+    """``cfg``'s two instances against attention_reference within TOL at
+    its serving shape (``run``), ragged, at the continuous run's B 1 and B 8
+    shapes, with the softcap reached (q x 20), and for decode at kv_len on
+    every boundary of the split plan +-1 and at kv_len 1; the sensitivity
+    checks when ``sensitivity``."""
+    H, Hkv, dh, w = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.window
+    B, T = run["batch"], run["prompt_len"]
+    S = T + run["gen"] + 1
+    S_cont = CONT["prompt_len"] + CONT["gen"] + 1
+    fwd, dec = instance("flash_attn_fwd", cfg), instance("flash_attn_decode",
+                                                         cfg)
+
+    def record(entry, name, label, got, want):
+        err, share = check(entry, f"{cfg.name} {label}", got, want)
+        errs[name] = max(errs.get(name, (0.0, 0.0))[0], err), \
+            max(errs.get(name, (0.0, 0.0))[1], share)
+
+    def fwd_case(B_, T_, window, scale=1.0, softcap=None):
+        q = randn(B_, T_, H, dh, gen=gen) * scale
+        k, v = randn(B_, T_, Hkv, dh, gen=gen), randn(B_, T_, Hkv, dh, gen=gen)
+        kw = dict(causal=True, window=window, softcap=softcap)
+        want = attention_reference(q, k, v, **kw)
+        record("flash_attn_fwd", fwd, f"B{B_} T{T_} window {window}"
+               + (f" softcap {softcap} q x{scale:g}" if softcap else ""),
+               ops.flash_attention(q, k, v, **kw), want)
+        return q, k, v, kw, want
+
+    print(f"kernel phase: {cfg.name} ({fwd}, {dec}) vs attention_reference "
+          "(bf16, TOL)")
+    for B_, T_ in ((B, T), (B, T - 24)):
+        fwd_case(B_, T_, w)
+    for T_ in [b for b in DEFAULT_BUCKETS if b <= CONT["prompt_len"]]:
+        fwd_case(1, T_, w)
+    q, k, v, kw, want = fwd_case(2, T - 24, w, 20.0, 50.0)
+    if sensitivity:
+        must_differ("flash_attn_fwd", f"{fwd} softcap skipped",
+                    attention_reference(q, k, v, **{**kw, "softcap": None}),
+                    want)
+        q, k, v, kw, want = fwd_case(2, T, w or max(16, T // 4))
+        must_differ("flash_attn_fwd", f"{fwd} causal edge one key late",
+                    attention_reference(q, k, v, **{**kw, "q_offset": 1}),
+                    want)
+        must_differ("flash_attn_fwd", f"{fwd} window one key wider",
+                    attention_reference(q, k, v,
+                                        **{**kw, "window": kw["window"] + 1}),
+                    want)
+
+    ragged = torch.randint(T + 1, S + 1, (B,), generator=gen,
+                           device=DEV).tolist()
+    slots = [1, 9, 24, 40, 57, 64, 96, 97]
+    cases = [(B, S, ragged, 1.0, None), (8, S_cont, slots, 1.0, None),
+             (1, S_cont, [9], 1.0, None), (1, S_cont, [33], 1.0, None),
+             (1, S_cont, [64], 1.0, None), (B, S, [1] * B, 1.0, None),
+             (1, S_cont, [1], 1.0, None)]
+    for B_, S_ in sorted({(B, S), (8, S_cont), (1, S_cont)}):
+        n_split, chunk = decode_split_plan(B_, Hkv, S_)
+        vals = sorted({i * chunk + d for i in range(1, n_split)
+                       for d in (-1, 0, 1)} | {S_})
+        cases += [(B_, S_, (vals[i:i + B_] + [1] * B_)[:B_], 1.0, None)
+                  for i in range(0, len(vals), B_)]
+    # last: the softcap cases, whose last the sensitivity checks reuse
+    cases += [(B, S, ragged, 20.0, 50.0), (8, S_cont, slots, 20.0, 50.0)]
+    for B_, S_, kvl, scale, cap in cases:
+        q = randn(B_, 1, H, dh, gen=gen) * scale
+        k, v = randn(B_, S_, Hkv, dh, gen=gen), randn(B_, S_, Hkv, dh, gen=gen)
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device=DEV)
+        want = attention_reference(q, k, v, causal=False, softcap=cap,
+                                   kv_len=kv_len)
+        record("flash_attn_decode", dec, f"B{B_} S{S_} kv_len {kvl}"
+               + (f" softcap {cap} q x{scale:g}" if cap else ""),
+               ops.flash_attention_decode(q, k, v, kv_len, softcap=cap), want)
+    if not sensitivity:
+        return
+    must_differ("flash_attn_decode", f"{dec} softcap skipped",
+                attention_reference(q, k, v, causal=False, softcap=None,
+                                    kv_len=kv_len), want)
+    # one key lost: at q x 1 every key weighs about 1 / kv_len
+    q = randn(8, 1, H, dh, gen=gen)
+    k, v = randn(8, S_cont, Hkv, dh, gen=gen), randn(8, S_cont, Hkv, dh, gen=gen)
+    kv_len = torch.tensor(slots, dtype=torch.int32, device=DEV)
+    want = attention_reference(q, k, v, causal=False, kv_len=kv_len)
+    record("flash_attn_decode", dec, f"B8 S{S_cont} kv_len {slots}",
+           ops.flash_attention_decode(q, k, v, kv_len), want)
+    must_differ("flash_attn_decode", f"{dec} last key of kv_len dropped",
+                attention_reference(q, k, v, causal=False,
+                                    kv_len=torch.clamp(kv_len - 1, min=1)),
+                want)
+    n_split, chunk = decode_split_plan(B, Hkv, S)
+    q = randn(B, 1, H, dh, gen=gen)
+    k, v = randn(B, S, Hkv, dh, gen=gen), randn(B, S, Hkv, dh, gen=gen)
+    kv_len = torch.randint(chunk + 1, S + 1, (B,), generator=gen,
+                           device=DEV).to(torch.int32)
+    want = attention_reference(q, k, v, causal=False, kv_len=kv_len)
+    record("flash_attn_decode", dec, f"B{B} S{S} kv_len {kv_len.tolist()}",
+           ops.flash_attention_decode(q, k, v, kv_len), want)
+    must_differ("flash_attn_decode", f"{dec} last non-empty split dropped",
+                attention_reference(q, k, v, causal=False,
+                                    kv_len=(kv_len - 1) // chunk * chunk),
+                want)
+
+
+def instance_phase():
+    """Every attention instance of slice 6 against its plain version, then
+    its times at its config's serving shape.  Returns (errs, timing): the
+    largest error and tolerance share by instance name, the timing by
+    (instance name, config name)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    errs, timing = {}, {"grid": {}}
+    shapes = [(slice6_cfg(a), SERVE6) for a in SLICE6] + \
+        [(get_smoke_config(a), SMOKE_SERVE) for a in SMOKE6]
+    sensitive = {"glm4-9b", "qwen2-moe-a2.7b", "mixtral-smoke"}
+    for cfg, run in shapes:
+        instance_checks(cfg, run, gen, errs, cfg.name in sensitive)
+    for cfg, run in shapes:
+        B, T = run["batch"], run["prompt_len"]
+        S = T + run["gen"] + 1
+        for entry, (t, grid) in (
+                ("flash_attn_fwd", fwd_timing(cfg, B, T, gen)),
+                ("flash_attn_decode", decode_timing(cfg, B, S, T + 1, gen))):
+            key = (instance(entry, cfg), cfg.name)
+            timing[key] = t
+            timing["grid"][f"{key[0]} ({cfg.name})"] = grid
+    shown = {"grid": timing.pop("grid")}
+    shown.update({f"{name} ({arch})": t for (name, arch), t in timing.items()})
+    print_timing(shown)
+    return errs, timing
+
+
+def routing_masks(calls, E):
+    """(chosen, kept) expert masks of each token in each moe call of a
+    ``record_routing`` record: (calls, B, T, E) bool each."""
+    chosen, kept = [], []
+    for experts, keep in calls:
+        hot = F.one_hot(experts, E).bool()  # (B, T, K, E)
+        chosen.append(hot.any(2))
+        kept.append((hot & keep[..., None]).any(2))
+    return torch.stack(chosen), torch.stack(kept)
+
+
+class attention_swapped:
+    """Within the block the model's attention takes another function: the
+    kernel route the kernel's plain version (``plain``), or the ref route a
+    causal edge one key late (``late``: each query also sees the next
+    key) -- the route check's calibration and its sensitivity."""
+
+    def __init__(self, how):
+        self.how = how
+
+    def __enter__(self):
+        self.saved = (tl.flash_attention, tl.multihead_attention)
+        if self.how == "plain":
+            tl.flash_attention = lambda q, k, v, **kw: attention_reference(
+                q, k, v, **kw)
         else:
-            fail(f"{name}: --smoke ran on cuda")
-        if "--full" not in msg or "--device cpu" not in msg or \
-                "no kernel instance" not in msg or \
-                torch.cuda.memory_allocated() != held:
-            fail(f"{name}: --smoke on cuda not refused up front: {msg}")
-        print(f"  {name}: refused before any weight was drawn: {msg}")
+            mha = self.saved[1]
+            tl.multihead_attention = lambda q, k, v, *, q_positions, **kw: \
+                mha(q, k, v, q_positions=q_positions + 1, **kw)
+
+    def __exit__(self, *exc):
+        tl.flash_attention, tl.multihead_attention = self.saved
+
+
+def moe_route_check(cfg):
+    """The kernel route against --kernels ref on the same weights and the
+    fixed rounds' first prompts, at ``cfg``'s (cut) depth.  The forward
+    (flash_attn_fwd on the kernel route): the share of (token, layer)
+    routings that agree with the ref route's at least the kernel's plain
+    version's share less ROUTE_AGREE_MARGIN, a causal edge one key late
+    below that bound, and the logits of every token whose chosen and kept
+    experts agree in every layer, as do those of every earlier token of
+    its sequence (causal attention reads them), within LOGIT_TOL.  Then one
+    decode step (flash_attn_decode) on both routes from the same cache, the
+    kernel route's prefill: the logits of the sequences whose step routing
+    agrees in every layer within LOGIT_TOL."""
+    B, T = SERVE6["batch"], SERVE6["prompt_len"]
+    params = bb.init_lm(cfg, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(SEED))
+    prompts = serve.make_prompts(
+        cfg, B, T, torch.Generator(device=DEV).manual_seed(SEED + 1), DEV)
+    prefill, _ = serve.make_phases(cfg, B, T, 1, device=DEV)
+    with registry.override("cuda"):
+        logits, cache = prefill(params, prompts)
+    first_tok = torch.argmax(logits, -1).to(torch.int32)
+    out = {}
+    for spec in ("cuda", "ref"):
+        with registry.override(spec), torch.inference_mode():
+            with record_routing() as fwd_calls:
+                hidden, _ = bb.forward_train(params, prompts, cfg)
+            step_cache = {k: v.clone() for k, v in cache.items()}
+            with record_routing() as step_calls:
+                h, _ = bb.decode_step(params, step_cache, first_tok, cfg)
+            step = bb.lm_logits(params, h, cfg)[:, 0].float()
+            del step_cache
+            out[spec] = (hidden, fwd_calls, step_calls, step)
+        torch.cuda.synchronize()
+    del cache
+    routes = {}
+    for name, spec in (("plain", "cuda"), ("late", "ref")):
+        with registry.override(spec), torch.inference_mode(), \
+                attention_swapped(name), record_routing() as calls:
+            bb.forward_train(params, prompts, cfg)
+        routes[name] = calls
+    (hk, fk, sk, stk), (hr, fr, sr, str_) = out["cuda"], out["ref"]
+    cr, kr = routing_masks(fr, cfg.n_experts)
+
+    def agreement(calls):
+        c, k = routing_masks(calls, cfg.n_experts)
+        return ((c == cr) & (k == kr)).all(-1)  # (layers, B, T)
+
+    agree = agreement(fk)
+    shares = {name: float(agreement(calls).float().mean())
+              for name, calls in (("kernel", fk), *routes.items())}
+    bound = shares["plain"] - ROUTE_AGREE_MARGIN
+    by_layer = ", ".join(f"{float(a.float().mean()):.4f}" for a in agree)
+    # a token, and every earlier one of its sequence, in every layer
+    tokens = torch.cumprod(agree.all(0).int(), dim=1).bool()  # (B, T)
+    err, top = 0.0, 0.0
+    with torch.inference_mode():
+        for i, m in enumerate(tokens):  # one sequence's (T, V) at a time
+            a, b = (bb.lm_logits(params, h[i:i + 1], cfg)[0].float()
+                    for h in (hk, hr))
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                fail(f"{cfg.name} route check: non-finite logits")
+            top = max(top, float(b.abs().max()))
+            if m.any():
+                err = max(err, float((a - b).abs()[m].max()))
+    sck, skk = routing_masks(sk, cfg.n_experts)
+    scr, skr = routing_masks(sr, cfg.n_experts)
+    rows = ((sck == scr) & (skk == skr)).all(-1).all(0)[:, 0]  # (B,)
+    step_err = float((stk - str_).abs()[rows].max()) if rows.any() else 0.0
+    print(f"  {cfg.name} route check ({cfg.n_layers} layers, B{B} prompt "
+          f"{T}): (token, layer) routings that agree with the ref route's: "
+          f"kernel {shares['kernel']:.4f} (by layer {by_layer}), the "
+          f"kernel's plain version {shares['plain']:.4f}, required >= "
+          f"{bound:.4f}; sensitivity: causal edge one key late "
+          f"{shares['late']:.4f} -> "
+          f"{'caught' if shares['late'] < bound else 'NOT caught'}")
+    print(f"    tokens compared (their own and every earlier token's "
+          f"routing agree) {int(tokens.sum())} of {tokens.numel()}, "
+          f"{int(tokens[:, :1].sum())} of {B} first tokens: forward logits "
+          f"max abs diff {err:.4f} (|logit| max {top:.3f}, tolerance "
+          f"{LOGIT_TOL}); one decode step from the same cache, "
+          f"{int(rows.sum())} of {B} sequences agreeing: max abs diff "
+          f"{step_err:.4f}")
+    if shares["kernel"] < bound or not tokens.any() or not rows.any():
+        fail(f"{cfg.name} route check: routings agree {shares}, "
+             f"{int(tokens.sum())} tokens and {int(rows.sum())} sequences "
+             "to compare")
+    if shares["late"] >= bound:
+        fail(f"{cfg.name} route check: the share would not catch a causal "
+             f"edge one key late ({shares})")
+    if max(err, step_err) > LOGIT_TOL:
+        fail(f"{cfg.name} route check: kernel route and ref route differ by "
+             f"{max(err, step_err)} on agreeing tokens")
+
+
+def serve_rows(log_dir):
+    return [json.loads(ln) for ln in
+            (Path(log_dir) / "serve.jsonl").read_text().splitlines()]
+
+
+def slice6_serve(arch, log_dir, rounds, continuous=False):
+    """serve.main --full for ``arch`` (its DEPTH_CUT), ``rounds`` fixed
+    rounds at SERVE6, then the continuous run when asked; both entry points
+    must launch, one a layer a prefill and a decode step each; then the
+    route check at ROUTE_LAYERS layers.  Returns the launch counts by
+    instance name."""
+    cfg = slice6_cfg(arch)
+    L = cfg.n_layers
+    log_dir = str(Path(log_dir) / arch)
+    cut = [] if arch not in DEPTH_CUT else ["--layers", str(L)]
+    n_params = sum(p.numel() for p in bb.LM(cfg, device="meta",
+                                             dtype=torch.bfloat16).parameters())
+    print(f"slice phase: serving {arch} (full width, {L} layers"
+          + (f" of {get_config(arch).n_layers}" if cut else "")
+          + f", d_model {cfg.d_model}, {n_params} params in bf16) fixed rounds "
+          f"(batch {SERVE6['batch']}, prompt {SERVE6['prompt_len']}, gen "
+          f"{SERVE6['gen']}, {rounds} round{'s' if rounds > 1 else ''})")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counters()
+    toks = serve.main(["--arch", arch, "--full", "--device", "cuda", "--batch",
+                       str(SERVE6["batch"]), "--prompt-len",
+                       str(SERVE6["prompt_len"]), "--gen", str(SERVE6["gen"]),
+                       "--rounds", str(rounds), "--seed", str(SEED),
+                       "--log-dir", log_dir] + cut)
+    got = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fixed = {"flash_attn_fwd": got["flash_attention"],
+             "flash_attn_decode": got["flash_attention_decode"]}
+    want = {"flash_attn_fwd": L * rounds,
+            "flash_attn_decode": L * SERVE6["gen"] * rounds}
+    print(f"  launches in the fixed rounds: {fixed} (one a layer a prefill "
+          f"and a decode step: {want}); max_memory_allocated {peak:.2f} GiB")
+    if fixed != want or any(v for k, v in got.items()
+                            if k not in ("flash_attention",
+                                         "flash_attention_decode")):
+        fail(f"{arch} fixed rounds: launches {got}, expected {want}")
+    if tuple(toks.shape) != (SERVE6["batch"], SERVE6["gen"]) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.padded_vocab:
+        fail(f"{arch} fixed rounds: bad tokens {tuple(toks.shape)}")
+    for r in serve_rows(log_dir):
+        if not all(math.isfinite(v) for v in r.values()
+                   if isinstance(v, float)):
+            fail(f"{arch} fixed rounds: non-finite metrics {r}")
+        prefill_s = r["batch"] * r["prompt_len"] / r["prefill_tok_per_sec"]
+        print(f"  round: prefill {prefill_s:.4f} s "
+              f"({r['prefill_tok_per_sec']:.1f} tok/s), decode step "
+              f"{r['decode_step_ms']:.3f} ms of wall "
+              f"({r['decode_tok_per_sec']:.1f} tok/s)")
+    launches = {instance(k, cfg): v for k, v in fixed.items()}
+    torch.cuda.empty_cache()
+    if continuous:
+        print(f"slice phase: serving {arch} continuous ({CONT['requests']} "
+              f"requests, {CONT['slots']} slots)")
+        zero_kernel_counters()
+        args = ["--arch", arch, "--full", "--device", "cuda", "--continuous",
+                "--seed", str(SEED), "--log-dir", log_dir] + cut
+        for key, val in CONT.items():
+            args += ["--" + key.replace("_", "-"), str(val)]
+        summary = serve.main(args)
+        got = kernel_launches()
+        cont = {"flash_attn_fwd": got["flash_attention"],
+                "flash_attn_decode": got["flash_attention_decode"]}
+        trace = poisson_trace(
+            SEED, CONT["requests"], CONT["rate"],
+            prompt_len_range=(CONT["prompt_min"], CONT["prompt_len"]),
+            max_tokens_range=(CONT["gen_min"], CONT["gen"]), vocab=cfg.vocab)
+        n_tok = sum(r.max_tokens for r in trace)
+        print(f"  launches in the continuous run: {cont}; p50 latency "
+              f"{summary['p50_latency_s']:.4f} s, p99 "
+              f"{summary['p99_latency_s']:.4f} s, ttft p50 "
+              f"{summary.get('ttft_p50_s', float('nan')):.4f} s, decode "
+              f"{summary['decode_tok_per_sec']:.1f} tok/s")
+        if min(cont.values()) == 0 or summary["n_finished"] != len(trace) \
+                or summary["generated_tokens"] != n_tok:
+            fail(f"{arch} continuous: launches {cont}, "
+                 f"{summary['n_finished']} finished, "
+                 f"{summary['generated_tokens']} tokens, expected "
+                 f"{len(trace)} / {n_tok}")
+        for k, v in cont.items():
+            launches[instance(k, cfg)] += v
+        torch.cuda.empty_cache()
+    route = dataclasses.replace(cfg, n_layers=ROUTE_LAYERS)
+    if cfg.family == "moe":
+        moe_route_check(route)
+    else:
+        params, prompts = served_weights(route)
+        kernel_vs_ref(route, params, prompts, 8)
+        del params, prompts
+    torch.cuda.empty_cache()
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def smoke_entry_points(log_dir):
+    """The entry points' smoke configs on the card: smoke mamba2 training
+    is refused before any weight is drawn, naming its SSD instance; the
+    others run, each launching its d_head 16 attention instances exactly
+    once a layer a prefill, a training forward and a decode step; serve's
+    default (smoke mamba2) serves one round and launches nothing.  Returns
+    the launch counts by instance name."""
+    print("entry points: --smoke on cuda")
+    held = torch.cuda.memory_allocated()
+    try:
+        train.main(["--arch", "mamba2-1.3b", "--steps", "1"])
+    except ValueError as e:
+        msg = str(e)
+    else:
+        fail("train --arch mamba2-1.3b: --smoke ran on cuda")
+    if "--full" not in msg or "--device cpu" not in msg or \
+            "SSD scan (P 16, N 16, chunk 8)" not in msg or \
+            torch.cuda.memory_allocated() != held:
+        fail(f"train --arch mamba2-1.3b: --smoke on cuda not refused up "
+             f"front: {msg}")
+    print(f"  train --arch mamba2-1.3b: refused before any weight was drawn: "
+          f"{msg}")
+    launches = {}
+    t_phase = time.perf_counter()
+    sd = serve_decode.DEFAULTS
+    default_train = train.build_parser().get_default
+    runs = [  # (label, entry, arch, argv)
+        ("train (default: smoke gemma2-2b)", "train", "gemma2-2b",
+         ["--steps", "3"]),
+        ("train --arch qwen2-moe-a2.7b", "train", "qwen2-moe-a2.7b",
+         ["--arch", "qwen2-moe-a2.7b", "--steps", "3"]),
+        ("serve --arch gemma2-2b", "serve", "gemma2-2b",
+         ["--arch", "gemma2-2b", "--rounds", "1"]),
+        ("serve_decode (default: smoke mixtral-8x7b)", "serve_decode",
+         sd[sd.index("--arch") + 1], []),
+        ("serve --arch granite-34b", "serve", "granite-34b",
+         ["--arch", "granite-34b", "--rounds", "1"])]
+    for label, entry, arch, argv in runs:
+        cfg = get_smoke_config(arch)
+        L = cfg.n_layers
+        zero_kernel_counters()
+        run_dir = str(Path(log_dir) / f"smoke-{entry}-{arch}")
+        if entry == "train":
+            train.main(argv + ["--log-dir", run_dir])
+            steps = int(argv[argv.index("--steps") + 1])
+            horizon = default_train("horizon")
+            want = {"flash_attention": L * steps,
+                    "flash_attention_decode": L * (horizon + 1) * steps}
+            rows = [json.loads(ln) for ln in (Path(run_dir) / "progress.jsonl")
+                    .read_text().splitlines()]
+            ok = len(rows) == steps and all(
+                math.isfinite(v) for r in rows for v in r.values()
+                if isinstance(v, float))
+            what = (f"{steps} PPO steps (batch {default_train('batch')}, "
+                    f"horizon {horizon}), loss {rows[-1]['loss']:.5f}")
+        else:
+            if entry == "serve":
+                toks = serve.main(argv + ["--log-dir", run_dir])
+            else:  # the twin's own default argv
+                toks = serve_decode.main([])
+            full = serve.build_parser().parse_args(argv or sd)
+            rounds, b, gen = full.rounds, full.batch, full.gen
+            want = {"flash_attention": L * rounds,
+                    "flash_attention_decode": L * gen * rounds}
+            ok = tuple(toks.shape) == (b, gen)
+            what = (f"{rounds} round{'s' if rounds > 1 else ''} at batch {b}, "
+                    f"prompt {full.prompt_len}, gen {gen}, tokens "
+                    f"{tuple(toks.shape)}")
+        got = kernel_launches()
+        want = {k: want.get(k, 0) for k in got}
+        print(f"  {label}: {what}; launches {got}")
+        if not ok or got != want:
+            fail(f"{label} on cuda: launches {got}, expected {want}")
+        for k, name in (("flash_attention", "flash_attn_fwd"),
+                        ("flash_attention_decode", "flash_attn_decode")):
+            key = instance(name, cfg)
+            launches[key] = launches.get(key, 0) + got[k]
     zero_kernel_counters()
     toks = serve.main(["--rounds", "1"])
-    launches = kernel_launches()
+    got = kernel_launches()
     default = serve.build_parser().get_default
     if tuple(toks.shape) != (default("batch"), default("gen")) or \
-            any(launches.values()):
+            any(got.values()):
         fail(f"serve's default (smoke {default('arch')}) on cuda: tokens "
-             f"{tuple(toks.shape)}, launches {launches}")
+             f"{tuple(toks.shape)}, launches {got}")
     print(f"  serve (default: smoke {default('arch')}): one round on the "
           f"card, tokens {tuple(toks.shape)}, no kernel launched")
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> None:
@@ -2417,9 +2945,14 @@ def main() -> None:
     errs, used, timing = kernel_phase(cfg)
     ssd_worst, ssd_timing = ssd_kernel_phase()
     st_worst, st_timing = sum_tree_kernel_phase()
-    smoke_refused()
+    t6 = time.perf_counter()  # slice 6's phases: 3b, 3c, 5b, qwen2's profile
+    inst_errs, inst_timing = instance_phase()
+    print(f"  phase {time.perf_counter() - t6:.1f} s")
 
     with tempfile.TemporaryDirectory() as log_dir:
+        inst_launches = smoke_entry_points(log_dir)
+        torch.cuda.empty_cache()
+        slice6_s = time.perf_counter() - t6
         print("slice phase: fixed rounds (full-width gemma2-2b, bf16)")
         ops.flash_attention.launches = 0
         ops.flash_attention_decode.launches = 0
@@ -2469,6 +3002,13 @@ def main() -> None:
               f"{summary['decode_tok_per_sec']:.1f} tok/s, every request got "
               "its max_tokens")
         torch.cuda.empty_cache()
+        t = time.perf_counter()
+        for arch in SLICE6:  # the slice's main path first, then the others
+            main_path = arch == SLICE6[0]
+            for k, v in slice6_serve(arch, log_dir, 2 if main_path else 1,
+                                     continuous=main_path).items():
+                inst_launches[k] = inst_launches.get(k, 0) + v
+        slice6_s += time.perf_counter() - t
         gemma_launches, gemma_training = lm_train_phase(
             "gemma2-2b", GEMMA_TRAIN, GEMMA_TRAIN_TOL, [], log_dir)
         torch.cuda.empty_cache()
@@ -2495,6 +3035,13 @@ def main() -> None:
     profile_phase(cfg, params, prompts)
     del params, prompts
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    slice_cfg = slice6_cfg(SLICE6[0])
+    params, prompts = served_weights(slice_cfg)
+    profile_phase(slice_cfg, params, prompts)
+    del params, prompts
+    torch.cuda.empty_cache()
+    slice6_s += time.perf_counter() - t
     profile_training(gemma_training)
     profile_training(training)
     profile_ssd()
@@ -2527,6 +3074,26 @@ def main() -> None:
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"]})
+    # slice 6's instances, each timed at the first config that runs it
+    # (instance_phase's order: the slice's main path first)
+    print(f"attention instance launches on the main path: {inst_launches} "
+          "(smoke entry points, slice-6 serving)")
+    primary = {}
+    for (name, arch), t in inst_timing.items():
+        primary.setdefault(name, (arch, t))
+    for name, (arch, t) in sorted(primary.items(), key=lambda kv: (
+            kv[0].split()[0], int(kv[0].split()[1][2:]),
+            int(kv[0].split()[2][1:]) if len(kv[0].split()) > 2 else 0)):
+        if not inst_launches.get(name):
+            fail(f"{name} never launched on the main path: {inst_launches}")
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": TPU_KERNEL, "launches": inst_launches[name],
+            "max_abs_err": inst_errs[name][0], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+        print(f"  {name}: timed at {arch} [{t['shape']}], tolerance used "
+              f"{inst_errs[name][1]:.3f}")
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_TPU_KERNEL, "launches": ssd_launches,
@@ -2543,7 +3110,8 @@ def main() -> None:
         "max_abs_err": st_worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
         "library_ms": t["library_ms"]})
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(f"slice 6's phases (3b, 3c, 5b and qwen2's profile) {slice6_s:.1f} "
+          f"s; total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

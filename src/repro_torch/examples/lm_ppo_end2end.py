@@ -5,9 +5,10 @@ settings: the 4-layer smoke gemma2 (``--arch gemma2-2b``, the smoke
 config), 150 steps, batch 32, horizon 32, lr 1e-3.  Any flag of
 ``launch.train`` given on the command line overrides them.
 
-The smoke gemma2's attention (d_head 16) has no kernel instance on the card
-yet, so the example runs with ``--device cpu`` (on the plain versions);
-``--full`` trains the full-width model on the card.
+It runs on the card (``--device cuda``, train's default; the smoke
+gemma2's attention at d_head 16 has its kernel instances), or with
+``--device cpu`` on the plain versions; ``--full`` trains the full-width
+model.
 
   PYTHONPATH=src python -m repro_torch.examples.lm_ppo_end2end --device cpu
   PYTHONPATH=src python -m repro_torch.examples.lm_ppo_end2end \\

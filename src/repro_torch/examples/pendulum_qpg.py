@@ -8,7 +8,7 @@ pre-reset ``terminal_obs`` as ``next_observation`` and bootstraps there
 (paper footnote 3).  With ``--prioritized`` every replay sample goes through
 the hand-written CUDA sum-tree kernel on the card (``td_abs`` priorities).
 JAX's ``examples/mujoco_style_sac.py`` runs SAC through the async runner
-and a host replay; its twin waits for those (ROADMAP Queue 1 item 12).
+and a host replay; its twin is ``repro_torch.examples.mujoco_style_sac``.
 
   PYTHONPATH=src python -m repro_torch.examples.pendulum_qpg --algo sac
   PYTHONPATH=src python -m repro_torch.examples.pendulum_qpg --algo td3 \\

@@ -3,12 +3,13 @@
 ``repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas``.
 
 ``flash_attn_fwd`` (prefill) runs ``wgmma`` fed by TMA: a block of 128
-query rows, K / V tiles of 64 keys in a two-stage ring; the C side builds
-the tensor maps on every call.  ``flash_attn_decode`` (one query token
-against a KV cache) cuts the cache into the splits of
-:func:`decode_split_plan` (a pure function of B, Hkv and S: it never reads
-``kv_len``), one thread-block cluster per (batch, KV head) that merges its
-splits in the same launch.  Both take CUDA bf16 tensors only: they check
+query rows, K / V tiles of 64 keys in a two-stage ring, the swizzle a
+function of the head dim; the C side builds the tensor maps on every call.
+``flash_attn_decode`` (one query token against a KV cache) cuts the cache
+into the splits of :func:`decode_split_plan` (a pure function of B, Hkv and
+S: it never reads ``kv_len``), one thread-block cluster per (batch, KV
+head) that merges its splits in the same launch; up to four query heads a
+KV head on the CUDA cores, 16 or more on the tensor cores.  Both take CUDA bf16 tensors only: they check
 device, dtype, shape, contiguity and alignment, raise on anything else,
 allocate the output with ``torch.empty``, launch one kernel on PyTorch's
 current stream without synchronising, and raise if the launch reports a
@@ -25,11 +26,14 @@ import torch
 
 from .. import build
 
-# The shapes the library is built for: those of the ported config (gemma2-2b,
-# d_head 256, two query heads per KV head).  A config that needs another
-# shape adds its instance to csrc/flash_attention.cu and its value here.
-HEAD_DIMS = (256,)
-DECODE_GROUPS = (2,)
+# The shapes the library is built for (the instance lists of
+# csrc/flash_attention.cu): the head dims of the ported configs and their
+# smoke configs for prefill, and each (head dim, query heads a KV head) pair
+# of theirs for decode.  A config that needs another shape adds its instance
+# there and its value here.
+HEAD_DIMS = (16, 96, 128, 256)
+DECODE_INSTANCES = frozenset({(16, 1), (16, 2), (16, 4), (96, 1), (128, 1),
+                              (128, 4), (128, 16), (128, 48), (256, 2)})
 
 # flash_attn_fwd's launch: a block of two consumer warpgroups and one
 # producer warpgroup takes 128 query rows of one (batch, head)
@@ -71,7 +75,7 @@ def _library():
         lib.flash_attn_decode.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                           f, p]
         lib.flash_attn_decode.restype = i
-        lib.flash_attn_decode_max_clusters.argtypes = [i, p]
+        lib.flash_attn_decode_max_clusters.argtypes = [i, i, i, p]
         lib.flash_attn_decode_max_clusters.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -79,13 +83,15 @@ def _library():
     return _lib
 
 
-def decode_max_clusters(n_split: int) -> int:
-    """How many clusters of ``n_split`` decode blocks the current card holds
-    at once (CUDA's occupancy query; a diagnostic, not used by the launch)."""
+def decode_max_clusters(n_split: int, dh: int, G: int) -> int:
+    """How many clusters of ``n_split`` decode blocks of the ``(dh, G)``
+    instance the current card holds at once (CUDA's occupancy query; a
+    diagnostic, not used by the launch)."""
     lib = _library()
     n = ctypes.c_int()
     _raise_on(lib, "decode_max_clusters",
-              lib.flash_attn_decode_max_clusters(n_split, ctypes.byref(n)))
+              lib.flash_attn_decode_max_clusters(n_split, dh, G,
+                                                 ctypes.byref(n)))
     return n.value
 
 
@@ -180,9 +186,10 @@ def flash_attn_decode(q, k, v, kv_len, *, softcap: Optional[float] = None):
     if T != 1:
         raise ValueError(f"flash_attn_decode: one query token per sequence, "
                          f"got T={T}")
-    if H // Hkv not in DECODE_GROUPS:
+    if (dh, H // Hkv) not in DECODE_INSTANCES:
         raise ValueError(f"flash_attn_decode: {H // Hkv} query heads per KV "
-                         f"head not in {DECODE_GROUPS}")
+                         f"head at head dim {dh} not in "
+                         f"{sorted(DECODE_INSTANCES)}")
     _kv_len_checks("flash_attn_decode", kv_len, B)
     _check("flash_attn_decode", q=q, k=k, v=v, kv_len=kv_len)
     if softcap is not None and softcap <= 0:

@@ -138,20 +138,21 @@ def describe(device=None) -> Dict[str, str]:
 def missing_instance(cfg, *, training: bool) -> Optional[str]:
     """The kernel instance that ``cfg``'s path on the card needs and the
     built library lacks, named (``None`` when every one is built).  A dense
-    model runs attention on both paths (prefill / forward and decode); an
-    ssm model runs the SSD scan in training only (its prefill passes the
-    cache state, so it takes the plain scan)."""
+    or moe model runs attention on both paths (prefill / forward and
+    decode); an ssm model runs the SSD scan in training only (its prefill
+    passes the cache state, so it takes the plain scan)."""
     # lazy: the kernel packages import the model layers, which import this
     # module
-    from .flash_attention.flash_attention import DECODE_GROUPS, HEAD_DIMS
+    from .flash_attention.flash_attention import DECODE_INSTANCES, HEAD_DIMS
     from .ssd_scan.ssd_scan import CHUNK, D_STATE, HEAD_DIM
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         G = cfg.n_heads // cfg.n_kv_heads
         if cfg.d_head not in HEAD_DIMS:
             return f"attention (d_head {cfg.d_head})"
-        if G not in DECODE_GROUPS:
-            return f"decode attention ({G} query heads a KV head)"
+        if (cfg.d_head, G) not in DECODE_INSTANCES:
+            return (f"decode attention (d_head {cfg.d_head}, {G} query heads "
+                    "a KV head)")
     if cfg.family == "ssm" and training and (
             cfg.ssm_headdim, cfg.d_state, cfg.ssd_chunk) != (
             HEAD_DIM, D_STATE, CHUNK):

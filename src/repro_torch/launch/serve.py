@@ -12,29 +12,37 @@ Port of ``repro/launch/serve.py``.  Two modes:
   through ``serving/engine.py`` and report p50/p99 request latency,
   time-to-first-token and decode tokens/sec (``serve.jsonl``).
 
-``--arch`` defaults to ``mamba2-1.3b``, as in JAX; ``gemma2-2b`` is the
-other ported model.  Entry points run on ``--device cuda`` (the default),
-where every attention call of a dense model goes through the hand-written
+``--arch`` defaults to ``mamba2-1.3b``, as in JAX; the other ported
+models are the dense gemma2-2b, glm4-9b, phi3-mini-3.8b and granite-34b
+and the moe qwen2-moe-a2.7b and mixtral-8x7b (attention, then a mixture of
+experts a layer: capacity-bounded dispatch in the prefill, exact in the
+decode step).  Entry points run on ``--device cuda`` (the default), where
+every attention call of a dense or moe model goes through the hand-written
 CUDA flash attention kernel unless ``--kernels ref`` asks for the plain
 PyTorch math; ``--device cpu`` runs the plain versions.  An ssm model
 serves without a kernel: its prefill passes the cache state, so the scan
 is the plain chunked one, as in JAX, and its decode step is plain ops.
-``--smoke`` (the default config) runs on the card where its shapes need no
-kernel instance the card lacks: mamba2's needs none; gemma2's attention
-(d_head 16) has no instance yet, so on a CUDA device those arguments are
-rejected up front and ``--full`` is needed.  ``--profile[=DIR]`` writes a
-``torch.profiler`` Chrome trace with the serving spans annotated.
+``--smoke`` (the default config) runs on the card for every ported arch;
+an arch whose smoke shapes needed a kernel instance the card lacks would
+be rejected up front (``reject_smoke_on_cuda``).  ``--full`` draws the
+published width and depth: granite-34b (88 GB of bf16 weights) and
+mixtral-8x7b (87 GB) need a depth cut to fit one 80 GB card, which
+``--layers`` gives.  ``--profile[=DIR]`` writes a ``torch.profiler``
+Chrome trace with the serving spans annotated.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --batch 8 --prompt-len 1024 --gen 64
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
       --full --batch 8 --prompt-len 1024 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
+      --full --layers 8 --batch 8 --prompt-len 1024 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --full --continuous \\
       --requests 16 --rate 16 --gen 32
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -178,6 +186,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "'cpu' runs the plain PyTorch versions")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to its first N layers (the port's "
+                         "own flag, for archs whose weights exceed one "
+                         "card at full depth; default: the config's)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
@@ -251,6 +263,8 @@ def main(argv=None):
         kernel_registry.set_env(args.kernels)
     print(f"kernel backends: {kernel_registry.describe(device)}")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     gen_ = torch.Generator(device=device).manual_seed(args.seed)
     params = bb.init_lm(cfg, device=device, generator=gen_)
 

@@ -10,16 +10,19 @@ token-MDP environment: each iteration runs
 - one PPO update through ``forward_train``, ``lm_logits``, ``value_out`` and
   Adam (lr ``--lr``, global-norm clip 1.0, entropy coefficient 0.003).
 
-``--arch`` defaults to ``gemma2-2b``, as in JAX; ``mamba2-1.3b`` is the
-other ported model.  Entry points run on ``--device cuda`` (the default),
-where every attention call (gemma2: ``flash_attn_fwd`` in the update's
-forward and its recompute, ``flash_attn_decode`` in the rollout) and every
-SSD scan of the update (mamba2) goes through its hand-written CUDA kernel
-unless ``--kernels ref`` asks for the plain PyTorch math; ``--device cpu``
-runs the plain versions.  ``--smoke`` (the default config) runs on the card
-only where its shapes have kernel instances: gemma2's (attention d_head 16)
-and mamba2's (SSD P 16, N 16, chunk 8) have none yet, so on a CUDA device
-the arguments are rejected up front and ``--full`` is needed.  Every
+``--arch`` defaults to ``gemma2-2b``, as in JAX; the other ported models
+are mamba2-1.3b, the dense glm4-9b, phi3-mini-3.8b and granite-34b, and
+the moe qwen2-moe-a2.7b and mixtral-8x7b (whose load-balance loss enters
+the PPO loss at ``aux_coeff`` 0.01, as in JAX).  Entry points run on
+``--device cuda`` (the default), where every attention call
+(``flash_attn_fwd`` in the update's forward and its recompute,
+``flash_attn_decode`` in the rollout) and every SSD scan of the update
+(mamba2) goes through its hand-written CUDA kernel unless ``--kernels ref``
+asks for the plain PyTorch math; ``--device cpu`` runs the plain versions.
+``--smoke`` (the default config) runs on the card for every arch but
+mamba2, whose smoke SSD shape (P 16, N 16, chunk 8) has no kernel
+instance yet: on a CUDA device those arguments are rejected up front and
+``--full`` is needed.  Every
 iteration logs one row (console, CSV, JSONL under ``--log-dir``) with the
 PPO metrics, ``samples_per_sec`` and the rollout and update wall times.
 ``--ckpt-dir`` / ``--ckpt-interval`` save ``(params, opt_state)`` in JAX's
@@ -29,6 +32,8 @@ with the telemetry spans as ranges.  JAX's ``--fuse-window`` (its scanned
 window of steps) has no counterpart yet (ROADMAP Queue 1 item 14).
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
+      --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --full --batch 8 \\
       --horizon 256 --steps 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\

@@ -1,8 +1,9 @@
 """Backbones of the ported families, in PyTorch.
 
-Port of two families of ``repro/models/backbones.py``, dense (gemma2's
-local/global layer pairs with ``alt_local_global``, plain dense without) and
-ssm (mamba2), each on both paths: the training forward and the serving
+Port of three families of ``repro/models/backbones.py``, dense (gemma2's
+local/global layer pairs with ``alt_local_global``, plain dense without),
+moe (attention + a mixture of experts a layer: qwen2-moe, mixtral) and ssm
+(mamba2), each on both paths: the training forward and the serving
 prefill / decode step.
 
 - ``LM`` is an ``nn.Module`` with the JAX leaves as parameters.  The JAX
@@ -10,7 +11,9 @@ prefill / decode step.
   ``2i`` / ``2i+1`` of ``LM.layers`` holds superblock ``i``'s ``local`` /
   ``global`` layer (layer ``i`` for plain dense), and each ``lax.scan`` over
   superblocks is a Python loop.
-  An ssm ``LM`` holds one ``SSMLayer`` (leaves ``norm``, ``ssd``) per layer.
+  A moe ``LM`` holds one ``MoELayer`` (leaves ``attn_norm``, ``attn``,
+  ``moe_norm``, ``moe``) per layer, an ssm ``LM`` one ``SSMLayer`` (leaves
+  ``norm``, ``ssd``).
 - ``init_cache``, ``embed``, ``lm_logits``, ``value_out``, ``prefill``,
   ``decode_step`` and ``forward_train`` are plain functions with the JAX
   signatures (plus an explicit ``device`` where they allocate).  Cache
@@ -23,7 +26,9 @@ prefill / decode step.
   with ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
   ``jax.checkpoint`` over the scanned superblocks.
 - Single-device only: the JAX sharding constraints are identities on one
-  device and are dropped.
+  device and are dropped, and the moe dispatch has one group (JAX's
+  ``groups=shd.n_batch_shards()``; the argument is kept for the
+  distributed half).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from .layers import (
     MLP,
     SSD,
     Attention,
+    MoE,
     RMSNorm,
     _dense_init,
     _empty,
@@ -47,12 +53,13 @@ from .layers import (
     attention_train,
     cdtype,
     mlp,
+    moe,
     rmsnorm,
     ssd_block_decode,
     ssd_block_train,
 )
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def superblock_layout(cfg: ModelConfig):
@@ -61,7 +68,7 @@ def superblock_layout(cfg: ModelConfig):
         raise NotImplementedError(f"family {cfg.family!r} is not ported to "
                                   f"repro_torch yet (ported: "
                                   f"{PORTED_FAMILIES}; the others are ROADMAP "
-                                  "Queue 1 item 10)")
+                                  "Queue 1 items 10c and 10d)")
     if cfg.family == "dense" and cfg.alt_local_global:
         if cfg.n_layers % 2:
             raise ValueError("alt_local_global needs an even n_layers")
@@ -82,6 +89,19 @@ class DenseLayer(nn.Module):
         if cfg.post_norm:
             self.attn_post_norm = RMSNorm(cfg.d_model, device=device)
             self.mlp_post_norm = RMSNorm(cfg.d_model, device=device)
+
+
+class MoELayer(nn.Module):
+    """One pre-norm attention + mixture-of-experts layer (JAX's
+    ``_init_moe_layer``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.attn_norm = RMSNorm(cfg.d_model, device=device)
+        self.attn = Attention(cfg, **kw)
+        self.moe_norm = RMSNorm(cfg.d_model, device=device)
+        self.moe = MoE(cfg, **kw)
 
 
 class SSMLayer(nn.Module):
@@ -110,7 +130,8 @@ class LM(nn.Module):
                                device=device, dtype=dtype)
 
         self.tok_embed = mat((Vp, D), D)
-        layer = SSMLayer if cfg.family == "ssm" else DenseLayer
+        layer = {"ssm": SSMLayer, "moe": MoELayer}.get(cfg.family,
+                                                       DenseLayer)
         self.layers = nn.ModuleList(
             layer(cfg, device=device, dtype=dtype, generator=generator)
             for _ in range(cfg.n_layers))
@@ -189,6 +210,18 @@ def _dense_layer_train(p, x, cfg: ModelConfig, *, window=None):
     return x + m, kv
 
 
+def _moe_layer_train(p, x, cfg: ModelConfig, *, window=None, groups=1):
+    """One moe layer over a sequence (JAX's ``_moe_layer_train``, and the
+    moe branch of its prefill's ``attn_capture``): capacity-bounded dispatch
+    in ``groups`` groups.  Returns (x, aux, (k, v))."""
+    h = rmsnorm(p.attn_norm, x)
+    a, kv = attention_train(p.attn, h, cfg, positions=None, window=window)
+    x = x + a
+    h = rmsnorm(p.moe_norm, x)
+    m, aux = moe(p.moe, h, cfg, groups=groups)
+    return x + m, aux, kv
+
+
 def _ssm_layer_train(p, x, cfg: ModelConfig):
     h = rmsnorm(p.norm, x)
     y, _ = ssd_block_train(p.ssd, h, cfg)
@@ -198,9 +231,11 @@ def _ssm_layer_train(p, x, cfg: ModelConfig):
 def _superblock_train(x, cfg: ModelConfig, *layers):
     """One superblock forward (JAX's ``apply_superblock_train`` of the
     ported families): gemma2's local then global layer, or one plain dense
-    or ssm layer."""
+    or ssm layer; a moe layer returns (x, aux)."""
     if cfg.family == "ssm":
         return _ssm_layer_train(layers[0], x, cfg)
+    if cfg.family == "moe":
+        return _moe_layer_train(layers[0], x, cfg, window=cfg.window)[:2]
     if cfg.alt_local_global:
         local, glob = layers
         x, _ = _dense_layer_train(local, x, cfg, window=cfg.window)
@@ -209,7 +244,9 @@ def _superblock_train(x, cfg: ModelConfig, *layers):
 
 
 def forward_train(params, tokens, cfg: ModelConfig):
-    """tokens:(B,T) -> (hidden (B,T,D) in the compute dtype, aux scalar 0).
+    """tokens:(B,T) -> (hidden (B,T,D) in the compute dtype, aux scalar f32:
+    the sum of the moe layers' load-balance losses, 0 for the other
+    families).
 
     With ``cfg.remat`` each superblock's activations are dropped after its
     forward and recomputed in the backward (``torch.utils.checkpoint``,
@@ -217,15 +254,21 @@ def forward_train(params, tokens, cfg: ModelConfig):
     runs twice."""
     n_sb, per_block, _ = superblock_layout(cfg)
     x = embed(params, tokens, cfg)
+    aux = torch.zeros((), dtype=F32, device=x.device)
     for i in range(n_sb):
         layers = params.layers[i * per_block:(i + 1) * per_block]
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_superblock_train, x, cfg, *layers,
-                           use_reentrant=False)
+            out = checkpoint(_superblock_train, x, cfg, *layers,
+                             use_reentrant=False)
         else:
-            x = _superblock_train(x, cfg, *layers)
+            out = _superblock_train(x, cfg, *layers)
+        if cfg.family == "moe":
+            x, a = out
+            aux = aux + a
+        else:
+            x = out
     x = rmsnorm(params.final_norm, x)
-    return x, torch.zeros((), dtype=F32, device=x.device)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +320,21 @@ def _dense_layer_decode(p, x, ck, cv, lengths, cfg, *, window=None):
     return x + m, nk, nv
 
 
+def _moe_layer_decode(p, x, ck, cv, lengths, cfg, *, window=None):
+    h = rmsnorm(p.attn_norm, x)
+    a, nk, nv = attention_decode(p.attn, h, ck, cv, lengths, cfg, window=window)
+    x = x + a
+    h = rmsnorm(p.moe_norm, x)
+    # exact (no-drop) dispatch by default; capacity-bounded when the config
+    # sets decode_capacity_factor
+    if cfg.decode_capacity_factor > 0:
+        m, _ = moe(p.moe, h, cfg, groups=1,
+                   capacity_factor=cfg.decode_capacity_factor)
+    else:
+        m, _ = moe(p.moe, h, cfg, groups=1, no_drop=True)
+    return x + m, nk, nv
+
+
 def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
     """One decode token for the whole batch.  tokens:(B,) int32.
     Returns (hidden (B,1,D), new_cache); the K/V tensors are updated in
@@ -298,12 +356,13 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
             cache["ssm"][i].copy_(nss)
             x = x + y
     else:
+        layer_fn = _moe_layer_decode if cfg.family == "moe" else \
+            _dense_layer_decode
         for i, (lp, window) in enumerate(zip(params.layers,
                                              layer_windows(cfg))):
             kn, vn, sb = _cache_slot(cfg, i)
-            x, _, _ = _dense_layer_decode(lp, x, cache[kn][sb],
-                                          cache[vn][sb], lengths, cfg,
-                                          window=window)
+            x, _, _ = layer_fn(lp, x, cache[kn][sb], cache[vn][sb], lengths,
+                               cfg, window=window)
     bump = 1 if active is None else active.to(torch.int32)
     new_cache["lengths"] = lengths + bump
     x = rmsnorm(params.final_norm, x)
@@ -353,7 +412,10 @@ def prefill(params, tokens, cfg: ModelConfig, cache):
     else:
         for i, (lp, window) in enumerate(zip(params.layers,
                                              layer_windows(cfg))):
-            x, (k, v) = _dense_layer_train(lp, x, cfg, window=window)
+            if cfg.family == "moe":
+                x, _, (k, v) = _moe_layer_train(lp, x, cfg, window=window)
+            else:
+                x, (k, v) = _dense_layer_train(lp, x, cfg, window=window)
             kn, vn, sb = _cache_slot(cfg, i)
             _fill_kv(cache[kn][sb], cache[vn][sb], k, v, window)
     new_cache["lengths"] = cache["lengths"] + T

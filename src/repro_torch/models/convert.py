@@ -5,7 +5,10 @@
 an ``LM``.  The stacked superblock leaves ``blocks/...`` (leading dim
 ``n_sb``) go to ``LM.layers``: for gemma2's local/global pairs,
 ``blocks/local/...[i]`` to layer ``2i`` and ``blocks/global/...[i]`` to
-layer ``2i+1``; for plain dense and for mamba2 (``blocks/norm/scale``,
+layer ``2i+1``; for plain dense, for moe (``blocks/{attn_norm,moe_norm}
+/scale``, ``blocks/attn/...``, ``blocks/moe/{router,experts_wi,experts_wg,
+experts_wd}`` and, with shared experts, ``blocks/moe/shared/{wi,wg,wd}``)
+and for mamba2 (``blocks/norm/scale``,
 ``blocks/ssd/{wz,wx,wB,wC,wdt,A_log,dt_bias,conv_w,norm_scale,out_proj}``),
 ``blocks/...[i]`` to layer ``i``.  Matrices are stored in ``dtype``; norm
 scales and the SSM's ``A_log`` / ``dt_bias`` in f32.  JAX casts every

@@ -2,8 +2,9 @@
 
 Port of ``repro/models/layers.py``: rmsnorm, RoPE, GQA attention with
 sliding window + softcap, KV-cache decode attention and the SwiGLU MLP (the
-dense family's serving and training paths), and the Mamba-2 SSD mixer (the
-ssm family's).  Each layer is an ``nn.Module`` holding
+dense family's serving and training paths), the mixture of experts with
+GShard's capacity-bounded dispatch (the moe family's), and the Mamba-2 SSD
+mixer (the ssm family's).  Each layer is an ``nn.Module`` holding
 parameters named after the JAX leaves; the math lives in plain functions
 over (module, tensor) with the JAX signatures, so the backbones, the serving
 engine and the trainer port line for line.
@@ -18,11 +19,12 @@ dtype discipline, as in JAX:
 
 KV caches are updated IN PLACE (JAX returns new arrays): ``attention_decode``
 writes the new token's K/V into the cache tensors it is given and returns
-the same tensors.  MoE and cross-attention are not ported yet.
+the same tensors.  Cross-attention is not ported yet.
 """
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -268,11 +270,13 @@ def attention_decode(params, x, cache_k, cache_v, lengths, cfg: ModelConfig,
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 class MLP(nn.Module):
-    """Leaves ``wi``/``wg`` (D,F), ``wd`` (F,D)."""
+    """Leaves ``wi``/``wg`` (D,F), ``wd`` (F,D); F is ``d_ff`` (default
+    ``cfg.d_ff``), as JAX's ``init_mlp``."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
+    def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None,
+                 d_ff=None):
         super().__init__()
-        D, Fh = cfg.d_model, cfg.d_ff
+        D, Fh = cfg.d_model, d_ff or cfg.d_ff
         shapes = {"wi": ((D, Fh), D), "wg": ((D, Fh), D), "wd": ((Fh, D), Fh)}
         _add_matrices(self, shapes, device=device, dtype=dtype,
                       generator=generator)
@@ -283,6 +287,130 @@ def mlp(params, x):
     h = x @ params.wi.to(dt)
     g = x @ params.wg.to(dt)
     return (F.silu(g) * h) @ params.wd.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MoE: router + capacity-based grouped dispatch (GShard-style, scatter form)
+# ---------------------------------------------------------------------------
+class MoE(nn.Module):
+    """Leaves ``router`` (D,E), ``experts_wi``/``experts_wg`` (E,D,Fe),
+    ``experts_wd`` (E,Fe,D), and ``shared`` (an ``MLP`` of width
+    ``n_shared_experts * d_ff_expert``) when the config has shared
+    experts, as JAX's ``init_moe``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
+        super().__init__()
+        D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+        shapes = {"router": ((D, E), D), "experts_wi": ((E, D, Fe), D),
+                  "experts_wg": ((E, D, Fe), D),
+                  "experts_wd": ((E, Fe, D), Fe)}
+        _add_matrices(self, shapes, device=device, dtype=dtype,
+                      generator=generator)
+        if cfg.n_shared_experts:
+            self.shared = MLP(cfg, device=device, dtype=dtype,
+                              generator=generator,
+                              d_ff=cfg.n_shared_experts * Fe)
+
+
+_ROUTING: list = []  # the active record_routing lists, innermost last
+
+
+@contextmanager
+def record_routing():
+    """Collect the routing of every ``moe`` call made inside the block: a
+    list with one ``(experts, kept)`` pair a call, in call order, each
+    (B, T, K) (int64 expert ids, bool kept under the capacity).  A probe
+    for the checks that compare two routes on the same inputs; the model
+    never reads it."""
+    calls: list = []
+    _ROUTING.append(calls)
+    try:
+        yield calls
+    finally:
+        _ROUTING.pop()
+
+
+def top_k(x, k: int):
+    """The ``k`` largest entries along the last dim and their indices, in
+    descending order, ties to the lower index (``jax.lax.top_k``'s rule;
+    ``torch.topk`` promises no order among ties, a stable sort does)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe(params, x, cfg: ModelConfig, groups: int = 1, no_drop: bool = False,
+        capacity_factor: Optional[float] = None):
+    """x:(B,T,D) -> (y, aux), JAX's ``moe`` op for op.  Tokens flatten to
+    (G, S_g, D) dispatch groups; each routed expert takes at most
+    C = min(max(ceil(S_g K / E cf), 1), S_g K) tokens of a group (S_g K under
+    ``no_drop``, the exact decode), in GShard's order: positions within an
+    expert by a cumsum over (choice, token) in k-major order, overflow
+    dropped.  Router logits in the compute dtype, then softmax and top-k in
+    f32, the top-k weights renormalised (floor 1e-9); scatter into (G,E,C,D),
+    the grouped SwiGLU, the gather weighted by weight x keep, plus the shared
+    experts; ``aux`` is GShard's load-balance loss E * sum_e(frac_e *
+    mean_gate_e)."""
+    B, T, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    S_total = B * T
+    G = groups if S_total % groups == 0 else 1
+    S_g = S_total // G
+    cf = capacity_factor if capacity_factor is not None else \
+        cfg.capacity_factor
+    C = max(int(math.ceil(S_g * K / E * cf)), 1)
+    C = min(C, S_g * K)
+    if no_drop:
+        C = S_g * K
+
+    dt = x.dtype
+    xf = x.reshape(G, S_g, D)
+    logits = (xf @ params.router.to(dt)).float()
+    gates = torch.softmax(logits, dim=-1)  # (G,S,E)
+    top_w, top_e = top_k(gates, K)  # (G,S,K)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    # position of each (choice, token) within its expert: cumsum of one-hots
+    # in (k-major, token-minor) assignment order -- GShard's
+    onehot = F.one_hot(top_e, E)  # (G,S,K,E)
+    ordered = onehot.transpose(1, 2).reshape(G, K * S_g, E)
+    # the scan runs along the innermost dim (CUDA's outer-dim integer scan
+    # took 7.8 ms a layer at 32 768 x 60); integer sums are exact either way
+    pos_in_e = torch.cumsum(ordered.transpose(1, 2).contiguous(),
+                            dim=-1).transpose(1, 2) - 1
+    pos_flat = (pos_in_e * ordered).sum(-1).reshape(G, K, S_g)
+    keep = pos_flat < C
+    eidx = top_e.transpose(1, 2)  # (G,K,S)
+    wgt = top_w.transpose(1, 2)
+    pos_clip = torch.clamp(pos_flat, max=C - 1)
+    gidx = torch.arange(G, device=x.device)[:, None, None].expand_as(eidx)
+    if _ROUTING:
+        _ROUTING[-1].append((top_e.reshape(B, T, K),
+                             keep.transpose(1, 2).reshape(B, T, K)))
+
+    # scatter: a kept (choice, token) owns its slot; a dropped one adds its
+    # zeros to slot C-1 of its expert, so the sums are exact in any order
+    contrib = xf[:, None] * keep[..., None].to(dt)  # (G,K,S,D)
+    expert_in = torch.zeros((G, E, C, D), dtype=dt, device=x.device)
+    expert_in.index_put_((gidx, eidx, pos_clip), contrib, accumulate=True)
+
+    h = torch.einsum("gecd,edf->gecf", expert_in, params.experts_wi.to(dt))
+    g = torch.einsum("gecd,edf->gecf", expert_in, params.experts_wg.to(dt))
+    h = F.silu(g) * h
+    expert_out = torch.einsum("gecf,efd->gecd", h, params.experts_wd.to(dt))
+
+    # gather back: y[s] = sum_k w * expert_out[e_k, p_k]
+    o = expert_out[gidx, eidx, pos_clip]  # (G,K,S,D)
+    y = torch.sum(o * (wgt * keep)[..., None].to(o.dtype), dim=1)
+    y = y.reshape(B, T, D)
+
+    if cfg.n_shared_experts:
+        y = y + mlp(params.shared, x)
+
+    # GShard aux load-balance loss: E * mean_e(frac_tokens_e * mean_gate_e)
+    frac = torch.mean(onehot.float().sum(2), dim=(0, 1)) / K  # (E,)
+    mgate = torch.mean(gates, dim=(0, 1))
+    aux = E * torch.sum(frac * mgate)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

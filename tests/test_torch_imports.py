@@ -104,27 +104,33 @@ def test_train_on_cuda_without_a_card_raises():
 def test_smoke_on_cuda_is_rejected_before_any_weight(entry):
     """A smoke config whose path needs a kernel instance the card lacks is
     refused by the entry point's own check, naming the instance, --full and
-    --device cpu: gemma2's (attention d_head 16) in both entry points,
-    mamba2's (SSD P 16, N 16, chunk 8) in training.  --full on CUDA and the
-    smoke config on the CPU pass it."""
+    --device cpu: only mamba2's training (SSD P 16, N 16, chunk 8) is left.
+    --full on CUDA and the smoke config on the CPU pass it, and so does
+    every other ported arch's smoke config on the card (train's default,
+    smoke gemma2, among them)."""
     import importlib
+    from repro_torch.configs import ALIASES
     mod = importlib.import_module(f"repro_torch.launch.{entry}")
     parse = mod.build_parser().parse_args
-    refused = [["--arch", "gemma2-2b"]]
-    if entry == "train":
-        refused += [[], ["--arch", "mamba2-1.3b"]]
+    refused = [["--arch", "mamba2-1.3b"]] if entry == "train" else []
     for argv in refused:
         with pytest.raises(ValueError) as err:
             mod.reject_smoke_on_cuda(parse(argv))
         msg = str(err.value)
         assert "--full" in msg and "--device cpu" in msg
-        assert ("d_head 16" in msg) != ("P 16, N 16, chunk 8" in msg)
+        assert "SSD scan (P 16, N 16, chunk 8)" in msg
         with pytest.raises(ValueError, match="--smoke runs only on the CPU"):
             mod.reject_smoke_on_cuda(parse(["--device", "cuda:0", "--smoke"]
                                            + argv))
         mod.reject_smoke_on_cuda(parse(["--full"] + argv))
         mod.reject_smoke_on_cuda(parse(["--device", "cpu"] + argv))
         mod.reject_smoke_on_cuda(parse(["--device", "cpu", "--full"] + argv))
+    passing = [["--arch", a] for a in ALIASES if ["--arch", a] not in refused]
+    assert len(passing) == len(ALIASES) - len(refused) >= 6
+    for argv in [[]] + passing:
+        args = parse(argv)
+        assert args.smoke and args.device == "cuda"
+        mod.reject_smoke_on_cuda(args)
 
 
 def test_serve_smoke_mamba2_is_not_refused_on_cuda():
@@ -179,3 +185,87 @@ def test_walk_covers_the_r2d1_and_async_slice_and_it_defaults_to_the_card():
         assert device.default == "cuda"
     for example in (r2d1_recurrent, mujoco_style_sac):
         assert example.build_parser().get_default("device") == "cuda"
+
+
+def test_walk_covers_the_moe_slice_and_its_entry_points():
+    """The moe slice's modules are among the files the import walk checks,
+    each new arch resolves in both entry points, and the serve_decode twin
+    keeps the JAX example's default argv (on serve's default device, the
+    card)."""
+    from repro_torch.configs import ALIASES, ARCH_IDS, resolve
+    from repro_torch.examples import serve_decode
+    from repro_torch.launch import serve
+    walked = {f.relative_to(PORT).as_posix() for f in _port_files()[:-1]}
+    assert {"configs/glm4_9b.py", "configs/phi3_mini_3p8b.py",
+            "configs/granite_34b.py", "configs/qwen2_moe_a2p7b.py",
+            "configs/mixtral_8x7b.py", "models/layers.py",
+            "models/backbones.py", "models/convert.py",
+            "examples/serve_decode.py",
+            "kernels/registry.py"} <= walked
+    assert sorted(ARCH_IDS) == sorted(ALIASES.values())
+    for arch in ("glm4-9b", "phi3-mini-3.8b", "granite-34b",
+                 "qwen2-moe-a2.7b", "mixtral-8x7b"):
+        assert resolve(arch) in ARCH_IDS
+    assert serve_decode.DEFAULTS == ["--arch", "mixtral-8x7b", "--batch", "8",
+                                     "--prompt-len", "64", "--gen", "32"]
+    assert serve.build_parser().parse_args(serve_decode.DEFAULTS).device == \
+        "cuda"
+
+
+def test_chip_smoke_catches_no_failure_and_fails_without_a_card(tmp_path):
+    """No phase of chip_smoke.py swallows a failure: its only ``try`` blocks
+    with handlers expect a named exception (an entry point's refusal) and
+    call ``fail`` when none comes.  Without a CUDA device, and copied alone into an empty
+    directory, it exits non-zero and prints no result line."""
+    src = (REPO / "chip_smoke.py").read_text()
+    tries = [n for n in ast.walk(ast.parse(src))
+             if isinstance(n, ast.Try) and n.handlers]  # not try / finally
+    assert tries
+    for node in tries:
+        for h in node.handlers:
+            assert isinstance(h.type, ast.Name) and h.type.id not in (
+                "Exception", "BaseException"), ast.dump(h)
+        assert any(isinstance(c, ast.Call) and getattr(c.func, "id", "")
+                   == "fail" for n in node.orelse for c in ast.walk(n))
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(src)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for cwd, script, extra in ((tmp_path, alone, {}),
+                               (REPO, REPO / "chip_smoke.py",
+                                {"CUDA_VISIBLE_DEVICES": ""})):
+        r = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                           env={**env, **extra}, capture_output=True,
+                           text=True, timeout=120)
+        assert r.returncode != 0 and '"ok": true' not in r.stdout, r.stdout
+
+
+RANDOM_CALLS = ("rand", "randn", "randint", "randperm", "rand_like",
+                "randn_like", "randint_like", "normal", "multinomial",
+                "bernoulli", "poisson", "exponential_", "uniform_",
+                "normal_", "random_", "bernoulli_")
+
+
+def test_port_draws_only_from_explicit_generators():
+    """Every torch random draw in the port names its ``torch.Generator``
+    (``generator=``), and nothing seeds or reads torch's global stream:
+    JAX's explicit keys become explicit generators (numpy draws come from
+    a ``RandomState`` of their own, as in JAX)."""
+    bad = []
+    for path in _port_files()[:-1]:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            name = getattr(node.func, "attr", getattr(node.func, "id", ""))
+            if name in ("manual_seed", "seed") and getattr(
+                    node.func, "value", None) is not None and getattr(
+                    node.func.value, "id", "") == "torch":
+                bad.append((path.name, node.lineno, name))
+            # torch.randn(...) and a tensor's in-place x.normal_(...);
+            # numpy RandomStates (rs.randint) are explicit streams already
+            owner = getattr(getattr(node.func, "value", None), "id", None)
+            is_torch = owner == "torch" or name.endswith("_")
+            if name in RANDOM_CALLS and is_torch and not any(
+                    k.arg == "generator" for k in node.keywords):
+                bad.append((path.name, node.lineno, name))
+    assert not bad, bad

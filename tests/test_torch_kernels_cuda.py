@@ -9,8 +9,13 @@ Tolerance, |kernel - plain| <= atol + rtol |plain| (those of chip_smoke.py):
 decode keeps P in f32 like the plain version, so the outputs differ by at
 most one bf16 rounding (atol 1e-3, rtol 8e-3); prefill also rounds P to bf16
 for the P.V product (atol 8e-3, rtol 1.6e-2).  The library is built for the
-ported config's shapes only: d_head 256, and two query heads per KV head
-for decode.  Cases with q scaled by 20 push the scores into the softcap.
+ported configs' shapes only: prefill at d_head 16, 96, 128 and 256, decode
+at the (d_head, query heads a KV head) pairs of ``DECODE_INSTANCES``; each
+instance beside gemma2-2b's (256, 2) is held at ragged T, a window of 16
+keys (smoke mixtral's, under one 64-key tile), the softcap, a query offset
+and no causal mask, and for decode at kv_len on every boundary of the split
+plan +-1, kv_len 1, B 1 and B 8.  Cases with q scaled by 20 push the scores
+into the softcap.
 Prefill covers ragged and whole 128-row query tiles and window edges inside
 a tile; decode covers kv_len on every boundary of the wrapper's split plan
 +-1, kv_len 1 (every split but the first empty), B 1 and B 8, and S 8192.
@@ -60,7 +65,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    decode_split_plan)
+    DECODE_INSTANCES, decode_split_plan)
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_reference  # noqa: E402
@@ -129,6 +134,66 @@ def test_flash_attn_fwd_vs_reference(case, cuda):
     ref = attention_reference(q, k, v, causal=causal, window=window,
                               softcap=softcap, q_offset=qoff)
     torch.testing.assert_close(out.float(), ref.float(), **FWD_TOL)
+
+
+# every prefill head dim beside gemma2-2b's: B, T, S, H, Hkv, causal,
+# window, softcap, q_offset, q scale
+INSTANCE_FWD_CASES = [
+    (2, 100, 100, 4, 1, True, None, None, 0, 1.0),
+    (1, 77, 77, 4, 2, True, 16, None, 0, 1.0),
+    (2, 129, 129, 8, 2, True, 16, 50.0, 0, 20.0),
+    (1, 200, 328, 4, 4, True, 96, None, 128, 1.0),
+    (1, 128, 96, 4, 2, False, None, None, 0, 1.0),
+    (2, 256, 256, 48, 1, True, None, None, 0, 1.0),
+]
+
+
+@pytest.mark.parametrize("dh", [16, 96, 128])
+@pytest.mark.parametrize("case", INSTANCE_FWD_CASES)
+def test_flash_attn_fwd_instances_vs_reference(dh, case, cuda):
+    B, T, S, H, Hkv, causal, window, softcap, qoff, scale = case
+    q, k, v = _qkv(B, T, S, H, Hkv, dh, cuda, seed=3)
+    q = q * scale
+    n0 = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, q_offset=qoff)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n0 + 1
+    ref = attention_reference(q, k, v, causal=causal, window=window,
+                              softcap=softcap, q_offset=qoff)
+    torch.testing.assert_close(out.float(), ref.float(), **FWD_TOL)
+
+
+def _instance_decode_cases():
+    out = []
+    for dh, G in sorted(DECODE_INSTANCES - {(256, 2)}):
+        Hkv = 1 if G == 48 else 2
+        out += [(dh, G, Hkv, 97, [1, 9, 64, 96, 97, 40], 1.0, None),
+                (dh, G, Hkv, 97, [33], 20.0, 50.0),
+                (dh, G, Hkv, 1089, [1] * 8, 1.0, None)]
+        n_split, chunk = decode_split_plan(8, Hkv, 1089)
+        vals = sorted({1, 1089} | {i * chunk + d for i in range(1, n_split)
+                                   for d in (-1, 0, 1)})
+        out += [(dh, G, Hkv, 1089, (vals[i:i + 8] + [1] * 8)[:8], 1.0, None)
+                for i in range(0, len(vals), 8)]
+    return out
+
+
+@pytest.mark.parametrize("dh,G,Hkv,S,kvl,scale,softcap",
+                         _instance_decode_cases())
+def test_flash_attn_decode_instances_vs_reference(dh, G, Hkv, S, kvl, scale,
+                                                  softcap, cuda):
+    B = len(kvl)
+    q, k, v = _qkv(B, 1, S, G * Hkv, Hkv, dh, cuda, seed=4)
+    q = q * scale
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device=cuda)
+    n0 = ops.flash_attention_decode.launches
+    out = ops.flash_attention_decode(q, k, v, kv_len, softcap=softcap)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_decode.launches == n0 + 1
+    ref = attention_reference(q, k, v, causal=False, softcap=softcap,
+                              kv_len=kv_len)
+    torch.testing.assert_close(out.float(), ref.float(), **DECODE_TOL)
 
 
 @pytest.mark.parametrize("window", [4096, None])
@@ -231,6 +296,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
                             v[..., :64].contiguous())
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        ops.flash_attention_decode(q[:, :1, :, :96].contiguous(),
+                                   k[:, :, :1, :96].contiguous(),
+                                   v[:, :, :1, :96].contiguous(),
+                                   torch.full((1,), 8, device=cuda))
     with pytest.raises(ValueError, match="one query token"):
         ops.flash_attention_decode(q, k, v, torch.full((1,), 8, device=cuda))
     with pytest.raises(ValueError, match="query heads per KV head"):

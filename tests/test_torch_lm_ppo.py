@@ -40,6 +40,10 @@ against the port's kernel route, ``ref`` against ``ref``):
   1e-4 relative, params as in the mamba2 test;
 - remat and no remat give bit-identical gradients (the recompute is the
   forward); serve-path logp == train-path logp (atol 5e-2, as JAX's test);
+- the moe family (smoke qwen2-moe): one update against JAX's on both
+  routes with the same bounds (its loss carries 0.01 x the load-balance
+  loss in both packages), and ``train.main --arch qwen2-moe-a2.7b`` on the
+  CPU with finite metrics;
 - the ``lm_ppo_end2end`` twin at ``test_lm_ppo_pipeline_exact_and_stable``'s
   budget (60 steps, batch 16, horizon 16, lr 1e-3) keeps the reward of a
   fresh rollout above the uniform floor's -6.5;
@@ -83,6 +87,7 @@ from repro_torch.train import optim as toptim  # noqa: E402
 
 ARCH = "mamba2-1.3b"
 DENSE = "gemma2-2b"
+MOE = "qwen2-moe-a2.7b"
 # JAX registry spec, port registry spec: the kernel route, the plain one
 BACKENDS = {"kernel": ("interpret", "cuda"), "ref": ("ref", "ref")}
 V = 256
@@ -426,6 +431,54 @@ def test_dense_lm_ppo_train_step_matches_jax(backend):
         n_flip += int((err > 1e-5).sum())
         n_all += err.size
     assert n_flip <= 1e-3 * n_all, (n_flip, n_all)
+
+
+@pytest.mark.parametrize("backend", list(BACKENDS))
+def test_moe_lm_ppo_train_step_matches_jax(backend):
+    """The moe family (smoke qwen2-moe, shared experts): one update, whose
+    loss adds 0.01 x the layers' load-balance loss in both packages, with
+    the bounds of the dense test (the kernel route with remat)."""
+    jc = dataclasses.replace(jax_smoke(MOE), compute_dtype="float32",
+                             remat=backend == "kernel")
+    tc = torch_cfg(jc)
+    params = jbb.init_lm(jax.random.PRNGKey(3), jc)
+    lm = port_lm(params, jc, requires_grad=True)
+    batch = _ppo_batch()
+    lr = 1e-3
+    jspec, tspec = BACKENDS[backend]
+    jopt = joptim.adam(lr, grad_clip=1.0)
+    with jax_registry.override(jspec):
+        jp, _, jm = jax.jit(jax_ppo_step(jc, jopt, entropy_coeff=0.003))(
+            params, jopt.init(params),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    topt = toptim.adam(lr, grad_clip=1.0)
+    with registry.override(tspec):
+        lm, _, tm = make_lm_ppo_train_step(tc, topt, entropy_coeff=0.003)(
+            lm, topt.init(lm.parameters()),
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+    for k in tm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    want = _named_jax(jp, lm, tc)
+    n_flip = n_all = 0
+    for name, p in lm.named_parameters():
+        err = np.abs(t2n(p) - want[name])
+        assert err.max() <= 1e-5 + 2 * lr, name
+        n_flip += int((err > 1e-5).sum())
+        n_all += err.size
+    assert n_flip <= 1e-3 * n_all, (n_flip, n_all)
+
+
+def test_moe_train_main_on_cpu_logs_finite_metrics(tmp_path):
+    lm = train.main(["--device", "cpu", "--arch", MOE, "--steps", "2",
+                     "--batch", "4", "--horizon", "8", "--log-dir",
+                     str(tmp_path)])
+    rows = [json.loads(ln) for ln in
+            (tmp_path / "progress.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in rows)
+    assert all(torch.isfinite(p).all() for p in lm.parameters())
 
 
 def test_dense_remat_gradients_equal_plain():
