@@ -37,19 +37,23 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    as device time (prefill also at the gemma2 training shape, B 8, T
    256): the calls captured in one CUDA graph and replayed, so that the
    host's cost of a call does not hide a faster kernel (the
-   back-to-back time of eager calls is printed beside it).  Then the SSD
-   scan (``ssd_scan``) against ``ssd_reference`` on the card at the
-   mamba2-1.3b training shape (B 8, T 512, H 64, P 64, G 1, N 128, chunk
-   256, bf16 x/B/C), one chunk (T 256), ragged T 500, a slow-decay case
+   back-to-back time of eager calls is printed beside it).  Then each
+   instance of the SSD scan (``SSD_INSTANCES``: mamba2-1.3b's P 64, N 128,
+   chunk 256 at its training shape B 8, T 512, H 64; zamba2-7b's P 64, N
+   64, chunk 256 at B 8, T 256, H 112; the smoke configs' P 16, N 16,
+   chunk 8 at B 16, T 32, H 8; bf16 x/B/C) against ``ssd_reference`` on
+   the card within ``ssd_tolerance`` at its training shape, one chunk,
+   ragged T, a short T under one chunk, a slow-decay case of four chunks
    where the carry between chunks matters, and dt x 10 so that exp(cum)
-   underflows inside a chunk, within ``ssd_tolerance``; sensitivity checks
-   show the bound catches a dropped inter-chunk carry, a causal mask off by
-   one, dt left out of M and an undecayed state; then its grid against how
-   many blocks the card holds at once, and its time at the training shape
-   as device time (a replayed CUDA graph of the calls; the back-to-back
-   time of eager calls beside it) beside its plain version and its bound
-   (bytes at 3.35 TB/s against flops at the bf16 tensor-core rate; no
-   single PyTorch call computes the scan: library_ms null).  Then the
+   underflows inside a chunk; on the slow-decay case the plain faulty
+   variant without a fault must agree, and sensitivity checks show the
+   bound catches a dropped inter-chunk carry, a causal mask off by one, dt
+   left out of M and an undecayed state; then its grid against how many
+   blocks the card holds at once, and its time at the training shape as
+   device time (a replayed CUDA graph of the calls; the back-to-back time
+   of eager calls beside it) beside its plain version and its bound (bytes
+   at 3.35 TB/s against flops at the bf16 tensor-core rate; no single
+   PyTorch call computes the scan: library_ms null).  Then the
    sum-tree sampler (``tree_sample_blocked``, csrc/sum_tree.cu) against its
    plain version (``sample_plain``) and the f64 flat oracle on sum trees at
    the rainbow example's shape (8192 leaves, batch 64), the replay bench's
@@ -74,25 +78,32 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    window 4096, glm4-9b dh 128 G 16, phi3-mini-3.8b dh 96 G 1, granite-34b
    dh 128 G 48 at prefill B 8, T 1024 and decode B 8, S 1089 with ragged
    kv_len; ``SMOKE6``: the smoke qwen2-moe, mixtral (window 16, under one
-   64-key tile) and granite, dh 16 with G 1, 2 and 4 at B 8, T 64, S 97),
+   64-key tile) and granite, dh 16 with G 1, 2 and 4 at B 8, T 64, S 97;
+   ``SLICE7``: zamba2-7b dh 112 G 1 and llama-3.2-vision-90b dh 128 G 8
+   (H 64, Hkv 8) at T 1024, S 1089, whisper-medium dh 64 G 1 at T 384,
+   S 449),
    at the continuous run's B 1 prompts and B 8 / B 1 decode steps, with
    the softcap reached (q x 20), and for decode at kv_len on every
    boundary of the split plan +-1 and at kv_len 1; the sensitivity checks
    (softcap dropped, causal edge one key late, window one key wider, one
-   key lost, one split lost in the merge) at dh 128 G 1 and G 16 and at
-   dh 16; then each instance's time at each serving shape as a replayed
+   key lost, one split lost in the merge) at dh 128 G 1 and G 16, at dh 16
+   and at each slice-7 instance; then each instance's time at each serving
+   shape as a replayed
    graph beside its plain version, its bound and SDPA, and the decode
    grid against the clusters the card holds at once;
-3c. the entry points' smoke configs on the card: smoke mamba2-1.3b
-   training (SSD P 16, N 16, chunk 8) must be refused before any weight
-   is drawn, naming the missing instance, ``--full`` and ``--device cpu``;
-   ``train.main``'s default (smoke gemma2-2b) and ``train --arch
-   qwen2-moe-a2.7b`` take three PPO steps, ``serve --arch gemma2-2b`` and
-   ``--arch granite-34b`` serve one round and the ``serve_decode`` twin's
-   default (smoke mixtral-8x7b) its three, each launching its d_head 16
-   instances exactly once a layer a prefill, a training forward and a
-   decode step; ``serve.main``'s default (smoke mamba2-1.3b, no kernel on
-   its path) serves one round and launches nothing;
+3c. the entry points' smoke configs on the card: ``train --arch
+   whisper-medium`` must be refused before any weight is drawn (the
+   launcher passes no encoder frames, as JAX's, whose train fails on
+   ``enc_frames=None``); ``train.main``'s default (smoke gemma2-2b) and
+   ``train --arch`` qwen2-moe-a2.7b, mamba2-1.3b and zamba2-7b take three
+   PPO steps, ``serve --arch`` gemma2-2b, granite-34b, zamba2-7b,
+   whisper-medium and llama-3.2-vision-90b serve one round and the
+   ``serve_decode`` twin's default (smoke mixtral-8x7b) its three, each
+   launching its d_head 16 instances exactly once an attention site a
+   prefill, a training forward and a decode step and the SSD scan (P 16,
+   N 16, chunk 8) once a Mamba-2 layer a training forward;
+   ``serve.main``'s default (smoke mamba2-1.3b, no kernel on its path)
+   serves one round and launches nothing;
 4. slice phase, fixed rounds: full-width gemma2-2b with random bf16 weights
    from a seeded generator on the card, through ``repro_torch.launch.serve
    .main`` (batch 8, prompt 1024, gen 64, two rounds); both kernel entry
@@ -115,6 +126,25 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    route check at ``ROUTE_LAYERS`` layers against ``--kernels ref`` on the
    same weights and prompts (dense: prefill and first-step logits within
    LOGIT_TOL; moe: see ``moe_route_check`` and ``ROUTE_AGREE_MARGIN``);
+5c. slice phase, the hybrid, vlm and encdec families at full width
+   (``SLICE7``) through ``serve.main --full``: zamba2-7b (the slice's main
+   path: 81 layers, 13 sites of the shared attention block, dh 112) two
+   fixed rounds at B 8, prompt 1024, gen 64 and the continuous run of
+   phase 5; whisper-medium (B 8, prompt 384, gen 64, 1500 zero frames) and
+   llama-3.2-vision-90b (cut to 20 of 100 layers, 1600 zero image tokens)
+   one round each: both entry points launch exactly once an attention site
+   a prefill and a decode step, the SSD scan never; peak memory, prefill
+   time and decode-step wall; then each config's route check against
+   ``--kernels ref`` at ``ROUTE_CUT`` layers (prefill and first-step logits
+   within LOGIT_TOL);
+6b. slice phase, training: zamba2-7b at full width cut to 15 layers
+   (``TRAIN7``: 2 superblocks and the 3 tail layers) through ``train.main
+   --layers 15``, two PPO steps at B 8, horizon 256: ``ssd_scan`` (P 64,
+   N 64) exactly 2 x 15 an update (forward and recompute), the shared
+   block's attention 2 x 2 an update and 2 a rollout step, every metric
+   finite, peak memory; then ``train_checks`` against ``ssd=ref`` within
+   ``TRAIN7_TOL`` at 7 layers (one superblock and a tail layer) and at
+   15;
 6a. slice phase, training: full-width gemma2-2b (26 layers, d_model 2304,
    vocab 256 000, 3.204 B parameters as f32 master weights from a seeded
    generator, bf16 compute; the token env's table-free chain) through
@@ -133,12 +163,13 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    last logits and states against a token-by-token ``decode_step``
    teacher-force of the first round's prompts within
    ``SSM_PREFILL_TOL``;
-6. slice phase, training: full-width mamba2-1.3b (48 layers, d_model 2048,
-   random f32 master weights from a seeded generator, bf16 compute) through
-   ``repro_torch.launch.train.main`` (batch 8, horizon 512, two PPO steps of
-   rollout + GAE + Adam update); the SSD kernel must launch exactly 2 x 48
-   an update and every logged metric be finite.  Then, on the same weights
-   and first rollout, at full depth and at a 4-layer depth cut of the same width: the
+6. slice phase, training: full-width mamba2-1.3b (d_model 2048, cut from
+   48 layers to 24, random f32 master weights from a seeded generator, bf16
+   compute) through ``repro_torch.launch.train.main --layers 24`` (batch 8,
+   horizon 512, two PPO steps of rollout + GAE + Adam update); the SSD
+   kernel must launch exactly 2 x 24 an update and every logged metric be
+   finite.  Then, on the same weights and first rollout, at 24 layers and
+   at a 4-layer depth cut of the same width: the
    serve-path logp (decode_step, no kernel) against the train-path logp
    (forward_train through the kernel), both against the plain route's
    (``ssd=ref``) on the same data, and the kernel route against
@@ -209,22 +240,26 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    train state bit for bit, resumed at the saved iteration, then run on);
 12. on the same weights (drawn again), a ``torch.profiler`` pass measures
    the device's busy time per prefill, per decode step (gemma2-2b, then
-   qwen2-moe-a2.7b at full width), per rollout of
-   ROLL_STEPS steps and per PPO update (gemma2-2b and mamba2-1.3b), per RL
+   qwen2-moe-a2.7b and zamba2-7b at full width), per rollout of
+   ROLL_STEPS steps and per PPO update (gemma2-2b, mamba2-1.3b and
+   zamba2-7b at their phases' depths), per RL
    iteration, per PPO CartPole iteration, per SAC
    update (at the bar's width and at full width), per full-width R2D1
    update and per async SAC learner update against
    the unprofiled wall time of the same work (the idle share), and checks
-   that prefill and a decode step run exactly one attention kernel a layer
+   that prefill and a decode step run exactly one attention kernel an
+   attention site
    (printing its device time a launch), lists each kernel launch of one
    ssd_scan call at the training shape with its device time, and gives the
    sum-tree kernel's device time a launch at ``ST_TIMED`` — last, since the
    profiler slows every later launch of the process;
-13. the ``kernels`` JSON line (launch counts from phases 4-7, 6a and 9, the
-   largest error of phase 3, times at the serving shape; phases 5a, 8, 10
-   and 11 launch none; one entry an instance of phase 3b, its launches from
-   phases 3c and 5b, timed at the first config that runs it), then
-   ``{"ok": true, "device": {...}}`` last.
+13. each phase's wall time, the ``kernels`` JSON line (launch counts from
+   phases 4-7, 6a and 9, the largest error of phase 3, times at the
+   serving shape; phases 5a, 8, 10 and 11 launch none; one entry an
+   instance of phase 3b, its launches from phases 3c, 5b, 5c and 6b, timed
+   at the first config that runs it; one entry an SSD instance, its
+   launches from phases 3c, 6b and 6), then ``{"ok": true, "device":
+   {...}}`` last.
 """
 import json
 import math
@@ -285,6 +320,43 @@ SMOKE_SERVE = {"batch": 8, "prompt_len": 64, "gen": 32}
 # and that faulty route must fall below the same bound.
 ROUTE_LAYERS = 4
 ROUTE_AGREE_MARGIN = 0.02
+# slice 7: the hybrid, vlm and encdec configs at full width (random bf16
+# weights): zamba2-7b, the slice's main path, at full depth (81 layers: 13
+# sites of the shared attention block), fixed rounds and the continuous run
+# of CONT; whisper-medium (prompt 384 + gen 64: its 448 text positions,
+# 1500 zero frames) and llama-3.2-vision-90b (cut to 4 of 20 superblocks:
+# 163.3 GiB of bf16 weights at full depth; 1600 zero image tokens) one
+# round each.  Their route checks run at a cut that holds one superblock
+# (zamba2: 6 Mamba-2 layers, the shared block and a tail layer; vlm: 4 self
+# layers and a cross layer) or 4 decoder layers (whisper).
+SLICE7 = ("zamba2-7b", "whisper-medium", "llama-3.2-vision-90b")
+SERVE7 = {"zamba2-7b": SERVE6,
+          "whisper-medium": {"batch": 8, "prompt_len": 384, "gen": 64},
+          "llama-3.2-vision-90b": SERVE6}
+DEPTH_CUT["llama-3.2-vision-90b"] = 20
+ROUTE_CUT = {"zamba2-7b": 7, "whisper-medium": 4, "llama-3.2-vision-90b": 5}
+# zamba2-7b's LM-PPO training at full width, cut from 81 layers to 15 (2
+# superblocks and the 3 tail layers, 1.6 B parameters: 26 GiB of f32
+# weights, gradients and Adam moments; 100.6 GiB at full depth), through
+# ``train --layers 15``.  Its checks, as phase 6's, at two cuts, on limits
+# set from tools/train_route_spread.py on the card (the same weights, first
+# rollout and update under other routes; the plain SSD scan at half the
+# chunk is another order of the same f32 sums, so what it moves, rounding
+# alone moves):
+# - one superblock and a tail layer (7 layers): the kernel route's loss
+#   7.4e-6 and grad_norm 9.8e-2 from ssd=ref's, where the half chunk alone
+#   moves them 1.5e-5 and 0.158 (the whole gradient 0.70 of its norm, the
+#   kernel 0.60).  Held: loss 2e-3 relative (mamba2's 4-layer limit),
+#   grad_norm 0.3 (about twice what rounding alone moved), the mean
+#   serve-vs-train gap 0.1 (0.043 through the kernel, 0.040 plain);
+# - the 15 layers trained: the loss at 1e-3 relative (2.5e-5 through the
+#   kernel, 8.9e-5 at the half chunk; gemma2's limit), grad_norm printed
+#   only (the attention route alone moves it 0.75: chaotic in depth, as
+#   mamba2's 48 layers).
+TRAIN7 = {"batch": 8, "horizon": 256, "steps": 2, "layers": 15}
+TRAIN7_TOL = {
+    15: {"logp_mean": 1.0, "loss_rel": 1e-3, "grad_norm_rel": None},
+    7: {"logp_mean": 0.1, "loss_rel": 2e-3, "grad_norm_rel": 0.3}}
 # SSD scan (csrc/ssd_scan.cu) against ssd_reference: both compute in f32
 # and round y to bf16 once, so they differ by the order of f32 sums, by
 # the rounding of the chunk cumsum, by the kernel's f32 operands entering
@@ -300,6 +372,15 @@ ROUTE_AGREE_MARGIN = 0.02
 # 2^-19 * max|cum| eight roundings of the cumsum on each side (an absolute
 # error in cum_q - cum_k is a relative error of exp(cum_q - cum_k)).
 SSD_TPU_KERNEL = "src/repro/kernels/ssd_scan/ssd_scan.py:69"
+# the SSD scan's instances, by kernels-line name (mamba2-1.3b's keeps the
+# bare name): (P, N, chunk, H, B, T) of the training shape that runs it, the
+# batch of its edge cases, and its configs: mamba2-1.3b's LM-PPO update (64
+# heads, horizon 512), zamba2-7b's (112 heads, horizon 256), the smoke
+# configs' (train's default batch 16 and horizon 32)
+SSD_INSTANCES = {
+    "ssd_scan": (64, 128, 256, 64, 8, 512, 8, "mamba2-1.3b"),
+    "ssd_scan P64 N64": (64, 64, 256, 112, 8, 256, 2, "zamba2-7b"),
+    "ssd_scan P16 N16": (16, 16, 8, 8, 16, 32, 2, "smoke mamba2 / zamba2")}
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
 # the training slice (phase 6).  The random-weight model amplifies bf16
 # rounding through depth (CPU calibration at full width: serve-path and
@@ -316,14 +397,17 @@ SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
 #   any rounding difference reaches about the same gap (4 layers on the
 #   card: 0.0105, 0.0103 and 0.0096 mean), hence the margins;
 # - loss and grad_norm of one update, kernel route vs ssd=ref: grad_norm
-#   held at the 4-layer cut only, printed at 48 layers.
+#   held at the 4-layer cut only, printed at the deep one.
 # (A first design held the max |serve - train| at 0.5 (4 layers) and 6.0
 # (48 layers) from a 640-sample CPU calibration; the card's 4096 samples
 # gave 0.528 at 4 layers with the mean at 0.0105, and the plain route on
 # the same data 0.576 (mean 0.0103).  See PERF.md, PR 12.)
-TRAIN_TOL = {48: {"logp_mean": 1.0, "loss_rel": 5e-2, "grad_norm_rel": None},
+# The run is cut from 48 layers to 24 (``train --layers 24``) to keep the
+# script's time; the 48-layer limits hold at 24, where the gaps they bound
+# are smaller.
+TRAIN_TOL = {24: {"logp_mean": 1.0, "loss_rel": 5e-2, "grad_norm_rel": None},
              4: {"logp_mean": 5e-2, "loss_rel": 2e-3, "grad_norm_rel": 5e-2}}
-TRAIN = {"batch": 8, "horizon": 512, "steps": 2}
+TRAIN = {"batch": 8, "horizon": 512, "steps": 2, "layers": 24}
 # the gemma2-2b training slice (phase 6a).  Sized for one 80 GB card: f32
 # master weights, gradients and two Adam moments are 16 B a parameter, 51.3
 # GB for 3.204 B, and the logits chain over B x T x 256 000 costs about 30
@@ -563,6 +647,23 @@ def must_differ(entry, fault, wrong, want):
         fail(f"{entry}: the tolerance would not catch {fault}")
 
 
+def attn_sites(cfg) -> int:
+    """Attention calls a forward, prefill or decode step makes through the
+    flash kernel: every layer's causal self-attention (the hybrid's shared
+    block once a superblock, the vlm's self layers, the encdec decoder's);
+    the encoder and the cross layers take the plain path, as in JAX."""
+    n_sb, per_block, _ = bb.superblock_layout(cfg)
+    return {"ssm": 0, "hybrid": n_sb,
+            "vlm": n_sb * (per_block - 1)}.get(cfg.family, cfg.n_layers)
+
+
+def ssd_layers(cfg) -> int:
+    """Mamba-2 layers a training forward runs the SSD scan in."""
+    n_sb, per_block, tail = bb.superblock_layout(cfg)
+    return {"ssm": cfg.n_layers,
+            "hybrid": n_sb * per_block + tail}.get(cfg.family, 0)
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
@@ -758,7 +859,7 @@ def decode_timing(cfg, B, S, lo, gen):
     flops = 4 * dh * H * n_kv
     G = H // Hkv
     n_split, chunk = decode_split_plan(B, Hkv, S)
-    threads = 256 if G <= 4 else 32 * 4 * (G // 16)
+    threads = 256 if G <= 4 else 32 * 4 * (-(-G // 16))
     grid = (f"({n_split}, {Hkv}, {B}) x {threads} threads, cluster {n_split} "
             f"({chunk} slots a split); {B * Hkv} clusters, the card holds "
             f"{decode_max_clusters(n_split, dh, G)} at once")
@@ -816,13 +917,14 @@ def backward_check(q, k, v, kw, gen):
 # ---------------------------------------------------------------------------
 # phase 4: kernel route vs --kernels ref on the same weights and prompts
 # ---------------------------------------------------------------------------
-def served_weights(cfg):
+def served_weights(cfg, prompt_len=1024):
     """The weights the fixed rounds' serve.main drew and its first round's
-    prompts (B 8, prompt 1024), drawn again from the same seeds."""
+    prompts (B 8, prompt ``prompt_len``), drawn again from the same seeds."""
     params = bb.init_lm(cfg, device=DEV, generator=torch.Generator(
         device=DEV).manual_seed(SEED))
     prompts = serve.make_prompts(
-        cfg, 8, 1024, torch.Generator(device=DEV).manual_seed(SEED + 1), DEV)
+        cfg, 8, prompt_len, torch.Generator(device=DEV).manual_seed(SEED + 1),
+        DEV)
     return params, prompts
 
 
@@ -1001,13 +1103,14 @@ def profile_phase(cfg, params, prompts, steps=8):
     def launched(evs, name):
         return sum(e.count for e in evs if name in e.key)
 
+    sites = attn_sites(cfg)
     for phase in ("prefill", "decode"):
         per = 1 if phase == "prefill" else steps
-        # one attention kernel a layer: flash_attn_decode merges its splits
-        # inside its one launch
+        # one attention kernel an attention site: flash_attn_decode merges
+        # its splits inside its one launch
         name = "flash_fwd_kernel" if phase == "prefill" else \
             "flash_decode_kernel"
-        want = cfg.n_layers * per
+        want = sites * per
         # the profiler loses a kernel record now and then (25
         # flash_fwd_kernel records of 26 in one run; decode runs of 18 472
         # kernels recording 18 471 or 18 470) and never adds one; the work
@@ -1048,22 +1151,24 @@ def profile_phase(cfg, params, prompts, steps=8):
             print(f"    {e.self_device_time_total / 1e3 / per:8.3f} ms "
                   f"x{e.count / per:.0f}  {e.key[:90]}")
         count = launched(evs, name) / per
-        if count != cfg.n_layers:
+        if count != sites:
             fail(f"profile {phase}: {count:g} {name} launches a "
                  f"{'call' if per == 1 else 'step'} in the most complete of "
-                 f"{len(runs)} runs, expected one a layer ({cfg.n_layers})")
+                 f"{len(runs)} runs, expected one an attention site "
+                 f"({sites})")
         us = sum(e.self_device_time_total for e in evs if name in e.key) / \
             launched(evs, name)
         print(f"    {name}: {count:g} launches a {'call' if per == 1 else 'step'} "
-              f"(one a layer, no other attention kernel), {us:.2f} us of "
-              "device time a launch")
+              f"(one an attention site, no other attention kernel), {us:.2f} "
+              "us of device time a launch")
 
 # ---------------------------------------------------------------------------
 # phase 3 (SSD): the scan kernel against ssd_reference, then its time
 # ---------------------------------------------------------------------------
 def ssd_inputs(B, T, gen, dt_scale=1.0, H=64, P=64, N=128):
-    """Inputs at mamba2-1.3b's widths: bf16 x/B/C, f32 dt = softplus(z) *
-    dt_scale and the model's A = -exp(A_log) = -linspace(1, 16, H)."""
+    """Inputs at mamba2-1.3b's widths (or the given heads H, head dim P and
+    state N; one group): bf16 x/B/C, f32 dt = softplus(z) * dt_scale and
+    the model's A = -exp(A_log) = -linspace(1, 16, H)."""
     x = torch.randn(B, T, H, P, generator=gen, device=DEV).to(BF16)
     dt = F.softplus(torch.randn(B, T, H, generator=gen, device=DEV)) * dt_scale
     A = -torch.linspace(1.0, 16.0, H, device=DEV)
@@ -1140,80 +1245,94 @@ def ssd_flops(B, T, H, P, G, N, chunk):
 
 
 def ssd_kernel_phase():
+    """Each SSD instance (SSD_INSTANCES) against ssd_reference within the
+    error model at its training shape, one chunk, ragged and short T and
+    the dt edges; on a slow-decay case of four chunks the plain faulty
+    variant without a fault (it must agree) and the four sensitivity
+    checks; then its grid and its time at the training shape.  Returns
+    ({instance name: (max abs error, tolerance share)}, {name: timing})."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
-    worst = {"err": 0.0, "share": 0.0}
-    print("kernel phase: ssd_scan vs ssd_reference (bf16 x/B/C, f32 dt/A; "
-          "|y - ref| <= 2^-7 |ref| + eps y_abs, |S - ref| <= eps S_abs, "
-          "eps = 2^-14 + 2^-19 max|cum|)")
-    cases = [("training shape", 8, 512, 1.0), ("one chunk", 8, 256, 1.0),
-             ("ragged T", 8, 500, 1.0), ("slow decay dt x0.01", 8, 512, 0.01),
-             ("underflow dt x10", 8, 512, 10.0)]
-    keep = {}
-    for name, B, T, scale in cases:
-        inp = ssd_inputs(B, T, gen, scale)
-        chunk = min(256, T)
-        n0 = ssd_ops.ssd_scan.launches
-        y, s = ssd_ops.ssd_scan(*inp, chunk=chunk)
-        torch.cuda.synchronize()
-        if ssd_ops.ssd_scan.launches != n0 + 1:
-            fail(f"ssd_scan {name}: the kernel did not launch")
-        if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
-            fail(f"ssd_scan {name}: non-finite kernel output")
-        yr, sr = ssd_reference(*inp, chunk=chunk)
-        tol = ssd_tolerance(*inp, chunk)
-        sy, ss = ssd_share(y, s, yr, sr, tol)
-        err = float((y.float() - yr.float()).abs().max())
-        serr = float((s - sr).abs().max())
-        print(f"  {name} B{B} T{T}: y max_abs_err {err:.3e} (|y| max "
-              f"{float(yr.float().abs().max()):.3e}), state {serr:.3e}; "
-              f"tolerance used y {sy:.3f}, state {ss:.3f} (eps {tol[2]:.2e})")
-        if max(sy, ss) > 1:
-            fail(f"ssd_scan {name}: kernel disagrees with ssd_reference "
-                 f"({sy:.2f} / {ss:.2f} x the tolerance)")
-        worst["err"] = max(worst["err"], err)
-        worst["share"] = max(worst["share"], sy, ss)
-        keep[name] = (inp, yr, sr, tol)
-    # the sensitivity checks, where the carry between chunks matters
-    inp, yr, sr, tol = keep["slow decay dt x0.01"]
-    yf, sf = ssd_faulty(*inp, 256)
-    used = max(ssd_share(yf, sf, yr, sr, tol))
-    print(f"  plain variant without fault: tolerance used {used:.3f}")
-    if used > 1:
-        fail("ssd_faulty without a fault disagrees with ssd_reference")
-    for fault, what in (("carry", "inter-chunk carry dropped (y_off = 0)"),
-                        ("causal", "causal mask off by one (q > k)"),
-                        ("dt", "dt left out of M"),
-                        ("decay", "state not decayed by exp(cum_last)")):
-        used = max(ssd_share(*ssd_faulty(*inp, 256, fault), yr, sr, tol))
-        print(f"  sensitivity: {what} -> {used:.1f} x the tolerance")
-        if used <= 1:
-            fail(f"ssd_scan: the tolerance would not catch {what}")
-    del keep
+    errs, timing = {}, {}
+    for name, (P, N, Q, H, B, T, Be, arch) in SSD_INSTANCES.items():
+        print(f"kernel phase: {name} ({arch}: P {P}, N {N}, chunk {Q}) vs "
+              "ssd_reference (bf16 x/B/C, f32 dt/A; |y - ref| <= 2^-7 |ref| "
+              "+ eps y_abs, |S - ref| <= eps S_abs, eps = 2^-14 + 2^-19 "
+              "max|cum|)")
+        worst, keep = [0.0, 0.0], None
+        for label, B_, T_, scale in (
+                ("training shape", B, T, 1.0), ("one chunk", Be, Q, 1.0),
+                ("ragged T", Be, 2 * Q + Q // 2 + 3, 1.0),
+                ("short T", Be, max(1, Q // 2 - 3), 1.0),
+                ("slow decay dt x0.01", Be, 4 * Q, 0.01),
+                ("underflow dt x10", Be, 2 * Q, 10.0)):
+            inp = ssd_inputs(B_, T_, gen, scale, H=H, P=P, N=N)
+            chunk = min(Q, T_)
+            n0 = ssd_ops.ssd_scan.launches
+            y, s = ssd_ops.ssd_scan(*inp, chunk=chunk)
+            torch.cuda.synchronize()
+            if ssd_ops.ssd_scan.launches != n0 + 1:
+                fail(f"{name} {label}: the kernel did not launch")
+            if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+                fail(f"{name} {label}: non-finite kernel output")
+            yr, sr = ssd_reference(*inp, chunk=chunk)
+            tol = ssd_tolerance(*inp, chunk)
+            sy, ss = ssd_share(y, s, yr, sr, tol)
+            err = float((y.float() - yr.float()).abs().max())
+            print(f"  {label} B{B_} T{T_} H{H}: y max_abs_err {err:.3e} (|y| "
+                  f"max {float(yr.float().abs().max()):.3e}; bf16 elements "
+                  f"that differ {float((y != yr).float().mean()):.4f}), "
+                  f"state {float((s - sr).abs().max()):.3e}; tolerance used "
+                  f"y {sy:.3f}, state {ss:.3f} (eps {tol[2]:.2e})")
+            if max(sy, ss) > 1:
+                fail(f"{name} {label}: kernel disagrees with ssd_reference "
+                     f"({sy:.2f} / {ss:.2f} x the tolerance)")
+            worst = [max(worst[0], err), max(worst[1], sy, ss)]
+            if scale == 0.01:
+                keep = (inp, yr, sr, tol)
+        # the sensitivity checks, where the carry between chunks matters,
+        # after the control: the faulty variant without a fault must agree
+        inp, yr, sr, tol = keep
+        used = max(ssd_share(*ssd_faulty(*inp, Q), yr, sr, tol))
+        print(f"  plain variant without fault: tolerance used {used:.3f}")
+        if used > 1:
+            fail(f"{name}: ssd_faulty without a fault disagrees with "
+                 "ssd_reference")
+        for fault, what in (("carry", "inter-chunk carry dropped (y_off = 0)"),
+                            ("causal", "causal mask off by one (q > k)"),
+                            ("dt", "dt left out of M"),
+                            ("decay", "state not decayed by exp(cum_last)")):
+            used = max(ssd_share(*ssd_faulty(*inp, Q, fault), yr, sr, tol))
+            print(f"  sensitivity: {what} -> {used:.1f} x the tolerance")
+            if used <= 1:
+                fail(f"{name}: the tolerance would not catch {what}")
+        errs[name] = tuple(worst)
+        del keep, inp, yr, sr, tol
 
-    B, T, H, P, G, N = 8, 512, 64, 64, 1, 128
-    nbytes = (2 * B * T * H * P * 2 + B * T * H * 4 + H * 4
-              + 2 * B * T * G * N * 2 + B * H * P * N * 4)
-    sets = [ssd_inputs(B, T, gen) for _ in range(copies_for(nbytes))]
-    fns = [lambda s=s: ssd_ops.ssd_scan(*s, chunk=256) for s in sets]
-    ms, call = graph_ms(fns), time_ms(fns)
-    plain = graph_ms([lambda s=s: ssd_reference(*s, chunk=256)
-                      for s in sets[:2]], iters=4)
-    flops = ssd_flops(B, T, H, P, G, N, 256)
-    t = dict(ms=ms, call_ms=call, plain_ms=plain, library_ms=None,
-             bound=bound_ms(nbytes, flops))
-    per_sm, blocks = ssd_occupancy(H, B)
-    waves = blocks / (per_sm * torch.cuda.get_device_properties(
-        0).multi_processor_count)
-    print(f"  ssd_scan grid: {blocks} blocks of 512 threads (batch, head; "
-          f"two warp groups over P's columns for the state); the card holds "
-          f"{per_sm} an SM at once: {waves:.2f} waves")
-    print(f"  ssd_scan [B{B} T{T} H{H} P{P} G{G} N{N} chunk 256]: kernel "
-          f"{ms:.4f} ms (device, graph replay; {call:.4f} ms a call back to "
-          f"back), plain {plain:.4f} ms, bound {t['bound'][0]:.4f} ms "
-          f"({t['bound'][1]}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, "
-          f"{flops / 1e9:.2f} GFLOP at the bf16 tensor-core rate), "
-          "library_ms none (no single PyTorch call computes the scan)")
-    return worst, t
+        nbytes = (2 * B * T * H * P * 2 + B * T * H * 4 + H * 4
+                  + 2 * B * T * N * 2 + B * H * P * N * 4)
+        sets = [ssd_inputs(B, T, gen, H=H, P=P, N=N)
+                for _ in range(copies_for(nbytes))]
+        fns = [lambda s=s: ssd_ops.ssd_scan(*s, chunk=Q) for s in sets]
+        ms, call = graph_ms(fns), time_ms(fns)
+        plain = graph_ms([lambda s=s: ssd_reference(*s, chunk=Q)
+                          for s in sets[:2]], iters=4)
+        flops = ssd_flops(B, T, H, P, 1, N, Q)
+        t = timing[name] = dict(ms=ms, call_ms=call, plain_ms=plain,
+                                library_ms=None,
+                                bound=bound_ms(nbytes, flops))
+        per_sm, blocks = ssd_occupancy(H, B, P, N, Q)
+        waves = blocks / (per_sm * torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        print(f"  {name} grid: {blocks} blocks (batch, head); the card holds "
+              f"{per_sm} an SM at once: {waves:.2f} waves")
+        print(f"  {name} [B{B} T{T} H{H} P{P} G1 N{N} chunk {Q}]: kernel "
+              f"{ms:.4f} ms (device, graph replay; {call:.4f} ms a call back "
+              f"to back), plain {plain:.4f} ms, bound {t['bound'][0]:.4f} ms "
+              f"({t['bound'][1]}: {nbytes / 1e6:.2f} MB at 3.35 TB/s, "
+              f"{flops / 1e9:.3f} GFLOP at the bf16 tensor-core rate), "
+              "library_ms none (no single PyTorch call computes the scan)")
+        del sets, fns
+    return errs, timing
 
 
 # ---------------------------------------------------------------------------
@@ -1221,7 +1340,8 @@ def ssd_kernel_phase():
 # ---------------------------------------------------------------------------
 # the registry op each arch's training holds against op=ref, and its counter
 TRAIN_OP = {"dense": ("attention", ops.flash_attention),
-            "ssm": ("ssd", ssd_ops.ssd_scan)}
+            "ssm": ("ssd", ssd_ops.ssd_scan),
+            "hybrid": ("ssd", ssd_ops.ssd_scan)}
 
 
 def train_checks(cfg, tol, run):
@@ -1230,6 +1350,8 @@ def train_checks(cfg, tol, run):
     batch and horizon.  Returns the rollout's batch."""
     L = cfg.n_layers
     op, counter = TRAIN_OP[cfg.family]
+    per_update = 2 * (attn_sites(cfg) if op == "attention" else
+                      ssd_layers(cfg))  # forward + recompute
     kern, plain = f"{op}=cuda", f"{op}=ref"
     env = make_token_lm(vocab=cfg.vocab, episode_len=run["horizon"],
                         device=DEV)
@@ -1283,9 +1405,9 @@ def train_checks(cfg, tol, run):
     print(f"  {L} layers: kernel route loss {mk['loss']:.6f} grad_norm "
           f"{mk['grad_norm']:.4f} ({nk} launches); {plain} loss "
           f"{mr['loss']:.6f} grad_norm {mr['grad_norm']:.4f} ({nr})")
-    if nk != 2 * L or nr != 0:
+    if nk != per_update or nr != 0:
         fail(f"{L} layers: {nk} kernel launches on the kernel route (want "
-             f"{2 * L}: forward + recompute), {nr} on the ref route")
+             f"{per_update}: forward + recompute), {nr} on the ref route")
     for k in ("loss", "grad_norm"):
         if not (math.isfinite(mk[k]) and math.isfinite(mr[k])):
             fail(f"{L} layers: non-finite {k}")
@@ -1335,27 +1457,33 @@ def lm_walls(work):
     return walls
 
 
-def lm_train_phase(arch, run, tol, argv_arch, log_dir):
-    """train.main at full width for ``run``'s steps, its launch counts, peak
-    memory and metrics, then ``train_checks`` at a 4-layer cut and at full
-    depth.  Returns (launches by kernel, profile spec)."""
+def lm_train_phase(arch, run, tol, log_dir):
+    """train.main --arch ``arch`` at full width (cut to ``run['layers']``
+    where given) for ``run``'s steps, its launch counts, peak memory and
+    metrics, then ``train_checks`` at each depth of ``tol``, shallowest
+    first.  Returns (launches by kernel, profile spec)."""
     cfg = get_config(arch)
+    full = cfg.n_layers
+    cut = ["--layers", str(run["layers"])] if "layers" in run else []
+    if cut:
+        cfg = dataclasses.replace(cfg, n_layers=run["layers"])
     L = cfg.n_layers
     log_dir = str(Path(log_dir) / arch)
     n_params = sum(p.numel() for p in bb.LM(cfg, device="meta",
                                              dtype=torch.float32).parameters())
-    print(f"slice phase: LM-PPO training (full-width {arch}, {L} layers, "
-          f"d_model {cfg.d_model}, vocab {cfg.vocab}, {n_params} params, "
-          f"batch {run['batch']}, horizon {run['horizon']}, {run['steps']} "
-          "steps)")
+    print(f"slice phase: LM-PPO training (full-width {arch}, {L} layers"
+          + (f" of {full}" if cut else "") + f" {bb.superblock_layout(cfg)} "
+          f"superblocks / layers each / tail, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {n_params} params, batch {run['batch']}, horizon "
+          f"{run['horizon']}, {run['steps']} steps)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_kernel_counters()
     t0 = t_phase = time.perf_counter()
-    params = train.main(argv_arch + [
-        "--full", "--device", "cuda", "--batch", str(run["batch"]),
-        "--horizon", str(run["horizon"]), "--steps", str(run["steps"]),
-        "--seed", str(SEED), "--log-dir", log_dir])
+    params = train.main(["--arch", arch, "--full", "--device", "cuda",
+                         "--batch", str(run["batch"]), "--horizon",
+                         str(run["horizon"]), "--steps", str(run["steps"]),
+                         "--seed", str(SEED), "--log-dir", log_dir] + cut)
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1363,17 +1491,15 @@ def lm_train_phase(arch, run, tol, argv_arch, log_dir):
     torch.cuda.empty_cache()
     print(f"  launches in the training run: {launches}; max_memory_allocated "
           f"{peak:.2f} GiB (limit {PEAK_GIB}); {wall:.1f} s")
-    steps, T = run["steps"], run["horizon"]
-    if cfg.family == "dense":
-        want = {"flash_attention": 2 * L * steps,
-                "flash_attention_decode": L * (T + 1) * steps}
-    else:
-        want = {"ssd_scan": 2 * L * steps}
+    steps, T, sites = run["steps"], run["horizon"], attn_sites(cfg)
+    want = {"ssd_scan": 2 * ssd_layers(cfg) * steps,
+            "flash_attention": 2 * sites * steps,
+            "flash_attention_decode": sites * (T + 1) * steps}
     want = {k: want.get(k, 0) for k in launches}
     if launches != want:
         fail(f"training launches {launches}, expected {want} (forward + "
-             "recompute a layer an update; a decode step a layer a rollout "
-             "step)")
+             "recompute a Mamba-2 layer and an attention site an update; a "
+             "decode step an attention site a rollout step)")
     if peak > PEAK_GIB:
         fail(f"training peak {peak:.2f} GiB > {PEAK_GIB} GiB")
     rows = [json.loads(ln) for ln in
@@ -1392,10 +1518,10 @@ def lm_train_phase(arch, run, tol, argv_arch, log_dir):
               f"update_s {r['update_s']:.3f}, loss {r['loss']:.5f}, "
               f"grad_norm {r['grad_norm']:.3f}, entropy {r['entropy']:.4f}")
     print("  checks on the same weights and first rollout")
-    train_checks(dataclasses.replace(cfg, n_layers=4), tol[4], run)
-    torch.cuda.empty_cache()
-    batch = train_checks(cfg, tol[L], run)
-    torch.cuda.empty_cache()
+    for depth in sorted(tol):
+        batch = train_checks(dataclasses.replace(cfg, n_layers=depth),
+                             tol[depth], run)
+        torch.cuda.empty_cache()
     work = lm_work(cfg, run, batch)
     walls = lm_walls(work)
     del work
@@ -2572,15 +2698,16 @@ def instance_checks(cfg, run, gen, errs, sensitivity):
 
 
 def instance_phase():
-    """Every attention instance of slice 6 against its plain version, then
+    """Every attention instance of slices 6 and 7 against its plain version, then
     its times at its config's serving shape.  Returns (errs, timing): the
     largest error and tolerance share by instance name, the timing by
     (instance name, config name)."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
     errs, timing = {}, {"grid": {}}
     shapes = [(slice6_cfg(a), SERVE6) for a in SLICE6] + \
-        [(get_smoke_config(a), SMOKE_SERVE) for a in SMOKE6]
-    sensitive = {"glm4-9b", "qwen2-moe-a2.7b", "mixtral-smoke"}
+        [(get_smoke_config(a), SMOKE_SERVE) for a in SMOKE6] + \
+        [(slice6_cfg(a), SERVE7[a]) for a in SLICE7]
+    sensitive = {"glm4-9b", "qwen2-moe-a2.7b", "mixtral-smoke"} | set(SLICE7)
     for cfg, run in shapes:
         instance_checks(cfg, run, gen, errs, cfg.name in sensitive)
     for cfg, run in shapes:
@@ -2731,14 +2858,15 @@ def serve_rows(log_dir):
             (Path(log_dir) / "serve.jsonl").read_text().splitlines()]
 
 
-def slice6_serve(arch, log_dir, rounds, continuous=False):
+def slice6_serve(arch, log_dir, rounds, continuous=False, run=SERVE6):
     """serve.main --full for ``arch`` (its DEPTH_CUT), ``rounds`` fixed
-    rounds at SERVE6, then the continuous run when asked; both entry points
-    must launch, one a layer a prefill and a decode step each; then the
-    route check at ROUTE_LAYERS layers.  Returns the launch counts by
-    instance name."""
+    rounds at ``run``, then the continuous run when asked; both entry points
+    must launch, once an attention site (``attn_sites``) a prefill and a
+    decode step each, and the SSD scan never (the prefill passes the cache
+    state); then the route check at ROUTE_CUT (ROUTE_LAYERS) layers.
+    Returns the launch counts by instance name."""
     cfg = slice6_cfg(arch)
-    L = cfg.n_layers
+    L, sites = cfg.n_layers, attn_sites(cfg)
     log_dir = str(Path(log_dir) / arch)
     cut = [] if arch not in DEPTH_CUT else ["--layers", str(L)]
     n_params = sum(p.numel() for p in bb.LM(cfg, device="meta",
@@ -2746,30 +2874,31 @@ def slice6_serve(arch, log_dir, rounds, continuous=False):
     print(f"slice phase: serving {arch} (full width, {L} layers"
           + (f" of {get_config(arch).n_layers}" if cut else "")
           + f", d_model {cfg.d_model}, {n_params} params in bf16) fixed rounds "
-          f"(batch {SERVE6['batch']}, prompt {SERVE6['prompt_len']}, gen "
-          f"{SERVE6['gen']}, {rounds} round{'s' if rounds > 1 else ''})")
+          f"(batch {run['batch']}, prompt {run['prompt_len']}, gen "
+          f"{run['gen']}, {rounds} round{'s' if rounds > 1 else ''})")
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_kernel_counters()
     toks = serve.main(["--arch", arch, "--full", "--device", "cuda", "--batch",
-                       str(SERVE6["batch"]), "--prompt-len",
-                       str(SERVE6["prompt_len"]), "--gen", str(SERVE6["gen"]),
+                       str(run["batch"]), "--prompt-len",
+                       str(run["prompt_len"]), "--gen", str(run["gen"]),
                        "--rounds", str(rounds), "--seed", str(SEED),
                        "--log-dir", log_dir] + cut)
     got = kernel_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     fixed = {"flash_attn_fwd": got["flash_attention"],
              "flash_attn_decode": got["flash_attention_decode"]}
-    want = {"flash_attn_fwd": L * rounds,
-            "flash_attn_decode": L * SERVE6["gen"] * rounds}
-    print(f"  launches in the fixed rounds: {fixed} (one a layer a prefill "
-          f"and a decode step: {want}); max_memory_allocated {peak:.2f} GiB")
+    want = {"flash_attn_fwd": sites * rounds,
+            "flash_attn_decode": sites * run["gen"] * rounds}
+    print(f"  launches in the fixed rounds: {fixed} (one an attention site, "
+          f"{sites} of {L} layers, a prefill and a decode step: {want}); "
+          f"max_memory_allocated {peak:.2f} GiB")
     if fixed != want or any(v for k, v in got.items()
                             if k not in ("flash_attention",
                                          "flash_attention_decode")):
         fail(f"{arch} fixed rounds: launches {got}, expected {want}")
-    if tuple(toks.shape) != (SERVE6["batch"], SERVE6["gen"]) or \
+    if tuple(toks.shape) != (run["batch"], run["gen"]) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.padded_vocab:
         fail(f"{arch} fixed rounds: bad tokens {tuple(toks.shape)}")
     for r in serve_rows(log_dir):
@@ -2814,11 +2943,13 @@ def slice6_serve(arch, log_dir, rounds, continuous=False):
         for k, v in cont.items():
             launches[instance(k, cfg)] += v
         torch.cuda.empty_cache()
-    route = dataclasses.replace(cfg, n_layers=ROUTE_LAYERS)
+    route = dataclasses.replace(cfg, n_layers=ROUTE_CUT.get(arch,
+                                                            ROUTE_LAYERS))
+    print(f"  route check at {route.n_layers} layers")
     if cfg.family == "moe":
         moe_route_check(route)
     else:
-        params, prompts = served_weights(route)
+        params, prompts = served_weights(route, run["prompt_len"])
         kernel_vs_ref(route, params, prompts, 8)
         del params, prompts
     torch.cuda.empty_cache()
@@ -2827,27 +2958,28 @@ def slice6_serve(arch, log_dir, rounds, continuous=False):
 
 
 def smoke_entry_points(log_dir):
-    """The entry points' smoke configs on the card: smoke mamba2 training
-    is refused before any weight is drawn, naming its SSD instance; the
-    others run, each launching its d_head 16 attention instances exactly
-    once a layer a prefill, a training forward and a decode step; serve's
-    default (smoke mamba2) serves one round and launches nothing.  Returns
+    """The entry points' smoke configs on the card, each launching its
+    kernel instances exactly as often as its path runs them: once an
+    attention site a prefill, a training forward (twice under remat) and a
+    decode step, and the SSD scan once a Mamba-2 layer a training forward
+    (the smoke mamba2 and zamba2: P 16, N 16, chunk 8); serve's default
+    (smoke mamba2) serves one round and launches nothing.  ``train --arch
+    whisper-medium`` is refused before any weight is drawn (its launcher
+    passes no encoder frames, as JAX's, whose train fails on them).  Returns
     the launch counts by instance name."""
     print("entry points: --smoke on cuda")
     held = torch.cuda.memory_allocated()
     try:
-        train.main(["--arch", "mamba2-1.3b", "--steps", "1"])
+        train.main(["--arch", "whisper-medium", "--steps", "1"])
     except ValueError as e:
         msg = str(e)
     else:
-        fail("train --arch mamba2-1.3b: --smoke ran on cuda")
-    if "--full" not in msg or "--device cpu" not in msg or \
-            "SSD scan (P 16, N 16, chunk 8)" not in msg or \
+        fail("train --arch whisper-medium: trained without encoder frames")
+    if "enc_frames=None" not in msg or \
             torch.cuda.memory_allocated() != held:
-        fail(f"train --arch mamba2-1.3b: --smoke on cuda not refused up "
-             f"front: {msg}")
-    print(f"  train --arch mamba2-1.3b: refused before any weight was drawn: "
-          f"{msg}")
+        fail(f"train --arch whisper-medium: not refused up front: {msg}")
+    print(f"  train --arch whisper-medium: refused before any weight was "
+          f"drawn: {msg}")
     launches = {}
     t_phase = time.perf_counter()
     sd = serve_decode.DEFAULTS
@@ -2857,23 +2989,35 @@ def smoke_entry_points(log_dir):
          ["--steps", "3"]),
         ("train --arch qwen2-moe-a2.7b", "train", "qwen2-moe-a2.7b",
          ["--arch", "qwen2-moe-a2.7b", "--steps", "3"]),
+        ("train --arch mamba2-1.3b", "train", "mamba2-1.3b",
+         ["--arch", "mamba2-1.3b", "--steps", "3"]),
+        ("train --arch zamba2-7b", "train", "zamba2-7b",
+         ["--arch", "zamba2-7b", "--steps", "3"]),
         ("serve --arch gemma2-2b", "serve", "gemma2-2b",
          ["--arch", "gemma2-2b", "--rounds", "1"]),
         ("serve_decode (default: smoke mixtral-8x7b)", "serve_decode",
          sd[sd.index("--arch") + 1], []),
         ("serve --arch granite-34b", "serve", "granite-34b",
-         ["--arch", "granite-34b", "--rounds", "1"])]
+         ["--arch", "granite-34b", "--rounds", "1"]),
+        ("serve --arch zamba2-7b", "serve", "zamba2-7b",
+         ["--arch", "zamba2-7b", "--rounds", "1"]),
+        ("serve --arch whisper-medium", "serve", "whisper-medium",
+         ["--arch", "whisper-medium", "--rounds", "1"]),
+        ("serve --arch llama-3.2-vision-90b", "serve", "llama-3.2-vision-90b",
+         ["--arch", "llama-3.2-vision-90b", "--rounds", "1"])]
     for label, entry, arch, argv in runs:
         cfg = get_smoke_config(arch)
-        L = cfg.n_layers
+        sites = attn_sites(cfg)
         zero_kernel_counters()
         run_dir = str(Path(log_dir) / f"smoke-{entry}-{arch}")
         if entry == "train":
             train.main(argv + ["--log-dir", run_dir])
             steps = int(argv[argv.index("--steps") + 1])
             horizon = default_train("horizon")
-            want = {"flash_attention": L * steps,
-                    "flash_attention_decode": L * (horizon + 1) * steps}
+            fwd = 2 if cfg.remat else 1
+            want = {"flash_attention": sites * fwd * steps,
+                    "flash_attention_decode": sites * (horizon + 1) * steps,
+                    "ssd_scan": ssd_layers(cfg) * fwd * steps}
             rows = [json.loads(ln) for ln in (Path(run_dir) / "progress.jsonl")
                     .read_text().splitlines()]
             ok = len(rows) == steps and all(
@@ -2888,8 +3032,8 @@ def smoke_entry_points(log_dir):
                 toks = serve_decode.main([])
             full = serve.build_parser().parse_args(argv or sd)
             rounds, b, gen = full.rounds, full.batch, full.gen
-            want = {"flash_attention": L * rounds,
-                    "flash_attention_decode": L * gen * rounds}
+            want = {"flash_attention": sites * rounds,
+                    "flash_attention_decode": sites * gen * rounds}
             ok = tuple(toks.shape) == (b, gen)
             what = (f"{rounds} round{'s' if rounds > 1 else ''} at batch {b}, "
                     f"prompt {full.prompt_len}, gen {gen}, tokens "
@@ -2899,10 +3043,7 @@ def smoke_entry_points(log_dir):
         print(f"  {label}: {what}; launches {got}")
         if not ok or got != want:
             fail(f"{label} on cuda: launches {got}, expected {want}")
-        for k, name in (("flash_attention", "flash_attn_fwd"),
-                        ("flash_attention_decode", "flash_attn_decode")):
-            key = instance(name, cfg)
-            launches[key] = launches.get(key, 0) + got[k]
+        add_by_instance(launches, cfg, got)
     zero_kernel_counters()
     toks = serve.main(["--rounds", "1"])
     got = kernel_launches()
@@ -2917,8 +3058,37 @@ def smoke_entry_points(log_dir):
     return launches
 
 
+def ssd_instance(cfg) -> str:
+    """The kernels line's name of ``cfg``'s SSD instance; mamba2-1.3b's
+    keeps the bare name."""
+    if (cfg.ssm_headdim, cfg.d_state) == (64, 128):
+        return "ssd_scan"
+    return f"ssd_scan P{cfg.ssm_headdim} N{cfg.d_state}"
+
+
+def add_by_instance(total, cfg, got):
+    """Add a run's launch counts by counter (``kernel_launches``) into
+    ``total`` under the kernels line's instance names of ``cfg``."""
+    names = {"flash_attention": lambda: instance("flash_attn_fwd", cfg),
+             "flash_attention_decode":
+                 lambda: instance("flash_attn_decode", cfg),
+             "ssd_scan": lambda: ssd_instance(cfg)}
+    for k, n in got.items():
+        if n:
+            key = names[k]()
+            total[key] = total.get(key, 0) + n
+
+
 def main() -> None:
-    t_start = time.perf_counter()
+    laps, mark = {}, [time.perf_counter()]
+    t_start = mark[0]
+
+    def lap(name):
+        """Charge the wall time since the last lap to phase ``name``."""
+        now = time.perf_counter()
+        laps[name] = laps.get(name, 0.0) + now - mark[0]
+        mark[0] = now
+
     card = smi()
     print(card)
     cap = torch.cuda.get_device_capability(0)
@@ -2938,21 +3108,23 @@ def main() -> None:
             if "Compiling entry function" in ln or "registers" in ln or \
                     "spill" in ln:
                 print("   ", ln.replace("ptxas info    : ", "").strip()[:150])
-
+    lap("2 build")
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions in
     torch.backends.cudnn.allow_tf32 = False         # full f32
     cfg = get_config("gemma2-2b")
     errs, used, timing = kernel_phase(cfg)
-    ssd_worst, ssd_timing = ssd_kernel_phase()
+    lap("3 attention")
+    ssd_errs, ssd_timing = ssd_kernel_phase()
+    lap("3 ssd")
     st_worst, st_timing = sum_tree_kernel_phase()
-    t6 = time.perf_counter()  # slice 6's phases: 3b, 3c, 5b, qwen2's profile
+    lap("3 sum tree")
     inst_errs, inst_timing = instance_phase()
-    print(f"  phase {time.perf_counter() - t6:.1f} s")
+    lap("3b instances")
 
     with tempfile.TemporaryDirectory() as log_dir:
         inst_launches = smoke_entry_points(log_dir)
         torch.cuda.empty_cache()
-        slice6_s = time.perf_counter() - t6
+        lap("3c smoke entry points")
         print("slice phase: fixed rounds (full-width gemma2-2b, bf16)")
         ops.flash_attention.launches = 0
         ops.flash_attention_decode.launches = 0
@@ -3002,32 +3174,51 @@ def main() -> None:
               f"{summary['decode_tok_per_sec']:.1f} tok/s, every request got "
               "its max_tokens")
         torch.cuda.empty_cache()
-        t = time.perf_counter()
+        lap("4-5 gemma2 serving")
         for arch in SLICE6:  # the slice's main path first, then the others
             main_path = arch == SLICE6[0]
             for k, v in slice6_serve(arch, log_dir, 2 if main_path else 1,
                                      continuous=main_path).items():
                 inst_launches[k] = inst_launches.get(k, 0) + v
-        slice6_s += time.perf_counter() - t
-        gemma_launches, gemma_training = lm_train_phase(
-            "gemma2-2b", GEMMA_TRAIN, GEMMA_TRAIN_TOL, [], log_dir)
+        lap("5b slice-6 serving")
+        for arch in SLICE7:  # the slice's main path first, then the others
+            main_path = arch == SLICE7[0]
+            for k, v in slice6_serve(arch, log_dir, 2 if main_path else 1,
+                                     continuous=main_path,
+                                     run=SERVE7[arch]).items():
+                inst_launches[k] = inst_launches.get(k, 0) + v
+        lap("5c slice-7 serving")
+        got, zamba_training = lm_train_phase("zamba2-7b", TRAIN7, TRAIN7_TOL,
+                                             log_dir)
+        add_by_instance(inst_launches, get_config("zamba2-7b"), got)
         torch.cuda.empty_cache()
+        lap("6b zamba2 training")
+        gemma_launches, gemma_training = lm_train_phase(
+            "gemma2-2b", GEMMA_TRAIN, GEMMA_TRAIN_TOL, log_dir)
+        torch.cuda.empty_cache()
+        lap("6a gemma2 training")
         ssm_serve_phase(log_dir)
         torch.cuda.empty_cache()
-        mamba_launches, training = lm_train_phase(
-            "mamba2-1.3b", TRAIN, TRAIN_TOL, ["--arch", "mamba2-1.3b"],
-            log_dir)
-        ssd_launches = mamba_launches["ssd_scan"]
+        lap("5a mamba2 serving")
+        got, training = lm_train_phase("mamba2-1.3b", TRAIN, TRAIN_TOL,
+                                       log_dir)
+        add_by_instance(inst_launches, get_config("mamba2-1.3b"), got)
         torch.cuda.empty_cache()
+        lap("6 mamba2 training")
         rl_launches, rl_work = rl_phase(log_dir)
         torch.cuda.empty_cache()
+        lap("7 rl")
         pg_work = pg_phase(log_dir)
         torch.cuda.empty_cache()
+        lap("8 pg")
         qpg_launches, qpg_work = qpg_phase(log_dir)
         torch.cuda.empty_cache()
+        lap("9 qpg")
         r2d1_work = r2d1_phase(log_dir)
         torch.cuda.empty_cache()
+        lap("10 r2d1")
         async_work = async_phase(log_dir)
+        lap("11 async")
 
     # last, because the profiler slows every later launch of the process
     print("profile: where the time goes (not the main path's counts)")
@@ -3035,15 +3226,15 @@ def main() -> None:
     profile_phase(cfg, params, prompts)
     del params, prompts
     torch.cuda.empty_cache()
-    t = time.perf_counter()
-    slice_cfg = slice6_cfg(SLICE6[0])
-    params, prompts = served_weights(slice_cfg)
-    profile_phase(slice_cfg, params, prompts)
-    del params, prompts
-    torch.cuda.empty_cache()
-    slice6_s += time.perf_counter() - t
-    profile_training(gemma_training)
-    profile_training(training)
+    for arch in (SLICE6[0], SLICE7[0]):
+        slice_cfg = slice6_cfg(arch)
+        params, prompts = served_weights(slice_cfg)
+        profile_phase(slice_cfg, params, prompts)
+        del params, prompts
+        torch.cuda.empty_cache()
+    lap("12 profile serving")
+    for spec in (gemma_training, training, zamba_training):
+        profile_training(spec)
     profile_ssd()
     profile_rl(rl_work)
     profile_pg(pg_work)
@@ -3055,6 +3246,7 @@ def main() -> None:
     fn, wall = async_work
     profile_work("async SAC learner update (hidden 64, batch 128)", fn, wall,
                  ASYNC["profile_updates"])
+    lap("12 profile training and RL")
     # the main path is the fixed rounds, the continuous run and the gemma2
     # training run (attention) and the mamba2 training run (ssd_scan); the
     # kernel-vs-ref comparisons between them do not count
@@ -3076,8 +3268,9 @@ def main() -> None:
             "library_ms": t["library_ms"]})
     # slice 6's instances, each timed at the first config that runs it
     # (instance_phase's order: the slice's main path first)
-    print(f"attention instance launches on the main path: {inst_launches} "
-          "(smoke entry points, slice-6 serving)")
+    print(f"instance launches on the main path: {inst_launches} (smoke "
+          "entry points, slice-6 and slice-7 serving, zamba2-7b and "
+          "mamba2-1.3b training)")
     primary = {}
     for (name, arch), t in inst_timing.items():
         primary.setdefault(name, (arch, t))
@@ -3094,12 +3287,19 @@ def main() -> None:
             "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
         print(f"  {name}: timed at {arch} [{t['shape']}], tolerance used "
               f"{inst_errs[name][1]:.3f}")
-    kernels.append({
-        "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
-        "replaces": SSD_TPU_KERNEL, "launches": ssd_launches,
-        "max_abs_err": ssd_worst["err"], "ms": ssd_timing["ms"],
-        "plain_ms": ssd_timing["plain_ms"], "bound_ms": ssd_timing["bound"][0],
-        "bound_by": ssd_timing["bound"][1], "library_ms": None})
+    # the SSD instances, launched by the mamba2-1.3b, zamba2-7b and smoke
+    # trainings
+    for name, t in ssd_timing.items():
+        if not inst_launches.get(name):
+            fail(f"{name} never launched on the main path: {inst_launches}")
+        kernels.append({
+            "name": name, "route": "cuda", "source": SSD_SOURCE,
+            "replaces": SSD_TPU_KERNEL, "launches": inst_launches[name],
+            "max_abs_err": ssd_errs[name][0], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": None})
+        print(f"  {name}: {inst_launches[name]} launches, tolerance used "
+              f"{ssd_errs[name][1]:.3f}")
     # the main path's shape: the rainbow example's tree (8192 leaves, 64)
     t = st_timing[(8192, 64)]
     rl_launches.update(qpg_launches)
@@ -3110,8 +3310,9 @@ def main() -> None:
         "max_abs_err": st_worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
         "library_ms": t["library_ms"]})
-    print(f"slice 6's phases (3b, 3c, 5b and qwen2's profile) {slice6_s:.1f} "
-          f"s; total {time.perf_counter() - t_start:.1f} s")
+    print("phase walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                      laps.items())
+          + f"; total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -136,7 +136,8 @@ class PPO:
 
 def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,
                            value_coeff=0.5, entropy_coeff=0.01,
-                           n_microbatches: int = 1, aux_coeff: float = 0.01):
+                           n_microbatches: int = 1, aux_coeff: float = 0.01,
+                           img_len: int = 0, enc_len: int = 0):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics).
 
@@ -144,6 +145,9 @@ def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,
       tokens (B, T) int32        observations = prev tokens
       actions (B, T) int32       sampled next tokens
       logp_old, advantage, return_ (B, T) f32
+      [+ img_embed (B, I, D) when img_len (vlm); enc_frames (B, S, D) when
+       enc_len (encdec): passed to forward_train as img / enc_frames, as
+       JAX's; with neither, forward_train gets none]
 
     ``params`` is an ``LM`` with f32 master weights that require grad.
     Microbatch gradient accumulation bounds activation memory; gradients
@@ -152,7 +156,12 @@ def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,
     """
 
     def loss_fn(params, mb):
-        hidden, aux = bb.forward_train(params, mb["tokens"], cfg)
+        kw = {}
+        if img_len:
+            kw["img"] = mb["img_embed"]
+        if enc_len:
+            kw["enc_frames"] = mb["enc_frames"]
+        hidden, aux = bb.forward_train(params, mb["tokens"], cfg, **kw)
         logits = bb.lm_logits(params, hidden, cfg)
         value = bb.value_out(params, hidden)
         logits = logits.to(F32)
@@ -184,10 +193,13 @@ def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,
             total, aux = loss_fn(params, mb)
             with torch.no_grad():
                 # g / n summed in f32, as JAX's 0 + g1/n + g2/n + ...; at
-                # n = 1 the gradients themselves, without a copy
+                # n = 1 the gradients themselves, without a copy.  A leaf
+                # the loss does not reach (the hybrid's shared block when a
+                # depth cut leaves no superblock) gets zeros, as in JAX
                 g = [gi.to(F32) if n_microbatches == 1
                      else gi.to(F32) / n_microbatches
-                     for gi in torch.autograd.grad(total, leaves)]
+                     for gi in torch.autograd.grad(total, leaves,
+                                                   materialize_grads=True)]
                 grads = g if grads is None else [a.add_(b)
                                                  for a, b in zip(grads, g)]
             part = total.detach() / n_microbatches

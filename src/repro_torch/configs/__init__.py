@@ -2,10 +2,10 @@
 
 Each module defines ``config()`` (the exact published configuration) and
 ``smoke_config()`` (a reduced same-family configuration for CPU tests).
-Only the archs the PyTorch port runs are listed: the dense configs
-(gemma2-2b, glm4-9b, phi3-mini-3.8b, granite-34b), the moe ones
-(qwen2-moe-a2.7b, mixtral-8x7b) and mamba2-1.3b; the rest of the JAX
-package's zoo is still to be ported (see ROADMAP.md).
+Every arch of the JAX package's zoo: the dense configs (gemma2-2b,
+glm4-9b, phi3-mini-3.8b, granite-34b), the moe ones (qwen2-moe-a2.7b,
+mixtral-8x7b), mamba2-1.3b (ssm), zamba2-7b (hybrid),
+llama-3.2-vision-90b (vlm) and whisper-medium (encdec).
 """
 from __future__ import annotations
 
@@ -15,23 +15,29 @@ from ..models.config import ModelConfig
 
 ARCH_IDS = (
     "mamba2_1p3b",
+    "llama32_vision_90b",
     "qwen2_moe_a2p7b",
     "mixtral_8x7b",
     "gemma2_2b",
     "glm4_9b",
     "granite_34b",
     "phi3_mini_3p8b",
+    "whisper_medium",
+    "zamba2_7b",
 )
 
 # public ids -> module names
 ALIASES = {
     "mamba2-1.3b": "mamba2_1p3b",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
     "mixtral-8x7b": "mixtral_8x7b",
     "gemma2-2b": "gemma2_2b",
     "glm4-9b": "glm4_9b",
     "granite-34b": "granite_34b",
     "phi3-mini-3.8b": "phi3_mini_3p8b",
+    "whisper-medium": "whisper_medium",
+    "zamba2-7b": "zamba2_7b",
 }
 
 

@@ -17,7 +17,8 @@
 //   head h / (H / Hkv); KV heads are never repeated.  (A query row with no
 //   valid key at all gets 0 here; the reference averages v over every key.)
 //
-// Instances: prefill at head dims 16, 96, 128 and 256 (any H / Hkv); decode
+// Instances: prefill at head dims 16, 64, 96, 112, 128 and 256 (any
+// H / Hkv); decode
 // at the (head dim, query heads a KV head) pairs of the ported configs,
 // listed at the C interface below.  The Pallas kernel takes any shape
 // through its BlockSpecs; here each shape is a template instance, and the
@@ -34,9 +35,10 @@
 //     from registers in the A-operand layout, V MN-major through the
 //     transpose bit, one m64n{dh} wgmma a 16-key step).  Shared memory holds
 //     every tile as column blocks of CB head dims, CB the widest swizzle
-//     atom that divides dh (64 dims in the 128-byte swizzle at dh 128 and
-//     256, 32 in the 64-byte swizzle at dh 96, 16 in the 32-byte swizzle at
-//     dh 16): TMA writes that swizzle and the wgmma descriptors read it, so
+//     atom that divides dh (64 dims in the 128-byte swizzle at dh 64, 128
+//     and 256, 32 in the 64-byte swizzle at dh 96, 16 in the 32-byte
+//     swizzle at dh 16 and at dh 112, whose 224-byte rows take seven): TMA
+//     writes that swizzle and the wgmma descriptors read it, so
 //     the layout, the boxes and the descriptors are functions of dh alone.
 //     The 4-D tensor maps (dh, heads, seq, batch) zero-fill rows past T or
 //     S, so ragged tiles need no padding and never reach the next sequence.
@@ -59,13 +61,16 @@
 //       - G <= 4 (flash_decode_kernel): the arithmetic stays on the CUDA
 //         cores.  A key's row is split over LPK lanes of EPL <= 8 head dims
 //         each (one 16-byte load at EPL 8), so a warp reads 32 / LPK keys at
-//         once; a block fits in <= 85 registers and 66 KB of shared memory
-//         where G * EPL <= 16, so three share an SM.
-//       - G >= 16 (flash_decode_mma_kernel): G query rows per key make the
+//         once (at dh 112, 14 lanes of 8 dims in a group of 16); a block
+//         fits in <= 85 registers and 66 KB of shared memory where
+//         G * EPL <= 16, so three share an SM.
+//       - G >= 8 (flash_decode_mma_kernel): G query rows per key make the
 //         product worth the tensor cores.  The G query heads of a KV head
-//         are the M of mma.sync m16n8k16 products (G / 16 row tiles), a warp
-//         takes one row tile and 16 keys of each 64-key stage, scores and
-//         P V on the tensor cores, P kept in registers between them.
+//         are the M of mma.sync m16n8k16 products (G / 16 row tiles; at G 8
+//         one tile half filled, its upper rows zero), a warp takes one row
+//         tile and 16 keys of each 64-key stage, scores and P V on the
+//         tensor cores, P kept in registers between them.  (At G 8 the
+//         CUDA-core kernel would hold 2 x 64 floats of q and acc a lane.)
 //
 // C interface: every entry point returns a cudaError_t (0 on success) taken
 // with cudaGetLastError() right after the launch; the Python wrapper raises
@@ -236,6 +241,25 @@ struct WgmmaPV<16> {
 };
 
 template <>
+struct WgmmaPV<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
 struct WgmmaPV<96> {
   static __device__ __forceinline__ void run(float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b) {
     asm volatile(
@@ -253,6 +277,31 @@ struct WgmmaPV<96> {
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
         "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaPV<112> {
+  static __device__ __forceinline__ void run(float (&d)[56], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55"
+        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
   }
 };
@@ -692,17 +741,31 @@ constexpr int kDecThreads = kDecWarps * 32;
 constexpr int kDecStages = 4;
 
 // Lanes a key: the fewest (a power of two) that leave each lane at most 8
-// head dims, one 16-byte load at 8.
+// head dims in whole bf16 pairs, one 16-byte load at 8.  Where no power of
+// two does (dh 112: 16 lanes of 7), a key takes dh / 8 lanes of 8 dims and
+// its group is padded to the next power of two, whose last lanes hold
+// zeros (dh 112: 14 lanes of 16), so the shuffles still reduce over a
+// power of two.
+constexpr bool whole_pairs(int dh, int l) { return dh % l == 0 && dh / l <= 8 && (dh / l) % 2 == 0; }
+
 constexpr int lanes_per_key(int dh) {
   int l = 1;
-  while (dh / l > 8 || dh % l) l *= 2;
+  while (l < 32 && !whole_pairs(dh, l)) l *= 2;
+  if (whole_pairs(dh, l)) return l;
+  l = 1;
+  while (l < dh / 8) l *= 2;
   return l;
+}
+
+constexpr int dims_per_lane(int dh) {
+  return whole_pairs(dh, lanes_per_key(dh)) ? dh / lanes_per_key(dh) : 8;
 }
 
 template <int DH, int G>
 struct DecSmem {
   static constexpr int LPK = lanes_per_key(DH);
-  static constexpr int EPL = DH / LPK;             // head dims a lane
+  static constexpr int EPL = dims_per_lane(DH);   // head dims a lane
+  static constexpr int ACTIVE = DH / EPL;         // lanes of a key's group that hold dims
   static constexpr int KPW = 32 / LPK;             // sub-warps a warp
   static constexpr int TILE = kDecWarps * 2 * KPW;  // keys a ring stage
   // ring: [stage][K, V][TILE][DH] bf16
@@ -711,7 +774,8 @@ struct DecSmem {
   // three blocks an SM (<= 85 registers) where a lane's q and acc fit, two
   // otherwise
   static constexpr int MIN_BLOCKS = G * EPL <= 16 ? 3 : 2;
-  static_assert(LPK <= 32 && EPL % 2 == 0 && DH % 8 == 0, "lanes of whole bf16 pairs");
+  static_assert(LPK <= 32 && ACTIVE <= LPK && EPL % 2 == 0 && DH % 8 == 0,
+                "lanes of whole bf16 pairs");
   static_assert(BYTES >= (kDecWarps * G * (DH + 2)) * 4, "warp partials reuse the ring");
 };
 
@@ -757,6 +821,7 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sub = lane / LPK, li = lane % LPK;
+  const bool on = li < L::ACTIVE;  // this lane holds head dims (the others zeros)
   const int n = min(S, kv_len[b]);
   const int s_begin = split * chunk;
   const int s_end = min(n, s_begin + chunk);  // empty split: s_end <= s_begin
@@ -789,7 +854,14 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + ((long)b * H + (long)hk * G) * DH + li * EPL;
   float qf[G][EPL];
 #pragma unroll
-  for (int gi = 0; gi < G; ++gi) load_row<EPL>(qb + gi * DH, qf[gi]);
+  for (int gi = 0; gi < G; ++gi) {
+    if (on) {
+      load_row<EPL>(qb + gi * DH, qf[gi]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) qf[gi][e] = 0.f;
+    }
+  }
   float m[G], l[G], acc[G][EPL];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
@@ -817,7 +889,7 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float kf[2][EPL];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        if (i == 0 ? has0 : has1) {
+        if (on && (i == 0 ? has0 : has1)) {
           load_row<EPL>(stage + (r0 + i) * DH + li * EPL, kf[i]);
         } else {  // the slot was not loaded: keep its garbage out of the dot
 #pragma unroll
@@ -864,7 +936,7 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float vf[2][EPL];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      if (i == 0 ? has0 : has1) {
+      if (on && (i == 0 ? has0 : has1)) {
         load_row<EPL>(stage + (TILE + r0 + i) * DH + li * EPL, vf[i]);
       } else {  // p is 0, but 0 * garbage could be NaN
 #pragma unroll
@@ -911,8 +983,10 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         w_m[warp * G + gi] = m[gi];
         w_l[warp * G + gi] = l[gi];
       }
+      if (on) {
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) w_acc[(warp * G + gi) * DH + li * EPL + e] = acc[gi][e];
+        for (int e = 0; e < EPL; ++e) w_acc[(warp * G + gi) * DH + li * EPL + e] = acc[gi][e];
+      }
     }
   }
   __syncthreads();
@@ -938,7 +1012,7 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                     out + ((long)b * H + (long)hk * G) * DH);
 }
 
-// -- G >= 16: the tensor cores ---------------------------------------------
+// -- G >= 8: the tensor cores ----------------------------------------------
 // mma.sync m16n8k16 (bf16 in, f32 accumulate).  Fragments, with g = lane / 4
 // and t = lane % 4: A (16 x 16) {row g, cols 2t, 2t+1}, {row g+8, 2t..},
 // {row g, 2t+8..}, {row g+8, 2t+8..}; B (16 x 8) {rows 2t, 2t+1 of col g},
@@ -956,7 +1030,7 @@ constexpr int kMmaStages = 3;
 
 template <int DH, int G>
 struct DecMmaSmem {
-  static constexpr int MT = G / 16;  // row tiles of query heads
+  static constexpr int MT = (G + 15) / 16;  // row tiles of query heads (G 8: half of one)
   static constexpr int WARPS = MT * kMmaKeyGroups;
   static constexpr int THREADS = WARPS * 32;
   static constexpr int PITCH = DH + 8;  // elements a row in shared memory
@@ -964,7 +1038,8 @@ struct DecMmaSmem {
   static constexpr int RING_BYTES = kMmaStages * STAGE_ELEMS * 2;
   static constexpr int PART_BYTES = WARPS * 16 * (DH + 2) * 4;
   static constexpr int BYTES = RING_BYTES > PART_BYTES ? RING_BYTES : PART_BYTES;
-  static_assert(G % 16 == 0 && DH % 16 == 0 && THREADS <= 1024, "16-row tiles, 16-dim steps");
+  static_assert((G % 16 == 0 || G == 8) && DH % 16 == 0 && THREADS <= 1024,
+                "16-row tiles (rows G..15 of a half tile zero), 16-dim steps");
 };
 
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -1041,16 +1116,19 @@ flash_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int t = 0; t < kMmaStages - 1; ++t) issue(t);
 
-  // this warp's 16 query rows as A fragments, one per 16-dim k-step
+  // this warp's 16 query rows as A fragments, one per 16-dim k-step; rows
+  // past G (the upper half of G 8's one tile) are zeros, their outputs
+  // never written
+  const bool has_r0 = mt * 16 + g < G, has_r1 = mt * 16 + g + 8 < G;
   const bf16* q0 = q + ((long)b * H + (long)hk * G + mt * 16 + g) * DH + 2 * t4;
   const bf16* q1 = q0 + 8 * DH;
   uint32_t qa[KSTEPS][4];
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) {
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(q0 + 16 * kk);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(q1 + 16 * kk);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(q0 + 16 * kk + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(q1 + 16 * kk + 8);
+    qa[kk][0] = has_r0 ? *reinterpret_cast<const uint32_t*>(q0 + 16 * kk) : 0u;
+    qa[kk][1] = has_r1 ? *reinterpret_cast<const uint32_t*>(q1 + 16 * kk) : 0u;
+    qa[kk][2] = has_r0 ? *reinterpret_cast<const uint32_t*>(q0 + 16 * kk + 8) : 0u;
+    qa[kk][3] = has_r1 ? *reinterpret_cast<const uint32_t*>(q1 + 16 * kk + 8) : 0u;
   }
   float o[NT][4];
 #pragma unroll
@@ -1186,8 +1264,8 @@ flash_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 out + ((long)b * H + (long)hk * G) * DH);
 }
 
-// The decode instance's kernel: the tensor-core one at G >= 16.
-template <int DH, int G, bool MMA = G % 16 == 0>
+// The decode instance's kernel: the tensor-core one at G >= 8.
+template <int DH, int G, bool MMA = (G >= 8)>
 struct DecodeInstance;
 
 template <int DH, int G>
@@ -1281,9 +1359,10 @@ cudaError_t max_clusters(int n_split, int* clusters) {
 // The instances: prefill at every head dim of the ported configs, decode at
 // every (head dim, query heads a KV head) pair.  The Python wrapper's
 // HEAD_DIMS and DECODE_INSTANCES name the same ones.
-#define REPRO_FWD_INSTANCES(X) X(16) X(96) X(128) X(256)
-#define REPRO_DECODE_INSTANCES(X) \
-  X(16, 1) X(16, 2) X(16, 4) X(96, 1) X(128, 1) X(128, 4) X(128, 16) X(128, 48) X(256, 2)
+#define REPRO_FWD_INSTANCES(X) X(16) X(64) X(96) X(112) X(128) X(256)
+#define REPRO_DECODE_INSTANCES(X)                                                    \
+  X(16, 1) X(16, 2) X(16, 4) X(64, 1) X(96, 1) X(112, 1) X(128, 1) X(128, 4) X(128, 8) \
+  X(128, 16) X(128, 48) X(256, 2)
 
 extern "C" {
 

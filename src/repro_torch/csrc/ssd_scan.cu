@@ -43,12 +43,13 @@
 //   * One block of 512 threads per (batch, head) walks its chunks in order,
 //     as the TPU kernel's sequential grid axis does; 512 blocks at the
 //     training shape, one an SM.  Warp w owns the chunk's rows 16w..16w+15
-//     (y over all of P) and S^T rows 16 (w % 8).. over the columns 32 (w /
-//     8).. of P: the state's slices over P live in the registers of two
-//     groups of eight warps as mma accumulators for the whole scan; a bf16
-//     hi / lo copy in shared memory feeds C . S_prev.  Nothing but y and
-//     the final state goes to device memory, both staged through shared
-//     memory into whole rows.
+//     (y over all of P) and a 16-row by P N / 256-column block of S^T (at
+//     N 128: rows 16 (w % 8).., columns 32 (w / 8)..; at N 64: rows 16
+//     (w % 4).., columns 16 (w / 4)..): the state's slices over P live in
+//     the registers of the warps as mma accumulators for the whole scan; a
+//     bf16 hi / lo copy in shared memory feeds C . S_prev.  Nothing but y
+//     and the final state go to device memory, both staged through
+//     shared memory into whole rows.
 //   * C . B^T is recomputed inside the block, 16 x 32 at a time, and never
 //     stored: a scratch written once per (batch, group) would be pulled
 //     through L2 by every head's block (139 MB at the training shape for
@@ -58,8 +59,16 @@
 //     is double-buffered in shared memory for C . B^T and C . S_prev); rows
 //     past T arrive as zeros.  dt of the next chunk is read a chunk ahead.
 //
-// Built instance: head dim P 64, state N 128, chunk Q 256 -- mamba2-1.3b.
-// Any G dividing H works; T is any length (the last chunk is masked).
+// Built instances (P, N, Q) of the tensor-core kernel: (64, 128, 256) for
+// mamba2-1.3b and (64, 64, 256) for zamba2-7b.  The warps split S^T into
+// N / 16 row tiles and 16 / (N / 16) column groups of P, so at N 64 a warp
+// holds 16 columns of P (two n8 accumulators) where at N 128 it holds 32.
+// The smoke configs' (16, 16, 8) -- a chunk of 8 rows, under one 16-row
+// mma tile -- runs a second template, ssd_scan_small_kernel, on the CUDA
+// cores: one thread a state element (p, n), the chunk's C.B^T, decays and
+// dt in shared memory, every product in f32 (it moves a few KB a block; its
+// time is launch overhead).  Any G dividing H works; T is any length (the
+// last chunk is masked).
 //
 // C interface: ssd_scan_fwd returns a cudaError_t (0 on success) taken with
 // cudaGetLastError() right after the launch; the Python wrapper raises on
@@ -73,31 +82,46 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kP = 64;           // head dim
-constexpr int kN = 128;          // state dim
-constexpr int kQ = 256;          // chunk length
-constexpr int kWarps = kQ / 16;  // one warp per 16 rows of the chunk
-constexpr int kThreads = kWarps * 32;
-constexpr int kStep = 32;        // rows of a ring step: two 16-row k-steps
-constexpr int kStepsPerChunk = kQ / kStep;
-constexpr int kStages = 3;       // ring of steps
-constexpr int kRowN = kN + 8;    // C / B row stride in shared memory (bf16): 272 bytes
-constexpr int kRowP = kP + 8;    // x / S^T row stride (bf16): 144 bytes
+// The tensor-core kernel's layout at head dim P, state N and chunk Q.
+template <int P, int N, int Q>
+struct Tc {
+  static constexpr int kP = P;            // head dim
+  static constexpr int kN = N;            // state dim
+  static constexpr int kQ = Q;            // chunk length
+  static constexpr int kWarps = kQ / 16;  // one warp per 16 rows of the chunk
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kStep = 32;        // rows of a ring step: two 16-row k-steps
+  static constexpr int kStepsPerChunk = kQ / kStep;
+  static constexpr int kStages = 3;       // ring of steps
+  static constexpr int kRowN = kN + 8;    // C / B row stride in shared memory (bf16)
+  static constexpr int kRowP = kP + 8;    // x / S^T row stride (bf16): 144 bytes
+  // S^T (N x P) over the warps: N / 16 row tiles, kPG column groups of kPW
+  static constexpr int kNT = kN / 16;
+  static constexpr int kPG = kWarps / kNT;
+  static constexpr int kPW = kP / kPG;    // columns of P a warp holds
+  static constexpr int kJ8 = kPW / 8;     // its n8 accumulators
+  static constexpr int kCopyB = kStep * (kN / 8);    // threads copying a step's B
+  static constexpr int kCRows = kThreads / (kN / 8);  // C rows a load_c call copies
+
+  // the padding puts the eight 16-byte rows of every ldmatrix on distinct banks
+  static_assert((kRowN * 2 / 4) % 32 == 4 && (kRowP * 2 / 4) % 32 == 4, "bank-free ldmatrix rows");
+  static_assert(kP == 64 && kQ == 256, "y rows of 8 x 16 bytes; 16 warps over the chunk");
+  static_assert(kWarps % kNT == 0 && kPW % 16 == 0, "warps tile S^T in 16 x 16 blocks");
+  static_assert(kCopyB <= kThreads && kStep * (kP / 8) <= kThreads, "one copy of B, x a thread");
+  static_assert(kThreads % (kN / 8) == 0 && 64 % kCRows == 0, "whole C rows a load_c call");
+  static_assert(kP * (kN + 4) * 4 <= 2 * kN * kRowP * 2, "the final state fits S_prev's copy");
+  static_assert(kP * 2 <= kRowN * 2 && kP * 2 == 8 * 16, "a y row is 8 x 16 bytes in a C row");
+
+  // Shared memory, in bytes: C of two chunks; the ring (B and x of a 32-row
+  // step); S_prev^T hi and lo; cumsum, dt and w of the chunk.
+  static constexpr int kCBytes = kQ * kRowN * 2;                          // one chunk of C
+  static constexpr int kStageBytes = kStep * kRowN * 2 + kStep * kRowP * 2;
+  static constexpr int kSBytes = kN * kRowP * 2;                          // S^T hi or lo
+  static constexpr int kSmem =
+      2 * kCBytes + kStages * kStageBytes + 2 * kSBytes + (3 * kQ + 16) * 4;
+};
+
 constexpr float kLog2e = 1.4426950408889634f;
-
-// the padding puts the eight 16-byte rows of every ldmatrix on distinct banks
-static_assert((kRowN * 2 / 4) % 32 == 4 && (kRowP * 2 / 4) % 32 == 4, "bank-free ldmatrix rows");
-static_assert(kWarps == 2 * (kN / 16) && kP == 2 * 32, "two groups of warps over S^T's n and p");
-static_assert(kStep * (kN / 8) == kThreads && kStep * (kP / 8) <= kThreads, "one copy of B, x a thread");
-static_assert(kP * (kN + 4) * 4 <= 2 * kN * kRowP * 2, "the final state fits S_prev's copy");
-static_assert(kP * 2 <= kRowN * 2 && kP * 2 == 8 * 16, "a y row is 8 x 16 bytes in a C row");
-
-// Shared memory, in bytes: C of two chunks; the ring (B and x of a 16-row
-// step); S_prev^T hi and lo; cumsum, dt and w of the chunk.
-constexpr int kCBytes = kQ * kRowN * 2;                       // one chunk of C
-constexpr int kStageBytes = kStep * kRowN * 2 + kStep * kRowP * 2;  // 13312
-constexpr int kSBytes = kN * kRowP * 2;                       // S^T hi or lo
-constexpr int kSmem = 2 * kCBytes + kStages * kStageBytes + 2 * kSBytes + (3 * kQ + 16) * 4;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -182,20 +206,27 @@ __device__ __forceinline__ void scale_split(uint32_t r, float s0, float s1, uint
 // ---------------------------------------------------------------------------
 // Grid (H, B), 512 threads: block (h, b) owns x[b, :, h, :], y[b, :, h, :]
 // and S[b, h, :, :].  Thread (warp w, gr = lane / 4, t4 = lane % 4) holds,
-// as mma accumulators:
+// as mma accumulators (kNT = N / 16 row tiles of S^T, kPW of its columns a
+// warp: 8 and 32 at N 128, 4 and 16 at N 64):
 //   acc[j]:  y rows 16w + gr (+8), columns 8j + 2 t4 (+1) of the chunk;
-//   sacc[j]: S^T rows n = 16 (w % 8) + gr (+8), columns p = 32 (w / 8) + 8j
-//            + 2 t4 (+1), for the whole scan.
+//   sacc[j]: S^T rows n = 16 (w % kNT) + gr (+8), columns p = kPW (w / kNT)
+//            + 8j + 2 t4 (+1), for the whole scan.
 // Per chunk: the cumsum; acc = y_off = (C . S_prev) exp(cum_q); then per
 // 32-row step J from the ring, for its two 16-row halves (k-steps 2J and
 // 2J + 1): S^T += (B w)^T x, and for the halves on or above my rows (k-step
 // <= w) C.B^T of my 16 rows x the half, M from it, y += M x.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 1)
+template <int P, int N, int Q>
+__global__ void __launch_bounds__(Tc<P, N, Q>::kThreads, 1)
 ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const bf16* __restrict__ Bm,
                 const bf16* __restrict__ Cm, bf16* __restrict__ y,
                 float* __restrict__ state, int T, int H, int G, int nC) {
+  using L = Tc<P, N, Q>;
+  constexpr int kP = L::kP, kN = L::kN, kQ = L::kQ, kThreads = L::kThreads;
+  constexpr int kStep = L::kStep, kStepsPerChunk = L::kStepsPerChunk, kStages = L::kStages;
+  constexpr int kRowN = L::kRowN, kRowP = L::kRowP, kCBytes = L::kCBytes;
+  constexpr int kStageBytes = L::kStageBytes, kNT = L::kNT, kPW = L::kPW, kJ8 = L::kJ8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* c_buf = reinterpret_cast<bf16*>(smem);                        // [2][kQ][kRowN]
   unsigned char* ring = smem + 2 * kCBytes;                            // [kStages] B, x
@@ -210,19 +241,20 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int g = h / (H / G);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gr = lane >> 2, t4 = lane & 3;
-  const int sn = 16 * (warp % 8), sp = 32 * (warp / 8);  // this warp's S^T block
+  const int sn = 16 * (warp % kNT), sp = kPW * (warp / kNT);  // this warp's S^T block
   const float a_h = A[h];
   const int n_steps = kStepsPerChunk * (nC - 1) + (T - (nC - 1) * kQ + kStep - 1) / kStep;
 
   // Copies: step s (rows 32 s .. 32 s + 31 of the sequence, since a chunk
-  // is 8 steps) puts 32 rows of B (every thread, 16 bytes) and of x
-  // (threads 0-255) into its ring stage; the first four steps of a chunk
-  // also put 64 rows each of the next chunk's C into the other C buffer.
+  // is 8 steps) puts 32 rows of B (threads 0 .. 4N - 1, 16 bytes each) and
+  // of x (threads 0-255) into its ring stage; the first four steps of a
+  // chunk also put 64 rows each of the next chunk's C into the other C
+  // buffer.
   // Each thread keeps its own source rows and columns; rows past T arrive
   // as zeros.
   const long row_bc = (long)G * kN;  // elements from one B / C row to the next
-  const int cb_r = tid / 16, cb_col = (tid % 16) * 8;  // B and C
-  const int cx_r = tid / 8, cx_col = (tid % 8) * 8;    // x
+  const int cb_r = tid / (kN / 8), cb_col = (tid % (kN / 8)) * 8;  // B and C
+  const int cx_r = tid / (kP / 8), cx_col = (tid % (kP / 8)) * 8;  // x
   const bf16* src_b = Bm + ((long)b * T * G + g) * kN + cb_col;
   const bf16* src_c = Cm + ((long)b * T * G + g) * kN + cb_col;
   const bf16* src_x = x + ((long)b * T * H + h) * kP + cx_col;
@@ -233,7 +265,8 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     if (s < n_steps) {
       const uint32_t st = (s % kStages) * kStageBytes;
       const int row = kStep * s + cb_r;
-      cp_async16(dst_b + st, src_b + (row < T ? row : 0) * row_bc, row < T);
+      if (tid < L::kCopyB)
+        cp_async16(dst_b + st, src_b + (row < T ? row : 0) * row_bc, row < T);
       if (tid < kStep * (kP / 8)) {
         const int rx = kStep * s + cx_r;
         cp_async16(dst_x + st, src_x + (rx < T ? rx : 0) * (long)H * kP, rx < T);
@@ -241,19 +274,19 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     }
     cp_async_commit();
   };
-  auto load_c = [&](int c, int r0) {  // C rows r0 + tid / 16 of chunk c (no commit)
+  auto load_c = [&](int c, int r0) {  // C rows r0 + cb_r of chunk c (no commit)
     const int r = r0 + cb_r, row = c * kQ + r;
     cp_async16(dst_c + (c & 1) * kCBytes + r0 * kRowN * 2, src_c + (row < T ? row : 0) * row_bc,
                row < T);
   };
 
-  float sacc[4][4];
+  float sacc[kJ8][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < kJ8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
 
-  for (int r0 = 0; r0 < kQ; r0 += 32) load_c(0, r0);
+  for (int r0 = 0; r0 < kQ; r0 += L::kCRows) load_c(0, r0);
   cp_async_commit();
   for (int s = 0; s < kStages - 1; ++s) load_step(s);
   int s = 0;  // step index over the whole scan
@@ -295,7 +328,7 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     const float cr2 = c2_s[16 * warp];  // of my row tile's first row
     const float e_last = expf(cum_last);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kJ8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sacc[j][e] *= e_last;
 
@@ -345,8 +378,8 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       cp_async_wait<kStages - 2>();
       __syncthreads();
       if (c + 1 < nC && J < 4) {
-        load_c(c + 1, 64 * J);
-        load_c(c + 1, 64 * J + 32);
+#pragma unroll
+        for (int r = 0; r < 64; r += L::kCRows) load_c(c + 1, 64 * J + r);
       }
       load_step(s + kStages - 1);
       const bf16* b_t = reinterpret_cast<const bf16*>(ring + (s % kStages) * kStageBytes);
@@ -356,11 +389,11 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
         const int k0 = kStep * J + 16 * h2 + 2 * t4;
-        uint32_t a[4], hi[4], lo[4], xb[2][4];
+        uint32_t a[4], hi[4], lo[4], xb[kPW / 16][4];
         ldsm_x4_t(a, smem_u32(b_t + (16 * h2 + (lane & 7) + (lane >> 4) * 8) * kRowN + sn +
                               ((lane >> 3) & 1) * 8));
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
+        for (int jj = 0; jj < kPW / 16; ++jj)
           ldsm_x4_t(xb[jj], smem_u32(x_t + (16 * h2 + (lane & 15)) * kRowP + sp + jj * 16 +
                                      (lane >> 4) * 8));
         const float w0 = w_s[k0], w1 = w_s[k0 + 1], w8 = w_s[k0 + 8], w9 = w_s[k0 + 9];
@@ -369,7 +402,7 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         scale_split(a[2], w8, w9, hi[2], lo[2]);
         scale_split(a[3], w8, w9, hi[3], lo[3]);
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
+        for (int jj = 0; jj < kPW / 16; ++jj) {
           mma2(sacc[2 * jj], hi, lo, xb[jj][0], xb[jj][1]);
           mma2(sacc[2 * jj + 1], hi, lo, xb[jj][2], xb[jj][3]);
         }
@@ -463,7 +496,7 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     // 8. S_new as the next chunk's S_prev (hi / lo); read after its barriers
     if (c + 1 < nC) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kJ8; ++j)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int o = (sn + gr + 8 * hh) * kRowP + sp + 8 * j + 2 * t4;
@@ -477,11 +510,11 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   cp_async_wait<0>();  // (only empty groups are left)
 
   // the final state, f32, through shared memory (S_prev's copy is free
-  // now): state[b, h, p, n] in whole 512-byte rows, 16 bytes a lane
+  // now): state[b, h, p, n] in whole rows of 4N bytes, 16 bytes a lane
   __syncthreads();  // every warp is done with S_prev
   float* st_s = reinterpret_cast<float*>(s_hi);  // [kP][kN + 4]
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < kJ8; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int n = sn + gr + 8 * hh, p = sp + 8 * j + 2 * t4;
@@ -497,44 +530,176 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The CUDA-core kernel for chunks under one mma tile (the smoke configs'
+// P 16, N 16, chunk 8).  Grid (H, B), P * N threads: thread (p, n) owns
+// S[p, n] in shared memory.  Per chunk: x, B, C and dt of its Q rows into
+// shared memory (zeros past T); the cumsum of dt * A (one thread, Q adds);
+// M[q, k] = (C_q . B_k) exp(cum_q - cum_k) dt_k for k <= q (the exp only
+// below the diagonal); y_q = sum_k M[q, k] x_k + (C_q . S_prev) exp(cum_q);
+// then S = S exp(cum_last) + sum_k B_k x_k exp(cum_last - cum_k) dt_k.  All
+// in f32, as the plain version; y is rounded to bf16 once.
+// ---------------------------------------------------------------------------
+template <int P, int N, int Q>
+__global__ void __launch_bounds__(P * N)
+ssd_scan_small_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ A, const bf16* __restrict__ Bm,
+                      const bf16* __restrict__ Cm, bf16* __restrict__ y,
+                      float* __restrict__ state, int T, int H, int G, int nC) {
+  constexpr int kThreads = P * N;
+  static_assert(kThreads <= 1024 && Q * Q <= 4 * kThreads, "a thread a state element");
+  __shared__ float xs[Q][P], bs[Q][N], cs[Q][N], dts[Q], cum[Q], m[Q][Q];
+  __shared__ float st[P][N + 1];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, p = tid / N, n = tid % N;
+  const float a_h = A[h];
+  st[p][n] = 0.f;
+  for (int c = 0; c < nC; ++c) {
+    const int t0 = c * Q;
+    for (int i = tid; i < Q * P; i += kThreads) {
+      const int q = i / P, t = t0 + q;
+      xs[q][i % P] = t < T ? __bfloat162float(x[((long)(b * T + t) * H + h) * P + i % P]) : 0.f;
+    }
+    for (int i = tid; i < Q * N; i += kThreads) {
+      const int q = i / N, t = t0 + q;
+      const long o = ((long)(b * T + t) * G + g) * N + i % N;
+      bs[q][i % N] = t < T ? __bfloat162float(Bm[o]) : 0.f;
+      cs[q][i % N] = t < T ? __bfloat162float(Cm[o]) : 0.f;
+    }
+    if (tid < Q) dts[tid] = t0 + tid < T ? dt[(long)(b * T + t0 + tid) * H + h] : 0.f;
+    __syncthreads();
+    if (tid == 0) {
+      float v = 0.f;
+      for (int q = 0; q < Q; ++q) cum[q] = v += dts[q] * a_h;
+    }
+    __syncthreads();
+    for (int i = tid; i < Q * Q; i += kThreads) {
+      const int q = i / Q, k = i % Q;
+      float v = 0.f;
+      if (k <= q) {
+        for (int j = 0; j < N; ++j) v = fmaf(cs[q][j], bs[k][j], v);
+        v *= expf(cum[q] - cum[k]) * dts[k];
+      }
+      m[q][k] = v;
+    }
+    __syncthreads();
+    for (int i = tid; i < Q * P; i += kThreads) {
+      const int q = i / P, pp = i % P, t = t0 + q;
+      float off = 0.f;
+      for (int j = 0; j < N; ++j) off = fmaf(cs[q][j], st[pp][j], off);
+      float v = off * expf(cum[q]);
+      for (int k = 0; k <= q; ++k) v = fmaf(m[q][k], xs[k][pp], v);
+      if (t < T) y[((long)(b * T + t) * H + h) * P + pp] = __float2bfloat16_rn(v);
+    }
+    __syncthreads();  // every y read S_prev
+    const float cl = cum[Q - 1];
+    float v = st[p][n] * expf(cl);
+    for (int k = 0; k < Q; ++k) v = fmaf(bs[k][n] * xs[k][p], expf(cl - cum[k]) * dts[k], v);
+    st[p][n] = v;
+    __syncthreads();  // the chunk's rows are read before the next chunk's land
+  }
+  state[((long)b * H + h) * P * N + tid] = st[p][n];
+}
+
+// The launch of the (P, N, Q) instance: its kernel, threads and dynamic
+// shared memory (the attribute set once).
+template <int P, int N, int Q>
+struct Instance {
+  static const void* kernel() { return reinterpret_cast<const void*>(ssd_scan_kernel<P, N, Q>); }
+  static constexpr int kThreads = Tc<P, N, Q>::kThreads;
+  static constexpr int kSmem = Tc<P, N, Q>::kSmem;
+  static cudaError_t launch(dim3 grid, cudaStream_t st, const bf16* x, const float* dt,
+                            const float* A, const bf16* Bm, const bf16* Cm, bf16* y,
+                            float* state, int T, int H, int G) {
+    ssd_scan_kernel<P, N, Q><<<grid, kThreads, kSmem, st>>>(x, dt, A, Bm, Cm, y, state, T, H, G,
+                                                            (T + Q - 1) / Q);
+    return cudaGetLastError();
+  }
+};
+
+template <>
+struct Instance<16, 16, 8> {
+  static const void* kernel() {
+    return reinterpret_cast<const void*>(ssd_scan_small_kernel<16, 16, 8>);
+  }
+  static constexpr int kThreads = 16 * 16;
+  static constexpr int kSmem = 0;
+  static cudaError_t launch(dim3 grid, cudaStream_t st, const bf16* x, const float* dt,
+                            const float* A, const bf16* Bm, const bf16* Cm, bf16* y,
+                            float* state, int T, int H, int G) {
+    ssd_scan_small_kernel<16, 16, 8><<<grid, kThreads, 0, st>>>(x, dt, A, Bm, Cm, y, state, T,
+                                                                 H, G, (T + 7) / 8);
+    return cudaGetLastError();
+  }
+};
+
+template <int P, int N, int Q>
 cudaError_t set_smem() {
+  using I = Instance<P, N, Q>;
   static bool done = false;
-  if (done) return cudaSuccess;
+  if (done || I::kSmem == 0) return cudaSuccess;
   const cudaError_t err =
-      cudaFuncSetAttribute(ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      cudaFuncSetAttribute(I::kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, I::kSmem);
   done = err == cudaSuccess;
   return err;
 }
 
+template <int P, int N, int Q>
+cudaError_t launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
+                   void* y, void* state, int B, int T, int H, int G, cudaStream_t stream) {
+  cudaError_t err = set_smem<P, N, Q>();
+  if (err != cudaSuccess) return err;
+  return Instance<P, N, Q>::launch(
+      dim3(H, B), stream, static_cast<const bf16*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm),
+      static_cast<bf16*>(y), static_cast<float*>(state), T, H, G);
+}
+
+template <int P, int N, int Q>
+cudaError_t occupancy(int* blocks_per_sm) {
+  using I = Instance<P, N, Q>;
+  cudaError_t err = set_smem<P, N, Q>();
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, I::kernel(), I::kThreads,
+                                                       I::kSmem);
+}
+
 }  // namespace
+
+// The instances (head dim P, state N, chunk Q); the Python wrapper's
+// INSTANCES names the same ones.
+#define REPRO_SSD_INSTANCES(X) X(64, 128, 256) X(64, 64, 256) X(16, 16, 8)
 
 extern "C" {
 
 // x (B,T,H,P) bf16, dt (B,T,H) f32, A (H,) f32, Bm/Cm (B,T,G,N) bf16, all
 // contiguous; y (B,T,H,P) bf16 and state (B,H,P,N) f32 are written.  Only
-// P 64, N 128 and chunk 256 are built.
+// the (P, N, chunk) of REPRO_SSD_INSTANCES are built.
 int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
                  void* y, void* state, int B, int T, int H, int P, int G, int N, int chunk,
                  void* stream) {
-  if (P != kP || N != kN || chunk != kQ || G < 1 || H % G || B < 1 || T < 1)
-    return cudaErrorInvalidValue;
-  cudaError_t err = set_smem();
-  if (err != cudaSuccess) return err;
-  ssd_scan_kernel<<<dim3(H, B), kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), static_cast<bf16*>(y),
-      static_cast<float*>(state), T, H, G, (T + kQ - 1) / kQ);
-  return cudaGetLastError();
+  if (G < 1 || H % G || B < 1 || T < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_SSD_CASE(PP, NN, QQ) \
+  if (P == PP && N == NN && chunk == QQ) \
+    return launch<PP, NN, QQ>(x, dt, A, Bm, Cm, y, state, B, T, H, G, st);
+  REPRO_SSD_INSTANCES(REPRO_SSD_CASE)
+#undef REPRO_SSD_CASE
+  return cudaErrorInvalidValue;
 }
 
-// How many scan blocks one SM holds at once (the occupancy query; a
-// diagnostic, not used by the launch) and the grid's size in blocks.
-int ssd_scan_occupancy(int H, int B, int* blocks_per_sm, int* grid_blocks) {
-  cudaError_t err = set_smem();
-  if (err != cudaSuccess) return err;
+// How many scan blocks of the (P, N, chunk) instance one SM holds at once
+// (the occupancy query; a diagnostic, not used by the launch) and the
+// grid's size in blocks.
+int ssd_scan_occupancy(int P, int N, int chunk, int H, int B, int* blocks_per_sm,
+                       int* grid_blocks) {
   *grid_blocks = H * B;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, ssd_scan_kernel, kThreads,
-                                                       kSmem);
+#define REPRO_SSD_OCC(PP, NN, QQ) \
+  if (P == PP && N == NN && chunk == QQ) return occupancy<PP, NN, QQ>(blocks_per_sm);
+  REPRO_SSD_INSTANCES(REPRO_SSD_OCC)
+#undef REPRO_SSD_OCC
+  return cudaErrorInvalidValue;
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -9,7 +9,7 @@ function of the head dim; the C side builds the tensor maps on every call.
 into the splits of :func:`decode_split_plan` (a pure function of B, Hkv and
 S: it never reads ``kv_len``), one thread-block cluster per (batch, KV
 head) that merges its splits in the same launch; up to four query heads a
-KV head on the CUDA cores, 16 or more on the tensor cores.  Both take CUDA bf16 tensors only: they check
+KV head on the CUDA cores, 8 or more on the tensor cores.  Both take CUDA bf16 tensors only: they check
 device, dtype, shape, contiguity and alignment, raise on anything else,
 allocate the output with ``torch.empty``, launch one kernel on PyTorch's
 current stream without synchronising, and raise if the launch reports a
@@ -31,9 +31,10 @@ from .. import build
 # smoke configs for prefill, and each (head dim, query heads a KV head) pair
 # of theirs for decode.  A config that needs another shape adds its instance
 # there and its value here.
-HEAD_DIMS = (16, 96, 128, 256)
-DECODE_INSTANCES = frozenset({(16, 1), (16, 2), (16, 4), (96, 1), (128, 1),
-                              (128, 4), (128, 16), (128, 48), (256, 2)})
+HEAD_DIMS = (16, 64, 96, 112, 128, 256)
+DECODE_INSTANCES = frozenset({(16, 1), (16, 2), (16, 4), (64, 1), (96, 1),
+                              (112, 1), (128, 1), (128, 4), (128, 8),
+                              (128, 16), (128, 48), (256, 2)})
 
 # flash_attn_fwd's launch: a block of two consumer warpgroups and one
 # producer warpgroup takes 128 query rows of one (batch, head)

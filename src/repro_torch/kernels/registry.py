@@ -135,32 +135,6 @@ def describe(device=None) -> Dict[str, str]:
     return {op: backend_for(op, device=device) for op in OPS}
 
 
-def missing_instance(cfg, *, training: bool) -> Optional[str]:
-    """The kernel instance that ``cfg``'s path on the card needs and the
-    built library lacks, named (``None`` when every one is built).  A dense
-    or moe model runs attention on both paths (prefill / forward and
-    decode); an ssm model runs the SSD scan in training only (its prefill
-    passes the cache state, so it takes the plain scan)."""
-    # lazy: the kernel packages import the model layers, which import this
-    # module
-    from .flash_attention.flash_attention import DECODE_INSTANCES, HEAD_DIMS
-    from .ssd_scan.ssd_scan import CHUNK, D_STATE, HEAD_DIM
-
-    if cfg.family in ("dense", "moe"):
-        G = cfg.n_heads // cfg.n_kv_heads
-        if cfg.d_head not in HEAD_DIMS:
-            return f"attention (d_head {cfg.d_head})"
-        if (cfg.d_head, G) not in DECODE_INSTANCES:
-            return (f"decode attention (d_head {cfg.d_head}, {G} query heads "
-                    "a KV head)")
-    if cfg.family == "ssm" and training and (
-            cfg.ssm_headdim, cfg.d_state, cfg.ssd_chunk) != (
-            HEAD_DIM, D_STATE, CHUNK):
-        return (f"SSD scan (P {cfg.ssm_headdim}, N {cfg.d_state}, chunk "
-                f"{cfg.ssd_chunk})")
-    return None
-
-
 def set_env(spec: str) -> None:
     """Install ``spec`` as the process-wide selection (validates first).
     Used by the launch entry points' ``--kernels`` flag."""

@@ -18,11 +18,12 @@ import torch
 
 from .. import build
 
-# The instance the library is built for: mamba2-1.3b (head dim 64, state
-# 128, chunk 256; any number of groups that divides the heads).  A config
-# that needs another shape adds its instance to csrc/ssd_scan.cu and its
-# values here.
-HEAD_DIM, D_STATE, CHUNK = 64, 128, 256
+# The (head dim P, state N, chunk) instances the library is built for (the
+# REPRO_SSD_INSTANCES of csrc/ssd_scan.cu; any number of groups that
+# divides the heads): mamba2-1.3b, zamba2-7b, and the smoke mamba2 and
+# zamba2 (on the CUDA cores).  A config that needs another shape adds its
+# instance there and here.
+INSTANCES = frozenset({(64, 128, 256), (64, 64, 256), (16, 16, 8)})
 
 _lib = None
 
@@ -35,7 +36,7 @@ def _library():
         lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
                                      i, p]
         lib.ssd_scan_fwd.restype = i
-        lib.ssd_scan_occupancy.argtypes = [i, i, p, p]
+        lib.ssd_scan_occupancy.argtypes = [i, i, i, i, i, p, p]
         lib.ssd_scan_occupancy.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -47,9 +48,9 @@ def ssd_scan_fwd(x, dt, A, Bmat, Cmat, *, chunk: int):
     """x:(B,T,H,P) bf16, dt:(B,T,H) f32, A:(H,) f32, B/C:(B,T,G,N) bf16 on
     one CUDA device.  Returns (y (B,T,H,P) bf16, final_state (B,H,P,N) f32).
 
-    ``chunk`` is the chunk length of the scan: 256, or T itself when
-    T < 256 (one chunk; the kernel then masks the rows past T, which gives
-    the same result)."""
+    ``chunk`` is the chunk length of the scan: the instance's (256, or 8
+    for P 16, N 16), or T itself when T is shorter (one chunk; the kernel
+    then masks the rows past T, which gives the same result)."""
     name = "ssd_scan_fwd"
     args = {"x": x, "dt": dt, "A": A, "B": Bmat, "C": Cmat}
     want = {"x": torch.bfloat16, "dt": torch.float32, "A": torch.float32,
@@ -76,13 +77,13 @@ def ssd_scan_fwd(x, dt, A, Bmat, Cmat, *, chunk: int):
         raise ValueError(f"{name}: shapes disagree: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(Bmat.shape)}, C {tuple(Cmat.shape)}")
-    if (P, N) != (HEAD_DIM, D_STATE) or G < 1 or H % G:
-        raise ValueError(f"{name}: built for head dim {HEAD_DIM}, state "
-                         f"{D_STATE} and a number of groups that divides "
-                         f"the heads; got P {P}, N {N}, G {G}, H {H}")
-    if not (chunk == CHUNK or (chunk == T and T < CHUNK)):
-        raise ValueError(f"{name}: built for chunk {CHUNK} (or one chunk "
-                         f"of T < {CHUNK}); got chunk {chunk} at T {T}")
+    built = built_chunk(P, N, chunk, T)
+    if built is None or G < 1 or H % G:
+        raise ValueError(f"{name}: built for head dim, state and chunk in "
+                         f"{sorted(INSTANCES)} (or one chunk of T under the "
+                         "instance's) and a number of groups that divides "
+                         f"the heads; got P {P}, N {N}, chunk {chunk} at T "
+                         f"{T}, G {G}, H {H}")
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     if y.numel() == 0:
@@ -92,9 +93,19 @@ def ssd_scan_fwd(x, dt, A, Bmat, Cmat, *, chunk: int):
         err = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
             Cmat.data_ptr(), y.data_ptr(), state.data_ptr(), B, T, H, P, G,
-            N, CHUNK, torch.cuda.current_stream(dev).cuda_stream)
+            N, built, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, name, err)
     return y, state
+
+
+def built_chunk(P: int, N: int, chunk: int, T: int):
+    """The chunk of the built instance that runs a scan of chunk ``chunk``
+    over T rows at head dim P and state N -- the instance's own, or one
+    short chunk (chunk == T under it) -- or None where none is built."""
+    for p, n, q in INSTANCES:
+        if (p, n) == (P, N) and (chunk == q or (chunk == T and T < q)):
+            return q
+    return None
 
 
 def _raise_on(lib, name: str, err: int) -> None:
@@ -103,12 +114,13 @@ def _raise_on(lib, name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA call failed ({err}: {msg})")
 
 
-def occupancy(H: int, B: int):
-    """(scan blocks one SM holds at once, scan blocks in the grid) at H
-    heads and B batch rows: CUDA's occupancy query on the current card, a
-    diagnostic that the launch does not use."""
+def occupancy(H: int, B: int, P: int = 64, N: int = 128, chunk: int = 256):
+    """(scan blocks one SM holds at once, scan blocks in the grid) of the
+    (P, N, chunk) instance at H heads and B batch rows: CUDA's occupancy
+    query on the current card, a diagnostic that the launch does not
+    use."""
     lib = _library()
     per_sm, grid = ctypes.c_int(), ctypes.c_int()
     _raise_on(lib, "ssd_scan_occupancy", lib.ssd_scan_occupancy(
-        H, B, ctypes.byref(per_sm), ctypes.byref(grid)))
+        P, N, chunk, H, B, ctypes.byref(per_sm), ctypes.byref(grid)))
     return per_sm.value, grid.value

@@ -12,22 +12,27 @@ Port of ``repro/launch/serve.py``.  Two modes:
   through ``serving/engine.py`` and report p50/p99 request latency,
   time-to-first-token and decode tokens/sec (``serve.jsonl``).
 
-``--arch`` defaults to ``mamba2-1.3b``, as in JAX; the other ported
-models are the dense gemma2-2b, glm4-9b, phi3-mini-3.8b and granite-34b
-and the moe qwen2-moe-a2.7b and mixtral-8x7b (attention, then a mixture of
-experts a layer: capacity-bounded dispatch in the prefill, exact in the
-decode step).  Entry points run on ``--device cuda`` (the default), where
-every attention call of a dense or moe model goes through the hand-written
-CUDA flash attention kernel unless ``--kernels ref`` asks for the plain
-PyTorch math; ``--device cpu`` runs the plain versions.  An ssm model
-serves without a kernel: its prefill passes the cache state, so the scan
-is the plain chunked one, as in JAX, and its decode step is plain ops.
-``--smoke`` (the default config) runs on the card for every ported arch;
-an arch whose smoke shapes needed a kernel instance the card lacks would
-be rejected up front (``reject_smoke_on_cuda``).  ``--full`` draws the
-published width and depth: granite-34b (88 GB of bf16 weights) and
-mixtral-8x7b (87 GB) need a depth cut to fit one 80 GB card, which
-``--layers`` gives.  ``--profile[=DIR]`` writes a ``torch.profiler``
+``--arch`` defaults to ``mamba2-1.3b``, as in JAX; the other models are
+the dense gemma2-2b, glm4-9b, phi3-mini-3.8b and granite-34b, the moe
+qwen2-moe-a2.7b and mixtral-8x7b (attention, then a mixture of experts a
+layer: capacity-bounded dispatch in the prefill, exact in the decode
+step), the hybrid zamba2-7b (Mamba-2 layers and one shared attention
+block, a KV cache a site), the vlm llama-3.2-vision-90b (cross layers over
+``n_img_tokens`` image tokens) and the encdec whisper-medium (an encoder
+over ``enc_len`` frames); the vision and audio frontends are stubs, zeros
+of (B, n_img_tokens, D) / (B, enc_len, D) in bf16, as in JAX.  Entry
+points run on ``--device cuda`` (the default), where every causal
+self-attention call goes through the hand-written CUDA flash attention
+kernel unless ``--kernels ref`` asks for the plain PyTorch math (the
+encoder's and the cross layers' attention take the plain path, as in
+JAX); ``--device cpu`` runs the plain versions.  An ssm model serves
+without a kernel: its prefill passes the cache state, so the scan is the
+plain chunked one, as in JAX, and its decode step is plain ops (so do the
+hybrid's Mamba-2 layers).  ``--smoke`` (the default config) runs on the
+card for every arch.  ``--full`` draws the published width and depth:
+granite-34b (88 GB of bf16 weights), mixtral-8x7b (87 GB) and
+llama-3.2-vision-90b (163 GB) need a depth cut to fit one 80 GB card,
+which ``--layers`` gives.  ``--profile[=DIR]`` writes a ``torch.profiler``
 Chrome trace with the serving spans annotated.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
@@ -38,6 +43,11 @@ Chrome trace with the serving spans annotated.
       --full --layers 8 --batch 8 --prompt-len 1024 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --full --continuous \\
       --requests 16 --rate 16 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --full --batch 8 --prompt-len 1024 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama-3.2-vision-90b --full --layers 20 --batch 8 \\
+      --prompt-len 1024 --gen 64
 """
 from __future__ import annotations
 
@@ -53,6 +63,7 @@ from ..kernels import registry as kernel_registry
 from ..models import backbones as bb
 from ..serving import ContinuousBatchEngine, DEFAULT_BUCKETS, poisson_trace
 from ..serving.engine import sample, sync
+from ..serving.slots import family_extras, init_cache
 from ..telemetry import trace
 from ..telemetry.metrics import MetricsRegistry
 
@@ -73,8 +84,9 @@ def make_phases(cfg, batch: int, prompt_len: int, gen: int,
 
     @torch.inference_mode()
     def prefill(params, prompts):
-        cache = bb.init_cache(cfg, batch, S, device=device)
-        hidden, cache = bb.prefill(params, prompts, cfg, cache)
+        cache = init_cache(cfg, batch, S, device=device)
+        hidden, cache = bb.prefill(params, prompts, cfg, cache,
+                                   **family_extras(cfg, batch, device))
         logits = bb.lm_logits(params, hidden, cfg)[:, -1].to(F32)
         return logits, cache
 
@@ -230,30 +242,12 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def reject_smoke_on_cuda(args) -> None:
-    """Raise if the parsed ``args`` ask for the smoke config on a CUDA
-    device and its serving path needs a kernel instance the card's library
-    lacks (``registry.missing_instance``), which would otherwise fail deep
-    in the model."""
-    if not (args.smoke and torch.device(args.device).type == "cuda"):
-        return
-    missing = kernel_registry.missing_instance(get_smoke_config(args.arch),
-                                               training=False)
-    if missing:
-        raise ValueError(
-            f"--smoke runs only on the CPU for --arch {args.arch}: its "
-            f"smoke config's {missing} has no kernel instance on the card "
-            "yet. Pass --full for the full-size config on CUDA, or --device "
-            "cpu for the smoke config on the plain versions")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "
                            "pass --device cpu to run the plain versions")
-    reject_smoke_on_cuda(args)
 
     tracer = trace.configure(os.path.join(args.log_dir, "trace.jsonl")
                              if args.log_dir else None)

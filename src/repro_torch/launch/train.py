@@ -10,25 +10,29 @@ token-MDP environment: each iteration runs
 - one PPO update through ``forward_train``, ``lm_logits``, ``value_out`` and
   Adam (lr ``--lr``, global-norm clip 1.0, entropy coefficient 0.003).
 
-``--arch`` defaults to ``gemma2-2b``, as in JAX; the other ported models
-are mamba2-1.3b, the dense glm4-9b, phi3-mini-3.8b and granite-34b, and
-the moe qwen2-moe-a2.7b and mixtral-8x7b (whose load-balance loss enters
-the PPO loss at ``aux_coeff`` 0.01, as in JAX).  Entry points run on
-``--device cuda`` (the default), where every attention call
-(``flash_attn_fwd`` in the update's forward and its recompute,
+``--arch`` defaults to ``gemma2-2b``, as in JAX; the other models are
+mamba2-1.3b, the dense glm4-9b, phi3-mini-3.8b and granite-34b, the moe
+qwen2-moe-a2.7b and mixtral-8x7b (whose load-balance loss enters the PPO
+loss at ``aux_coeff`` 0.01, as in JAX), the hybrid zamba2-7b and the vlm
+llama-3.2-vision-90b.  As JAX's launcher, this one passes no image tokens
+and no encoder frames: the rollout's cache holds one zero source slot, and
+the vlm cross layers train as non-causal self-attention over the text;
+whisper-medium (encdec), whose forward needs frames, is refused before any
+weight is drawn (JAX's train fails in its encoder on ``enc_frames=None``).
+Entry points run on ``--device cuda`` (the default), where every attention
+call (``flash_attn_fwd`` in the update's forward and its recompute,
 ``flash_attn_decode`` in the rollout) and every SSD scan of the update
-(mamba2) goes through its hand-written CUDA kernel unless ``--kernels ref``
-asks for the plain PyTorch math; ``--device cpu`` runs the plain versions.
-``--smoke`` (the default config) runs on the card for every arch but
-mamba2, whose smoke SSD shape (P 16, N 16, chunk 8) has no kernel
-instance yet: on a CUDA device those arguments are rejected up front and
-``--full`` is needed.  Every
+(mamba2, zamba2) goes through its hand-written CUDA kernel unless
+``--kernels ref`` asks for the plain PyTorch math; ``--device cpu`` runs
+the plain versions.  ``--smoke`` (the default config) and ``--full`` both
+run on the card for every arch.  Every
 iteration logs one row (console, CSV, JSONL under ``--log-dir``) with the
 PPO metrics, ``samples_per_sec`` and the rollout and update wall times.
 ``--ckpt-dir`` / ``--ckpt-interval`` save ``(params, opt_state)`` in JAX's
 layout every N steps and ``--restore`` resumes from the latest one (either
 package's); ``--profile[=DIR]`` writes a ``torch.profiler`` Chrome trace
-with the telemetry spans as ranges.  JAX's ``--fuse-window`` (its scanned
+with the telemetry spans as ranges.  ``--layers N`` (the port's own flag,
+as serve's) cuts the config to its first N layers.  JAX's ``--fuse-window`` (its scanned
 window of steps) has no counterpart yet (ROADMAP Queue 1 item 14).
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
@@ -38,10 +42,15 @@ window of steps) has no counterpart yet (ROADMAP Queue 1 item 14).
       --horizon 256 --steps 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --full --batch 8 --horizon 512 --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+      --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+      --full --layers 15 --batch 8 --horizon 256 --steps 2
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -129,6 +138,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--horizon", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to its first N layers (the port's "
+                         "own flag, for archs whose training state exceeds "
+                         "one card at full depth; default: the config's)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-dir", default=None)
@@ -146,23 +159,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def reject_smoke_on_cuda(args) -> None:
-    """Raise if the parsed ``args`` ask for the smoke config on a CUDA
-    device and its training path needs a kernel instance the card's
-    library lacks (``registry.missing_instance``), which would otherwise
-    fail deep in the model."""
-    if not (args.smoke and torch.device(args.device).type == "cuda"):
-        return
-    missing = kernel_registry.missing_instance(get_smoke_config(args.arch),
-                                               training=True)
-    if missing:
-        raise ValueError(
-            f"--smoke runs only on the CPU for --arch {args.arch}: its "
-            f"smoke config's {missing} has no kernel instance on the card "
-            "yet. Pass --full for the full-size config on CUDA, or --device "
-            "cpu for the smoke config on the plain versions")
-
-
 def main(argv=None):
     """Run ``--steps`` iterations; returns the trained ``LM``."""
     args = build_parser().parse_args(argv)
@@ -170,13 +166,23 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "
                            "pass --device cpu to run the plain versions")
-    reject_smoke_on_cuda(args)
     tracer = trace.configure(os.path.join(args.log_dir, "trace.jsonl")
                              if args.log_dir else None)
     if args.kernels:
         kernel_registry.set_env(args.kernels)
     print(f"kernel backends: {kernel_registry.describe(device)}")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if cfg.family == "encdec":
+        # JAX's launcher builds its train step without enc_len and its
+        # batch without frames, so JAX's train fails in encoder_forward on
+        # enc_frames=None; the port refuses before drawing any weight
+        raise ValueError(
+            f"train --arch {args.arch}: the encdec family's forward needs "
+            "encoder frames, and this launcher (as the JAX package's) "
+            "passes none to its train step (enc_len 0); JAX's train fails "
+            "in encoder_forward on enc_frames=None")
     env = make_token_lm(vocab=cfg.vocab, episode_len=args.horizon,
                         device=device)
     logger = Logger(args.log_dir)

@@ -1,10 +1,15 @@
-"""Backbones of the ported families, in PyTorch.
+"""Backbones of every family, in PyTorch.
 
-Port of three families of ``repro/models/backbones.py``, dense (gemma2's
-local/global layer pairs with ``alt_local_global``, plain dense without),
-moe (attention + a mixture of experts a layer: qwen2-moe, mixtral) and ssm
-(mamba2), each on both paths: the training forward and the serving
-prefill / decode step.
+Port of ``repro/models/backbones.py``: dense (gemma2's local/global layer
+pairs with ``alt_local_global``, plain dense without), moe (attention + a
+mixture of experts a layer: qwen2-moe, mixtral), ssm (mamba2), hybrid
+(zamba2: superblocks of ``attn_every`` Mamba-2 layers, each followed by ONE
+shared attention block held once, then the tail layers), vlm
+(llama-3.2-vision: superblocks of ``cross_every - 1`` self layers and one
+layer that cross-attends to image tokens) and encdec (whisper: a
+bidirectional encoder over frame embeddings, decoder blocks of self-,
+cross-attention and MLP), each on both paths: the training forward and the
+serving prefill / decode step.
 
 - ``LM`` is an ``nn.Module`` with the JAX leaves as parameters.  The JAX
   params stack each superblock's leaves with a leading dim; here layer
@@ -13,18 +18,28 @@ prefill / decode step.
   superblocks is a Python loop.
   A moe ``LM`` holds one ``MoELayer`` (leaves ``attn_norm``, ``attn``,
   ``moe_norm``, ``moe``) per layer, an ssm ``LM`` one ``SSMLayer`` (leaves
-  ``norm``, ``ssd``).
+  ``norm``, ``ssd``).  A hybrid ``LM`` holds the superblocks' Mamba-2 layers
+  in ``layers`` (superblock ``i``'s at ``i * attn_every ..``), the tail's in
+  ``tail_blocks`` and the shared block in ``shared_attn`` (a
+  ``DenseLayer``); a vlm ``LM`` holds every layer in superblock order in
+  ``layers`` (the last of each superblock is its cross layer); an encdec
+  ``LM`` holds its decoder blocks (``EncDecLayer``) in ``layers`` and the
+  encoder's ``DenseLayer``s and final norm in ``encoder``.
 - ``init_cache``, ``embed``, ``lm_logits``, ``value_out``, ``prefill``,
-  ``decode_step`` and ``forward_train`` are plain functions with the JAX
-  signatures (plus an explicit ``device`` where they allocate).  Cache
-  leaves keep the JAX layout — K/V ``(n_sb, B, S, Hkv, dh)``, SSM conv
-  ``(n_sb, B, K-1, conv_dim)`` and state ``(n_sb, B, H, P, N)`` f32,
-  ``lengths`` ``(B,)`` int32 — and are updated IN PLACE: ``prefill`` and
-  ``decode_step`` write into the tensors of the cache they are given and
-  return a new dict holding those same tensors plus a new ``lengths``.
-- ``forward_train``: with ``cfg.remat`` each superblock is checkpointed
-  with ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
-  ``jax.checkpoint`` over the scanned superblocks.
+  ``decode_step``, ``encoder_forward`` and ``forward_train`` are plain
+  functions with the JAX signatures (plus an explicit ``device`` where they
+  allocate).  Cache leaves keep the JAX layout -- K/V ``(n, B, S, Hkv,
+  dh)``, SSM conv ``(n, B, K-1, conv_dim)`` and state ``(n, B, H, P, N)``
+  f32, cross K/V ``(n_sb, B, S_src, Hkv, dh)``, ``lengths`` ``(B,)`` int32
+  -- and are updated IN PLACE: ``prefill`` and ``decode_step`` write into
+  the tensors of the cache they are given and return a new dict holding
+  those same tensors plus a new ``lengths`` (a prefill whose source is
+  longer or shorter than the cache's cross K/V returns new ones, as JAX
+  replaces the leaf).
+- ``forward_train``: with ``cfg.remat`` each superblock (and each tail or
+  encoder layer) is checkpointed with ``torch.utils.checkpoint``
+  (non-reentrant), the counterpart of ``jax.checkpoint`` over the scanned
+  superblocks.
 - Single-device only: the JAX sharding constraints are identities on one
   device and are dropped, and the moe dispatch has one group (JAX's
   ``groups=shd.n_batch_shards()``; the argument is kept for the
@@ -52,6 +67,7 @@ from .layers import (
     attention_decode,
     attention_train,
     cdtype,
+    cross_attention_decode,
     mlp,
     moe,
     rmsnorm,
@@ -59,21 +75,27 @@ from .layers import (
     ssd_block_train,
 )
 
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 def superblock_layout(cfg: ModelConfig):
     """Returns (n_superblocks, layers_per_block, tail_layers)."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported to "
-                                  f"repro_torch yet (ported: "
-                                  f"{PORTED_FAMILIES}; the others are ROADMAP "
-                                  "Queue 1 items 10c and 10d)")
-    if cfg.family == "dense" and cfg.alt_local_global:
+    f = cfg.family
+    if f not in PORTED_FAMILIES:
+        raise ValueError(f"unknown family {f!r} (known: {PORTED_FAMILIES})")
+    if f == "dense" and cfg.alt_local_global:
         if cfg.n_layers % 2:
             raise ValueError("alt_local_global needs an even n_layers")
         return cfg.n_layers // 2, 2, 0
-    return cfg.n_layers, 1, 0
+    if f == "hybrid":
+        return (cfg.n_layers // cfg.attn_every, cfg.attn_every,
+                cfg.n_layers % cfg.attn_every)
+    if f == "vlm":
+        if cfg.n_layers % cfg.cross_every:
+            raise ValueError(f"vlm needs n_layers {cfg.n_layers} to be a "
+                             f"multiple of cross_every {cfg.cross_every}")
+        return cfg.n_layers // cfg.cross_every, cfg.cross_every, 0
+    return cfg.n_layers, 1, 0  # encdec: decoder blocks; the encoder apart
 
 
 class DenseLayer(nn.Module):
@@ -113,15 +135,45 @@ class SSMLayer(nn.Module):
         self.ssd = SSD(cfg, device=device, dtype=dtype, generator=generator)
 
 
-class LM(nn.Module):
-    """Leaves ``tok_embed`` (Vp,D), ``layers``, ``final_norm``, ``lm_head``
-    (D,Vp), ``value_head`` (D,1).  Matrices are stored in ``dtype``, norm
-    scales in f32."""
+class EncDecLayer(nn.Module):
+    """One encoder-decoder decoder block (JAX's encdec superblock): leaves
+    ``self_norm``, ``self_attn``, ``cross_norm``, ``cross_attn``,
+    ``mlp_norm``, ``mlp``."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
         super().__init__()
-        superblock_layout(cfg)  # rejects unported families
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.self_norm = RMSNorm(cfg.d_model, device=device)
+        self.self_attn = Attention(cfg, **kw)
+        self.cross_norm = RMSNorm(cfg.d_model, device=device)
+        self.cross_attn = Attention(cfg, **kw)
+        self.mlp_norm = RMSNorm(cfg.d_model, device=device)
+        self.mlp = MLP(cfg, **kw)
+
+
+class Encoder(nn.Module):
+    """The encdec family's bidirectional encoder: ``blocks`` (one
+    ``DenseLayer`` each of ``n_enc_layers``) and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            DenseLayer(cfg, device=device, dtype=dtype, generator=generator)
+            for _ in range(cfg.n_enc_layers))
+        self.final_norm = RMSNorm(cfg.d_model, device=device)
+
+
+class LM(nn.Module):
+    """Leaves ``tok_embed`` (Vp,D), ``layers``, ``final_norm``, ``lm_head``
+    (D,Vp), ``value_head`` (D,1); hybrid adds ``tail_blocks`` and
+    ``shared_attn``, encdec ``encoder``.  Matrices are stored in ``dtype``,
+    norm scales in f32."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
+        super().__init__()
+        n_sb, per_block, tail = superblock_layout(cfg)
         Vp, D = cfg.padded_vocab, cfg.d_model
+        kw = dict(device=device, dtype=dtype, generator=generator)
 
         def mat(shape, fan_in):
             if generator is None:
@@ -130,11 +182,16 @@ class LM(nn.Module):
                                device=device, dtype=dtype)
 
         self.tok_embed = mat((Vp, D), D)
-        layer = {"ssm": SSMLayer, "moe": MoELayer}.get(cfg.family,
-                                                       DenseLayer)
-        self.layers = nn.ModuleList(
-            layer(cfg, device=device, dtype=dtype, generator=generator)
-            for _ in range(cfg.n_layers))
+        layer = {"ssm": SSMLayer, "hybrid": SSMLayer, "moe": MoELayer,
+                 "encdec": EncDecLayer}.get(cfg.family, DenseLayer)
+        self.layers = nn.ModuleList(layer(cfg, **kw)
+                                    for _ in range(n_sb * per_block))
+        if cfg.family == "hybrid":
+            self.tail_blocks = nn.ModuleList(SSMLayer(cfg, **kw)
+                                             for _ in range(tail))
+            self.shared_attn = DenseLayer(cfg, **kw)
+        if cfg.family == "encdec":
+            self.encoder = Encoder(cfg, **kw)
         self.final_norm = RMSNorm(D, device=device)
         self.lm_head = mat((D, Vp), D)
         self.value_head = mat((D, 1), D)
@@ -173,7 +230,8 @@ def init_lm(cfg: ModelConfig, *, device, generator: torch.Generator,
 def embed(params, tokens, cfg: ModelConfig):
     x = params.tok_embed.index_select(0, tokens.reshape(-1))
     x = x.reshape(*tokens.shape, -1).to(cdtype(cfg))
-    if cfg.softcap_logits is not None:  # gemma scale
+    if cfg.family == "encdec" or cfg.softcap_logits is not None:
+        # gemma / whisper scale
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     return x
@@ -194,12 +252,14 @@ def value_out(params, hidden):
 # ---------------------------------------------------------------------------
 # Training path
 # ---------------------------------------------------------------------------
-def _dense_layer_train(p, x, cfg: ModelConfig, *, window=None):
+def _dense_layer_train(p, x, cfg: ModelConfig, *, window=None,
+                       positions=None, x_kv=None, causal=True):
     """One dense layer over a sequence; returns (x, (k, v)), the layer's
-    unrepeated K/V heads for the prefill cache."""
+    unrepeated K/V heads for the prefill cache.  positions=None (contiguous
+    from 0) with causal self-attention is eligible for the flash kernel."""
     h = rmsnorm(p.attn_norm, x)
-    # positions=None: contiguous from 0, eligible for the flash kernel
-    a, kv = attention_train(p.attn, h, cfg, positions=None, window=window)
+    a, kv = attention_train(p.attn, h, cfg, positions=positions,
+                            causal=causal, window=window, x_kv=x_kv)
     if cfg.post_norm:
         a = rmsnorm(p.attn_post_norm, a)
     x = x + a
@@ -228,25 +288,87 @@ def _ssm_layer_train(p, x, cfg: ModelConfig):
     return x + y
 
 
-def _superblock_train(x, cfg: ModelConfig, *layers):
-    """One superblock forward (JAX's ``apply_superblock_train`` of the
-    ported families): gemma2's local then global layer, or one plain dense
-    or ssm layer; a moe layer returns (x, aux)."""
-    if cfg.family == "ssm":
-        return _ssm_layer_train(layers[0], x, cfg)
-    if cfg.family == "moe":
+def _encdec_layer_train(p, x, enc_out, cfg: ModelConfig):
+    """One encdec decoder block: causal self-attention (kernel-eligible),
+    cross-attention to the encoder output (plain), MLP.  Returns (x,
+    (k, v) of the self-attention, (k, v) of the cross-attention)."""
+    h = rmsnorm(p.self_norm, x)
+    a, kv = attention_train(p.self_attn, h, cfg)
+    x = x + a
+    h = rmsnorm(p.cross_norm, x)
+    a, xkv = attention_train(p.cross_attn, h, cfg, x_kv=enc_out,
+                             causal=False)
+    x = x + a
+    h = rmsnorm(p.mlp_norm, x)
+    return x + mlp(p.mlp, h), kv, xkv
+
+
+def _superblock_train(x, cfg: ModelConfig, ctx, *layers):
+    """One superblock forward (JAX's ``apply_superblock_train``): gemma2's
+    local then global layer, or one plain dense, moe, ssm or encdec layer;
+    hybrid's Mamba-2 layers then the shared attention block; vlm's self
+    layers then its cross layer.  ``ctx`` is (shared block, image tokens,
+    encoder output).  Returns (x, aux)."""
+    shared, img, enc_out = ctx
+    zero = torch.zeros((), dtype=F32, device=x.device)
+    f = cfg.family
+    if f == "ssm":
+        return _ssm_layer_train(layers[0], x, cfg), zero
+    if f == "moe":
         return _moe_layer_train(layers[0], x, cfg, window=cfg.window)[:2]
+    if f == "hybrid":
+        for lp in layers:
+            x = _ssm_layer_train(lp, x, cfg)
+        return _dense_layer_train(shared, x, cfg)[0], zero
+    if f == "vlm":
+        for lp in layers[:-1]:
+            x = _dense_layer_train(lp, x, cfg)[0]
+        # cross-attention to the image tokens (non-causal self-attention
+        # over the text when there are none, as JAX)
+        return _dense_layer_train(layers[-1], x, cfg, x_kv=img,
+                                  causal=False)[0], zero
+    if f == "encdec":
+        return _encdec_layer_train(layers[0], x, enc_out, cfg)[0], zero
     if cfg.alt_local_global:
         local, glob = layers
         x, _ = _dense_layer_train(local, x, cfg, window=cfg.window)
-        return _dense_layer_train(glob, x, cfg)[0]
-    return _dense_layer_train(layers[0], x, cfg, window=cfg.window)[0]
+        return _dense_layer_train(glob, x, cfg)[0], zero
+    return _dense_layer_train(layers[0], x, cfg, window=cfg.window)[0], zero
 
 
-def forward_train(params, tokens, cfg: ModelConfig):
+def _maybe_checkpoint(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, checkpointed (non-reentrant) under ``cfg.remat`` when
+    gradients are on: JAX's ``jax.checkpoint(body)``."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _encoder_layer(x, pos, cfg: ModelConfig, lp):
+    return _dense_layer_train(lp, x, cfg, positions=pos, causal=False)[0]
+
+
+def encoder_forward(params, frames, cfg: ModelConfig):
+    """The whisper-style bidirectional encoder over precomputed frame
+    embeddings (the conv frontend is a stub, as in JAX).  frames:
+    (B, S_enc, D) -> (B, S_enc, D).  Explicit positions, so every layer
+    takes the plain attention path."""
+    if frames is None:
+        raise ValueError("encoder_forward: the encdec family needs "
+                         "enc_frames (B, S_enc, D)")
+    x = frames.to(cdtype(cfg))
+    pos = torch.arange(frames.shape[1], device=x.device)
+    for lp in params.encoder.blocks:
+        x = _maybe_checkpoint(cfg, _encoder_layer, x, pos, cfg, lp)
+    return rmsnorm(params.encoder.final_norm, x)
+
+
+def forward_train(params, tokens, cfg: ModelConfig, *, img=None,
+                  enc_frames=None):
     """tokens:(B,T) -> (hidden (B,T,D) in the compute dtype, aux scalar f32:
     the sum of the moe layers' load-balance losses, 0 for the other
-    families).
+    families).  img: (B,I,D) image-token embeddings (vlm); enc_frames:
+    (B,S,D) frame embeddings (encdec).
 
     With ``cfg.remat`` each superblock's activations are dropped after its
     forward and recomputed in the backward (``torch.utils.checkpoint``,
@@ -254,19 +376,18 @@ def forward_train(params, tokens, cfg: ModelConfig):
     runs twice."""
     n_sb, per_block, _ = superblock_layout(cfg)
     x = embed(params, tokens, cfg)
+    enc_out = encoder_forward(params, enc_frames, cfg) \
+        if cfg.family == "encdec" else None
+    if img is not None:
+        img = img.to(cdtype(cfg))
+    ctx = (getattr(params, "shared_attn", None), img, enc_out)
     aux = torch.zeros((), dtype=F32, device=x.device)
     for i in range(n_sb):
         layers = params.layers[i * per_block:(i + 1) * per_block]
-        if cfg.remat and torch.is_grad_enabled():
-            out = checkpoint(_superblock_train, x, cfg, *layers,
-                             use_reentrant=False)
-        else:
-            out = _superblock_train(x, cfg, *layers)
-        if cfg.family == "moe":
-            x, a = out
-            aux = aux + a
-        else:
-            x = out
+        x, a = _maybe_checkpoint(cfg, _superblock_train, x, cfg, ctx, *layers)
+        aux = aux + a
+    for lp in getattr(params, "tail_blocks", ()):
+        x = _maybe_checkpoint(cfg, _ssm_layer_train, lp, x, cfg)
     x = rmsnorm(params.final_norm, x)
     return x, aux
 
@@ -274,33 +395,49 @@ def forward_train(params, tokens, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
-def init_cache(cfg: ModelConfig, B: int, S: int, *, device, dtype=None):
-    """Allocate the serving cache for a batch of B sequences, max context S."""
+def init_cache(cfg: ModelConfig, B: int, S: int, *, device, img_len: int = 0,
+               enc_len: int = 0, dtype=None):
+    """Allocate the serving cache for a batch of B sequences, max context S;
+    vlm / encdec cross K/V hold ``max(img_len, 1)`` / ``max(enc_len, 1)``
+    source positions, as JAX's."""
     dt = dtype or cdtype(cfg)
-    n_sb, _, _ = superblock_layout(cfg)
+    n_sb, _, tail = superblock_layout(cfg)
     Hkv, dh = cfg.n_kv_heads, cfg.d_head
+    f = cfg.family
     cache: Dict[str, Any] = {
         "lengths": torch.zeros((B,), dtype=torch.int32, device=device)}
-    if cfg.family == "ssm":
+
+    def kv(n, s):
+        return (torch.zeros((n, B, s, Hkv, dh), dtype=dt, device=device),
+                torch.zeros((n, B, s, Hkv, dh), dtype=dt, device=device))
+
+    def ssm_states(n):
         Hs, Pd, G, N = (cfg.ssm_n_heads, cfg.ssm_headdim, cfg.ssm_n_groups,
                         cfg.d_state)
         conv_dim = Hs * Pd + 2 * G * N
-        cache["conv"] = torch.zeros((n_sb, B, cfg.conv_kernel - 1, conv_dim),
-                                    dtype=dt, device=device)
-        cache["ssm"] = torch.zeros((n_sb, B, Hs, Pd, N), dtype=F32,
-                                   device=device)
-        return cache
+        return (torch.zeros((n, B, cfg.conv_kernel - 1, conv_dim), dtype=dt,
+                            device=device),
+                torch.zeros((n, B, Hs, Pd, N), dtype=F32, device=device))
 
-    def kv(s):
-        return (torch.zeros((n_sb, B, s, Hkv, dh), dtype=dt, device=device),
-                torch.zeros((n_sb, B, s, Hkv, dh), dtype=dt, device=device))
-
-    Sl = min(cfg.window or S, S)
-    if cfg.alt_local_global:
-        cache["k_local"], cache["v_local"] = kv(Sl)
-        cache["k_global"], cache["v_global"] = kv(S)
+    Sw = min(cfg.window or S, S)
+    if f == "ssm":
+        cache["conv"], cache["ssm"] = ssm_states(n_sb)
+    elif f == "hybrid":
+        cache["conv"], cache["ssm"] = ssm_states(n_sb * cfg.attn_every)
+        cache["k"], cache["v"] = kv(n_sb, S)  # the shared block's sites
+        if tail:
+            cache["tail_conv"], cache["tail_ssm"] = ssm_states(tail)
+    elif f == "vlm":
+        cache["k"], cache["v"] = kv(n_sb * (cfg.cross_every - 1), S)
+        cache["cross_k"], cache["cross_v"] = kv(n_sb, max(img_len, 1))
+    elif f == "encdec":
+        cache["k"], cache["v"] = kv(n_sb, S)
+        cache["cross_k"], cache["cross_v"] = kv(n_sb, max(enc_len, 1))
+    elif cfg.alt_local_global:
+        cache["k_local"], cache["v_local"] = kv(n_sb, Sw)
+        cache["k_global"], cache["v_global"] = kv(n_sb, S)
     else:
-        cache["k"], cache["v"] = kv(Sl)
+        cache["k"], cache["v"] = kv(n_sb, Sw)
     return cache
 
 
@@ -347,17 +484,52 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
     lengths = cache["lengths"]
     x = embed(params, tokens[:, None], cfg)
     new_cache = dict(cache)
-    if cfg.family == "ssm":
+    f = cfg.family
+    n_sb, per_block, _ = superblock_layout(cfg)
+    if f == "ssm":
         for i, lp in enumerate(params.layers):
-            h = rmsnorm(lp.norm, x)
-            y, (ncs, nss) = ssd_block_decode(lp.ssd, h, cache["conv"][i],
-                                             cache["ssm"][i], cfg)
-            cache["conv"][i].copy_(ncs)
-            cache["ssm"][i].copy_(nss)
-            x = x + y
+            x = _ssm_step(lp, x, cache["conv"][i], cache["ssm"][i], cfg)
+    elif f == "hybrid":
+        for i in range(n_sb):
+            for j in range(i * per_block, (i + 1) * per_block):
+                x = _ssm_step(params.layers[j], x, cache["conv"][j],
+                              cache["ssm"][j], cfg)
+            # the shared block at site i: site i's cache only
+            x, _, _ = _dense_layer_decode(params.shared_attn, x,
+                                          cache["k"][i], cache["v"][i],
+                                          lengths, cfg)
+        for t, lp in enumerate(getattr(params, "tail_blocks", ())):
+            x = _ssm_step(lp, x, cache["tail_conv"][t], cache["tail_ssm"][t],
+                          cfg)
+    elif f == "vlm":
+        ns = per_block - 1
+        for i in range(n_sb):
+            for j in range(ns):
+                x, _, _ = _dense_layer_decode(
+                    params.layers[i * per_block + j], x,
+                    cache["k"][i * ns + j], cache["v"][i * ns + j], lengths,
+                    cfg)
+            # the cross layer against the frozen image K/V
+            cp = params.layers[i * per_block + ns]
+            h = rmsnorm(cp.attn_norm, x)
+            x = x + cross_attention_decode(cp.attn, h, cache["cross_k"][i],
+                                           cache["cross_v"][i], cfg)
+            h = rmsnorm(cp.mlp_norm, x)
+            x = x + mlp(cp.mlp, h)
+    elif f == "encdec":
+        for i, lp in enumerate(params.layers):
+            h = rmsnorm(lp.self_norm, x)
+            a, _, _ = attention_decode(lp.self_attn, h, cache["k"][i],
+                                       cache["v"][i], lengths, cfg)
+            x = x + a
+            h = rmsnorm(lp.cross_norm, x)
+            x = x + cross_attention_decode(lp.cross_attn, h,
+                                           cache["cross_k"][i],
+                                           cache["cross_v"][i], cfg)
+            h = rmsnorm(lp.mlp_norm, x)
+            x = x + mlp(lp.mlp, h)
     else:
-        layer_fn = _moe_layer_decode if cfg.family == "moe" else \
-            _dense_layer_decode
+        layer_fn = _moe_layer_decode if f == "moe" else _dense_layer_decode
         for i, (lp, window) in enumerate(zip(params.layers,
                                              layer_windows(cfg))):
             kn, vn, sb = _cache_slot(cfg, i)
@@ -367,6 +539,16 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
     new_cache["lengths"] = lengths + bump
     x = rmsnorm(params.final_norm, x)
     return x, new_cache
+
+
+def _ssm_step(p, x, conv, ssm, cfg: ModelConfig):
+    """One Mamba-2 layer's decode step; writes its conv / SSM state
+    (``conv`` / ``ssm``, views into the cache) in place."""
+    h = rmsnorm(p.norm, x)
+    y, (ncs, nss) = ssd_block_decode(p.ssd, h, conv, ssm, cfg)
+    conv.copy_(ncs)
+    ssm.copy_(nss)
+    return x + y
 
 
 # ---------------------------------------------------------------------------
@@ -390,29 +572,84 @@ def _fill_kv(cache_k, cache_v, k, v, window):
     return cache_k, cache_v
 
 
-def prefill(params, tokens, cfg: ModelConfig, cache):
+def _ssm_prefill(p, x, conv, ssm, cfg: ModelConfig):
+    """One Mamba-2 layer over the prompt from the cache's state (the plain
+    chunked scan, as JAX); writes the new conv / SSM state in place."""
+    h = rmsnorm(p.norm, x)
+    y, (ncs, nss) = ssd_block_train(p.ssd, h, cfg, conv_state=conv,
+                                    ssm_state=ssm)
+    conv.copy_(ncs)
+    ssm.copy_(nss)
+    return x + y
+
+
+def prefill(params, tokens, cfg: ModelConfig, cache, *, img=None,
+            enc_frames=None):
     """Run the full-sequence forward, returning (last_hidden (B,1,D), cache).
 
     The cache must be freshly initialized (lengths == 0); its tensors are
-    filled in place.  The ssm family passes each layer's cache state into
-    ``ssd_block_train``, so its scan is the plain chunked one, as in JAX
-    (the SSD kernel covers the zero-state training shape only)."""
+    filled in place.  The ssm and hybrid families pass each Mamba-2 layer's
+    cache state into ``ssd_block_train``, so their scan is the plain chunked
+    one, as in JAX (the SSD kernel covers the zero-state training shape
+    only); the hybrid shared block writes site i's K/V only.  vlm / encdec
+    take ``img`` / ``enc_frames`` as ``forward_train`` and store the cross
+    layers' source K/V as new ``cross_k`` / ``cross_v`` leaves of the
+    source's length (JAX replaces those leaves)."""
     B, T = tokens.shape
     x = embed(params, tokens, cfg)
     new_cache = dict(cache)
-    if cfg.family == "ssm":
+    f = cfg.family
+    n_sb, per_block, _ = superblock_layout(cfg)
+    dt = cdtype(cfg)
+    if f == "ssm":
         for i, lp in enumerate(params.layers):
-            h = rmsnorm(lp.norm, x)
-            y, (ncs, nss) = ssd_block_train(lp.ssd, h, cfg,
-                                            conv_state=cache["conv"][i],
-                                            ssm_state=cache["ssm"][i])
-            cache["conv"][i].copy_(ncs)
-            cache["ssm"][i].copy_(nss)
-            x = x + y
+            x = _ssm_prefill(lp, x, cache["conv"][i], cache["ssm"][i], cfg)
+    elif f == "hybrid":
+        for i in range(n_sb):
+            for j in range(i * per_block, (i + 1) * per_block):
+                x = _ssm_prefill(params.layers[j], x, cache["conv"][j],
+                                 cache["ssm"][j], cfg)
+            x, (k, v) = _dense_layer_train(params.shared_attn, x, cfg)
+            _fill_kv(cache["k"][i], cache["v"][i], k, v, None)
+        for t, lp in enumerate(getattr(params, "tail_blocks", ())):
+            x = _ssm_prefill(lp, x, cache["tail_conv"][t],
+                             cache["tail_ssm"][t], cfg)
+    elif f == "vlm":
+        if img is not None:
+            img = img.to(dt)
+        ns = per_block - 1
+        cks, cvs = [], []
+        for i in range(n_sb):
+            for j in range(ns):
+                x, (k, v) = _dense_layer_train(
+                    params.layers[i * per_block + j], x, cfg)
+                _fill_kv(cache["k"][i * ns + j], cache["v"][i * ns + j], k, v,
+                         None)
+            cp = params.layers[i * per_block + ns]
+            h = rmsnorm(cp.attn_norm, x)
+            a, (ik, iv) = attention_train(cp.attn, h, cfg, causal=False,
+                                          x_kv=img)
+            x = x + a
+            h = rmsnorm(cp.mlp_norm, x)
+            x = x + mlp(cp.mlp, h)
+            cks.append(ik)
+            cvs.append(iv)
+        new_cache["cross_k"] = torch.stack(cks).to(dt)
+        new_cache["cross_v"] = torch.stack(cvs).to(dt)
+    elif f == "encdec":
+        enc_out = encoder_forward(params, enc_frames, cfg)
+        cks, cvs = [], []
+        for i, lp in enumerate(params.layers):
+            x, (k, v), (xk, xv) = _encdec_layer_train(lp, x, enc_out, cfg)
+            _fill_kv(cache["k"][i], cache["v"][i], k, v, None)
+            cks.append(xk)
+            cvs.append(xv)
+        new_cache["cross_k"] = torch.stack(cks).to(dt)
+        new_cache["cross_v"] = torch.stack(cvs).to(dt)
     else:
         for i, (lp, window) in enumerate(zip(params.layers,
                                              layer_windows(cfg))):
-            if cfg.family == "moe":
+            if f == "moe":
                 x, _, (k, v) = _moe_layer_train(lp, x, cfg, window=window)
             else:
                 x, (k, v) = _dense_layer_train(lp, x, cfg, window=window)

@@ -10,9 +10,19 @@ layer ``2i+1``; for plain dense, for moe (``blocks/{attn_norm,moe_norm}
 experts_wd}`` and, with shared experts, ``blocks/moe/shared/{wi,wg,wd}``)
 and for mamba2 (``blocks/norm/scale``,
 ``blocks/ssd/{wz,wx,wB,wC,wdt,A_log,dt_bias,conv_w,norm_scale,out_proj}``),
-``blocks/...[i]`` to layer ``i``.  Matrices are stored in ``dtype``; norm
-scales and the SSM's ``A_log`` / ``dt_bias`` in f32.  JAX casts every
-weight to the compute dtype right before its product, so storing the
+``blocks/...[i]`` to layer ``i``.  The hybrid family's
+``blocks/mamba/...[i, j]`` (stacked (n_sb, attn_every, ...)) goes to layer
+``i * attn_every + j``, ``tail_blocks/...[t]`` to ``tail_blocks[t]`` and
+``shared_attn/...`` (held once, not per block) to ``shared_attn``; the vlm
+family's ``blocks/self/...[i, j]`` (stacked (n_sb, cross_every - 1, ...))
+to layer ``i * cross_every + j`` and ``blocks/cross/...[i]`` to layer
+``i * cross_every + cross_every - 1``; the encdec family's decoder leaves
+``blocks/{self_norm,self_attn,cross_norm,cross_attn,mlp_norm,mlp}/...[i]``
+to layer ``i``, ``encoder/blocks/...[i]`` to ``encoder.blocks[i]`` and
+``encoder/final_norm/scale`` to ``encoder.final_norm``.  Matrices are
+stored in ``dtype``; norm scales and the SSM's ``A_log`` / ``dt_bias`` in
+f32.  JAX casts every weight to the compute dtype right before its
+product, so storing the
 matrices in the compute dtype computes the same thing for serving; training
 asks for f32 master weights with ``requires_grad=True``.
 
@@ -50,31 +60,40 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def _jax_leaf(name: str, cfg: ModelConfig, per_block: int):
-    """(JAX leaf name, superblock index or None) of the port's parameter
-    ``name``."""
-    if not name.startswith("layers."):
-        return name.replace(".", "/"), None
-    _, idx, rest = name.split(".", 2)
-    i = int(idx)
-    if cfg.alt_local_global:
-        prefix = f"blocks/{'local' if i % 2 == 0 else 'global'}/"
-    else:
-        prefix = "blocks/"
-    return prefix + rest.replace(".", "/"), i // per_block
+def _jax_leaf(name: str, cfg: ModelConfig):
+    """(JAX leaf name, index into its stacked leading dims -- a tuple -- or
+    None) of the port's parameter ``name``."""
+    parts = name.split(".")
+    if parts[0] in ("layers", "tail_blocks") or parts[:2] == ["encoder",
+                                                                 "blocks"]:
+        k = 2 if parts[0] == "encoder" else 1
+        i, rest = int(parts[k]), "/".join(parts[k + 1:])
+        if parts[0] != "layers":
+            return "/".join(parts[:k]) + "/" + rest, (i,)
+        _, per_block, _ = superblock_layout(cfg)
+        sb, j = divmod(i, per_block)
+        if cfg.family == "hybrid":
+            return f"blocks/mamba/{rest}", (sb, j)
+        if cfg.family == "vlm":
+            if j == per_block - 1:
+                return f"blocks/cross/{rest}", (sb,)
+            return f"blocks/self/{rest}", (sb, j)
+        if cfg.alt_local_global:
+            return f"blocks/{'local' if j == 0 else 'global'}/{rest}", (sb,)
+        return f"blocks/{rest}", (sb,)
+    return name.replace(".", "/"), None
 
 
 def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
                     dtype=torch.float32, requires_grad: bool = False) -> LM:
     """JAX ``init_lm`` params (nested dict of numpy arrays) -> ``LM``.
     Raises if a leaf is missing, unexpected, or of the wrong shape."""
-    n_sb, per_block, _ = superblock_layout(cfg)
     leaves = _flatten(np_params)
     lm = LM(cfg, device=device, dtype=dtype)
     targets = {}  # jax leaf name -> list of (torch param, index or None)
     for name, p in lm.named_parameters():
-        jax_name, sb = _jax_leaf(name, cfg, per_block)
-        targets.setdefault(jax_name, []).append((p, sb))
+        jax_name, idx = _jax_leaf(name, cfg)
+        targets.setdefault(jax_name, []).append((p, idx))
     missing = sorted(set(targets) - set(leaves))
     extra = sorted(set(leaves) - set(targets))
     if missing or extra:
@@ -83,11 +102,12 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
     with torch.no_grad():
         for jax_name, dests in targets.items():
             src = leaves[jax_name]
-            for p, sb in dests:
-                val = src if sb is None else src[sb]
-                if sb is not None and src.shape[0] != n_sb:
-                    raise ValueError(f"{jax_name}: leading dim {src.shape[0]}"
-                                     f" != {n_sb} superblocks")
+            lead = _stacked_dims([idx for _, idx in dests])
+            if tuple(src.shape[:len(lead)]) != lead:
+                raise ValueError(f"{jax_name}: leading dims "
+                                 f"{src.shape[:len(lead)]} != {lead}")
+            for p, idx in dests:
+                val = src if idx is None else src[idx]
                 if tuple(val.shape) != tuple(p.shape):
                     raise ValueError(f"{jax_name}: shape {val.shape} != "
                                      f"{tuple(p.shape)}")
@@ -101,18 +121,28 @@ def params_to_jax(named: Iterable[Tuple[str, torch.Tensor]],
     in ``LM.named_parameters()`` -> JAX's nested dict, each superblock leaf
     stacked over its superblocks (new tensors; the others are the given
     ones, detached)."""
-    n_sb, per_block, _ = superblock_layout(cfg)
-    stacks: Dict[str, list] = {}
+    stacks: Dict[str, dict] = {}
     tree: Dict = {}
     for name, t in named:
-        jax_name, sb = _jax_leaf(name, cfg, per_block)
-        if sb is None:
+        jax_name, idx = _jax_leaf(name, cfg)
+        if idx is None:
             _set(tree, jax_name, t.detach())
         else:
-            stacks.setdefault(jax_name, [None] * n_sb)[sb] = t.detach()
+            stacks.setdefault(jax_name, {})[idx] = t.detach()
     for jax_name, parts in stacks.items():
-        _set(tree, jax_name, torch.stack(parts))
+        lead = _stacked_dims(list(parts))
+        stacked = torch.stack([parts[i] for i in sorted(parts)])
+        _set(tree, jax_name, stacked.reshape(*lead, *stacked.shape[1:]))
     return tree
+
+
+def _stacked_dims(indices) -> tuple:
+    """The leading dims of a stacked leaf from the indices of its parts
+    (every index of the grid present once; () for an unstacked leaf)."""
+    if indices[0] is None:
+        return ()
+    return tuple(max(ix[d] for ix in indices) + 1
+                 for d in range(len(indices[0])))
 
 
 def _set(tree: Dict, path: str, value) -> None:
@@ -133,12 +163,11 @@ def params_of_jax(tree: Dict, names: Iterable[str],
     """The tensors of JAX's nested dict ``tree`` in the order of ``names``
     (``LM.named_parameters()`` names): views of its leaves, a superblock
     leaf indexed at the parameter's superblock."""
-    _, per_block, _ = superblock_layout(cfg)
     out = []
     for name in names:
-        jax_name, sb = _jax_leaf(name, cfg, per_block)
+        jax_name, idx = _jax_leaf(name, cfg)
         leaf = _get(tree, jax_name)
-        out.append(leaf if sb is None else leaf[sb])
+        out.append(leaf if idx is None else leaf[idx])
     return out
 
 

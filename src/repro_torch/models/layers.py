@@ -19,7 +19,9 @@ dtype discipline, as in JAX:
 
 KV caches are updated IN PLACE (JAX returns new arrays): ``attention_decode``
 writes the new token's K/V into the cache tensors it is given and returns
-the same tensors.  Cross-attention is not ported yet.
+the same tensors.  Cross-attention (``attention_train`` with ``x_kv``, and
+``cross_attention_decode`` against a frozen source KV) takes the plain path,
+as in JAX.
 """
 from __future__ import annotations
 
@@ -187,37 +189,49 @@ def multihead_attention(q, k, v, *, q_positions, k_positions,
 
 
 def attention_train(params, x, cfg: ModelConfig, *, positions=None,
-                    causal=True, window=None):
-    """Full-sequence self-attention (prefill compute). x:(B,T,D).  Returns
-    (y, (k, v)) with the unrepeated K/V heads for the prefill cache.
+                    causal=True, window=None, x_kv=None, kv_positions=None):
+    """Full-sequence attention (training / prefill compute). x:(B,T,D).
+    Returns (y, (k, v)) with the unrepeated K/V heads for the prefill cache.
+    ``x_kv`` (B,S,D) is a cross-attention source: K / V come from it, no
+    RoPE on q or k, no causal mask (its positions ``kv_positions``, default
+    0..S-1, reach only a window).
 
-    Kernel dispatch: the flash kernel covers the contiguous causal layout
-    (positions=None, i.e. contiguous from 0); explicit positions and
-    non-causal calls stay on the chunked ``ref`` path.  Both routes are
+    Kernel dispatch, JAX's rule: the flash kernel covers causal
+    self-attention over contiguous positions (positions=None, i.e.
+    contiguous from 0); explicit positions, non-causal and cross-attention
+    calls stay on the chunked ``ref`` path.  Both routes are
     differentiable: the kernel route through ``flash_attention``'s
     ``autograd.Function`` (the kernel needs contiguous K / V; its backward
     is reference math, as JAX's ``custom_vjp``), the ``ref`` route through
     plain autograd."""
     B, T, D = x.shape
+    src = x if x_kv is None else x_kv
     q = _proj(x, params.wq)
-    k = _proj(x, params.wk)
-    v = _proj(x, params.wv)
+    k = _proj(src, params.wk)
+    v = _proj(src, params.wv)
     contiguous = positions is None
     if positions is None:
         positions = torch.arange(T, device=x.device)
-    pos = positions.expand(B, T) if positions.dim() == 1 else positions
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    cross = x_kv is not None
+    if cross:
+        kv_pos = kv_positions if kv_positions is not None else \
+            torch.arange(src.shape[1], device=x.device)
+    else:
+        kv_pos = positions
+        pos = positions.expand(B, T) if positions.dim() == 1 else positions
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     use_kernel = (kernel_registry.backend_for(
         "attention", site="attention_train", device=x.device) != "ref"
-        and contiguous and causal)
+        and contiguous and causal and not cross)
     if use_kernel:
         out = flash_attention(q, k.contiguous(), v.contiguous(), causal=True,
                               window=window, softcap=cfg.softcap_attn)
     else:
         out = multihead_attention(q, k, v, q_positions=positions,
-                                  k_positions=positions, causal=causal,
-                                  window=window, softcap=cfg.softcap_attn,
+                                  k_positions=kv_pos,
+                                  causal=causal and not cross, window=window,
+                                  softcap=cfg.softcap_attn,
                                   chunk_q=cfg.attn_chunk_q)
     return _out_proj(out, params.wo), (k, v)
 
@@ -264,6 +278,21 @@ def attention_decode(params, x, cache_k, cache_v, lengths, cfg: ModelConfig,
                             cfg.softcap_attn, 1.0 / math.sqrt(dh))
         out = out.reshape(B, 1, H, dh)
     return _out_proj(out, params.wo), cache_k, cache_v
+
+
+def cross_attention_decode(params, x, cross_k, cross_v, cfg: ModelConfig):
+    """Decode-time cross-attention against a precomputed (frozen) source KV
+    (B,S,Hkv,dh): every slot valid, no RoPE, no softcap; the plain path, as
+    in JAX.  x:(B,1,D) -> (B,1,D)."""
+    B = x.shape[0]
+    dt = x.dtype
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    qg = _proj(x, params.wq).reshape(B, 1, Hkv, H // Hkv, dh)
+    S = cross_k.shape[1]
+    mask = torch.ones((B, 1, 1, 1, S), dtype=torch.bool, device=x.device)
+    out = _attend_block(qg, cross_k.to(dt), cross_v.to(dt), mask, None,
+                        1.0 / math.sqrt(dh))
+    return _out_proj(out.reshape(B, 1, H, dh), params.wo)
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,27 @@ def bucket_for(prompt_len: int, buckets: Sequence[int]) -> int:
     return max(fit)
 
 
+def family_extras(cfg: ModelConfig, batch: int, device):
+    """The stub frontends' inputs, as JAX's: zero image-token embeddings
+    (vlm) or frame embeddings (encdec) in bf16."""
+    kw = {}
+    if cfg.family == "vlm":
+        kw["img"] = torch.zeros((batch, cfg.n_img_tokens, cfg.d_model),
+                                dtype=torch.bfloat16, device=device)
+    if cfg.family == "encdec":
+        kw["enc_frames"] = torch.zeros((batch, cfg.enc_len, cfg.d_model),
+                                       dtype=torch.bfloat16, device=device)
+    return kw
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_context: int, *, device):
+    """The serving cache of ``batch`` sequences, with cross K/V sized for
+    the config's image tokens / encoder frames (JAX's ``init_cache(...,
+    img_len=cfg.n_img_tokens, enc_len=cfg.enc_len)``)."""
+    return bb.init_cache(cfg, batch, max_context, device=device,
+                         img_len=cfg.n_img_tokens, enc_len=cfg.enc_len)
+
+
 def _write_slot(cache, logits, cache1, logits1, slot: int) -> None:
     """Copy the (1,)-batch cache/logits into batch position ``slot``, in
     place.  Cache leaves carry batch at axis 1 ((n_sb, B, ...)),
@@ -72,9 +93,10 @@ class SlotCache:
         self.reset_all()
 
     def _prefill_one(self, params, prompt):  # prompt: (1, bucket)
-        cache1 = bb.init_cache(self.cfg, 1, self.max_context,
-                               device=self.device)
-        hidden, cache1 = bb.prefill(params, prompt, self.cfg, cache1)
+        cache1 = init_cache(self.cfg, 1, self.max_context, device=self.device)
+        hidden, cache1 = bb.prefill(params, prompt, self.cfg, cache1,
+                                    **family_extras(self.cfg, 1,
+                                                     self.device))
         logits1 = bb.lm_logits(params, hidden, self.cfg)[:, -1].to(F32)
         return logits1, cache1
 
@@ -86,8 +108,8 @@ class SlotCache:
     # -- lifecycle ------------------------------------------------------------
     def reset_all(self) -> None:
         """Fresh batch cache + logits."""
-        self.cache = bb.init_cache(self.cfg, self.n_slots, self.max_context,
-                                   device=self.device)
+        self.cache = init_cache(self.cfg, self.n_slots, self.max_context,
+                                device=self.device)
         self.logits = torch.zeros((self.n_slots, self.cfg.padded_vocab),
                                   dtype=F32, device=self.device)
 

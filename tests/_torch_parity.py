@@ -98,3 +98,161 @@ def routing_agrees(got, want) -> np.ndarray:
         row = ((ge == we) & (gk == wk)).reshape(ge.shape[0], -1).all(-1)
         agree = row if agree is None else agree & row
     return agree
+
+
+# ---------------------------------------------------------------------------
+# the hybrid, vlm and encdec families: prefill + decode on both sides
+# ---------------------------------------------------------------------------
+def family_inputs(cfg, B: int, seed: int = 0):
+    """The stub frontends' inputs drawn from a numpy seed, f32: image tokens
+    (B, n_img_tokens, D) for vlm, encoder frames (B, enc_len, D) for
+    encdec; {} for the other families."""
+    r = np.random.RandomState(seed)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["img"] = (r.randn(B, cfg.n_img_tokens, cfg.d_model) * 0.5).astype(
+            np.float32)
+    if cfg.family == "encdec":
+        kw["enc_frames"] = (r.randn(B, cfg.enc_len, cfg.d_model) * 0.5
+                            ).astype(np.float32)
+    return kw
+
+
+def jax_prefill_steps(cfg, params, prompts, extras, spec, S, steps):
+    """JAX prefill (its cache sized for the config's image tokens / encoder
+    frames) then ``steps`` greedy decode steps.  Returns (caches after the
+    prefill and after each step, as numpy dicts; logits of each; the greedy
+    tokens fed)."""
+    from repro.kernels import registry as jax_registry
+    from repro.models import backbones as jbb
+
+    B = prompts.shape[0]
+    ex = {k: jnp.asarray(v) for k, v in extras.items()}
+    with jax_registry.override(spec):
+        @jax.jit
+        def prefill(p, toks, ex):
+            cache = jbb.init_cache(cfg, B, S, img_len=cfg.n_img_tokens,
+                                   enc_len=cfg.enc_len)
+            hidden, cache = jbb.prefill(p, toks, cfg, cache, **ex)
+            return jbb.lm_logits(p, hidden, cfg)[:, -1].astype(
+                jnp.float32), cache
+
+        @jax.jit
+        def step(p, cache, tok):
+            hidden, cache = jbb.decode_step(p, cache, tok, cfg)
+            return jbb.lm_logits(p, hidden, cfg)[:, 0].astype(
+                jnp.float32), cache
+
+        logits, cache = prefill(params, jnp.asarray(prompts), ex)
+        caches = [jax.tree_util.tree_map(np.asarray, cache)]
+        all_logits, toks = [np.asarray(logits)], []
+        for _ in range(steps):
+            tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            logits, cache = step(params, cache, tok)
+            toks.append(np.asarray(tok))
+            caches.append(jax.tree_util.tree_map(np.asarray, cache))
+            all_logits.append(np.asarray(logits))
+    return caches, all_logits, toks
+
+
+def port_prefill_steps(cfg, lm, prompts, extras, spec, S, tokens):
+    """The port's prefill then a teacher-forced decode of ``tokens``;
+    returns (caches after the prefill and each step as numpy dicts, logits
+    of each)."""
+    from repro_torch.kernels import registry
+    from repro_torch.models import backbones as bb
+
+    B = prompts.shape[0]
+    ex = {k: torch.from_numpy(v) for k, v in extras.items()}
+    with registry.override(spec), torch.inference_mode():
+        cache = bb.init_cache(cfg, B, S, device="cpu",
+                              img_len=cfg.n_img_tokens, enc_len=cfg.enc_len)
+        hidden, cache = bb.prefill(lm, torch.from_numpy(prompts), cfg, cache,
+                                   **ex)
+        logits = bb.lm_logits(lm, hidden, cfg)[:, -1].float()
+        caches = [{k: t2n(v) for k, v in cache.items()}]
+        all_logits = [t2n(logits)]
+        for tok in tokens:
+            hidden, cache = bb.decode_step(lm, cache,
+                                           torch.from_numpy(np.array(tok)),
+                                           cfg)
+            logits = bb.lm_logits(lm, hidden, cfg)[:, 0].float()
+            caches.append({k: t2n(v) for k, v in cache.items()})
+            all_logits.append(t2n(logits))
+    return caches, all_logits
+
+
+def assert_close_to_largest(got, want, tol=1e-4, err_msg=""):
+    """|got - want| <= tol * max|want| elementwise (f32 sums taken in other
+    orders, carried through a stack of layers)."""
+    want = j2n(want)
+    scale = float(np.abs(want).max()) + 1e-12
+    np.testing.assert_allclose(np.asarray(got, np.float32) / scale,
+                               want / scale, atol=tol, err_msg=err_msg)
+
+
+def assert_serving_matches(jax_out, port_out, tol=1e-4):
+    """Every cache leaf after the prefill and each step, and every step's
+    logits, within ``tol`` of the leaf's largest entry."""
+    jcaches, jlogits, _ = jax_out
+    tcaches, tlogits = port_out
+    assert len(tcaches) == len(jcaches)
+    for i, (tc, jc) in enumerate(zip(tcaches, jcaches)):
+        assert set(tc) == set(jc), (sorted(tc), sorted(jc))
+        for name in jc:
+            assert tc[name].shape == jc[name].shape, name
+            assert_close_to_largest(tc[name], jc[name], tol,
+                                    f"{name} @ {i}")
+    for i, (got, want) in enumerate(zip(tlogits, jlogits)):
+        assert_close_to_largest(got, want, tol, f"logits @ {i}")
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of arrays / tensors -> {"a/b/c": numpy f32}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = (t2n(v) if isinstance(v, torch.Tensor)
+                                   else np.asarray(v, np.float32))
+    return out
+
+
+def leaf_shapes(tree, prefix=""):
+    """A nested dict of arrays / tensors -> {"a/b/c": shape}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaf_shapes(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = tuple(v.shape)
+    return out
+
+
+def ppo_batch(vocab, B=4, T=16, seed=0):
+    """An LM-PPO batch (batch-major) drawn from a numpy seed."""
+    r = np.random.RandomState(seed)
+    return {"tokens": r.randint(0, vocab, (B, T)).astype(np.int32),
+            "actions": r.randint(0, vocab, (B, T)).astype(np.int32),
+            "logp_old": (r.randn(B, T) * 0.1 - 5.5).astype(np.float32),
+            "advantage": r.randn(B, T).astype(np.float32),
+            "return_": r.randn(B, T).astype(np.float32)}
+
+
+def assert_update_matches(lm, jax_params, cfg, lr):
+    """The port's parameters after one Adam update against JAX's: within
+    1e-5 + 2 lr everywhere (an Adam step moves a weight by about lr, and an
+    element whose gradient sits near 0 may take the other sign), and
+    within 1e-5 on all but 1e-3 of the elements."""
+    from repro_torch.models.convert import params_of_jax
+
+    names = [n for n, _ in lm.named_parameters()]
+    want = dict(zip(names, params_of_jax(to_numpy(jax_params), names, cfg)))
+    n_flip = n_all = 0
+    for name, p in lm.named_parameters():
+        err = np.abs(t2n(p) - want[name])
+        assert err.max() <= 1e-5 + 2 * lr, name
+        n_flip += int((err > 1e-5).sum())
+        n_all += err.size
+    assert n_flip <= 1e-3 * n_all, (n_flip, n_all)

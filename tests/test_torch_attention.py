@@ -116,6 +116,35 @@ def test_decode_op_ragged_kv_len_matches_jax_kernel(dtype, softcap):
                    kv_len=jnp.asarray(kvl)), DTYPES[dtype][2])
 
 
+# the instances built for zamba2-7b (dh 112, G 1), whisper-medium (dh 64,
+# G 1) and llama-3.2-vision-90b (dh 128, G 8): B, T, S, H, Hkv, dh, causal,
+# window, softcap, q_offset; ragged T under a 64-row block
+INSTANCE_CASES = [(1, 100, 100, 4, 4, 112, True, None, None, 0),
+                  (2, 96, 96, 4, 4, 64, True, None, None, 0),
+                  (1, 128, 128, 16, 2, 128, True, None, None, 0)]
+INSTANCE_IDS = ["dh112", "dh64", "dh128-G8"]
+
+
+@pytest.mark.parametrize("case", INSTANCE_CASES, ids=INSTANCE_IDS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_new_instances_plain_version_matches_jax(case, dtype):
+    """The plain version at each new instance's head dim and group size:
+    prefill against JAX's reference and its Pallas kernel in interpret mode,
+    then decode (ragged kv_len, a cache of T slots) against JAX's decode
+    kernel in interpret mode."""
+    B, T, S, H, Hkv, dh, causal, window, softcap, qoff = case
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, T, S, H, Hkv, dh, 5), dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+    got = ops.flash_attention(tq, tk, tv, **kw)
+    _close(got, jax_ref(jq, jk, jv, **kw), DTYPES[dtype][2])
+    _close(got, jax_fa(jq, jk, jv, block_q=64, block_k=64, **kw),
+           DTYPES[dtype][2])
+    kvl = np.array([1, S - 3][:B] if B > 1 else [S - 37], np.int32)
+    got = ops.flash_attention_decode(tq[:, :1], tk, tv, torch.from_numpy(kvl))
+    want = jax_fa_decode(jq[:, :1], jk, jv, jnp.asarray(kvl), block_k=32)
+    _close(got, want, DTYPES[dtype][2])
+
+
 def _split_ranges(B, Hkv, S):
     """The cache ranges the decode kernel's splits take: split i of each
     (batch, KV head) reads [i * chunk, min((i + 1) * chunk, S)), clipped to

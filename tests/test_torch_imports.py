@@ -100,47 +100,33 @@ def test_train_on_cuda_without_a_card_raises():
         train.main(["--steps", "0"])
 
 
-@pytest.mark.parametrize("entry", ["serve", "train"])
-def test_smoke_on_cuda_is_rejected_before_any_weight(entry):
-    """A smoke config whose path needs a kernel instance the card lacks is
-    refused by the entry point's own check, naming the instance, --full and
-    --device cpu: only mamba2's training (SSD P 16, N 16, chunk 8) is left.
-    --full on CUDA and the smoke config on the CPU pass it, and so does
-    every other ported arch's smoke config on the card (train's default,
-    smoke gemma2, among them)."""
-    import importlib
+def _arch_configs():
     from repro_torch.configs import ALIASES
-    mod = importlib.import_module(f"repro_torch.launch.{entry}")
-    parse = mod.build_parser().parse_args
-    refused = [["--arch", "mamba2-1.3b"]] if entry == "train" else []
-    for argv in refused:
-        with pytest.raises(ValueError) as err:
-            mod.reject_smoke_on_cuda(parse(argv))
-        msg = str(err.value)
-        assert "--full" in msg and "--device cpu" in msg
-        assert "SSD scan (P 16, N 16, chunk 8)" in msg
-        with pytest.raises(ValueError, match="--smoke runs only on the CPU"):
-            mod.reject_smoke_on_cuda(parse(["--device", "cuda:0", "--smoke"]
-                                           + argv))
-        mod.reject_smoke_on_cuda(parse(["--full"] + argv))
-        mod.reject_smoke_on_cuda(parse(["--device", "cpu"] + argv))
-        mod.reject_smoke_on_cuda(parse(["--device", "cpu", "--full"] + argv))
-    passing = [["--arch", a] for a in ALIASES if ["--arch", a] not in refused]
-    assert len(passing) == len(ALIASES) - len(refused) >= 6
-    for argv in [[]] + passing:
-        args = parse(argv)
-        assert args.smoke and args.device == "cuda"
-        mod.reject_smoke_on_cuda(args)
+    return [(a, smoke) for a in sorted(ALIASES) for smoke in (True, False)]
 
 
-def test_serve_smoke_mamba2_is_not_refused_on_cuda():
-    """Smoke mamba2 serving runs no kernel (its prefill takes the plain
-    scan, its decode step plain ops), so serve's default arch passes the
-    check on a CUDA device."""
-    from repro_torch.launch import serve
-    args = serve.build_parser().parse_args([])
-    assert args.arch == "mamba2-1.3b" and args.smoke and args.device == "cuda"
-    serve.reject_smoke_on_cuda(args)
+@pytest.mark.parametrize("arch,smoke", _arch_configs(),
+                         ids=lambda v: v if isinstance(v, str) else
+                         ("smoke" if v else "full"))
+def test_every_config_has_its_kernel_instances(arch, smoke):
+    """Every config of the ten, smoke and full, finds each kernel instance
+    its path on the card runs in the built lists, so no entry point needs
+    to refuse a config: attention (every family but ssm) at its head dim
+    for prefill and its (head dim, query heads a KV head) for decode, and
+    the SSD scan (ssm, hybrid; training) at its (P, N, chunk)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        DECODE_INSTANCES, HEAD_DIMS)
+    from repro_torch.kernels.ssd_scan.ssd_scan import INSTANCES
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    runs_attention = cfg.family != "ssm"
+    runs_ssd = cfg.family in ("ssm", "hybrid")
+    assert runs_attention or runs_ssd
+    if runs_attention:
+        assert cfg.d_head in HEAD_DIMS
+        assert (cfg.d_head, cfg.n_heads // cfg.n_kv_heads) in DECODE_INSTANCES
+    if runs_ssd:
+        assert (cfg.ssm_headdim, cfg.d_state, cfg.ssd_chunk) in INSTANCES
 
 
 def test_every_kernel_source_is_built_and_ported():
@@ -210,6 +196,28 @@ def test_walk_covers_the_moe_slice_and_its_entry_points():
                                      "--prompt-len", "64", "--gen", "32"]
     assert serve.build_parser().parse_args(serve_decode.DEFAULTS).device == \
         "cuda"
+
+
+def test_walk_covers_the_last_families_and_their_entry_points(monkeypatch):
+    """The hybrid, vlm and encdec configs are among the files the import
+    walk checks, every arch of the JAX package resolves in the port, and
+    ``train --arch whisper-medium`` is refused before any weight is drawn
+    (the launcher passes no encoder frames, as JAX's)."""
+    from repro_torch.configs import ARCH_IDS, resolve
+    from repro_torch.launch import train
+    walked = {f.relative_to(PORT).as_posix() for f in _port_files()[:-1]}
+    assert {"configs/zamba2_7b.py", "configs/whisper_medium.py",
+            "configs/llama32_vision_90b.py"} <= walked
+    assert len(ARCH_IDS) == 10
+    for arch in ("zamba2-7b", "whisper-medium", "llama-3.2-vision-90b"):
+        assert resolve(arch) in ARCH_IDS
+    def drawn(*a, **k):
+        raise AssertionError("a weight was drawn")
+
+    monkeypatch.setattr(train.bb, "init_lm", drawn)
+    with pytest.raises(ValueError, match="encoder frames"):
+        train.main(["--arch", "whisper-medium", "--device", "cpu",
+                    "--steps", "1"])
 
 
 def test_chip_smoke_catches_no_failure_and_fails_without_a_card(tmp_path):

@@ -9,8 +9,8 @@ Tolerance, |kernel - plain| <= atol + rtol |plain| (those of chip_smoke.py):
 decode keeps P in f32 like the plain version, so the outputs differ by at
 most one bf16 rounding (atol 1e-3, rtol 8e-3); prefill also rounds P to bf16
 for the P.V product (atol 8e-3, rtol 1.6e-2).  The library is built for the
-ported configs' shapes only: prefill at d_head 16, 96, 128 and 256, decode
-at the (d_head, query heads a KV head) pairs of ``DECODE_INSTANCES``; each
+ported configs' shapes only: prefill at d_head 16, 64, 96, 112, 128 and
+256, decode at the (d_head, query heads a KV head) pairs of ``DECODE_INSTANCES``; each
 instance beside gemma2-2b's (256, 2) is held at ragged T, a window of 16
 keys (smoke mixtral's, under one 64-key tile), the softcap, a query offset
 and no causal mask, and for decode at kv_len on every boundary of the split
@@ -38,8 +38,11 @@ the mamba2-1.3b training shape (B 8, T 512, H 64, P 64, G 1, N 128, chunk
 tiles (T 1, 63, 64, 65, 255, 257 and 1024 = four chunks; B 1; G 2 at H
 64), with the error model of chip_smoke.py: |y - ref| <= 2^-7 |ref| + eps
 y_abs and |S - ref| <= eps S_abs, eps = 2^-14 + 2^-19 max|cum| (y_abs,
-S_abs: the scan of |x|, |B|, |C|).  It is built for P 64, N 128 and chunk
-256 only, with any number of groups that divides the heads.
+S_abs: the scan of |x|, |B|, |C|).  It is built for (P, N, chunk) (64, 128,
+256), (64, 64, 256) -- zamba2-7b's, held at its training shape (B 8, T 256,
+H 112) and the same edges -- and (16, 16, 8), the smoke configs' (B 16,
+T 32, H 8; ragged T, one short chunk), with any number of groups that
+divides the heads.
 
 The sum-tree sampler (``csrc/sum_tree.cu``) is held against its plain
 version and the f64 flat oracle on sum trees at the rainbow example's shape
@@ -148,7 +151,7 @@ INSTANCE_FWD_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dh", [16, 96, 128])
+@pytest.mark.parametrize("dh", [16, 64, 96, 112, 128])
 @pytest.mark.parametrize("case", INSTANCE_FWD_CASES)
 def test_flash_attn_fwd_instances_vs_reference(dh, case, cuda):
     B, T, S, H, Hkv, causal, window, softcap, qoff, scale = case
@@ -294,8 +297,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
-                            v[..., :64].contiguous())
+        ops.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                            v[..., :32].contiguous())
     with pytest.raises(ValueError, match="query heads per KV head"):
         ops.flash_attention_decode(q[:, :1, :, :96].contiguous(),
                                    k[:, :, :1, :96].contiguous(),
@@ -309,19 +312,20 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                                    torch.full((1,), 8, device=cuda))
 
 
-def _ssd_inputs(B, T, device, dt_scale=1.0, H=64, G=1, seed=2):
+def _ssd_inputs(B, T, device, dt_scale=1.0, H=64, G=1, seed=2, P=64, N=128):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    x = torch.randn(B, T, H, 64, generator=g).to(device, torch.bfloat16)
+    x = torch.randn(B, T, H, P, generator=g).to(device, torch.bfloat16)
     dt = torch.nn.functional.softplus(torch.randn(B, T, H, generator=g))
     A = -torch.linspace(1.0, 16.0, H)
-    Bm = (torch.randn(B, T, G, 128, generator=g) * 0.5).to(device, torch.bfloat16)
-    Cm = (torch.randn(B, T, G, 128, generator=g) * 0.5).to(device, torch.bfloat16)
+    Bm = (torch.randn(B, T, G, N, generator=g) * 0.5).to(device, torch.bfloat16)
+    Cm = (torch.randn(B, T, G, N, generator=g) * 0.5).to(device, torch.bfloat16)
     return x, (dt * dt_scale).to(device), A.to(device), Bm, Cm
 
 
-def _check_ssd_scan(B, T, dt_scale, G, device):
-    x, dt, A, Bm, Cm = _ssd_inputs(B, T, device, dt_scale, G=G)
-    chunk = min(256, T)
+def _check_ssd_scan(B, T, dt_scale, G, device, H=64, P=64, N=128, Q=256):
+    x, dt, A, Bm, Cm = _ssd_inputs(B, T, device, dt_scale, H=H, G=G, P=P,
+                                   N=N)
+    chunk = min(Q, T)
     n0 = ssd_ops.ssd_scan.launches
     y, s = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
@@ -356,6 +360,23 @@ def test_ssd_scan_tile_edges_vs_reference(B, T, G, cuda):
     _check_ssd_scan(B, T, 1.0, G, cuda)
 
 
+# zamba2-7b's instance (P 64, N 64, chunk 256) at its training shape (B 8,
+# T 256, H 112) and at the tile edges; the smoke mamba2 / zamba2 instance
+# (P 16, N 16, chunk 8, on the CUDA cores) at their training shapes (B 16,
+# T 32, H 8), ragged T and one short chunk
+@pytest.mark.parametrize("P,N,Q,B,T,H,G,dt_scale", [
+    (64, 64, 256, 8, 256, 112, 1, 1.0), (64, 64, 256, 2, 512, 112, 1, 1.0),
+    (64, 64, 256, 2, 1, 16, 1, 1.0), (64, 64, 256, 2, 65, 16, 1, 1.0),
+    (64, 64, 256, 2, 300, 16, 2, 1.0), (64, 64, 256, 2, 1024, 16, 1, 0.01),
+    (64, 64, 256, 1, 255, 16, 1, 10.0),
+    (16, 16, 8, 16, 32, 8, 1, 1.0), (16, 16, 8, 16, 33, 8, 1, 1.0),
+    (16, 16, 8, 2, 5, 8, 1, 1.0), (16, 16, 8, 2, 64, 8, 2, 0.01),
+    (16, 16, 8, 2, 100, 4, 1, 10.0), (16, 16, 8, 1, 1, 8, 1, 1.0)])
+def test_ssd_scan_instances_vs_reference(P, N, Q, B, T, H, G, dt_scale,
+                                         cuda):
+    _check_ssd_scan(B, T, dt_scale, G, cuda, H=H, P=P, N=N, Q=Q)
+
+
 def test_ssd_scan_rejects_shapes_it_was_not_built_for(cuda):
     x, dt, A, Bm, Cm = _ssd_inputs(1, 256, cuda)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -365,8 +386,12 @@ def test_ssd_scan_rejects_shapes_it_was_not_built_for(cuda):
     with pytest.raises(ValueError, match="built for head dim"):
         ssd_ops.ssd_scan(x[..., :32].contiguous(), dt, A, Bm, Cm, chunk=256)
     with pytest.raises(ValueError, match="built for head dim"):
-        ssd_ops.ssd_scan(x, dt, A, Bm[..., :64].contiguous(),
-                         Cm[..., :64].contiguous(), chunk=256)
+        ssd_ops.ssd_scan(x, dt, A, Bm[..., :32].contiguous(),
+                         Cm[..., :32].contiguous(), chunk=256)
+    with pytest.raises(ValueError, match="built for head dim"):
+        ssd_ops.ssd_scan(x[..., :16].contiguous(), dt, A,
+                         Bm[..., :16].contiguous(), Cm[..., :16].contiguous(),
+                         chunk=256)
     with pytest.raises(ValueError, match="built for head dim"):
         ssd_ops.ssd_scan(x, dt, A, Bm.expand(1, 256, 3, 128).contiguous(),
                          Cm.expand(1, 256, 3, 128).contiguous(), chunk=256)

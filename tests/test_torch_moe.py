@@ -22,9 +22,7 @@ Against JAX, weights from the JAX initialisers carried over by
 - ``convert.py`` both ways for every config this slice adds: the smoke
   params round-trip bit for bit, and the port's leaves at full size (built
   on the meta device) have the names and shapes of JAX's ``init_lm``
-  (``jax.eval_shape``);
-- ``registry.missing_instance`` is None for every ported config and smoke
-  config on both paths but smoke mamba2 training, which names the SSD scan.
+  (``jax.eval_shape``).
 """
 import dataclasses
 
@@ -42,8 +40,7 @@ from repro.configs import get_config as jax_config  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import backbones as jbb  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
-from repro_torch.configs import ALIASES, get_config, get_smoke_config  # noqa: E402
-from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import backbones as bb  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models.convert import (_flatten, params_from_jax,  # noqa: E402
@@ -233,14 +230,3 @@ def test_convert_round_trip_and_full_size_leaves(arch):
             tree, is_leaf=lambda t: isinstance(t, torch.Tensor))[0]:
         tshapes["/".join(k.key for k in path)] = tuple(leaf.shape)
     assert tshapes == jshapes
-
-
-def test_missing_instance_covers_every_ported_config():
-    for arch in ALIASES:
-        for cfg in (get_config(arch), get_smoke_config(arch)):
-            for training in (False, True):
-                missing = registry.missing_instance(cfg, training=training)
-                if cfg.name == "mamba2-smoke" and training:
-                    assert missing.startswith("SSD scan (P 16, N 16, chunk 8")
-                else:
-                    assert missing is None, (cfg.name, training, missing)

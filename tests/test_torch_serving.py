@@ -31,6 +31,11 @@ scan sums in another order); slot reuse bit-identical and a bucketed
 (mamba2-1.3b, as JAX's).  The ``serve_decode`` twin's default argv (smoke
 mixtral-8x7b) on the CPU, and the continuous service of smoke qwen2-moe cut
 to one layer by ``--layers``.
+
+The hybrid, vlm and encdec families (smoke zamba2-7b, whisper-medium,
+llama-3.2-vision-90b): serve's fixed-round phases against JAX's on the same
+weights and prompts (f32: prefill logits within 1e-4 of the largest, greedy
+tokens identical), and ``serve.main`` on the CPU, fixed and continuous.
 """
 import dataclasses
 import json
@@ -398,3 +403,49 @@ def test_serve_decode_twin_default_argv_on_cpu(tmp_path):
     rows = [json.loads(r) for r in
             (tmp_path / "serve.jsonl").read_text().splitlines()]
     assert [r["arch"] for r in rows] == ["mixtral-8x7b", "qwen2-moe-a2.7b"]
+
+
+# ---------------------------------------------------------------------------
+# the hybrid, vlm and encdec families through serve
+# ---------------------------------------------------------------------------
+NEW_ARCHS = ("zamba2-7b", "whisper-medium", "llama-3.2-vision-90b")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_serve_phases_match_jax(arch):
+    """serve's fixed-round phases (``make_phases``: the stub frontends'
+    zero image tokens / frames, the cache sized for them) against JAX's
+    ``launch/serve.py`` phases on the same weights and prompts, f32: the
+    prefill's last logits within 1e-4 of the largest, the greedy tokens of
+    every decode step identical."""
+    from repro.launch import serve as jax_serve
+    jcfg = dataclasses.replace(jax_smoke(arch), compute_dtype="float32")
+    cfg = torch_cfg(jcfg)
+    params = jbb.init_lm(jax.random.PRNGKey(5), jcfg)
+    lm = port_lm(params, jcfg)
+    prompts = _prompts(cfg.vocab, seed=5)
+    jpre, jdec = jax_serve.make_phases(jcfg, B, T, GEN)
+    jlogits, jcache = jpre(params, jnp.asarray(prompts))
+    jtoks = np.asarray(jdec(params, jlogits, jcache, jax.random.PRNGKey(0)))
+    tpre, tdec = serve.make_phases(cfg, B, T, GEN, device="cpu")
+    tlogits, tcache = tpre(lm, torch.from_numpy(prompts))
+    scale = float(np.abs(np.asarray(jlogits)).max())
+    np.testing.assert_allclose(t2n(tlogits) / scale,
+                               np.asarray(jlogits) / scale, atol=1e-4)
+    np.testing.assert_array_equal(t2n(tdec(lm, tlogits, tcache, None)),
+                                  jtoks)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_serve_main_new_families_on_cpu(arch, tmp_path):
+    """serve.main on the CPU for each new family's smoke config: a fixed
+    round and the continuous service, every request served."""
+    toks = serve.main(["--device", "cpu", "--arch", arch, "--rounds", "1",
+                       "--batch", "2", "--prompt-len", "16", "--gen", "4",
+                       "--log-dir", str(tmp_path)])
+    assert tuple(toks.shape) == (2, 4)
+    summary = serve.main(["--device", "cpu", "--arch", arch, "--continuous",
+                          "--requests", "4", "--rate", "1000", "--slots", "2",
+                          "--prompt-len", "16", "--gen", "6", "--log-dir",
+                          str(tmp_path)])
+    assert summary["n_finished"] == 4 and summary["decode_tok_per_sec"] > 0

@@ -7,8 +7,10 @@ and its counterpart in the port:
   .ssd_scan`` (whose CPU path is the plain version) against JAX's
   ``ssd_reference`` and its Pallas kernel in interpret mode
   (``repro.kernels.ssd_scan.ops.ssd_scan``, as ``tests/test_kernels.py``
-  runs it), on ``SSD_CASES`` of ``tests/test_kernels.py``, on ragged T, and
-  with an initial state.  Both sides compute in f32 and differ only in the
+  runs it), on ``SSD_CASES`` of ``tests/test_kernels.py``, on ragged T, at
+  the shapes of the kernel's other instances (zamba2-7b's P 64, N 64, chunk
+  256 over two chunks; the smoke configs' P 16, N 16, chunk 8), and with an
+  initial state.  Both sides compute in f32 and differ only in the
   order of sums: y within 2e-5 of max|y| (the bound of the JAX kernel test),
   the state within 1e-5 + 1e-5 |state|;
 - the gradients of ``ops.ssd_scan`` (autograd through the
@@ -102,6 +104,23 @@ def test_ssd_forward_matches_jax(case):
         assert tuple(y.shape) == (B, T, H, P) and tuple(s.shape) == (B, H, P, N)
         _check_y_state(t2n(y), t2n(s), yr, sr)
         _check_y_state(t2n(y), t2n(s), yk, sk)
+
+
+# the kernel instances the port builds beside mamba2-1.3b's (P 64, N 128,
+# chunk 256): zamba2-7b's (P 64, N 64, chunk 256) at a short T of two
+# chunks, and the smoke mamba2 / zamba2 one (P 16, N 16, chunk 8) at their
+# training shape and at a ragged T; (B, T, H, P, G, N, chunk, block_h)
+INSTANCE_CASES = [(1, 512, 4, 64, 1, 64, 256, 4),
+                  (2, 32, 8, 16, 1, 16, 8, 4),
+                  (2, 29, 8, 16, 1, 16, 8, 4)]
+
+
+@pytest.mark.parametrize("case", INSTANCE_CASES,
+                         ids=["zamba2", "smoke", "smoke-ragged"])
+def test_ssd_instances_plain_version_matches_jax(case):
+    """The plain version at each built instance's shape against JAX's
+    reference and its Pallas kernel in interpret mode (the bounds above)."""
+    test_ssd_forward_matches_jax(case)
 
 
 def test_ssd_forward_with_initial_state_matches_jax():
