@@ -253,6 +253,29 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    ssd_scan call at the training shape with its device time, and gives the
    sum-tree kernel's device time a launch at ``ST_TIMED`` — last, since the
    profiler slows every later launch of the process;
+Every path that the JAX package compiles as one program runs on the card
+as a CUDA graph replay (core/graphs.py): serve's decode step, the engine's
+decode block, the rollout step and the TrainLoop iteration (``fuse=True``,
+the default), so the phases above drive them through graphs, and each
+kernel's launch count stays exact under replay (a replay adds the launches
+its capture recorded).  The graph checks, on the weights each phase has
+drawn: in phase 4, gemma2-2b's fixed rounds (two rounds, sampled at
+temperature 1 from one generator) and the continuous trace (offline, so
+both runs admit alike) with the decode replayed from graphs against eager:
+tokens bit for bit, launches exact; in phase 5a the same for mamba2-1.3b's
+fixed rounds; in phase 6a ``train --fuse-window 2`` against the two unfused
+steps (params bit for bit on the host, one log row with JAX's keys), then
+two gemma2-2b rollouts (B 8, horizon 256) replayed against eager (every
+leaf of the trajectory and v_last bit for bit); in phases 7-9 the rainbow
+example (60 iterations, across its first target copy), the quickstart (10)
+and DDPG, TD3 and SAC (10) fused against ``fuse=False``: after every
+iteration every state leaf, generator state and info bit for bit.  Each
+path's wall a step or an iteration, eager beside graph, is printed at the
+end with the card's name and power limit; the profile phase gives each
+one's device busy time and idle share (the replays of the rollouts and RL
+iterations profiled, the eager side printed beside their busy time; for
+serving, the eager decode profiled and 8 replayed steps beside it: a
+graph replays the eager step's kernels);
 13. each phase's wall time, the ``kernels`` JSON line (launch counts from
    phases 4-7, 6a and 9, the largest error of phase 3, times at the
    serving shape; phases 5a, 8, 10 and 11 launch none; one entry an
@@ -414,7 +437,7 @@ TRAIN = {"batch": 8, "horizon": 512, "steps": 2, "layers": 24}
 # B an element, 16 GB at B 8 x T 256 (31 GB at T 512 would not fit).
 # PEAK_GIB is the limit of the run's max_memory_allocated; above it the
 # horizon is halved, never a width or the depth.
-GEMMA_TRAIN = {"batch": 8, "horizon": 256, "steps": 2}
+GEMMA_TRAIN = {"batch": 8, "horizon": 256, "steps": 2, "graph_checks": True}
 PEAK_GIB = 76.0
 # Its checks, kernel route (flash_attn_fwd forward and recompute, the
 # reference's vjp backward, flash_attn_decode in the rollout) against
@@ -469,14 +492,16 @@ ST_EDGES = [(2048, 1, 33, 0), (16, 16, 5, 0), (16, 100, 64, 0),
 # the replay bench's, rlpyt's Atari replay (2^20) at the rainbow batch
 ST_TIMED = [(8192, 64), (2 ** 17, 256), (2 ** 20, 64)]
 RL = {"variant": "rainbow", "iters": 100, "bar_iters": 200, "bar_updates": 4,
-      "big_capacity": 2 ** 20, "big_iters": 20, "profile_iters": 10}
+      "big_capacity": 2 ** 20, "big_iters": 20, "profile_iters": 10,
+      "identity_iters": 60}
 # the quickstart (its own default is 50 iterations)
 PG = {"iters": 20, "log_interval": 10, "profile_iters": 5}
 # the QPG slice (phase 9): full width (the JAX factories' defaults), the
 # prioritized reruns, the checkpoint runs (iterations before / after the
 # restore), SAC updates timed a profile
 QPG = {"algos": ("ddpg", "td3", "sac"), "iters": 10, "prio_iters": 10,
-       "ckpt_iters": (4, 6), "ckpt_interval": 2, "profile_updates": 20}
+       "ckpt_iters": (4, 6), "ckpt_interval": 2, "profile_updates": 20,
+       "profile_iters": 5}
 # the R2D1 slice (phase 10): the r2d1_recurrent twin's iterations (threaded)
 # and the lockstep determinism runs; the full-width learner update
 R2D1_CFG = {"iters": 120, "lockstep_iters": 24, "lockstep_target_interval": 4}
@@ -548,7 +573,8 @@ from repro_torch.models.rl_models import make_pg_mlp, make_recurrent_q  # noqa: 
 from repro_torch.replay.host import SequenceSamples  # noqa: E402
 from repro_torch.runners import AsyncRunner, TrainLoop  # noqa: E402
 from repro_torch.samplers import SerialSampler  # noqa: E402
-from repro_torch.serving import DEFAULT_BUCKETS, poisson_trace  # noqa: E402
+from repro_torch.serving import (ContinuousBatchEngine,  # noqa: E402
+                                 DEFAULT_BUCKETS, poisson_trace)
 from repro_torch.train import optim  # noqa: E402
 from repro_torch.train.checkpoint import restore_checkpoint  # noqa: E402
 from repro_torch.utils.logger import Logger  # noqa: E402
@@ -930,8 +956,9 @@ def served_weights(cfg, prompt_len=1024):
 
 def kernel_vs_ref(cfg, params, prompts, gen):
     batch, prompt_len = prompts.shape
+    # eager decode: a graph would keep the route it was captured on
     prefill, decode = serve.make_phases(cfg, batch, prompt_len, gen,
-                                        device=DEV)
+                                        device=DEV, graph=False)
     out, first_tok = {}, None
     for spec in ("cuda", "ref"):
         with registry.override(spec), torch.inference_mode():
@@ -1046,6 +1073,12 @@ def ssm_serve_phase(log_dir):
         fail(f"{cfg.name} serving launched a kernel: {launches} (its prefill "
              "takes the plain scan, its decode step plain ops)")
     torch.cuda.empty_cache()
+    print(f"graph phase: {cfg.name} fixed rounds replayed from CUDA graphs "
+          "against eager, on serve.main's weights and prompts")
+    params, prompts = served_weights(cfg, run["prompt_len"])
+    fixed_rounds_graph_check(cfg, params, prompts, run["gen"])
+    del params, prompts
+    torch.cuda.empty_cache()
     cut = dataclasses.replace(cfg, n_layers=4)
     prompts = serve.make_prompts(  # serve.main's first round's prompts
         cut, run["batch"], run["prompt_len"],
@@ -1084,11 +1117,25 @@ def profile_phase(cfg, params, prompts, steps=8):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, out
 
+    # `steps` decode steps replayed from serve's graph (greedy; its cache
+    # holds prompt + steps + 1 positions)
+    prefill_graph, decode_graph = serve.make_phases(cfg, batch, prompt_len,
+                                                    steps, device=DEV)
+
+    def run_graph(logits, cache):
+        return decode_graph(params, logits, cache, None)
+
     # unprofiled walls first: once the profiler has run, CUPTI stays
     # attached and every later launch of the process is slower
     logits, cache = run_prefill()
     walls = {"prefill": wall_ms(run_prefill)[0],
              "decode": wall_ms(run_decode, logits, cache)[0] / steps}
+    run_graph(*prefill_graph(params, prompts))   # warm-up and capture
+    walls["decode (graph)"] = wall_ms(
+        run_graph, *prefill_graph(params, prompts))[0] / steps
+    del logits, cache, prefill_graph
+    GRAPH_WALLS[f"{cfg.name} decode step (B{batch}, profile phase)"] = (
+        walls["decode"], walls["decode (graph)"], "a step")
 
     def record(phase):
         """One profiled run of the phase: its CUDA kernels, by name."""
@@ -1104,6 +1151,7 @@ def profile_phase(cfg, params, prompts, steps=8):
         return sum(e.count for e in evs if name in e.key)
 
     sites = attn_sites(cfg)
+    busy_of = {}
     for phase in ("prefill", "decode"):
         per = 1 if phase == "prefill" else steps
         # one attention kernel an attention site: flash_attn_decode merges
@@ -1139,7 +1187,8 @@ def profile_phase(cfg, params, prompts, steps=8):
             print(f"  profile {phase}: device time not measured (the profiler "
                   "recorded no CUDA kernels)")
             continue
-        busy = sum(e.self_device_time_total for e in evs) / 1e3 / per
+        busy = busy_of[phase] = sum(e.self_device_time_total
+                                    for e in evs) / 1e3 / per
         n = sum(e.count for e in evs) / per
         wall = walls[phase]
         top = sorted(evs, key=lambda e: -e.self_device_time_total)[:5]
@@ -1161,6 +1210,9 @@ def profile_phase(cfg, params, prompts, steps=8):
         print(f"    {name}: {count:g} launches a {'call' if per == 1 else 'step'} "
               f"(one an attention site, no other attention kernel), {us:.2f} "
               "us of device time a launch")
+    replayed_busy(f"decode (graph) (B{batch}, prompt {prompt_len}, "
+                  f"{steps} steps)", walls["decode (graph)"],
+                  busy_of.get("decode"))
 
 # ---------------------------------------------------------------------------
 # phase 3 (SSD): the scan kernel against ssd_reference, then its time
@@ -1433,6 +1485,8 @@ def lm_work(cfg, run, batch):
                         requires_grad=True)
     short = train.make_lm_rollout(cfg, env, run["batch"], ROLL_STEPS,
                                   device=DEV)
+    eager = train.make_lm_rollout(cfg, env, run["batch"], ROLL_STEPS,
+                                  device=DEV, graph=False)
     opt = optim.adam(3e-4, grad_clip=1.0)
     state = [opt.init(params.parameters())]
     step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003)
@@ -1440,7 +1494,8 @@ def lm_work(cfg, run, batch):
     def update():
         _, state[0], _ = step(params, state[0], batch)
 
-    return {"rollout": lambda: short(params, gen), "update": update}
+    return {"rollout": lambda: short(params, gen),
+            "rollout (eager)": lambda: eager(params, gen), "update": update}
 
 
 def lm_walls(work):
@@ -1487,6 +1542,8 @@ def lm_train_phase(arch, run, tol, log_dir):
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    unfused = [p.detach().cpu() for p in params.parameters()] \
+        if run.get("graph_checks") else None
     del params
     torch.cuda.empty_cache()
     print(f"  launches in the training run: {launches}; max_memory_allocated "
@@ -1500,6 +1557,34 @@ def lm_train_phase(arch, run, tol, log_dir):
         fail(f"training launches {launches}, expected {want} (forward + "
              "recompute a Mamba-2 layer and an attention site an update; a "
              "decode step an attention site a rollout step)")
+    if unfused is not None:
+        print(f"graph phase: {arch} training with --fuse-window {steps} "
+              f"against {steps} unfused steps, then the rollout against "
+              "eager")
+        zero_kernel_counters()
+        t0 = time.perf_counter()
+        fused = train.main(["--arch", arch, "--full", "--device", "cuda",
+                            "--batch", str(run["batch"]), "--horizon",
+                            str(T), "--steps", str(steps), "--seed",
+                            str(SEED), "--fuse-window", str(steps),
+                            "--log-dir", log_dir + "_fused"] + cut)
+        fused_wall = time.perf_counter() - t0
+        same = all(torch.equal(p.detach().cpu(), q) for p, q in zip(
+            fused.parameters(), unfused))
+        rows = [json.loads(ln) for ln in (Path(log_dir + "_fused") /
+                "progress.jsonl").read_text().splitlines()]
+        flaunches = kernel_launches()
+        del fused, unfused
+        torch.cuda.empty_cache()
+        print(f"  --fuse-window {steps}: params == {steps} unfused steps' bit "
+              f"for bit: {same}; one row {rows}; launches {flaunches}; "
+              f"{fused_wall:.1f} s")
+        if not same or len(rows) != 1 or flaunches != want or not {
+                "avg_reward", "loss", "entropy",
+                "samples_per_sec"} <= set(rows[0]):
+            fail(f"--fuse-window {steps}: params equal {same}, rows {rows}, "
+                 f"launches {flaunches}")
+        rollout_graph_check(cfg, run)
     if peak > PEAK_GIB:
         fail(f"training peak {peak:.2f} GiB > {PEAK_GIB} GiB")
     rows = [json.loads(ln) for ln in
@@ -1526,6 +1611,9 @@ def lm_train_phase(arch, run, tol, log_dir):
     walls = lm_walls(work)
     del work
     torch.cuda.empty_cache()
+    GRAPH_WALLS[f"{arch} rollout step ({L} layers, B{run['batch']})"] = (
+        walls["rollout (eager)"] / (ROLL_STEPS + 1),
+        walls["rollout"] / (ROLL_STEPS + 1), "a step")
     print(f"  phase {time.perf_counter() - t_phase:.1f} s")
     return launches, (arch, cfg, run, batch, walls)
 
@@ -1539,7 +1627,13 @@ def profile_training(spec):
 
     arch, cfg, run, batch, walls = spec
     work = lm_work(cfg, run, batch)
+    busy_of = {}
     for name, fn in work.items():
+        if name == "rollout (eager)":
+            replayed_busy(f"rollout (eager) ({arch}, B{run['batch']}, "
+                          f"{ROLL_STEPS} + 1 decode steps)", walls[name],
+                          busy_of.get("rollout"))
+            continue
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1548,13 +1642,14 @@ def profile_training(spec):
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-        what = (f"{ROLL_STEPS} + 1 decode steps" if name == "rollout"
-                else "one step")
+        what = (f"{ROLL_STEPS} + 1 decode steps" if name.startswith(
+            "rollout") else "one step")
         if not evs:
             print(f"  profile {name}: device time not measured (the profiler "
                   "recorded no CUDA kernels)")
             continue
-        busy = sum(e.self_device_time_total for e in evs) / 1e3
+        busy = busy_of[name] = sum(e.self_device_time_total
+                                   for e in evs) / 1e3
         n = sum(e.count for e in evs)
         print(f"  profile {name} ({arch}, B{run['batch']}, {what}): "
               f"wall {walls[name]:.3f} ms unprofiled, device busy "
@@ -1928,33 +2023,32 @@ def rl_phase(log_dir):
     del rs, runner, ts, ss
     torch.cuda.empty_cache()
 
+    print(f"graph phase: {RL['variant']} fused against unfused "
+          f"({RL['identity_iters']} iterations: the first log window and the "
+          "target copy at update 100)")
+
+    def rainbow(n):
+        return catch_dqn.make_runner(RL["variant"], n,
+                                     logger=Logger(sinks=()))[1], None
+
+    replays = fused_identity(f"{RL['variant']} (the example's settings)",
+                             lambda: rainbow(RL["identity_iters"]),
+                             RL["identity_iters"])
+    if len(replays) < 2:
+        fail(f"rainbow: the fused run kept {len(replays)} graph(s); the "
+             "target copy's branch needs its own")
     # unprofiled wall time of RL iterations for the profile phase
-    _, runner = catch_dqn.make_runner(RL["variant"], 2, log_interval=2,
-                                      logger=Logger(sinks=()))
-    ts, ss, _ = runner.run(SEED, device=DEV)
-    state = {"ts": ts, "ss": ss, "rs": runner.replay_state,
-             "gen": torch.Generator(device=DEV).manual_seed(SEED + 3)}
-
-    def iterate(n=RL["profile_iters"]):
-        for _ in range(n):
-            state["ts"], state["ss"], state["rs"], _, _ = runner.loop.iteration(
-                state["ts"], state["ss"], state["rs"], state["gen"])
-        torch.cuda.synchronize()
-
-    iterate(2)
-    t0 = time.perf_counter()
-    iterate()
-    it_wall = (time.perf_counter() - t0) * 1e3 / RL["profile_iters"]
-    print(f"  one rainbow iteration (collect 16 x 16, 2 updates): "
-          f"{it_wall:.3f} ms unprofiled")
-    return launches, (iterate, it_wall)
+    return launches, iteration_walls(
+        "rainbow iteration (collect 16 x 16, 2 updates)", lambda: rainbow(2),
+        RL["profile_iters"])
 
 
 def profile_rl(work):
-    """Device busy time of RL iterations against their unprofiled wall
-    time, and the sum-tree kernel's own device time per launch."""
-    profile_work("RL iteration (rainbow, collect 16 x 16 + 2 updates)",
-                 *work, RL["profile_iters"])
+    """Device busy time of RL iterations, eager and fused, against their
+    unprofiled wall time, and the sum-tree kernel's own device time per
+    launch."""
+    profile_walls("RL iteration (rainbow, collect 16 x 16 + 2 updates)",
+                  work, RL["profile_iters"])
     st_profile()
 
 
@@ -1987,7 +2081,7 @@ def profile_work(label, fn, wall, n):
     if not evs:
         print(f"  profile {label}: device time not measured (the profiler "
               "recorded no CUDA kernels)")
-        return
+        return None
     busy = sum(e.self_device_time_total for e in evs) / 1e3 / n
     kernels = sum(e.count for e in evs) / n
     print(f"  profile {label}: wall {wall:.3f} ms unprofiled, device busy "
@@ -1996,6 +2090,20 @@ def profile_work(label, fn, wall, n):
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms "
               f"x{e.count / n:.0f}  {e.key[:90]}")
+    return busy
+
+
+def replayed_busy(label, wall, busy):
+    """The other path's line: its wall beside the profiled path's device
+    busy time (a graph replays the eager step's kernels, so their device
+    time is the same: within 4 % where both were profiled, PERF.md)."""
+    if busy is None:
+        print(f"  profile {label}: wall {wall:.3f} ms unprofiled, device "
+              "time not measured")
+        return
+    print(f"  profile {label}: wall {wall:.3f} ms unprofiled, device busy "
+          f"{busy:.3f} ms (the same kernels), idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}")
 
 
 def pg_phase(log_dir):
@@ -2040,34 +2148,28 @@ def pg_phase(log_dir):
         if not ret > bar["threshold"]:
             fail(f"CartPole {name} return {ret} <= {bar['threshold']}")
 
+    print(f"graph phase: the quickstart fused against unfused "
+          f"({PG['log_interval']} iterations: its first log window)")
+
+    def ppo(n):
+        return quickstart.make_runner(n, log_interval=PG["log_interval"],
+                                      logger=Logger(sinks=()))[1], None
+
+    fused_identity("PPO CartPole (the quickstart's settings)",
+                   lambda: ppo(PG["log_interval"]), PG["log_interval"])
     # unprofiled wall time of quickstart iterations for the profile phase
-    _, runner = quickstart.make_runner(2, log_interval=2,
-                                       logger=Logger(sinks=()))
-    ts, ss, _ = runner.run(SEED, device=DEV)
-    state = {"ts": ts, "ss": ss,
-             "gen": torch.Generator(device=DEV).manual_seed(SEED + 3)}
-
-    def iterate(n=PG["profile_iters"]):
-        for _ in range(n):
-            state["ts"], state["ss"], _, _, _ = runner.loop.iteration(
-                state["ts"], state["ss"], None, state["gen"])
-        torch.cuda.synchronize()
-
-    iterate(2)
-    t0 = time.perf_counter()
-    iterate()
-    it_wall = (time.perf_counter() - t0) * 1e3 / PG["profile_iters"]
-    print(f"  one quickstart iteration (collect 16 x 64, 16 PPO minibatch "
-          f"updates, sentinels): {it_wall:.3f} ms unprofiled; phase "
-          f"{time.perf_counter() - t_phase:.1f} s")
-    return (iterate, it_wall)
+    work = iteration_walls("quickstart iteration (collect 16 x 64, 16 PPO "
+                           "minibatch updates, sentinels)", lambda: ppo(2),
+                           PG["profile_iters"])
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return work
 
 
 def profile_pg(work):
     """Device busy time of quickstart iterations against their unprofiled
     wall time."""
-    profile_work("PPO CartPole iteration (collect 16 x 64 + 16 updates + "
-                 "sentinels)", *work, PG["profile_iters"])
+    profile_walls("PPO CartPole iteration (collect 16 x 64 + 16 updates "
+                  "+ sentinels)", work, PG["profile_iters"])
 
 
 # ---------------------------------------------------------------------------
@@ -2080,22 +2182,29 @@ def params_finite(ts) -> bool:
     return bool(torch.stack([torch.isfinite(x).all() for x in leaves]).all())
 
 
-def watch_td3_actor(algo):
-    """Wrap ``algo.update`` to record, per update, its step and the largest
-    change of any actor param (device tensors, read once at the end)."""
-    update, seen = algo.update, []
+def watch_td3_actor(algo, n_updates):
+    """Wrap ``algo.update`` to record, for each update (update j makes step
+    j + 1), the largest change of any actor param into a device buffer at
+    a device index: the record is part of the update, so it holds when the
+    update is replayed from a graph.  Returns (record, count), read once at
+    the end."""
+    update = algo.update
+    record = torch.full((n_updates,), float("nan"), device=DEV)
+    count = torch.zeros((1,), dtype=torch.long, device=DEV)
 
     def watched(ts, batch, generator=None):
         before = [p.clone() for p in
                   pytree.tree_leaves(ts.params["actor"])]
         ts, info = update(ts, batch, generator)
         moved = torch.stack([(p - b).abs().max() for p, b in zip(
-            pytree.tree_leaves(ts.params["actor"]), before)])
-        seen.append((ts.step, moved.max()))
+            pytree.tree_leaves(ts.params["actor"]), before)]).max()
+        record.index_copy_(0, torch.clamp(count, max=n_updates - 1),
+                           moved[None])
+        count.add_(1)
         return ts, info
 
     algo.update = watched
-    return seen
+    return record, count
 
 
 def qpg_run(name, log_dir, n_iterations, **kw):
@@ -2107,7 +2216,8 @@ def qpg_run(name, log_dir, n_iterations, **kw):
     sampler, runner, init = pendulum_qpg.make_runner(
         name, n_iterations, logger=Logger(str(run_dir), sinks=("jsonl",)),
         **kw)
-    seen = watch_td3_actor(runner.algo) if name == "td3" else None
+    n_up = runner.loop.k * n_iterations
+    seen = watch_td3_actor(runner.algo, n_up) if name == "td3" else None
     params = init(torch.Generator(device=DEV).manual_seed(SEED))
     t0 = time.perf_counter()
     ts, ss, info = runner.run(SEED, params=params, device=DEV)
@@ -2118,7 +2228,10 @@ def qpg_run(name, log_dir, n_iterations, **kw):
         fail(f"qpg {name}: {len(rows)} rows, params finite "
              f"{params_finite(ts)}")
     if seen is not None:
-        moved = {step: float(m) for step, m in seen}
+        record, count = seen
+        if int(count) != n_up:
+            fail(f"td3: {int(count)} updates recorded, want {n_up}")
+        moved = {j + 1: float(m) for j, m in enumerate(record.tolist())}
         odd = [s for s, m in moved.items() if s % 2 and m != 0.0]
         if odd or not any(m > 0 for s, m in moved.items() if s % 2 == 0):
             fail(f"td3: actor moved on odd steps {odd[:5]} or never on even")
@@ -2229,6 +2342,25 @@ def qpg_phase(log_dir):
         del r1, r2, ts1, ts2, saved, restored
     torch.cuda.empty_cache()
 
+    print(f"graph phase: DDPG / TD3 / SAC fused against unfused "
+          f"({QPG['iters']} iterations: the first log window)")
+    for name in QPG["algos"]:
+        def make(name=name):
+            _, runner, init = pendulum_qpg.make_runner(
+                name, QPG["iters"], logger=Logger(sinks=()))
+            return runner, init(torch.Generator(device=DEV).manual_seed(SEED))
+
+        fused_identity(f"{name} (hidden 256, capacity 2^20, {n_up} updates "
+                       "an iteration)", make, QPG["iters"])
+
+    def sac(n=2):
+        _, runner, init = pendulum_qpg.make_runner("sac", n,
+                                                   logger=Logger(sinks=()))
+        return runner, init(torch.Generator(device=DEV).manual_seed(SEED))
+
+    work["iteration"] = iteration_walls(
+        f"SAC iteration (hidden 256, collect 8 x 32, {n_up} updates)", sac,
+        QPG["profile_iters"])
     # unprofiled wall time of SAC updates for the profile phase, at the
     # bar's width and at full width
     n = QPG["profile_updates"]
@@ -2261,7 +2393,11 @@ def qpg_phase(log_dir):
 
 
 def profile_qpg(work):
-    """Device busy time of SAC updates against their unprofiled wall."""
+    """Device busy time of SAC iterations (eager and fused) and updates
+    against their unprofiled wall."""
+    work = dict(work)
+    profile_walls("SAC iteration (hidden 256, collect 8 x 32 + 8 updates)",
+                  work.pop("iteration"), QPG["profile_iters"])
     for label, (update, wall) in work.items():
         profile_work(f"SAC update ({label})", update, wall,
                      QPG["profile_updates"])
@@ -3079,6 +3215,275 @@ def add_by_instance(total, cfg, got):
             total[key] = total.get(key, 0) + n
 
 
+# ---------------------------------------------------------------------------
+# the captured paths (CUDA graphs, core/graphs.py) against their eager runs
+# ---------------------------------------------------------------------------
+# path -> (eager ms, graph ms, unit): the walls printed at the end beside
+# the card's name and power limit (the busy time and the idle share of each
+# are in the profile phase's lines)
+GRAPH_WALLS = {}
+# the checks sample at temperature 1, so the generator's draws are inside
+# the graphs too (the main path's serving is greedy)
+GRAPH_TEMP = 1.0
+
+
+def graph_leaf(x) -> bool:
+    return isinstance(x, torch.Generator)
+
+
+def snapshot(tree):
+    """Every leaf of ``tree`` as it is now: tensors cloned, generators by
+    their state."""
+    return [x.get_state() if isinstance(x, torch.Generator)
+            else x.detach().clone() if torch.is_tensor(x) else x
+            for x in pytree.tree_leaves(tree, is_leaf=graph_leaf)]
+
+
+def same_snapshot(a, b) -> bool:
+    """Bit for bit: dtype, shape and every bit of each tensor, generator
+    states, plain leaves by ==."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if torch.is_tensor(x):
+            if not (torch.is_tensor(y) and x.dtype == y.dtype
+                    and x.shape == y.shape and torch.equal(x, y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def want_launches(cfg, prefills, decode_steps):
+    """Exact launch counts of serving: one kernel an attention site a
+    prefill and a decode step; the SSD scan never (the prefill passes the
+    cache's state)."""
+    sites = attn_sites(cfg)
+    return {c.__name__: 0 for c in KERNEL_COUNTERS} | {
+        "flash_attention": sites * prefills,
+        "flash_attention_decode": sites * decode_steps}
+
+
+def fixed_rounds_graph_check(cfg, params, prompts, gen_len=64, rounds=2):
+    """serve's fixed rounds with each decode step replayed from its graph
+    against the eager step, on the same weights, prompts and sampling
+    generator: the tokens of every round bit for bit, and on both paths
+    one kernel launch an attention site a prefill and a decode step
+    exactly (the graph's counted once a replay).  The wall of a decode
+    step is the second round's (the first warms up and captures)."""
+    batch, prompt_len = prompts.shape
+    toks, walls, launches = {}, {}, {}
+    for graph in (False, True):
+        prefill, decode = serve.make_phases(cfg, batch, prompt_len, gen_len,
+                                            GRAPH_TEMP, device=DEV,
+                                            graph=graph)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+        zero_kernel_counters()
+        toks[graph] = []
+        for _ in range(rounds):
+            logits, cache = prefill(params, prompts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks[graph].append(decode(params, logits, cache, gen))
+            torch.cuda.synchronize()
+            walls[graph] = (time.perf_counter() - t0) * 1e3 / gen_len
+            del logits, cache
+        launches[graph] = kernel_launches()
+        replays = decode.step.replays if graph else 0
+        del prefill, decode
+        torch.cuda.empty_cache()
+    want = want_launches(cfg, rounds, rounds * gen_len)
+    same = all(torch.equal(a, b) for a, b in zip(toks[False], toks[True]))
+    print(f"  {cfg.name} fixed rounds (B{batch}, prompt {prompt_len}, gen "
+          f"{gen_len}, {rounds} rounds, temperature {GRAPH_TEMP}): graph "
+          f"tokens == eager tokens bit for bit: {same}; decode step "
+          f"{walls[False]:.3f} ms eager, {walls[True]:.3f} ms graph "
+          f"({replays} replays); launches eager {launches[False]}, graph "
+          f"{launches[True]}")
+    if not same:
+        fail(f"{cfg.name}: the replayed decode's tokens differ from eager")
+    if launches[False] != want or launches[True] != want:
+        fail(f"{cfg.name} fixed rounds: launches {launches}, want {want}")
+    GRAPH_WALLS[f"{cfg.name} decode step (B{batch}, S "
+                f"{prompt_len + gen_len + 1})"] = (walls[False], walls[True],
+                                                   "a step")
+
+
+def continuous_graph_check(cfg, params):
+    """The engine's decode block replayed from its graph against the eager
+    block on the continuous run's trace, offline (every arrival at 0, so
+    both runs admit alike), sampled from the engine's seeded generator:
+    every request's tokens bit for bit; each path's decode_step_ms."""
+    out = {}
+    for graph in (False, True):
+        engine = ContinuousBatchEngine(
+            cfg, params, n_slots=CONT["slots"],
+            max_context=CONT["prompt_len"] + CONT["gen"] + 1, device=DEV,
+            buckets=[b for b in DEFAULT_BUCKETS if b <= CONT["prompt_len"]],
+            decode_block=4, temperature=GRAPH_TEMP, seed=SEED, graph=graph)
+        engine.warmup()
+        reqs = poisson_trace(
+            SEED, CONT["requests"], CONT["rate"],
+            prompt_len_range=(CONT["prompt_min"], CONT["prompt_len"]),
+            max_tokens_range=(CONT["gen_min"], CONT["gen"]), vocab=cfg.vocab)
+        summary = engine.run(reqs, realtime=False)
+        out[graph] = ([np.asarray(r.tokens) for r in reqs], summary)
+        del engine
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(a, b) for a, b in zip(out[False][0],
+                                                     out[True][0]))
+    ms = {g: out[g][1]["decode_step_ms"] for g in out}
+    print(f"  {cfg.name} continuous ({CONT['requests']} requests offline, "
+          f"{CONT['slots']} slots, blocks of 4, temperature {GRAPH_TEMP}): "
+          f"graph tokens == eager tokens bit for bit: {same}; decode step "
+          f"{ms[False]:.3f} ms eager, {ms[True]:.3f} ms graph")
+    if not same or out[True][1]["n_finished"] != CONT["requests"]:
+        fail(f"{cfg.name} continuous: the replayed blocks' tokens differ "
+             "from eager")
+    GRAPH_WALLS[f"{cfg.name} continuous decode step ({CONT['slots']} "
+                "slots)"] = (ms[False], ms[True], "a step")
+
+
+def rollout_graph_check(cfg, run):
+    """The LM rollout with its step replayed from a graph against the
+    eager step, on the same f32 weights and generator seed, two rollouts
+    each: every (T, B) leaf and v_last bit for bit, and one
+    flash_attn_decode an attention site a step (the bootstrap's too)
+    exactly under replay.  The wall of a step is the second rollout's."""
+    env = make_token_lm(vocab=cfg.vocab, episode_len=run["horizon"],
+                        device=DEV)
+    params = bb.init_lm(cfg, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(SEED), dtype=torch.float32,
+        requires_grad=True)
+    T = run["horizon"]
+    snaps, walls, launches = {}, {}, {}
+    for graph in (False, True):
+        rollout = train.make_lm_rollout(cfg, env, run["batch"], T,
+                                        device=DEV, graph=graph)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+        zero_kernel_counters()
+        snaps[graph] = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            traj, v_last = rollout(params, gen)
+            torch.cuda.synchronize()
+            walls[graph] = (time.perf_counter() - t0) * 1e3 / (T + 1)
+            snaps[graph].append(snapshot((traj, v_last)))
+        launches[graph] = kernel_launches()
+        del rollout, traj, v_last
+        torch.cuda.empty_cache()
+    want = {c.__name__: 0 for c in KERNEL_COUNTERS} | {
+        "flash_attention_decode": 2 * attn_sites(cfg) * (T + 1)}
+    same = all(same_snapshot(a, b) for a, b in zip(snaps[False],
+                                                    snaps[True]))
+    print(f"  {cfg.name} rollout (B{run['batch']}, horizon {T}, two "
+          f"rollouts, {cfg.n_layers} layers): graph trajectory == eager "
+          f"bit for bit: {same}; a step {walls[False]:.3f} ms eager, "
+          f"{walls[True]:.3f} ms graph; launches eager {launches[False]}, "
+          f"graph {launches[True]}")
+    if not same:
+        fail(f"{cfg.name}: the replayed rollout differs from eager")
+    if launches[False] != want or launches[True] != want:
+        fail(f"{cfg.name} rollout: launches {launches}, want {want}")
+    GRAPH_WALLS[f"{cfg.name} rollout step (B{run['batch']}, horizon "
+                f"{T})"] = (walls[False], walls[True], "a step")
+    del params, snaps
+    torch.cuda.empty_cache()
+
+
+def fused_identity(label, make, n):
+    """``make()``'s runner (a fresh (runner, params) pair each call) run
+    from SEED twice for ``n`` iterations, fused (each iteration a graph
+    replay, after each graph's eager warm-up) and unfused: after every
+    iteration the train, sampler and replay states, the generators' states
+    and the iteration's info bit for bit.  Returns the fused loop's graph
+    replays by branch key."""
+    trail, mismatch, replays = [], [], {}
+    # cuDNN's default convolution backward adds in an order that changes
+    # from run to run (two eager runs of Catch's conv model differ in the
+    # 1e-10s): the comparison runs its deterministic algorithms, as the
+    # R2D1 lockstep check does
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for fuse in (True, False):
+        runner, params = make()
+        loop = runner.loop
+        loop.fuse = fuse
+        inner = loop.run_window
+
+        def run_window(ts, ss, rs, gen, k, inner=inner, fuse=fuse):
+            sents = []
+            for _ in range(k):
+                ts, ss, rs, info, sent = inner(ts, ss, rs, gen, 1)
+                sents.append(sent)
+                snap = snapshot((ts, ss, rs, gen, info))
+                i = run_window.i
+                if fuse:
+                    trail.append(snap)
+                elif i >= len(trail) or not same_snapshot(trail[i], snap):
+                    mismatch.append(i)
+                run_window.i += 1
+            stacked = None if sents[0] is None else pytree.tree_map(
+                lambda *x: torch.cat(x), *sents)
+            return ts, ss, rs, info, stacked
+
+        run_window.i = 0
+        loop.run_window = run_window
+        runner.run(SEED, params=params, device=DEV)
+        if fuse:
+            replays = {k: g.replays for k, g in loop.graphs.items()}
+        del runner, loop
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = was
+    print(f"  {label}: {n} iterations fused (graph replays by branch "
+          f"{replays}) == unfused after every iteration, bit for bit: "
+          f"{not mismatch and len(trail) == n}")
+    if mismatch or len(trail) != n:
+        fail(f"{label}: fused iterations {mismatch[:5]} differ from unfused "
+             f"({len(trail)} of {n} recorded)")
+    return replays
+
+
+def iteration_walls(label, make, n):
+    """Unprofiled wall of ``n`` TrainLoop iterations, eager
+    (``iteration``) and fused (``fused_iteration``, a graph replay each),
+    each on its own runner after two iterations of ``run``; returns {mode:
+    (fn, ms)} for the profile phase."""
+    work = {}
+    for mode in ("eager", "graph"):
+        runner, params = make()
+        runner.loop.fuse = mode == "graph"
+        ts, ss, _ = runner.run(SEED, params=params, device=DEV)
+        runner.loop.graphs = {}
+        state = [ts, ss, getattr(runner, "replay_state", None),
+                 torch.Generator(device=DEV).manual_seed(SEED + 3)]
+        step = runner.loop.fused_iteration if mode == "graph" else \
+            runner.loop.iteration
+
+        def iterate(k=n, state=state, step=step):
+            for _ in range(k):
+                state[0], state[1], state[2], _, _ = step(*state)
+            torch.cuda.synchronize()
+
+        iterate(2)
+        t0 = time.perf_counter()
+        iterate()
+        work[mode] = (iterate, (time.perf_counter() - t0) * 1e3 / n)
+    GRAPH_WALLS[label] = (work["eager"][1], work["graph"][1], "an iteration")
+    print(f"  one {label}: {work['eager'][1]:.3f} ms eager, "
+          f"{work['graph'][1]:.3f} ms graph (unprofiled)")
+    return work
+
+
+def profile_walls(label, work, n):
+    """The profile phase's lines for an eager / graph pair of ``work``: the
+    graph's replays profiled, the eager wall beside their busy time."""
+    fn, wall = work["graph"]
+    busy = profile_work(f"{label} (graph)", fn, wall, n)
+    replayed_busy(f"{label} (eager)", work["eager"][1], busy)
+
+
 def main() -> None:
     laps, mark = {}, [time.perf_counter()]
     t_start = mark[0]
@@ -3143,6 +3548,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         params, prompts = served_weights(cfg)
         kernel_vs_ref(cfg, params, prompts, 64)
+        print("graph phase: gemma2-2b serving replayed from CUDA graphs "
+              "against eager, on the same weights")
+        fixed_rounds_graph_check(cfg, params, prompts)
+        continuous_graph_check(cfg, params)
         del params, prompts  # drawn again for the profile phase
         torch.cuda.empty_cache()
 
@@ -3310,6 +3719,11 @@ def main() -> None:
         "max_abs_err": st_worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
         "library_ms": t["library_ms"]})
+    print(f"graph walls, eager beside the CUDA graph's replay ({card}; the "
+          "busy time and idle share of each are in the profile lines):")
+    for path, (eager, graph, unit) in GRAPH_WALLS.items():
+        print(f"  {path}: {eager:.3f} ms eager, {graph:.3f} ms graph {unit} "
+              f"({eager / graph:.2f}x)")
     print("phase walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                       laps.items())
           + f"; total {time.perf_counter() - t_start:.1f} s")

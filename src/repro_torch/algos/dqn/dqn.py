@@ -10,9 +10,15 @@ the optimizer step, as JAX does.  ``td_abs`` is returned for priority
 updates.  The target side of the loss runs under ``torch.no_grad()``, the
 counterpart of JAX's ``stop_gradient``.
 
-The C51 projection adds the probability mass of colliding ``lo``/``hi``
-atoms with ``scatter_add_``, whose order of additions on CUDA is unordered:
-the projected distribution differs from JAX's ``.at[].add`` by f32 rounding.
+The C51 projection sums the probability mass of colliding ``lo``/``hi``
+atoms as a one-hot reduction, in a fixed order on every device (an atomic
+``scatter_add_`` would add in a different order from run to run on CUDA, and
+a captured update would not repeat its eager run bit for bit): the projected
+distribution differs from JAX's ``.at[].add`` by f32 rounding.
+
+``update_variant(step)`` names the host-side branch of the update that
+makes train step ``step`` (whether it copies the target network), so a
+caller that captures updates in CUDA graphs keeps one graph per branch.
 """
 from __future__ import annotations
 
@@ -126,9 +132,11 @@ class DQN:
             eq = (lo == hi).to(F32)
             w_lo = (hi.to(F32) - b) + eq
             w_hi = b - lo.to(F32)
-            m = torch.zeros_like(p_next)
-            m.scatter_add_(1, lo, p_next * w_lo)
-            m.scatter_add_(1, torch.clamp(hi, 0, nA - 1), p_next * w_hi)
+            atoms = torch.arange(nA, device=b.device)
+            m = torch.sum((lo[..., None] == atoms).to(F32)
+                          * (p_next * w_lo)[..., None], dim=1) + torch.sum(
+                (torch.clamp(hi, 0, nA - 1)[..., None] == atoms).to(F32)
+                * (p_next * w_hi)[..., None], dim=1)
 
         ce = -torch.sum(m * logp_a, dim=-1)
         loss = torch.mean(batch["is_weights"] * ce)
@@ -140,6 +148,11 @@ class DQN:
         """(loss, aux, grads): grads a list in ``tree_leaves(params)`` order."""
         return grads_of(self.loss, params, target_params, batch)
 
+    def update_variant(self, step: int) -> bool:
+        """Whether the update that makes train step ``step`` copies the
+        params into the target network."""
+        return step % self.target_interval == 0
+
     def update(self, train_state: TrainState, batch, generator=None):
         target = train_state.extra["target"]
         loss, aux, grads = self.grads(train_state.params, target, batch)
@@ -147,7 +160,7 @@ class DQN:
         _, opt_state, gnorm = self.opt.update(grads, train_state.opt_state,
                                               leaves)
         step = train_state.step + 1
-        if step % self.target_interval == 0:
+        if self.update_variant(step):
             with torch.no_grad():
                 for t, p in zip(pytree.tree_leaves(target), leaves):
                     t.copy_(p)

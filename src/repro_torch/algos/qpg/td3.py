@@ -6,7 +6,9 @@ JAX computes the actor step on every update and keeps it only where
 branches on its Python-int step instead (the update never waits for the
 device): on the other steps it computes ``actor_loss`` without a gradient,
 for the log, and leaves the actor, its Adam state and both targets
-untouched, as JAX's ``where`` leaves them.  The smoothing noise is a
+untouched, as JAX's ``where`` leaves them.  ``update_variant(step)`` names
+that branch, so a caller that captures updates in CUDA graphs keeps one
+graph per branch.  The smoothing noise is a
 standard normal of the action's shape, drawn from the generator or passed
 in (``noise=``) so a test can hand both frameworks the same draws.
 """
@@ -52,6 +54,11 @@ class TD3(DDPG):
         loss = torch.mean(batch["is_weights"][None] * torch.square(td))
         return loss, {"td_abs": torch.abs(td[0])}
 
+    def update_variant(self, step: int) -> bool:
+        """Whether the update that makes train step ``step`` steps the actor
+        and the targets."""
+        return step % self.policy_delay == 0
+
     def update(self, train_state: TrainState, batch, generator=None, *,
                noise=None):
         """``noise``: the smoothing draws, (B, act_dim) standard normal;
@@ -68,7 +75,7 @@ class TD3(DDPG):
             pytree.tree_leaves(p["critic"]))
         step = train_state.step + 1
         a_opt = train_state.opt_state["actor"]
-        if step % self.policy_delay == 0:
+        if self.update_variant(step):
             a_loss, _, a_grads = grads_of(self.actor_loss, p["actor"],
                                           p["critic"], batch)
             _, a_opt, _ = self.actor_opt.update(

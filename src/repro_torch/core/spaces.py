@@ -53,17 +53,27 @@ class Box(Space):
             high = np.broadcast_to(high, shape)
         self.low, self.high = low, high
         self.dtype = dtype
+        self._on = {}
 
     @property
     def shape(self):
         return self.low.shape
 
+    def _bounds(self, device):
+        """(low, high) as tensors on ``device``, made once per device so a
+        sample makes no copy from the host (a CUDA graph refuses one)."""
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = (torch.tensor(self.low, device=device),
+                             torch.tensor(self.high, device=device))
+        return self._on[key]
+
     def sample(self, generator, batch_shape=()):
         dev = generator.device
         u = torch.rand(tuple(batch_shape) + self.shape, generator=generator,
                        device=dev, dtype=self.dtype)
-        low = torch.tensor(self.low, device=dev)
-        return u * (torch.tensor(self.high, device=dev) - low) + low
+        low, high = self._bounds(dev)
+        return u * (high - low) + low
 
     def null_value(self):
         return np.zeros(self.shape, dtype=np.float32)

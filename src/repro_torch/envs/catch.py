@@ -23,13 +23,15 @@ I32 = torch.int32
 
 
 def _obs(ball_r, ball_c, paddle_c, rows, cols):
-    B = ball_r.shape[0]
-    img = torch.zeros((B, rows, cols), dtype=torch.float32,
-                      device=ball_r.device)
-    b = torch.arange(B, device=ball_r.device)
-    img[b, ball_r.long(), ball_c.long()] = 1.0
-    img[b, rows - 1, paddle_c.long()] = 1.0
-    return img[..., None]
+    """(B, rows, cols, 1): 1 at the ball and at the paddle, built by
+    comparison (no scalar written through an index, which would copy the
+    scalar from the host)."""
+    dev = ball_r.device
+    r = torch.arange(rows, device=dev)[None, :, None]
+    c = torch.arange(cols, device=dev)[None, None, :]
+    ball = (r == ball_r[:, None, None]) & (c == ball_c[:, None, None])
+    paddle = (r == rows - 1) & (c == paddle_c[:, None, None])
+    return (ball | paddle).to(torch.float32)[..., None]
 
 
 def _fresh(ball_c, cols):

@@ -3,8 +3,10 @@
 ``examples/catch_dqn_variants.py``.
 
 The RL main path of the port: env -> agent -> ``SerialSampler`` ->
-``DeviceReplay`` -> ``DQN`` -> ``TrainLoop`` / ``OffPolicyRunner``, one
-eager iteration at a time.  On ``--device cuda`` (the default) every
+``DeviceReplay`` -> ``DQN`` -> ``TrainLoop`` / ``OffPolicyRunner``, fused
+as JAX's runner is by default: on the card each iteration is one replay of
+a CUDA graph (one graph for the iterations that copy the target network,
+one for the others).  On ``--device cuda`` (the default) every
 prioritized sample goes through the hand-written CUDA sum-tree kernel
 (``csrc/sum_tree.cu``) unless ``--kernels sum_tree=ref`` asks for the
 pointer-walk tree; ``--device cpu`` runs the plain versions.  After

@@ -1,6 +1,9 @@
 """Continuous control from state (paper §3.1): the Q-value policy-gradient
 family — DDPG, TD3 and SAC — on Pendulum through the synchronous
-``OffPolicyRunner`` and ``DeviceReplay``.
+``OffPolicyRunner`` and ``DeviceReplay``, fused as JAX's runner is by
+default: on the card each iteration (a collect and its updates) is one
+replay of a CUDA graph (TD3: one graph for each pattern of delayed actor
+steps an iteration takes).
 
 The off-policy path of the port with time-limit bootstrapping: every
 Pendulum episode ends at its 200-step limit, the replay stores the

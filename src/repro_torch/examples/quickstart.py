@@ -2,8 +2,9 @@
 (rlpyt's own quickstart; the paper's serial-mode workflow, §2.4).
 
 The on-policy path of the port: env -> agent -> ``SerialSampler`` ->
-``PPO`` (via its ``BatchSpec``) -> ``TrainLoop`` / ``OnPolicyRunner``, one
-eager iteration at a time, with an ``EvalSampler`` (dedicated envs, greedy
+``PPO`` (via its ``BatchSpec``) -> ``TrainLoop`` / ``OnPolicyRunner``, fused
+as JAX's runner is by default (on the card each iteration is one replay of
+a CUDA graph), with an ``EvalSampler`` (dedicated envs, greedy
 agent, ``eval_*`` in every log row) and sentinels (``sent_*``: grad /
 param / update norms, non-finite counts, env steps).  It runs no
 hand-written kernel: its products are ``torch.matmul``.

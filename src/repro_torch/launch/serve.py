@@ -7,10 +7,12 @@ Port of ``repro/launch/serve.py``.  Two modes:
   phases so the service reports per-phase telemetry — prefill tokens/sec,
   decode tokens/sec, per-decode-step latency — through ``MetricsRegistry``
   (see :func:`timed_generate`).  Each phase is bracketed by
-  ``torch.cuda.synchronize()``.
+  ``torch.cuda.synchronize()``.  On the card each decode step is a replay
+  of one CUDA graph (see :func:`make_phases`).
 - ``--continuous``: replay a Poisson arrival trace of mixed-length requests
   through ``serving/engine.py`` and report p50/p99 request latency,
-  time-to-first-token and decode tokens/sec (``serve.jsonl``).
+  time-to-first-token and decode tokens/sec (``serve.jsonl``); on the card
+  each decode block is a replay of one CUDA graph.
 
 ``--arch`` defaults to ``mamba2-1.3b``, as in JAX; the other models are
 the dense gemma2-2b, glm4-9b, phi3-mini-3.8b and granite-34b, the moe
@@ -59,6 +61,7 @@ import time
 import torch
 
 from ..configs import get_config, get_smoke_config
+from ..core.graphs import StepGraph
 from ..kernels import registry as kernel_registry
 from ..models import backbones as bb
 from ..serving import ContinuousBatchEngine, DEFAULT_BUCKETS, poisson_trace
@@ -71,16 +74,25 @@ F32 = torch.float32
 
 
 def make_phases(cfg, batch: int, prompt_len: int, gen: int,
-                temperature: float = 0.0, *, device):
+                temperature: float = 0.0, *, device, graph: bool = True):
     """(prefill, decode) pair.
 
     prefill(params, prompts) -> (last_logits, cache)
     decode(params, logits, cache, generator) -> (batch, gen) tokens
 
     Prefill is deterministic and takes no generator; sampling randomness
-    belongs to decode alone.  Decode fills the cache in place.
+    belongs to decode alone.  Decode fills the cache in place.  Each decode
+    step is one call of ``step`` on fixed state (logits, cache, the (batch,
+    gen) token buffer and the step index ``t``, a device scalar); on a CUDA
+    device with ``graph`` (the default) ``step`` is captured once in a CUDA
+    graph (core/graphs.py) and replayed ``gen`` times a round, the
+    counterpart of JAX's scan over ``gen``; ``graph=False`` calls it
+    eagerly, with the same tokens bit for bit.  A round's prefill output is
+    copied into the graph's state.  Prefill stays eager.
     """
     S = prompt_len + gen + 1
+    toks = torch.zeros((batch, gen), dtype=torch.int32, device=device)
+    t = torch.zeros((1,), dtype=torch.int64, device=device)
 
     @torch.inference_mode()
     def prefill(params, prompts):
@@ -91,15 +103,29 @@ def make_phases(cfg, batch: int, prompt_len: int, gen: int,
         return logits, cache
 
     @torch.inference_mode()
-    def decode(params, logits, cache, generator):
-        toks = []
-        for _ in range(gen):
-            tok = sample(logits, temperature, generator).to(torch.int32)
-            hidden, cache = bb.decode_step(params, cache, tok, cfg)
-            logits = bb.lm_logits(params, hidden, cfg)[:, 0].to(F32)
-            toks.append(tok)
-        return torch.stack(toks, dim=1)  # (batch, gen)
+    def step(params, logits, cache, toks, t, generator):
+        tok = sample(logits, temperature, generator).to(torch.int32)
+        hidden, cache = bb.decode_step(params, cache, tok, cfg)
+        logits = bb.lm_logits(params, hidden, cfg)[:, 0].to(F32)
+        toks.index_copy_(1, t, tok[:, None])
+        return (params, logits, cache, toks, t + 1, generator), None
 
+    stepper = StepGraph(step, device=device, name="serve.decode_step") \
+        if graph else step
+
+    held = [(toks, t)]   # the state's token buffer and step index
+
+    @torch.inference_mode()
+    def decode(params, logits, cache, generator):
+        out, i = held[0]
+        i.zero_()
+        state = (params, logits, cache, out, i, generator)
+        for _ in range(gen):
+            state, _ = stepper(*state)
+        held[0] = (state[3], state[4])
+        return state[3].clone()  # (batch, gen)
+
+    decode.step = stepper
     return prefill, decode
 
 

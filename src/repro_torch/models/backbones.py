@@ -48,6 +48,7 @@ serving prefill / decode step.
 from __future__ import annotations
 
 import math
+import struct
 from typing import Any, Dict
 
 import torch
@@ -227,13 +228,29 @@ def init_lm(cfg: ModelConfig, *, device, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # embed / logits
 # ---------------------------------------------------------------------------
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype`` (nearest, ties to even), as a Python
+    float, without making a tensor."""
+    if dtype == torch.float64:
+        return v
+    (bits,) = struct.unpack("<I", struct.pack("<f", v))
+    if dtype == torch.bfloat16:
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        return struct.unpack("<f", struct.pack("<I", bits))[0]
+    if dtype == torch.float16:
+        return struct.unpack("<e", struct.pack("<e", v))[0]
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
 def embed(params, tokens, cfg: ModelConfig):
     x = params.tok_embed.index_select(0, tokens.reshape(-1))
     x = x.reshape(*tokens.shape, -1).to(cdtype(cfg))
     if cfg.family == "encdec" or cfg.softcap_logits is not None:
-        # gemma / whisper scale
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        # gemma / whisper scale: sqrt(d_model) rounded to x's dtype, as a
+        # Python float (a scalar tensor made here would be a copy from the
+        # host, which a CUDA graph refuses); the product is formed in f32
+        # either way, so it is the one a 0-d tensor of x's dtype gives
+        x = x * _rounded(math.sqrt(cfg.d_model), x.dtype)
     return x
 
 

@@ -400,7 +400,9 @@ def moe(params, x, cfg: ModelConfig, groups: int = 1, no_drop: bool = False,
 
     # position of each (choice, token) within its expert: cumsum of one-hots
     # in (k-major, token-minor) assignment order -- GShard's
-    onehot = F.one_hot(top_e, E)  # (G,S,K,E)
+    # (G,S,K,E) int64, F.one_hot's values; by comparison, since one_hot
+    # reads the ids' range on the host for a CPU tensor
+    onehot = (top_e[..., None] == torch.arange(E, device=x.device)).long()
     ordered = onehot.transpose(1, 2).reshape(G, K * S_g, E)
     # the scan runs along the innermost dim (CUDA's outer-dim integer scan
     # took 7.8 ms a layer at 32 768 x 60); integer sums are exact either way

@@ -1,8 +1,10 @@
 """Device-resident replay, port of ``repro/replay/device.py``.
 
-Buffer state is a ``ReplayState`` of tensors on the device (storage leaves
-(capacity, ...), a (2*size,) sum tree) plus the ring's ``cursor`` and
-``filled`` as Python ints, which the host knows without a sync.  Unlike the
+Buffer state is a ``ReplayState`` of tensors on the device: storage leaves
+(capacity, ...), a (2*size,) sum tree, and the ring's ``cursor`` and
+``filled`` as 0-d int32 tensors, as JAX's.  The host never reads them, so an
+insert or a sample captured in a CUDA graph stays right on every replay.
+Unlike the
 JAX functions, ``insert``, ``tree_set`` and ``update_priorities`` write the
 storage and the tree IN PLACE and return the state: at rlpyt's Atari scale
 (2^20 slots) a copy per insert would move the whole buffer.
@@ -32,8 +34,8 @@ F32 = torch.float32
 
 class ReplayState(NamedTuple):
     storage: Any          # leaves (N, ...) flat slot-major
-    cursor: int           # next write slot
-    filled: int           # number of valid slots
+    cursor: torch.Tensor  # 0-d int32 next write slot
+    filled: torch.Tensor  # 0-d int32 number of valid slots
     tree: torch.Tensor    # (2*size,) sum tree (tree[1] is the root)
 
 
@@ -55,7 +57,8 @@ def init_replay(example, capacity: int, *, device="cpu") -> ReplayState:
                               dtype=torch.as_tensor(x).dtype, device=device),
         example)
     size = _tree_size(capacity)
-    return ReplayState(storage=storage, cursor=0, filled=0,
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    return ReplayState(storage=storage, cursor=zero, filled=zero.clone(),
                        tree=torch.zeros((2 * size,), dtype=F32, device=device))
 
 
@@ -72,7 +75,8 @@ def insert(state: ReplayState, batch, priorities=None) -> ReplayState:
         priorities = cur_max.expand(B)
     tree = tree_set(state.tree, idx, priorities)
     return ReplayState(storage=state.storage, cursor=(state.cursor + B) % cap,
-                       filled=min(state.filled + B, cap), tree=tree)
+                       filled=torch.clamp(state.filled + B, max=cap),
+                       tree=tree)
 
 
 # ---------------------------------------------------------------------------
@@ -133,19 +137,20 @@ def sample(state: ReplayState, generator, batch: int, *, uniform: bool = False,
 
     ``draws`` replaces the random numbers: for the uniform path the ages
     (batch,) in [0, filled), for the prioritized path the u01 of
-    ``tree_sample``."""
+    ``tree_sample``.  The uniform ages are 62-bit draws modulo ``filled``,
+    which stays on the device (a bias below 2^-31)."""
     cap = _capacity(state)
     dev = state.tree.device
-    n = max(state.filled, 1)
+    n = torch.clamp(state.filled, min=1)
     if uniform:
         ages = draws if draws is not None else torch.randint(
-            0, n, (batch,), generator=generator, device=dev)
+            0, 1 << 62, (batch,), generator=generator, device=dev) % n
         # map ages onto the ring (newest-first not required for uniform)
         idx = (state.cursor - 1 - ages.long()) % cap
         w = torch.ones((batch,), dtype=F32, device=dev)
     else:
         idx, prob = tree_sample(state.tree, generator, batch, u01=draws)
-        w = (float(n) * torch.clamp(prob, min=1e-12)) ** (-beta)
+        w = (n.to(F32) * torch.clamp(prob, min=1e-12)) ** (-beta)
         w = w / torch.clamp(torch.amax(w), min=1e-12)
     out = pytree.tree_map(lambda s: s[idx.long()], state.storage)
     return out, idx, w

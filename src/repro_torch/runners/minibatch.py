@@ -1,6 +1,8 @@
 """Synchronous runners (paper §2.2 arrangement, Fig. 2), port of
-``repro/runners/minibatch.py``: thin shells over the per-iteration
-TrainLoop.
+``repro/runners/minibatch.py``: thin shells over the TrainLoop, fused by
+default (one CUDA graph replay an iteration on the card; ``fuse=False``
+runs each iteration eagerly), as JAX's shells compile a window by
+default.
 
 OnPolicyRunner: collect -> update.  OffPolicyRunner: collect -> insert into
 a device-resident ReplayLike -> k updates (the paper's replay-ratio knob),
@@ -42,15 +44,15 @@ class OnPolicyRunner:
     def __init__(self, sampler, algo, *, n_iterations: int,
                  log_interval: int = 10, logger: Optional[Logger] = None,
                  ckpt_dir: Optional[str] = None, ckpt_interval: int = 0,
-                 eval_sampler=None, sentinels: bool = False,
-                 nan_guard: bool = False):
+                 fuse: bool = True, eval_sampler=None,
+                 sentinels: bool = False, nan_guard: bool = False):
         self.sampler, self.algo = sampler, algo
         self.n_iterations = n_iterations
         self.log_interval = log_interval
         self.logger = logger or Logger()
         self.ckpt_dir, self.ckpt_interval = ckpt_dir, ckpt_interval
         self.eval_sampler = eval_sampler
-        self.loop = TrainLoop(sampler, algo, sentinels=sentinels,
+        self.loop = TrainLoop(sampler, algo, fuse=fuse, sentinels=sentinels,
                               nan_guard=nan_guard)
 
     def run(self, seed: int, params=None, restore: bool = False, *,
@@ -88,7 +90,7 @@ class OffPolicyRunner:
                  log_interval: int = 10, logger: Optional[Logger] = None,
                  ckpt_dir: Optional[str] = None, ckpt_interval: int = 0,
                  agent_state_kwargs: Optional[dict] = None,
-                 replay: Optional[ReplayLike] = None):
+                 replay: Optional[ReplayLike] = None, fuse: bool = True):
         self.sampler, self.algo = sampler, algo
         self.n_iterations = n_iterations
         self.min_replay = min_replay
@@ -100,7 +102,8 @@ class OffPolicyRunner:
             replay_capacity, prioritized=prioritized, beta=beta)
         self.loop = TrainLoop(sampler, algo, replay=self.replay,
                               batch_size=batch_size,
-                              updates_per_collect=updates_per_collect)
+                              updates_per_collect=updates_per_collect,
+                              fuse=fuse)
         self.replay_state = None
 
     def run(self, seed: int, params=None, restore: bool = False, *,
@@ -126,7 +129,7 @@ class OffPolicyRunner:
             (train_state, replay_state), manifest = restore_checkpoint(
                 self.ckpt_dir, (train_state, replay_state), device=device)
             start_iter = manifest["extra"].get("iteration", 0)
-            warm = replay_state.filled
+            warm = int(replay_state.filled)
 
         # fill to min_replay before training, through the same collect+insert
         steps_per_iter = self.sampler.horizon * self.sampler.n_envs

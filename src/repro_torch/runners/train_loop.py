@@ -1,5 +1,4 @@
-"""Synchronous training loop, port of ``repro/runners/train_loop.py`` in its
-per-iteration form (JAX's ``fuse=False``).
+"""Synchronous training loop, port of ``repro/runners/train_loop.py``.
 
 On-policy (spec.mode == "rollout"): collect -> bootstrap value ->
 ``make_algo_batch`` -> update.  Replayed (spec.mode == "transition"):
@@ -21,10 +20,26 @@ With ``ckpt_dir`` and ``ckpt_interval`` a window also ends at every
 checkpoint boundary, where ``drive`` saves the train state (or
 ``ckpt_payload(train_state, replay_state)``) in JAX's checkpoint format.
 
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-Queue 1 item when asked for: the scan-fused window (``fuse=True``; CUDA
-graphs over the iteration are its counterpart, item 14), and the SPMD mesh
-and the compressed all-reduce (``mesh=``, ``compress=``; item 12).
+``fuse=True`` (the default, as JAX's) is the counterpart of JAX's
+scan-fused window.  JAX compiles ``log_interval`` iterations into one
+``lax.scan``; the port captures ONE iteration (collect, then the on-policy
+update, or insert plus k x (sample, update, priority update), sentinels
+included) into a CUDA graph (core/graphs.py) and ``run_window`` replays it
+once per iteration, so an iteration costs one launch from the host.  The
+state (params, optimizer moments and counts, replay ring, sampler state)
+stays at fixed addresses; every generator the iteration draws from is
+registered with the graph, so a fused run draws the numbers an unfused run
+draws and gives the same iterates bit for bit.  An algorithm whose update
+branches on the host-side step (DQN's target copy, TD3's policy delay)
+names the branch in ``update_variant(step)``; the loop keeps one graph per
+tuple of branches an iteration takes and picks it on the host, which knows
+the step without a sync.  The first iteration of each graph runs eagerly
+(its warm-up), the second captures it.  On the CPU, which has no graphs,
+the same body runs eagerly.  ``fuse=False`` runs ``iteration`` eagerly.
+
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
+Queue 1 item when asked for: the SPMD mesh and the compressed all-reduce
+(``mesh=``, ``compress=``; item 12).
 """
 from __future__ import annotations
 
@@ -35,6 +50,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..core.batch_spec import make_algo_batch
+from ..core.graphs import StepGraph
 from ..core.tree import tree_stack
 from ..replay.interface import ReplayLike
 from ..samplers.eval import fold_seed
@@ -57,15 +73,12 @@ class TrainLoop:
 
     def __init__(self, sampler, algo, *, replay: Optional[ReplayLike] = None,
                  batch_size: Optional[int] = None,
-                 updates_per_collect: int = 1, fuse: bool = False,
+                 updates_per_collect: int = 1, fuse: bool = True,
                  mesh=None, compress: Optional[str] = None,
                  sentinels: bool = False, nan_guard: bool = False):
         spec = algo.batch_spec
         if spec is None:
             raise ValueError(f"{type(algo).__name__} declares no BatchSpec")
-        if fuse:
-            raise _not_ported("the scan-fused window (fuse=True)",
-                              "item 14, CUDA graphs over the iteration")
         if mesh is not None or compress:
             raise _not_ported("the SPMD mesh and compressed all-reduce",
                               "item 12")
@@ -82,6 +95,9 @@ class TrainLoop:
         self.replay = replay
         self.batch_size = batch_size
         self.k = updates_per_collect
+        self.fuse = fuse
+        # one StepGraph per tuple of update branches (see the docstring)
+        self.graphs = {}
         # nan_guard implies sentinels (the guard reads the nonfinite channel)
         self.nan_guard = nan_guard
         self.sentinels_on = sentinels or nan_guard
@@ -143,16 +159,54 @@ class TrainLoop:
                 self.sampler.horizon * self.sampler.n_envs)
         return train_state, sampler_state, replay_state, info, sent
 
+    def _fused_body(self, train_state, sampler_state, replay_state,
+                    generator):
+        ts, ss, rs, info, sent = self.iteration(train_state, sampler_state,
+                                                replay_state, generator)
+        return (ts, ss, rs, generator), (info, sent)
+
+    def fused_iteration(self, train_state, sampler_state, replay_state,
+                        generator):
+        """One iteration through its graph (the same results as
+        ``iteration``); returns (ts, ss, rs, info, sentinels-or-None).  The
+        info and sentinels of a replay live in the graph's memory until the
+        next call."""
+        n_updates = 1 if self.spec.on_policy else self.k
+        variant = getattr(self.algo, "update_variant", None)
+        key = None if variant is None else tuple(
+            variant(train_state.step + j + 1) for j in range(n_updates))
+        graph = self.graphs.get(key)
+        if graph is None:
+            pools = [g.pool for g in self.graphs.values() if g.pool is not None]
+            graph = self.graphs[key] = StepGraph(
+                self._fused_body, device=generator.device,
+                pool=pools[0] if pools else None,
+                name=f"train_loop.iteration{'' if key is None else key}")
+        step = train_state.step + n_updates
+        (ts, ss, rs, _), (info, sent) = graph(train_state, sampler_state,
+                                              replay_state, generator)
+        if graph.graph is None and ts.step != step:
+            raise RuntimeError(f"TrainLoop(fuse=True): {n_updates} updates "
+                               f"moved the train step from "
+                               f"{train_state.step} to {ts.step}")
+        return ts._replace(step=step), ss, rs, info, sent
+
     def run_window(self, train_state, sampler_state, replay_state, generator,
                    n: int):
         """``n`` iterations; returns (ts, ss, rs, last info, stacked
-        sentinels or None).  Reads nothing on the host."""
+        sentinels or None).  Reads nothing on the host.  Fused, each
+        iteration is one graph replay; its sentinels are copied out before
+        the next, and the last info once at the end."""
+        step = self.fused_iteration if self.fuse else self.iteration
         info, sents = None, []
         for _ in range(n):
-            train_state, sampler_state, replay_state, info, sent = \
-                self.iteration(train_state, sampler_state, replay_state,
-                               generator)
+            train_state, sampler_state, replay_state, info, sent = step(
+                train_state, sampler_state, replay_state, generator)
+            if self.fuse and sent is not None:
+                sent = pytree.tree_map(torch.clone, sent)
             sents.append(sent)
+        if self.fuse and info is not None:
+            info = pytree.tree_map(torch.clone, info)
         stacked = tree_stack(sents) if self.sentinels_on else None
         return train_state, sampler_state, replay_state, info, stacked
 

@@ -88,7 +88,8 @@ class SerialSampler:
         d = done.to(F32)
         completed_return_sum = s.completed_return_sum + torch.sum(d * ep_return)
         completed_len_sum = s.completed_len_sum + torch.sum(d * ep_len)
-        completed_count = s.completed_count + torch.sum(done.to(torch.int32))
+        completed_count = s.completed_count + torch.sum(done,
+                                                        dtype=torch.int32)
         ep_return = ep_return * (1.0 - d)
         ep_len = ep_len * (1 - done.to(torch.int32))
         out = RolloutBatch(
@@ -98,8 +99,10 @@ class SerialSampler:
             next_observation=env_info.terminal_obs, agent_info=info)
         # prev_action/reward reset to null at episode boundary (paper §6.3)
         nd = 1.0 - d
+        # in the dtype the state began with (the action space's null value),
+        # as JAX's carry keeps its dtype
         prev_action = (action * nd.to(action.dtype).reshape(
-            (B,) + (1,) * (action.dim() - 1))).to(action.dtype)
+            (B,) + (1,) * (action.dim() - 1))).to(s.prev_action.dtype)
         prev_reward = reward * nd
         return SamplerState(env_state, obs2, prev_action, prev_reward,
                             s.agent_state, s.generator, ep_return, ep_len,

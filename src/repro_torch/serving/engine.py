@@ -5,7 +5,8 @@ sequences in lockstep; the host swaps requests in and out of slots *between*
 blocks:
 
     admit: queue -> SlotCache.write_prefill_at(slot)   (bucketed prefill)
-    step:  decode_block — ``block`` decode steps (a Python loop)
+    step:  decode_block — ``block`` decode steps, on the card one replay of
+           a CUDA graph of the block (JAX's one scan a block)
     retire: slots whose budget hit 0 (or emitted EOS) stop in-block via the
             carried active mask; the host releases them to the scheduler
 
@@ -15,6 +16,13 @@ stepping but are masked out of sampling and length bumps).
 
 ``mode="static"`` runs the SAME code but only admits when every slot is
 free (gang/drain scheduling) — the fixed-batch baseline.
+
+The block's state (the slot logits and cache, the active mask, the
+remaining budgets) lives at fixed addresses (core/graphs.py): the host
+writes the masks in before each block and reads the tokens, the emitted
+mask and the new masks after it, as JAX's engine does.  ``graph=False``
+runs the block eagerly, with the same tokens bit for bit.  One generator,
+re-seeded at every ``run``, draws the samples.
 
 The summary keeps every key of the JAX schema except ``recompile_events``:
 eager PyTorch compiles nothing, so there is nothing to count.
@@ -27,6 +35,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.graphs import StepGraph
 from ..models import backbones as bb
 from ..models.config import ModelConfig
 from .scheduler import Scheduler
@@ -91,7 +100,7 @@ class ContinuousBatchEngine:
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  decode_block: int = 4, temperature: float = 0.0,
                  eos_id: Optional[int] = None, max_queue: int = 256,
-                 seed: int = 0):
+                 seed: int = 0, graph: bool = True):
         self.cfg = cfg
         self.params = params
         self.n_slots = n_slots
@@ -103,20 +112,38 @@ class ContinuousBatchEngine:
                                buckets=buckets)
         self._decode_block = make_decode_block(cfg, decode_block, temperature,
                                                eos_id)
+        self._gen = torch.Generator(device=self.device)
+        self._block_fn = StepGraph(self._block_step, device=self.device,
+                                   name="engine.decode_block") \
+            if graph else self._block_step
 
-    def _generator(self) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(self.seed)
+    def _block_step(self, params, logits, cache, active, remaining,
+                    generator):
+        logits, cache, active, remaining, toks, emitted = self._decode_block(
+            params, logits, cache, active, remaining, generator)
+        return ((params, logits, cache, active, remaining, generator),
+                (toks, emitted))
+
+    def _run_block(self, active: np.ndarray, remaining: np.ndarray):
+        """One decode block from the host's masks; returns the device's
+        (active, remaining, toks (block, n), emitted (block, n)) and keeps
+        the new slot logits and cache."""
+        state, (toks, emitted) = self._block_fn(
+            self.params, self.slots.logits, self.slots.cache,
+            torch.as_tensor(active, device=self.device),
+            torch.as_tensor(remaining, device=self.device), self._gen)
+        _, self.slots.logits, self.slots.cache, act_d, rem_d, _ = state
+        return act_d, rem_d, toks, emitted
 
     def warmup(self) -> None:
         """Run every bucket prefill, the tail advance and one decode block
-        before serving, then start from a fresh cache."""
+        before serving (the block's first call: its graph's warm-up), then
+        start from a fresh cache."""
         self.slots.warmup(self.params)
-        z = torch.zeros((self.n_slots,), dtype=torch.int32, device=self.device)
-        out = self._decode_block(self.params, self.slots.logits,
-                                 self.slots.cache, z.bool(), z,
-                                 self._generator())
+        self._gen.manual_seed(self.seed)
+        z = np.zeros((self.n_slots,), np.int32)
+        self._run_block(z.astype(bool), z)
         sync(self.device)
-        del out
         self.slots.reset_all()
 
     # -- the serving loop -----------------------------------------------------
@@ -136,7 +163,7 @@ class ContinuousBatchEngine:
         slot_req: List[Optional[Request]] = [None] * self.n_slots
         active = np.zeros(self.n_slots, bool)
         remaining = np.zeros(self.n_slots, np.int32)
-        gen = self._generator()
+        self._gen.manual_seed(self.seed)
         decode_s = prefill_s = 0.0
         valid_tokens = n_blocks = 0
         prefill_tok0 = self.slots.prefill_tokens
@@ -176,17 +203,14 @@ class ContinuousBatchEngine:
                 continue
 
             td = time.perf_counter()
-            logits, cache, act_d, rem_d, toks, emitted = self._decode_block(
-                self.params, self.slots.logits, self.slots.cache,
-                torch.as_tensor(active, device=self.device),
-                torch.as_tensor(remaining, device=self.device), gen)
+            act_d, rem_d, toks, emitted = self._run_block(active, remaining)
             toks = toks.cpu().numpy()          # (block, n_slots)
             emitted = emitted.cpu().numpy()    # (block, n_slots) bool
             decode_s += time.perf_counter() - td
             n_blocks += 1
-            self.slots.logits, self.slots.cache = logits, cache
-            new_active = act_d.cpu().numpy()
-            remaining = rem_d.cpu().numpy()
+            # copies: on the CPU .numpy() would alias the block's state
+            new_active = np.array(act_d.cpu())
+            remaining = np.array(rem_d.cpu())
             t_block = now()
             valid_tokens += int(emitted.sum())
 

@@ -16,7 +16,7 @@ surgery*, never by reshaping the batch:
 
 The port updates caches in place, so the JAX ``warmup`` trick of keeping a
 reference to the old cache and restoring it does not work here: ``warmup``
-ends with ``reset_all()`` instead, which leaves every slot fresh.
+ends with ``reset_all()`` instead, which zeroes every slot in place.
 """
 from __future__ import annotations
 
@@ -106,8 +106,16 @@ class SlotCache:
         return logits1, cache1
 
     # -- lifecycle ------------------------------------------------------------
+    @torch.inference_mode()
     def reset_all(self) -> None:
-        """Fresh batch cache + logits."""
+        """Fresh batch cache + logits: zeroed in place once allocated, so
+        the cache keeps its addresses (the engine's decode-block graph
+        reads them)."""
+        if self.cache is not None:
+            for x in self.cache.values():
+                x.zero_()
+            self.logits.zero_()
+            return
         self.cache = init_cache(self.cfg, self.n_slots, self.max_context,
                                 device=self.device)
         self.logits = torch.zeros((self.n_slots, self.cfg.padded_vocab),

@@ -88,7 +88,7 @@ def compute(prev_params, new_params, loss, grad_norm, replay_state,
     zero = torch.zeros((), dtype=F32, device=dev)
     if replay_state is not None:
         size = replay_state.tree.shape[0] // 2
-        filled = torch.full((), replay_state.filled, dtype=F32, device=dev)
+        filled = replay_state.filled.to(F32)
         mass = replay_state.tree[1]
         pmax = torch.amax(replay_state.tree[size:])
     else:

@@ -10,9 +10,10 @@ never by position: JAX flattens a dict in sorted key order, torch in
 insertion order.  So a tree of dicts, lists and arrays written by either
 package restores in the other with identical values.
 
-The port's Python-int leaves (``TrainState.step``, ``OptState.step``, the
-replay ring's ``cursor`` and ``filled``) are stored as 0-d int32 arrays, as
-JAX stores its int32 steps, and come back as ints; ``None`` is no leaf, as
+The port's Python-int leaves (``TrainState.step``) are stored as 0-d int32
+arrays, as JAX stores its int32 steps, and come back as ints; its 0-d int32
+tensors (``OptState.step``, the replay ring's ``cursor`` and ``filled``)
+are stored the same way and come back as tensors; ``None`` is no leaf, as
 in JAX.  No generator state is saved (JAX saves no PRNG key).  Elastic
 re-sharding (``shardings=``) waits for ROADMAP Queue 1 item 12.
 
@@ -256,4 +257,5 @@ def restore_lm_checkpoint(ckpt_dir: str, params, opt_state: OptState, cfg, *,
             srcs += params_of_jax(tree, names, cfg)
     for dst, src in zip(dests, srcs):
         dst.copy_(src)
-    return opt_state._replace(step=saved.step), manifest
+    return opt_state._replace(step=saved.step.to(opt_state.step.device)), \
+        manifest

@@ -12,9 +12,12 @@ interface: ``init(params) -> OptState`` and
 Unlike JAX, ``update`` writes the new parameters and moments IN PLACE (into
 the tensors of ``params`` and ``state``) and returns them: at 1.4 B
 parameters a second copy of the weights and moments would cost 17 GB.
-A schedule is a function of the step as a 0-d f32 tensor, and returns the
-rate on the step's device; ``update`` builds its per-step scalars once, on
-the params' device, so no step copies a scalar from the host per tensor.
+``OptState.step`` is a 0-d int32 tensor on the params' device, as JAX's
+count is an int32 array: the host never reads it, so an update captured in
+a CUDA graph advances it on every replay.  A schedule is a function of the
+step as a 0-d f32 tensor, and returns the rate on the step's device;
+``update`` builds its per-step scalars once, on the params' device, so no
+step copies a scalar from the host.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ F32 = torch.float32
 
 
 class OptState(NamedTuple):
-    step: int
+    step: torch.Tensor    # 0-d int32 on the params' device
     mu: Optional[List[torch.Tensor]]
     nu: Optional[List[torch.Tensor]]
 
@@ -80,10 +83,9 @@ def _clip_or_norm(grads, grad_clip):
     return list(grads), global_norm(grads)
 
 
-def _step_scalar(step: int, device) -> torch.Tensor:
-    """The step as a 0-d f32 tensor made on ``device`` (a fill, not a copy
-    from the host)."""
-    return torch.full((), float(step), dtype=F32, device=device)
+def _step_zero(params) -> torch.Tensor:
+    """The count before the first update: 0-d int32 on the params' device."""
+    return torch.zeros((), dtype=torch.int32, device=params[0].device)
 
 
 def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -93,7 +95,7 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def init(params):
         params = list(params)
-        return OptState(step=0, mu=_zeros_like_f32(params),
+        return OptState(step=_step_zero(params), mu=_zeros_like_f32(params),
                         nu=_zeros_like_f32(params))
 
     @torch.no_grad()
@@ -102,7 +104,7 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         grads, gnorm = _clip_or_norm(grads, grad_clip)
         step = state.step + 1
         dev = params[0].device
-        step_f = _step_scalar(step, dev)
+        step_f = step.to(F32)
         lr_t = sched(step_f)
         bc1 = 1 - torch.full((), b1, dtype=F32, device=dev) ** step_f
         bc2 = 1 - torch.full((), b2, dtype=F32, device=dev) ** step_f
@@ -124,14 +126,16 @@ def sgd(lr, momentum: float = 0.0, grad_clip: Optional[float] = None
     sched = lr if callable(lr) else constant(lr)
 
     def init(params):
-        return OptState(step=0, mu=_zeros_like_f32(list(params)), nu=None)
+        params = list(params)
+        return OptState(step=_step_zero(params), mu=_zeros_like_f32(params),
+                        nu=None)
 
     @torch.no_grad()
     def update(grads, state: OptState, params):
         params = list(params)
         grads, gnorm = _clip_or_norm(grads, grad_clip)
         step = state.step + 1
-        lr_t = sched(_step_scalar(step, params[0].device))
+        lr_t = sched(step.to(F32))
         for p, g, m in zip(params, grads, state.mu):
             m.copy_(momentum * m + g.to(F32))
             p.copy_((p.to(F32) - lr_t * m).to(p.dtype))

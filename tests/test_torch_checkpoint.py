@@ -63,10 +63,11 @@ def _qpg_runner(tmp, n_iterations, **kw):
 
 
 def test_round_trip_of_train_and_replay_state(tmp_path):
-    """A SAC train state (int steps, list-based Adam states, a 0-d
-    log_alpha) and a prioritized replay state (int cursor / filled, bool
-    leaves) come back equal, with Python ints as ints; the manifest is
-    JAX's format."""
+    """A SAC train state (an int step, list-based Adam states with 0-d
+    int32 counts, a 0-d log_alpha) and a prioritized replay state (0-d
+    int32 cursor / filled, bool leaves) come back equal, with Python ints
+    as ints and the int32 counts as int32 tensors; the manifest is JAX's
+    format."""
     _, runner, init = _qpg_runner(tmp_path, 2, prioritized=True)
     ts, _, _ = runner.run(0, params=init(torch.Generator().manual_seed(0)),
                           device="cpu")
@@ -79,13 +80,16 @@ def test_round_trip_of_train_and_replay_state(tmp_path):
         lambda x: torch.zeros_like(x) if torch.is_tensor(x) else 0, (ts, rs))
     (ts2, rs2), manifest = tckpt.restore_checkpoint(str(tmp_path / "rt"), like)
     _equal((ts2, rs2), (ts, rs))
-    assert ts2.step == 4 and isinstance(rs2.filled, int)
+    assert ts2.step == 4 and isinstance(ts2.step, int)
+    assert rs2.filled.dtype == torch.int32 and rs2.filled.dim() == 0
+    assert ts2.opt_state["critic"].step.dtype == torch.int32
     assert manifest["extra"] == {"iteration": 7} and manifest["step"] == 7
     with open(tmp_path / "rt" / "step_0000000007.json") as f:
         m = json.load(f)
     assert set(m) == {"step", "n_leaves", "mesh_shape", "leaves", "extra"}
     by_path = {leaf["path"]: leaf for leaf in m["leaves"]}
     assert by_path["0/.step"]["dtype"] == "int32"
+    assert by_path["1/.filled"]["dtype"] == "int32"
     assert by_path["1/.storage/timeout"]["dtype"] == "bool"
     assert not [f for f in os.listdir(tmp_path / "rt") if "tmp" in f]
 

@@ -314,18 +314,19 @@ def test_off_policy_runner_rainbow_short_run():
 
 
 def test_train_loop_refuses_what_is_not_ported():
-    """fuse, the mesh and compress still raise, naming their ROADMAP item;
-    sentinels, the NaN guard and checkpoints are ported (their tests are in
-    tests/test_torch_pg.py and tests/test_torch_checkpoint.py) and
-    construct."""
+    """The mesh and compress still raise, naming their ROADMAP item;
+    sentinels, the NaN guard, checkpoints and the fused window (the
+    default; tests/test_torch_graphs.py) are ported and construct."""
     _, _, loop = _rainbow(64)
     args = (loop.sampler, loop.algo)
     kw = dict(replay=loop.replay, batch_size=8)
-    for bad in (dict(fuse=True), dict(mesh=object()), dict(compress="int8")):
+    for bad in (dict(mesh=object()), dict(compress="int8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrainLoop(*args, **kw, **bad)
     for ok in (dict(sentinels=True), dict(nan_guard=True)):
         assert TrainLoop(*args, **kw, **ok).sentinels_on
+    assert TrainLoop(*args, **kw).fuse
+    assert not TrainLoop(*args, **kw, fuse=False).fuse
     with pytest.raises(ValueError, match="batch_size"):
         TrainLoop(*args, replay=loop.replay)
     _, runner = example.make_runner("rainbow", 1, replay_capacity=64)
