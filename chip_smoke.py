@@ -58,7 +58,8 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    plain version (``sample_plain``) and the f64 flat oracle on sum trees at
    the rainbow example's shape (8192 leaves, batch 64), the replay bench's
    (2^14, 2^17, 2^20 leaves x 256) and the edges of the kernel's layout
-   (``ST_SHAPES``: one block, 2048 and 8192 blocks, batches 1, 5 and 33),
+   (``ST_SHAPES``: one block, 2048 and 8192 blocks, batches 1, 5 and 33)
+   and the mesh phase's per-rank shape (4096 leaves, 32 samples),
    and through ``sample_blocked`` directly at block sizes 1 to 512 and on
    leaves 4 bytes off 16-byte alignment (``ST_EDGES``): exactly on integer
    priorities (u on boundaries, below 0, at and beyond the total, runs of
@@ -238,6 +239,30 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    on one seed (params within 1e-4, JAX's bound), and an R2D1 checkpoint
    with its replay sidecar saved on the card and restored (buffer and
    train state bit for bit, resumed at the saved iteration, then run on);
+11b. slice phase, the data-parallel mesh: two gloo ranks on cuda:0 spawned
+   by ``launch.mesh.spawn_ranks`` (a rank's exception, death or the
+   phase's deadline ends the script non-zero), ``fuse=False`` (a gloo
+   all-reduce cannot sit in a CUDA graph).  First each collective the mesh
+   uses on CUDA tensors (all-reduce SUM of f32 and int32, MAX, the byte
+   all-gather of f32 and bool), exactly.  (a) A2C on CartPole through
+   ``ShardedSampler(8 envs x 16)`` and ``TrainLoop(mesh=...)``, 20
+   iterations, against the one-process loop on the same global batch at
+   JAX's bounds (params atol 2e-5 / rtol 2e-4, every loss 1e-4); (b) the
+   same with ``compress="int8_ef"`` and sentinels, 10 iterations: params
+   finite, ``sent_compress_err_norm`` and ``sent_grad_norm_shard_max`` >
+   0, ``sent_nonfinite_params`` 0, one residual slice a rank; (c)
+   prioritized DQN on Catch through ``OffPolicyRunner(mesh=...)`` at the
+   rainbow example's width (30 iterations, a ring of 4096 and 32 samples
+   an update a rank): ``sum_tree_sample`` launched on each rank for every
+   prioritized sample, ``td_abs`` gathered to the global batch (64,),
+   params replicated, and the kernel held against ``sample_plain`` and
+   the f64 oracle on each rank's own tree after the run at that shape;
+   then the Catch bar on the mesh (dueling + double +
+   prioritized, 200 iterations x 4 updates): greedy avg_return > 0; (d)
+   the checkpoint of (c), saved on 2 ranks, restored on each rank
+   (``shardings=``) and whole in one process, bit for bit.  Each rank's
+   A2C iteration wall and the host time of its gradient all-reduce are
+   printed with the card's name and power limit;
 12. on the same weights (drawn again), a ``torch.profiler`` pass measures
    the device's busy time per prefill, per decode step (gemma2-2b, then
    qwen2-moe-a2.7b and zamba2-7b at full width), per rollout of
@@ -277,7 +302,8 @@ iterations profiled, the eager side printed beside their busy time; for
 serving, the eager decode profiled and 8 replayed steps beside it: a
 graph replays the eager step's kernels);
 13. each phase's wall time, the ``kernels`` JSON line (launch counts from
-   phases 4-7, 6a and 9, the largest error of phase 3, times at the
+   phases 4-7, 6a, 9 and 11b (both ranks' ``sum_tree_sample``
+   launches), the largest error of phase 3, times at the
    serving shape; phases 5a, 8, 10 and 11 launch none; one entry an
    instance of phase 3b, its launches from phases 3c, 5b, 5c and 6b, timed
    at the first config that runs it; one entry an SSD instance, its
@@ -477,10 +503,12 @@ ST_TPU_KERNEL = "src/repro/kernels/sum_tree/sum_tree.py:49"
 ST_SOURCE = "src/repro_torch/csrc/sum_tree.cu"
 # correctness, (leaves, samples) of sum trees read through
 # tree_sample_blocked: the rainbow example's tree, the replay bench's, then
-# one block, 2048 blocks at the rainbow batch, 8192 blocks, and batches that
-# leave a block of four samples part-empty
+# one block, 2048 blocks at the rainbow batch, 8192 blocks, batches that
+# leave a block of four samples part-empty, and a rank's tree and batch in
+# the mesh phase (the rainbow example's halved over two ranks)
 ST_SHAPES = [(8192, 64), (2 ** 14, 256), (2 ** 17, 256), (2 ** 20, 256),
-             (512, 5), (2 ** 20, 64), (2 ** 22, 33), (8192, 1), (8192, 33)]
+             (512, 5), (2 ** 20, 64), (2 ** 22, 33), (8192, 1), (8192, 33),
+             (4096, 32)]
 # ... and (n_blocks, bs, samples, offset) through sample_blocked directly:
 # block sizes the tree never gives, and leaves ``offset`` floats into their
 # buffer, 4 bytes off 16-byte alignment (the kernel's scalar-load path)
@@ -512,6 +540,11 @@ R2D1_FULL = {"batch": 64, "seq_len": 80, "actions": 18, "d_lstm": 256,
 # restore), async SAC learner updates timed a profile
 ASYNC = {"sac_iters": 150, "sac_lockstep_iters": 12, "a2c_iters": 6,
          "ckpt_iters": (8, 10), "ckpt_interval": 4, "profile_updates": 20}
+# the data-parallel mesh (phase 11b): two gloo ranks on the one card
+MESH = {"ranks": 2, "a2c_iters": 20, "compress_iters": 10, "dqn_iters": 30,
+        "bar_iters": 200, "bar_updates": 4, "timeout": 600,
+        "allreduce_calls": 20}
+MESH_A2C_TOL = {"params": (2e-5, 2e-4), "loss": 1e-4}  # JAX's bounds
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -566,13 +599,15 @@ from repro_torch.kernels.sum_tree import ref as st_ref  # noqa: E402
 from repro_torch.kernels.sum_tree.sum_tree import (  # noqa: E402
     sample_blocked, sample_plain)
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.mesh import make_data_mesh, spawn_ranks  # noqa: E402
 from repro_torch.models import backbones as bb  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models.layers import record_routing  # noqa: E402
 from repro_torch.models.rl_models import make_pg_mlp, make_recurrent_q  # noqa: E402
 from repro_torch.replay.host import SequenceSamples  # noqa: E402
-from repro_torch.runners import AsyncRunner, TrainLoop  # noqa: E402
-from repro_torch.samplers import SerialSampler  # noqa: E402
+from repro_torch.replay.interface import transition_example  # noqa: E402
+from repro_torch.runners import AsyncRunner, OffPolicyRunner, TrainLoop  # noqa: E402
+from repro_torch.samplers import SerialSampler, ShardedSampler  # noqa: E402
 from repro_torch.serving import (ContinuousBatchEngine,  # noqa: E402
                                  DEFAULT_BUCKETS, poisson_trace)
 from repro_torch.train import optim  # noqa: E402
@@ -1778,14 +1813,15 @@ def st_faulty(leaves, bsums, u, fault, root):
     return (blk * bs + inner).to(torch.int32), pr / total
 
 
-def st_hold(name, idx, prob, leaves, bsums, u, integer):
-    """The kernel's (idx, prob) and sample_plain's against the f64 oracle
-    (exact on integer priorities, where kernel == plain bit for bit, the
-    rounding rule on real ones); returns prob's max abs error."""
+def st_hold(name, idx, prob, leaves, bsums, u, integer, plain=None):
+    """The kernel's (idx, prob) and sample_plain's (``plain``, else computed
+    here) against the f64 oracle (exact on integer priorities, where
+    kernel == plain bit for bit, the rounding rule on real ones); returns
+    prob's max abs error."""
     torch.cuda.synchronize()
     flat = leaves.reshape(-1)
     batch = u.shape[0]
-    pidx, pprob = sample_plain(leaves, bsums, u)
+    pidx, pprob = sample_plain(leaves, bsums, u) if plain is None else plain
     n_terms = st_ref.rounding_terms(*leaves.shape)
     ks = st_ref.agreement(idx, prob, flat, u, n_terms=n_terms, exact=integer)
     ps = st_ref.agreement(pidx, pprob, flat, u, n_terms=n_terms,
@@ -2709,6 +2745,331 @@ def async_phase(log_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 11b: the data-parallel mesh, two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+def mesh_a2c(mesh, n_iters, compress=None, sentinels=False):
+    """A2C on CartPole through ``ShardedSampler(8 envs x 16)``: on a rank
+    through ``TrainLoop(mesh=...)``, in one process (a mesh without a group)
+    through the plain TrainLoop on the same global batch; ``fuse=False``.
+    Returns the params, each iteration's loss and wall, the sentinels' row
+    and the EF residual's leaf shapes."""
+    from repro_torch.core.tree import tree_concat
+    from repro_torch.telemetry.sentinels import summarize
+    from repro_torch.train.optim import CrossReplicaState
+    dev = mesh.device
+    model = make_pg_mlp(4, 2)
+    agent = make_categorical_pg_agent(model)
+    algo = A2C(model.apply, optim.adam(1e-3), distribution=Categorical(2))
+    sampler = ShardedSampler(make_env("cartpole"), agent, n_envs=8,
+                             horizon=16, mesh=mesh)
+    loop = TrainLoop(sampler, algo, mesh=mesh if mesh.distributed else None,
+                     compress=compress, sentinels=sentinels, fuse=False)
+    ts = loop.algo.init_train_state(None, agent.init_params(
+        torch.Generator(device=dev).manual_seed(SEED)))
+    ss = sampler.init(torch.Generator(device=dev).manual_seed(SEED + 1))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    losses, walls, sents = [], [], []
+    for _ in range(n_iters):
+        t0 = time.perf_counter()
+        ts, ss, _, info, sent = loop.run_window(ts, ss, None, gen, 1)
+        losses.append(float(info.loss))   # reads the card: the wall ends here
+        walls.append((time.perf_counter() - t0) * 1e3)
+        sents.append(sent)
+    out = {"params": [p.cpu().numpy() for p in pytree.tree_leaves(
+        ts.params)], "losses": losses, "walls": walls, "step": ts.step,
+        "row": summarize(tree_concat(sents)) if sentinels else None,
+        "residual": None}
+    if isinstance(ts.opt_state, CrossReplicaState):
+        out["residual"] = [tuple(r.shape) for r in ts.opt_state.ef.residual]
+    return out, ts
+
+
+def mesh_dqn_runner(mesh, variant, n_iterations, updates, ckpt_dir=None):
+    """The catch_dqn_variants example's ``variant`` at its settings (16 envs
+    x horizon 16, replay 8192, batch 64, epsilon 0.2, Adam 5e-4, target copy
+    every 100 updates) through ``OffPolicyRunner(mesh=...)``: 8 envs, a
+    ring of 4096 and 32 samples an update a rank; ``fuse=False``."""
+    from repro_torch.agents import make_dqn_agent
+    from repro_torch.algos import DQN
+    from repro_torch.models.rl_models import make_q_conv
+    v = catch_dqn.VARIANTS[variant]
+    model = make_q_conv(1, 3, img_hw=(10, 5), channels=(16, 32),
+                        kernels=(3, 3), strides=(1, 1), d_out=128,
+                        dueling=v["dueling"], n_atoms=v["n_atoms"])
+    agent = make_dqn_agent(model, 3, n_atoms=v["n_atoms"], v_min=-1, v_max=1)
+    algo = DQN(model.apply, optim.adam(5e-4), gamma=0.99, double=v["double"],
+               n_atoms=v["n_atoms"], v_min=-1, v_max=1,
+               target_update_interval=100)
+    sampler = ShardedSampler(make_env("catch"), agent,
+                             n_envs=catch_dqn.N_ENVS, horizon=16, mesh=mesh)
+    return sampler, OffPolicyRunner(
+        sampler, algo, replay_capacity=8192, batch_size=64,
+        n_iterations=n_iterations, updates_per_collect=updates,
+        min_replay=512, prioritized=v["prioritized"],
+        log_interval=n_iterations, logger=Logger(sinks=()),
+        agent_state_kwargs={"epsilon": 0.2}, mesh=mesh, fuse=False,
+        ckpt_dir=ckpt_dir, ckpt_interval=n_iterations if ckpt_dir else 0)
+
+
+def mesh_greedy(sampler, params, ss, collects=4):
+    """Greedy (epsilon 0) trajectory stats of ``collects`` collects on every
+    rank, summed over the ranks."""
+    n = sampler.n_envs // sampler.n_shards
+    ss = sampler.reset_stats(ss)._replace(agent_state={
+        "epsilon": torch.zeros(n, device=ss.obs.device)})
+    for _ in range(collects):
+        ss, _ = sampler.local_collect(params, ss)
+    return {k: float(x) for k, x in sampler.traj_stats(ss).items()}
+
+
+def mesh_rank(mesh, ckpt_dir):
+    """One rank of the mesh phase; returns what the parent checks."""
+    torch.cuda.set_device(mesh.device)
+    out = {"device": str(mesh.device)}
+    # gloo on CUDA tensors: each collective the mesh uses, exactly
+    g = torch.Generator(device=mesh.device).manual_seed(SEED + mesh.index)
+    x = torch.randn(3, 5, generator=g, device=mesh.device)
+    flag = torch.tensor([True, mesh.index == 1], device=mesh.device)
+    out["collectives"] = {
+        "psum": mesh.psum(x).cpu(), "pmax": mesh.pmax(x).cpu(),
+        "psum_i32": mesh.psum(torch.full((2,), 3 + mesh.index,
+                                         dtype=torch.int32,
+                                         device=mesh.device)).cpu(),
+        "gather": mesh.all_gather(x, dim=1).cpu(),
+        "gather_bool": mesh.all_gather(flag).cpu(), "x": x.cpu()}
+    a2c, ts = mesh_a2c(mesh, MESH["a2c_iters"])
+    out["a2c"] = a2c
+    # the host time of the gradient all-reduce at the A2C model's shapes
+    grads = [torch.randn_like(p) for p in pytree.tree_leaves(ts.params)]
+    for _ in range(3):
+        mesh.pmean_all(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH["allreduce_calls"]):
+        mesh.pmean_all(grads)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3 / \
+        MESH["allreduce_calls"]
+    out["allreduce_bytes"] = sum(t.numel() * 4 for t in grads)
+    out["a2c_int8"], _ = mesh_a2c(mesh, MESH["compress_iters"], "int8_ef",
+                                  sentinels=True)
+
+    # (c) prioritized DQN on Catch (the rainbow example), checkpointed
+    st_ops.tree_sample_blocked.launches = 0
+    n = MESH["dqn_iters"]
+    sampler, runner = mesh_dqn_runner(mesh, "rainbow", n, 2, ckpt_dir)
+    t0 = time.perf_counter()
+    ts, ss, info = runner.run(SEED, device=mesh.device)
+    torch.cuda.synchronize()
+    out["dqn_wall_s"] = time.perf_counter() - t0
+    out["dqn_launches"] = st_ops.tree_sample_blocked.launches
+    rs = runner.replay_state
+    out["dqn"] = {"step": ts.step, "loss": float(info.loss),
+                  "grad_norm": float(info.grad_norm),
+                  "td_abs": tuple(info.extra["td_abs"].shape),
+                  "filled": int(rs.filled),
+                  "params": [p.cpu().numpy()
+                             for p in pytree.tree_leaves(ts.params)],
+                  "storage": {k: v.cpu().numpy()
+                              for k, v in rs.storage.items()},
+                  "tree": rs.tree.cpu().numpy()}
+    # the kernel on this rank's own tree at the path's shape, against the
+    # plain version on the same stratified positions (the run's launches
+    # are counted above)
+    tree = runner.replay.local_view(rs).tree
+    leaves, bsums = st_split(tree)
+    u = st_positions(leaves.reshape(-1), float(tree[1]), 64 // mesh.size,
+                     False, g)
+    idx, prob = st_ops.tree_sample_blocked(tree, u)
+    pidx, pprob = sample_plain(leaves, bsums, u)
+    out["own_tree"] = {"idx": idx.cpu(), "prob": prob.cpu(),
+                       "pidx": pidx.cpu(), "pprob": pprob.cpu(),
+                       "leaves": leaves.cpu(), "bsums": bsums.cpu(),
+                       "u": u.cpu()}
+    # (d) this rank's restore of the checkpoint, bit for bit
+    like = (ts, rs)
+    (ts2, rs2), manifest = restore_checkpoint(
+        ckpt_dir, like, shardings=runner.loop.checkpoint_specs(like))
+    a = pytree.tree_leaves((ts.params, ts.opt_state, ts.extra, rs))
+    b = pytree.tree_leaves((ts2.params, ts2.opt_state, ts2.extra, rs2))
+    out["restore_equal"] = len(a) == len(b) and all(
+        torch.equal(u, v) if isinstance(u, torch.Tensor) else u == v
+        for u, v in zip(a, b))
+    out["manifest_mesh"] = manifest["mesh_shape"]
+
+    # the Catch bar on the mesh (tests/test_learning.py's configuration)
+    st_ops.tree_sample_blocked.launches = 0
+    sampler, runner = mesh_dqn_runner(mesh, "dueling", MESH["bar_iters"],
+                                      MESH["bar_updates"])
+    t0 = time.perf_counter()
+    ts, ss, info = runner.run(SEED, device=mesh.device)
+    out["bar"] = mesh_greedy(sampler, ts.params, ss)
+    torch.cuda.synchronize()
+    out["bar_wall_s"] = time.perf_counter() - t0
+    out["bar_launches"] = st_ops.tree_sample_blocked.launches
+    out["bar_loss"] = float(info.loss)
+    return out
+
+
+def mesh_phase():
+    """Two gloo ranks on cuda:0 (launch.mesh.spawn_ranks): (a) A2C against
+    the one-process loop on the same global batch at JAX's bounds, (b) the
+    int8 error-feedback run and its sentinels, (c) prioritized DQN on Catch
+    through OffPolicyRunner(mesh=) with the sum-tree kernel on each rank,
+    and the Catch bar, (d) its checkpoint restored on 2 ranks and whole in
+    one process, bit for bit.  Returns the sum-tree launches of (c)."""
+    t_phase = time.perf_counter()
+    n = MESH["ranks"]
+    print(f"slice phase: the data-parallel mesh ({n} gloo ranks on "
+          f"{DEV}; A2C {MESH['a2c_iters']} iterations, int8_ef "
+          f"{MESH['compress_iters']}, rainbow {MESH['dqn_iters']}, the "
+          f"Catch bar {MESH['bar_iters']} x {MESH['bar_updates']})")
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = str(Path(d) / "mesh_dqn")
+        t0 = time.perf_counter()
+        # a rank's exception, death or deadline raises here (RuntimeError
+        # with the rank's traceback), which ends the script non-zero
+        ranks = spawn_ranks(mesh_rank, n, (ckpt,), device="cuda",
+                            timeout=MESH["timeout"])
+        spawn_wall = time.perf_counter() - t0
+        # (d) on one process: the global leaves whole
+        sampler, runner = mesh_dqn_runner(make_data_mesh(n, device="cuda"),
+                                          "rainbow", 1, 2)
+        ex = transition_example(sampler.env, device=DEV)
+        ts = runner.loop.algo.init_train_state(
+            None, sampler.agent.init_params(torch.Generator(device=DEV)))
+        (ts_whole, rs_whole), manifest = restore_checkpoint(
+            ckpt, (ts, runner.replay.init_sharded(ex, n)))
+    ref, _ = mesh_a2c(make_data_mesh(n, device="cuda"), MESH["a2c_iters"])
+    print(f"  {n} ranks spawned and joined in {spawn_wall:.1f} s; devices "
+          f"{[r['device'] for r in ranks]}")
+
+    # gloo on CUDA tensors
+    xs = [r["collectives"]["x"] for r in ranks]
+    for r in ranks:
+        c = r["collectives"]
+        ok = (torch.equal(c["psum"], xs[0] + xs[1])
+              and torch.equal(c["pmax"], torch.maximum(xs[0], xs[1]))
+              and torch.equal(c["psum_i32"], torch.tensor([7, 7],
+                                                          dtype=torch.int32))
+              and torch.equal(c["gather"], torch.cat(xs, dim=1))
+              and torch.equal(c["gather_bool"],
+                              torch.tensor([True, False, True, True])))
+        if not ok:
+            fail(f"gloo on CUDA tensors: {c}")
+    print("  gloo on CUDA tensors: all_reduce SUM (f32, i32), MAX and the "
+          "byte all_gather (f32, bool) exact on both ranks")
+
+    # (a) the A2C identity
+    atol, rtol = MESH_A2C_TOL["params"]
+    worst_p, worst_l = 0.0, 0.0
+    for r in ranks:
+        a = r["a2c"]
+        if a["step"] != MESH["a2c_iters"]:
+            fail(f"mesh a2c: step {a['step']}")
+        for x, y in zip(ref["params"], a["params"]):
+            if not np.allclose(y, x, atol=atol, rtol=rtol):
+                fail(f"mesh a2c: params differ by "
+                     f"{np.abs(x - y).max()} from the global-batch loop")
+            worst_p = max(worst_p, float(np.abs(x - y).max()))
+        dl = np.abs(np.asarray(a["losses"]) - np.asarray(ref["losses"]))
+        if not np.all(dl <= MESH_A2C_TOL["loss"] * (
+                1 + np.abs(np.asarray(ref["losses"])))):
+            fail(f"mesh a2c: losses differ by {dl.max()}")
+        worst_l = max(worst_l, float(dl.max()))
+    print(f"  (a) A2C on {n} ranks vs the one-process loop on the global "
+          f"batch, {MESH['a2c_iters']} iterations: params within "
+          f"{worst_p:.3g} (bound atol {atol} + rtol {rtol}), losses within "
+          f"{worst_l:.3g} (bound {MESH_A2C_TOL['loss']})")
+
+    # (b) int8 error feedback
+    for r in ranks:
+        b = r["a2c_int8"]
+        row = b["row"]
+        if not (b["step"] == MESH["compress_iters"]
+                and all(np.isfinite(p).all() for p in b["params"])
+                and row["sent_compress_err_norm"] > 0
+                and row["sent_grad_norm_shard_max"] > 0
+                and row["sent_nonfinite_params"] == 0
+                and all(s[0] == 1 for s in b["residual"])):
+            fail(f"mesh int8_ef: {row}, residual {b['residual']}")
+    row = ranks[0]["a2c_int8"]["row"]
+    print(f"  (b) int8_ef: sent_compress_err_norm "
+          f"{row['sent_compress_err_norm']:.4g}, sent_grad_norm_shard_max "
+          f"{row['sent_grad_norm_shard_max']:.4g}, nonfinite params 0, one "
+          f"residual slice a rank ({len(ranks[0]['a2c_int8']['residual'])} "
+          "leaves)")
+
+    # (c) prioritized DQN with the sum-tree kernel on each rank
+    want = 2 * MESH["dqn_iters"]
+    for r in ranks:
+        q = r["dqn"]
+        if (r["dqn_launches"] != want or q["step"] != want
+                or q["td_abs"] != (64,) or not math.isfinite(q["loss"])):
+            fail(f"mesh dqn: launches {r['dqn_launches']} (want {want}), "
+                 f"step {q['step']}, td_abs {q['td_abs']}, loss {q['loss']}")
+    for x, y in zip(ranks[0]["dqn"]["params"], ranks[1]["dqn"]["params"]):
+        if not np.array_equal(x, y):
+            fail("mesh dqn: the ranks' params differ (not replicated)")
+    for i, r in enumerate(ranks):
+        o = r["own_tree"]
+        st_hold(f"(c) rank {i}'s own tree, {o['leaves'].shape[0]} blocks "
+                f"of {o['leaves'].shape[1]} leaves, on the card", o["idx"],
+                o["prob"], o["leaves"], o["bsums"], o["u"], False,
+                plain=(o["pidx"], o["pprob"]))
+    print(f"  (c) rainbow through OffPolicyRunner(mesh=): sum_tree_sample "
+          f"launches {[r['dqn_launches'] for r in ranks]} (want {want} a "
+          f"rank), td_abs gathered to (64,), params replicated, loss "
+          f"{ranks[0]['dqn']['loss']:.4f}, ring filled "
+          f"{ranks[0]['dqn']['filled']} a rank")
+    bar = ranks[0]["bar"]
+    print(f"      Catch bar (dueling + double + prioritized, "
+          f"{MESH['bar_iters']} x {MESH['bar_updates']}): greedy {bar}, "
+          f"loss {ranks[0]['bar_loss']:.4f}, sum_tree_sample launches "
+          f"{[r['bar_launches'] for r in ranks]}")
+    if not bar["avg_return"] > 0.0 or any(
+            r["bar_launches"] != MESH["bar_iters"] * MESH["bar_updates"]
+            for r in ranks):
+        fail(f"mesh Catch bar: greedy {bar}")
+
+    # (d) the checkpoint: on each rank (above) and whole in one process
+    if not all(r["restore_equal"] for r in ranks) or \
+            manifest["mesh_shape"] != [n]:
+        fail("mesh checkpoint: a rank's restore differs")
+    for k, v in rs_whole.storage.items():
+        if not np.array_equal(v.cpu().numpy(), np.concatenate(
+                [r["dqn"]["storage"][k] for r in ranks])):
+            fail(f"mesh checkpoint: storage {k} restored whole differs")
+    if not np.array_equal(rs_whole.tree.cpu().numpy(), np.concatenate(
+            [r["dqn"]["tree"] for r in ranks])):
+        fail("mesh checkpoint: the trees restored whole differ")
+    for x, y in zip(ranks[0]["dqn"]["params"],
+                    pytree.tree_leaves(ts_whole.params)):
+        if not np.array_equal(x, y.cpu().numpy()):
+            fail("mesh checkpoint: params restored whole differ")
+    print(f"  (d) checkpoint saved on {n} ranks (mesh_shape "
+          f"{manifest['mesh_shape']}): restored on each rank bit for bit, "
+          "and whole in one process (rings end to end, trees stacked) bit "
+          "for bit")
+
+    card = smi()
+    for i, r in enumerate(ranks):
+        w = np.asarray(r["a2c"]["walls"][1:])
+        print(f"  rank {i}: A2C iteration wall median {np.median(w):.3f} "
+              f"ms (min {w.min():.3f}); gradient all-reduce "
+              f"{r['allreduce_ms']:.3f} ms host time for "
+              f"{r['allreduce_bytes']} B; rainbow {MESH['dqn_iters']} "
+              f"iterations + warm-up {r['dqn_wall_s']:.2f} s; Catch bar "
+              f"run {r['bar_wall_s']:.2f} s ({card})")
+    w = np.asarray(ref["walls"][1:])
+    print(f"  one process on the global batch: A2C iteration wall median "
+          f"{np.median(w):.3f} ms ({card})")
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return {"mesh rainbow": sum(r["dqn_launches"] for r in ranks),
+            "mesh Catch bar": sum(r["bar_launches"] for r in ranks)}
+
+
+# ---------------------------------------------------------------------------
 # slice 6: the attention instances of the moe family and the other dense
 # configs, their serving runs and route checks, the smoke entry points
 # ---------------------------------------------------------------------------
@@ -3628,6 +3989,9 @@ def main() -> None:
         lap("10 r2d1")
         async_work = async_phase(log_dir)
         lap("11 async")
+        mesh_launches = mesh_phase()
+        torch.cuda.empty_cache()
+        lap("11b mesh")
 
     # last, because the profiler slows every later launch of the process
     print("profile: where the time goes (not the main path's counts)")
@@ -3712,6 +4076,7 @@ def main() -> None:
     # the main path's shape: the rainbow example's tree (8192 leaves, 64)
     t = st_timing[(8192, 64)]
     rl_launches.update(qpg_launches)
+    rl_launches.update(mesh_launches)   # both ranks' launches
     print(f"sum_tree launches on the RL paths: {rl_launches}")
     kernels.append({
         "name": "sum_tree_sample", "route": "cuda", "source": ST_SOURCE,

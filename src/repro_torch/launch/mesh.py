@@ -1,13 +1,277 @@
-"""Device placement for the decoupled async runner, port of
-``repro/launch/mesh.py::split_actor_learner``.
+"""The data-parallel mesh as ``torch.distributed`` ranks, and the device
+split of the decoupled async runner; port of ``repro/launch/mesh.py``.
 
-Only the actor / learner split is ported.  The meshes (``make_data_mesh``,
-the 2-D mesh, ``install``) come with the distributed half of ROADMAP Queue 1
-item 12; ``split_actor_learner(mesh=...)`` raises until then.
+JAX's 1-D data mesh (paper §2.4: replicated model, sharded envs and
+replay, all-reduced gradients) is one SPMD program over devices, its
+collectives bound to an axis name inside ``shard_map``.  The port runs it
+as rlpyt's PyTorch code does: one process per rank, each owning a shard of
+the envs and of the replay, with the model and optimizer state replicated
+and every gradient all-reduced before the step.  ``DataMesh`` stands in for
+the mesh and its axis at once: the process group, the axis name, its size,
+this rank's index and device, and the collectives JAX binds to the axis
+name (``psum``, ``pmean``, ``pmax``, ``all_gather``).  Callers read the
+size as JAX's do, ``mesh.shape[axis]``.
+
+Two ranks can share one card: the group is gloo, whose all-reduce takes
+CUDA tensors (NCCL refuses two ranks on one GPU), and each rank's device
+is ``cuda:(rank % device_count)``.  Gloo offers only broadcast, all-reduce
+and barrier on CUDA tensors, so ``all_gather`` is an all-reduce SUM of a
+zeroed global buffer of bytes into which each rank writes its block: every
+other addend is zero, so the result is its inputs bit for bit.
+
+A mesh without a process group (``make_data_mesh`` where
+``torch.distributed`` is not initialized) is the one-process view of
+``size`` shards: ``ShardedSampler.collect`` then runs the shards in turn,
+and the collectives refuse to run (a mesh of one shard reduces to itself).
+
+``spawn_ranks`` starts the ranks (``torch.multiprocessing``'s spawn
+context, a ``file://`` rendezvous, gloo with a short timeout), returns each
+rank's result and raises if any rank raises or misses its deadline; the
+tests and ``chip_smoke.py`` run the mesh through it.  JAX's SPMD needs no
+launcher.
+
+The 2-D (data x model) mesh, ``install`` / ``install_2d`` and the TPU
+roofline constants belong to the LM half of the mesh (ROADMAP Queue 1 item
+12, part 2).
 """
 from __future__ import annotations
 
+import dataclasses
+import datetime
+import math
+import os
+import pickle
+import queue as queue_mod
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
 import torch
+import torch.distributed as dist
+
+BACKEND = "gloo"
+COLLECTIVE_TIMEOUT_S = 60.0   # a rank blocked this long in a collective raises
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DataMesh:
+    """One data axis over ``size`` ranks (see the module docstring).
+
+    ``group`` is the process group of the axis (None: the one-process view
+    of ``size`` shards); ``index`` is this rank's position on the axis;
+    ``devices[i]`` the device of the rank at position ``i``.  Equality is
+    identity."""
+    axis: str
+    size: int
+    index: int = 0
+    device: torch.device = torch.device("cpu")
+    devices: Tuple[torch.device, ...] = ()
+    group: Any = None
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis: self.size}
+
+    @property
+    def axis_names(self) -> tuple:
+        return (self.axis,)
+
+    @property
+    def distributed(self) -> bool:
+        return self.group is not None
+
+    # -- collectives (JAX's lax.psum / pmean / pmax / all_gather) ----------
+    def _check(self, what: str) -> bool:
+        """True when the collective must talk to other ranks."""
+        if self.size == 1:
+            return False
+        if self.group is None:
+            raise ValueError(
+                f"{what} over {self.axis!r}: this mesh is the one-process "
+                f"view of {self.size} shards and has no process group; run "
+                "it on its ranks (launch.mesh.spawn_ranks)")
+        return True
+
+    def _all_reduce(self, tensors: Sequence[torch.Tensor], op, what: str
+                    ) -> List[torch.Tensor]:
+        """``op`` over the axis of every tensor, one collective per dtype
+        (the tensors are packed into one flat buffer); returns new
+        tensors."""
+        tensors = [torch.as_tensor(t) for t in tensors]
+        if not self._check(what):
+            return [t.detach().clone() for t in tensors]
+        out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+        by_dtype = {}
+        for i, t in enumerate(tensors):
+            by_dtype.setdefault((t.dtype, t.device), []).append(i)
+        for idx in by_dtype.values():
+            flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+            dist.all_reduce(flat, op=op, group=self.group)
+            off = 0
+            for i in idx:
+                n = tensors[i].numel()
+                out[i] = flat[off:off + n].view(tensors[i].shape)
+                off += n
+        return out
+
+    def psum_all(self, tensors) -> List[torch.Tensor]:
+        """Sum of each tensor over the axis, one all-reduce a dtype."""
+        return self._all_reduce(tensors, dist.ReduceOp.SUM, "psum")
+
+    def pmean_all(self, tensors) -> List[torch.Tensor]:
+        """``psum / size`` of each tensor, as JAX's ``pmean``."""
+        return [t / self.size for t in
+                self._all_reduce(tensors, dist.ReduceOp.SUM, "pmean")]
+
+    def pmax_all(self, tensors) -> List[torch.Tensor]:
+        return self._all_reduce(tensors, dist.ReduceOp.MAX, "pmax")
+
+    def psum(self, x) -> torch.Tensor:
+        return self.psum_all([x])[0]
+
+    def pmean(self, x) -> torch.Tensor:
+        return self.pmean_all([x])[0]
+
+    def pmax(self, x) -> torch.Tensor:
+        return self.pmax_all([x])[0]
+
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Concatenate every rank's ``x`` along ``dim`` in axis order (JAX's
+        ``all_gather(..., tiled=True)``), bit for bit: an all-reduce SUM of
+        a zeroed byte buffer into which this rank writes its block."""
+        if not self._check("all_gather"):
+            return x
+        xt = x.detach().movedim(dim, 0).contiguous()
+        b, rest = xt.shape[0], tuple(xt.shape[1:])
+        raw = xt.reshape(b, -1).view(torch.uint8)
+        buf = torch.zeros((self.size * b, raw.shape[1]), dtype=torch.uint8,
+                          device=x.device)
+        buf[self.index * b:(self.index + 1) * b] = raw
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
+        return buf.view(x.dtype).reshape((self.size * b,) + rest).movedim(
+            0, dim)
+
+    def block(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block of a global ``x`` (dim ``dim`` split evenly
+        over the axis): the inverse of ``all_gather``."""
+        n = x.shape[dim]
+        if n % self.size:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {self.size} ranks of {self.axis!r}")
+        k = n // self.size
+        return x.narrow(dim, self.index * k, k)
+
+    def barrier(self) -> None:
+        if self._check("barrier"):
+            dist.barrier(group=self.group)
+
+
+def _rank_devices(n: int, device) -> Tuple[torch.device, ...]:
+    """The device of each of ``n`` ranks: ``cuda:(rank % device_count)`` on
+    the card, so ranks share a card when there are fewer cards than
+    ranks."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return tuple(device for _ in range(n))
+    if not torch.cuda.is_available():
+        raise RuntimeError("device cuda but no CUDA device is available; "
+                           "pass device='cpu' to run the mesh on the CPU")
+    count = torch.cuda.device_count()
+    return tuple(torch.device("cuda", r % count) for r in range(n))
+
+
+def make_data_mesh(n_data: int = 0, axis: str = "data", *,
+                   device="cuda") -> DataMesh:
+    """1-D data-parallel mesh for SPMD RL training (paper §2.4).  This is the
+    mesh ``ShardedSampler`` and ``TrainLoop(mesh=...)`` expect.
+
+    Where ``torch.distributed`` is initialized: the mesh over every rank of
+    the world (``n_data`` must be 0 or the world size), this rank's place on
+    it and its device.  Otherwise the one-process view of ``n_data`` shards
+    (0: one) on ``device``, with no process group."""
+    if dist.is_available() and dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if n_data not in (0, world):
+            raise ValueError(f"make_data_mesh({n_data}) on a world of "
+                             f"{world} ranks: the data mesh spans every rank")
+        devices = _rank_devices(world, device)
+        return DataMesh(axis=axis, size=world, index=rank,
+                        device=devices[rank], devices=devices,
+                        group=dist.group.WORLD)
+    n = n_data or 1
+    devices = _rank_devices(n, device)
+    return DataMesh(axis=axis, size=n, index=0, device=devices[0],
+                    devices=devices)
+
+
+def make_axis_meshes(shape: Sequence[int], axes: Sequence[str], *,
+                     device="cuda") -> Tuple[DataMesh, ...]:
+    """One ``DataMesh`` per axis of a row-major ``shape`` over the world's
+    ranks (rank = the row-major index of its coordinates, as
+    ``jax.make_mesh`` lays out devices), for ``cross_replica`` over a tuple
+    of axes.  Every rank must call it: each axis' groups are created on
+    every rank, in one order."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} vs axes {axes}")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the "
+                         f"world has {world}")
+    devices = _rank_devices(world, device)
+    coords = [_coords(r, shape) for r in range(world)]
+    mine = coords[rank]
+    out = []
+    for a, name in enumerate(axes):
+        me = None
+        for line in sorted({c[:a] + c[a + 1:] for c in coords}):
+            members = tuple(_flat(line[:a] + (i,) + line[a:], shape)
+                            for i in range(shape[a]))
+            group = dist.new_group(ranks=list(members), backend=BACKEND,
+                                   timeout=datetime.timedelta(
+                                       seconds=COLLECTIVE_TIMEOUT_S))
+            if rank in members:
+                me = DataMesh(axis=name, size=shape[a], index=mine[a],
+                              device=devices[rank],
+                              devices=tuple(devices[m] for m in members),
+                              group=group)
+        out.append(me)
+    return tuple(out)
+
+
+def _flat(coord, shape) -> int:
+    i = 0
+    for c, s in zip(coord, shape):
+        i = i * s + c
+    return i
+
+
+def _coords(i: int, shape) -> tuple:
+    out = []
+    for s in reversed(shape):
+        i, c = divmod(i, s)
+        out.append(c)
+    return tuple(reversed(out))
+
+
+def parse_mesh_arg(spec: str):
+    """'DxM' (e.g. '2x2', '1x4') -> (n_data, n_model); '1x1'/'' -> None."""
+    if not spec:
+        return None
+    parts = spec.lower().replace(",", "x").split("x")
+    if len(parts) != 2:
+        raise ValueError(f"mesh spec must be DATAxMODEL, got {spec!r}")
+    n_data, n_model = int(parts[0]), int(parts[1])
+    if n_data == n_model == 1:
+        return None
+    return n_data, n_model
+
+
+def mesh_devices(mesh) -> set:
+    """The devices a mesh's ranks use."""
+    return set(mesh.devices)
 
 
 def split_actor_learner(devices, *, mesh=None):
@@ -19,14 +283,113 @@ def split_actor_learner(devices, *, mesh=None):
     update never contend for one device; the rest stay free for a future
     sharded learner.  With one device both share it, and the runner gives
     actor and learner a CUDA stream each.
+
+    ``mesh``: a data mesh whose ranks already use devices.  Actor and
+    learner then pick from the devices the mesh does NOT use, so they never
+    contend with the mesh's ranks; raises when the mesh uses every device
+    (on one card it always does): sharing it would silently serialize both,
+    which is worse than failing loudly.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "split_actor_learner: mesh= is not ported to repro_torch yet "
-            "(ROADMAP Queue 1, item 12)")
     devs = [torch.device(d) for d in devices]
+    if mesh is not None:
+        owned = mesh_devices(mesh)
+        devs = [d for d in devs if d not in owned]
+        if not devs:
+            raise ValueError(
+                f"mesh uses every device ({sorted(map(str, owned))}); shrink "
+                "the mesh to leave actor / learner devices free")
     if not devs:
         raise ValueError("no devices available")
     if len(devs) == 1:
         return devs[0], devs[0]
     return devs[-1], devs[0]
+
+
+# ---------------------------------------------------------------------------
+# the rank launcher
+# ---------------------------------------------------------------------------
+
+def _rank_main(fn, rank, n, init_method, device, timeout_s, args, results):
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            BACKEND, init_method=init_method, world_size=n, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            out = fn(make_data_mesh(device=device), *args)
+        finally:
+            dist.destroy_process_group()
+        # plain pickle: the queue's own would share tensor storage through
+        # file descriptors that die with this process
+        results.put(("ok", rank, pickle.dumps(out)))
+    except Exception:  # noqa: BLE001 - the parent reports the traceback
+        results.put(("error", rank, traceback.format_exc()))
+
+
+def spawn_ranks(fn: Callable, n: int, args: tuple = (), *, device="cuda",
+                timeout: float = 120.0,
+                collective_timeout: float = COLLECTIVE_TIMEOUT_S) -> list:
+    """Run ``fn(mesh, *args)`` on ``n`` gloo ranks, one spawned process
+    each, and return their results in rank order.
+
+    ``fn`` and ``args`` must pickle (a module-level function), and so must
+    what ``fn`` returns (move tensors to the CPU).  Each rank sets one
+    intra-op thread, joins a ``file://`` rendezvous and builds its
+    ``make_data_mesh(device=device)``.  A collective blocked for
+    ``collective_timeout`` seconds raises in its rank.  If any rank raises,
+    dies or the ranks have not all returned after ``timeout`` seconds, every
+    rank is killed and this raises ``RuntimeError`` with the rank's
+    traceback."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+    init_method = "file://" + os.path.join(tmp, "rendezvous")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(fn, r, n, init_method, device,
+                               collective_timeout, args, results))
+             for r in range(n)]
+    deadline = time.monotonic() + timeout
+    out, error, started = {}, None, []
+    try:
+        for p in procs:
+            p.start()
+            started.append(p)
+        while len(out) < n and error is None:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                error = (f"{n - len(out)} of {n} ranks had not returned after "
+                         f"{timeout:.0f} s (ranks done: {sorted(out)})")
+                break
+            try:
+                status, rank, value = results.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in out and p.exitcode is not None]
+                if dead:
+                    # a rank's result may still be in the pipe: one more look
+                    try:
+                        status, rank, value = results.get(timeout=1.0)
+                    except queue_mod.Empty:
+                        error = (f"rank {dead[0]} died with exit code "
+                                 f"{procs[dead[0]].exitcode} and no result")
+                        break
+                else:
+                    continue
+            if status == "ok":
+                out[rank] = pickle.loads(value)
+            else:
+                error = f"rank {rank} raised:\n{value}"
+    finally:
+        for p in started:
+            if error is not None and p.is_alive():
+                p.kill()
+            p.join(timeout=10.0 if error is None else 5.0)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5.0)
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if error is not None:
+        raise RuntimeError(f"spawn_ranks({getattr(fn, '__name__', fn)}, "
+                           f"{n}): {error}")
+    return [out[r] for r in range(n)]

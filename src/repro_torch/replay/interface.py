@@ -1,6 +1,5 @@
 """One replay interface (init/insert/sample/update_priorities) so runners
-are replay-backend-agnostic; port of ``repro/replay/interface.py`` (the
-sharded views wait for ROADMAP Queue 1 item 12).
+are replay-backend-agnostic; port of ``repro/replay/interface.py``.
 
 Backends:
 - ``DeviceReplay``         — the torch ring of ``replay/device.py`` on the
@@ -114,6 +113,58 @@ class DeviceReplay(ReplayLike):
         (td_abs,) = priorities
         return dreplay.update_priorities(state, indices, td_abs,
                                          alpha=self.alpha)
+
+    # -- data-parallel views (paper §2.4: replay sharded across GPUs) -----
+    #
+    # On a data mesh each rank owns an independent ring of
+    # capacity / n_shards slots with its OWN sum tree; cursor and filled
+    # are the same on every rank (each inserts the same number of
+    # transitions at the same times).  The global state, as JAX's, is one
+    # ReplayState: storage (capacity, ...) is the ranks' rings end to end
+    # and the trees are stacked on a leading (n_shards,) axis.  A rank holds
+    # its block of it (storage (capacity / n_shards, ...), tree (1, 2 *
+    # size)); ``local_view`` / ``merge_view`` strip / restore the tree's
+    # leading axis (views: the in-place writes reach the block), so insert,
+    # sample and update_priorities run UNCHANGED on the rank's ring.
+
+    def init_sharded(self, example, n_shards: int, *, index=None
+                     ) -> dreplay.ReplayState:
+        """The global state of ``n_shards`` rings of capacity // n_shards
+        slots each, or, with ``index``, rank ``index``'s block of it."""
+        if self.capacity % n_shards:
+            raise ValueError(f"capacity {self.capacity} does not split over "
+                             f"{n_shards} shards")
+        device = next(iter(example.values())).device
+        local = dreplay.init_replay(example, self.capacity // n_shards,
+                                    device=device)
+        if index is not None:
+            return self.merge_view(local)
+        return local._replace(
+            storage=pytree.tree_map(
+                lambda l: torch.zeros((self.capacity,) + tuple(l.shape[1:]),
+                                      dtype=l.dtype, device=l.device),
+                local.storage),
+            tree=torch.zeros((n_shards,) + tuple(local.tree.shape),
+                             dtype=local.tree.dtype, device=device))
+
+    @staticmethod
+    def shard_spec(mesh) -> dreplay.ReplayState:
+        """Which leaves of a state built by ``init_sharded`` are per rank
+        (sharded over ``mesh``'s axis on dim 0) and which replicated
+        (None), as a prefix tree for ``train.checkpoint`` (``shardings=``);
+        JAX's PartitionSpec prefix."""
+        return dreplay.ReplayState(storage=mesh, cursor=None, filled=None,
+                                   tree=mesh)
+
+    @staticmethod
+    def local_view(state: dreplay.ReplayState) -> dreplay.ReplayState:
+        """A rank's block (tree (1, 2*size)) -> plain local ReplayState."""
+        return state._replace(tree=state.tree[0])
+
+    @staticmethod
+    def merge_view(state: dreplay.ReplayState) -> dreplay.ReplayState:
+        """Inverse of ``local_view``."""
+        return state._replace(tree=state.tree[None])
 
 
 class HostTransitionReplay(ReplayLike):

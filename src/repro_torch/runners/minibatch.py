@@ -12,7 +12,16 @@ Both train on the card unless the caller asks for the CPU, and raise
 without one.  With ``ckpt_dir`` / ``ckpt_interval`` the loop saves a
 checkpoint (the train state; off-policy, the train and replay states) every
 ``ckpt_interval`` iterations, and ``run(restore=True)`` resumes from the
-latest one at its iteration.  The mesh waits for ROADMAP Queue 1 item 12.
+latest one at its iteration.
+
+Both shells take ``mesh=`` / ``axis=`` (with a ShardedSampler on that
+mesh) for the data-parallel mode (paper §2.4): each rank of the mesh runs
+the shell, with sharded envs, a replay ring of its own and all-reduced
+gradients (``TrainLoop``'s module docstring).  ``OffPolicyRunner``
+initializes the replay sharded, each rank samples batch_size / n_shards an
+update (the global batch unchanged), ``min_replay`` counts global
+transitions, and checkpoints gather the rings and restore each rank's.
+On the card the mesh runs ``fuse=False``.
 """
 from __future__ import annotations
 
@@ -44,16 +53,17 @@ class OnPolicyRunner:
     def __init__(self, sampler, algo, *, n_iterations: int,
                  log_interval: int = 10, logger: Optional[Logger] = None,
                  ckpt_dir: Optional[str] = None, ckpt_interval: int = 0,
-                 fuse: bool = True, eval_sampler=None,
-                 sentinels: bool = False, nan_guard: bool = False):
+                 fuse: bool = True, mesh=None, axis: str = "data",
+                 eval_sampler=None, sentinels: bool = False,
+                 nan_guard: bool = False):
         self.sampler, self.algo = sampler, algo
         self.n_iterations = n_iterations
         self.log_interval = log_interval
         self.logger = logger or Logger()
         self.ckpt_dir, self.ckpt_interval = ckpt_dir, ckpt_interval
         self.eval_sampler = eval_sampler
-        self.loop = TrainLoop(sampler, algo, fuse=fuse, sentinels=sentinels,
-                              nan_guard=nan_guard)
+        self.loop = TrainLoop(sampler, algo, fuse=fuse, mesh=mesh, axis=axis,
+                              sentinels=sentinels, nan_guard=nan_guard)
 
     def run(self, seed: int, params=None, restore: bool = False, *,
             device="cuda"):
@@ -63,11 +73,12 @@ class OnPolicyRunner:
         gens = _generators(seed, device)
         if params is None:
             params = self.sampler.agent.init_params(gens[0])
-        train_state = self.algo.init_train_state(gens[0], params)
+        train_state = self.loop.algo.init_train_state(gens[0], params)
         start_iter = 0
         if restore and self.ckpt_dir and latest_step(self.ckpt_dir) is not None:
             train_state, manifest = restore_checkpoint(
-                self.ckpt_dir, train_state, device=device)
+                self.ckpt_dir, train_state, device=device,
+                shardings=self.loop.checkpoint_specs(train_state))
             start_iter = manifest["extra"].get("iteration", 0)
         sampler_state = self.sampler.init(gens[1])
         train_state, sampler_state, _, last_info = self.loop.drive(
@@ -80,8 +91,9 @@ class OnPolicyRunner:
 
 
 class OffPolicyRunner:
-    """DQN / DDPG / TD3 / SAC over a device-resident ReplayLike, one
-    iteration at a time."""
+    """DQN / DDPG / TD3 / SAC over a device-resident ReplayLike.  On a mesh
+    the replay is initialized sharded (a ring of capacity / n_shards a
+    rank) and each rank samples batch_size / n_shards an update."""
 
     def __init__(self, sampler, algo, *, replay_capacity: int,
                  batch_size: int, n_iterations: int, updates_per_collect: int = 1,
@@ -90,7 +102,9 @@ class OffPolicyRunner:
                  log_interval: int = 10, logger: Optional[Logger] = None,
                  ckpt_dir: Optional[str] = None, ckpt_interval: int = 0,
                  agent_state_kwargs: Optional[dict] = None,
-                 replay: Optional[ReplayLike] = None, fuse: bool = True):
+                 replay: Optional[ReplayLike] = None, fuse: bool = True,
+                 mesh=None, axis: str = "data", sentinels: bool = False,
+                 nan_guard: bool = False):
         self.sampler, self.algo = sampler, algo
         self.n_iterations = n_iterations
         self.min_replay = min_replay
@@ -100,10 +114,12 @@ class OffPolicyRunner:
         self.agent_state_kwargs = agent_state_kwargs or {}
         self.replay = replay if replay is not None else DeviceReplay(
             replay_capacity, prioritized=prioritized, beta=beta)
+        self.mesh = mesh
         self.loop = TrainLoop(sampler, algo, replay=self.replay,
                               batch_size=batch_size,
                               updates_per_collect=updates_per_collect,
-                              fuse=fuse)
+                              fuse=fuse, mesh=mesh, axis=axis,
+                              sentinels=sentinels, nan_guard=nan_guard)
         self.replay_state = None
 
     def run(self, seed: int, params=None, restore: bool = False, *,
@@ -120,16 +136,25 @@ class OffPolicyRunner:
         gens = _generators(seed, device)
         if params is None:
             params = self.sampler.agent.init_params(gens[0])
-        train_state = self.algo.init_train_state(gens[0], params)
+        train_state = self.loop.algo.init_train_state(gens[0], params)
         sampler_state = self.sampler.init(gens[1], self.agent_state_kwargs)
-        replay_state = self.replay.init(
-            transition_example(self.sampler.env, device=device))
+        example = transition_example(self.sampler.env, device=device)
+        n_shards = self.loop.n_shards
+        if self.mesh is not None:
+            replay_state = self.replay.init_sharded(example, n_shards,
+                                                    index=self.mesh.index)
+        else:
+            replay_state = self.replay.init(example)
         start_iter, warm = 0, 0
         if restore and self.ckpt_dir and latest_step(self.ckpt_dir) is not None:
             (train_state, replay_state), manifest = restore_checkpoint(
-                self.ckpt_dir, (train_state, replay_state), device=device)
+                self.ckpt_dir, (train_state, replay_state), device=device,
+                shardings=self.loop.checkpoint_specs(
+                    (train_state, replay_state)))
             start_iter = manifest["extra"].get("iteration", 0)
-            warm = int(replay_state.filled)
+            # min_replay counts GLOBAL transitions; on a mesh ``filled`` is
+            # a rank's count
+            warm = int(replay_state.filled) * n_shards
 
         # fill to min_replay before training, through the same collect+insert
         steps_per_iter = self.sampler.horizon * self.sampler.n_envs

@@ -37,12 +37,30 @@ the step without a sync.  The first iteration of each graph runs eagerly
 (its warm-up), the second captures it.  On the CPU, which has no graphs,
 the same body runs eagerly.  ``fuse=False`` runs ``iteration`` eagerly.
 
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
-Queue 1 item when asked for: the SPMD mesh and the compressed all-reduce
-(``mesh=``, ``compress=``; item 12).
+Data parallelism (paper §2.4 synchronous multi-GPU RL)
+------------------------------------------------------
+``mesh=`` / ``axis=`` run the same iteration on every rank of a
+``launch.mesh.DataMesh`` (one process a rank, ``launch.mesh.spawn_ranks``):
+each rank steps its env shard (``ShardedSampler.local_collect``), inserts
+into and samples from its OWN ring of the device replay
+(``DeviceReplay.init_sharded``; ``batch_size / n_shards`` a rank, drawn
+from a generator that folds in the rank), and computes gradients on its
+local batch.  The only traffic between ranks is the all-reduce of the
+gradients (``train.optim.cross_replica`` wraps every Optimizer the
+algorithm holds, on a copy of the algorithm), the summed episode stats,
+the replicated metrics (``_replicate_info``) and sentinels
+(``sentinels.replicate``).  Params and optimizer state stay replicated, so
+the update IS the serial update on the concatenated batch: rlpyt's
+"replicated model, all-reduced gradients".  ``compress="int8_ef"`` sends
+the gradients in int8 with error feedback; the train state must then come
+from the loop's wrapped algorithm (``loop.algo.init_train_state``).  A
+gloo all-reduce cannot sit inside a CUDA graph, so on the card the mesh
+runs ``fuse=False`` (``fuse=True`` raises); on the CPU, ``fuse=True`` is
+the same eager body.
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import Callable, Optional
 
@@ -52,36 +70,40 @@ from torch.utils import _pytree as pytree
 from ..core.batch_spec import make_algo_batch
 from ..core.graphs import StepGraph
 from ..core.tree import tree_stack
+from ..replay.device import ReplayState
 from ..replay.interface import ReplayLike
 from ..samplers.eval import fold_seed
 from ..telemetry import sentinels as sentinels_mod
 from ..telemetry import trace
 from ..telemetry.sentinels import NonFiniteError
 from ..train.checkpoint import save_checkpoint
+from ..train.optim import (CrossReplicaState, Optimizer, compress_metrics,
+                           cross_replica, cross_replica_specs,
+                           cross_replica_states)
 from ..utils.logger import Logger
 
 EVAL_FORK = 0xE7A1  # the eval stream's fold-in constant, as in JAX
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"TrainLoop: {what} is not ported to "
-                               f"repro_torch yet (ROADMAP Queue 1, {item})")
-
-
 class TrainLoop:
-    """Synchronous loop over sampler + algo (+ device replay)."""
+    """Synchronous loop over sampler + algo (+ device replay).
+
+    With ``mesh`` / ``axis`` the loop runs on each rank of the mesh (see the
+    module docstring); the sampler must then be a ShardedSampler (or expose
+    ``local_collect`` / ``local_bootstrap``) on the same axis, and replayed
+    algorithms shard both the replay state and the sample batch (each rank
+    draws batch_size / n_shards).
+    """
 
     def __init__(self, sampler, algo, *, replay: Optional[ReplayLike] = None,
                  batch_size: Optional[int] = None,
                  updates_per_collect: int = 1, fuse: bool = True,
-                 mesh=None, compress: Optional[str] = None,
+                 mesh=None, axis: str = "data",
+                 compress: Optional[str] = None,
                  sentinels: bool = False, nan_guard: bool = False):
         spec = algo.batch_spec
         if spec is None:
             raise ValueError(f"{type(algo).__name__} declares no BatchSpec")
-        if mesh is not None or compress:
-            raise _not_ported("the SPMD mesh and compressed all-reduce",
-                              "item 12")
         if spec.mode == "sequence":
             raise ValueError("sequence-mode algorithms (R2D1) need the host "
                              "sequence replay — use AsyncR2D1Runner")
@@ -96,24 +118,99 @@ class TrainLoop:
         self.batch_size = batch_size
         self.k = updates_per_collect
         self.fuse = fuse
+        self.mesh, self.axis = mesh, axis
+        self.compress = compress
+        if compress and mesh is None:
+            raise ValueError("compress= needs a mesh (the compressed stage "
+                             "is the data-axis gradient all-reduce)")
         # one StepGraph per tuple of update branches (see the docstring)
         self.graphs = {}
         # nan_guard implies sentinels (the guard reads the nonfinite channel)
         self.nan_guard = nan_guard
         self.sentinels_on = sentinels or nan_guard
         self.tracer = trace.get_tracer()
+        self.n_shards = 1
+        self._local_batch = batch_size
+        self._shard_gen = None
+        if mesh is not None:
+            self._init_mesh(sampler, spec, batch_size)
+
+    def _init_mesh(self, sampler, spec, batch_size):
+        mesh, axis = self.mesh, self.axis
+        if not hasattr(sampler, "local_collect"):
+            raise ValueError("mesh mode needs a sharded sampler exposing "
+                             "local_collect / local_bootstrap "
+                             "(ShardedSampler)")
+        if getattr(sampler, "axis", axis) != axis:
+            raise ValueError(f"sampler shards over {sampler.axis!r} but "
+                             f"TrainLoop was given axis={axis!r}")
+        if mesh.axis != axis:
+            raise ValueError(f"the mesh's axis is {mesh.axis!r}, TrainLoop "
+                             f"was given axis={axis!r}")
+        if self.fuse and mesh.device.type == "cuda":
+            raise ValueError(
+                "TrainLoop(mesh=..., fuse=True) on the card: the mesh's gloo "
+                "all-reduce cannot sit inside a CUDA graph (and NCCL, which "
+                "captures, refuses two ranks on one GPU); pass fuse=False. "
+                "Capturing the segments between collectives waits in ROADMAP "
+                "Queue 2's notes (the rest of item 14: the mesh)")
+        self.n_shards = mesh.shape[axis]
+        if spec.replayed:
+            if batch_size % self.n_shards:
+                raise ValueError(f"batch_size {batch_size} not divisible "
+                                 f"by {self.n_shards} shards")
+            self._local_batch = batch_size // self.n_shards
+        # the psum seam: every Optimizer the algorithm holds all-reduces its
+        # grads over the mesh before stepping, so params / opt state stay
+        # replicated and the update equals the global-batch update; no
+        # algorithm changes its ``update``.  On a shallow copy: the
+        # caller's algo must stay usable outside this mesh.
+        self.algo = algo = copy.copy(self.algo)
+        for name, val in list(vars(algo).items()):
+            if isinstance(val, Optimizer):
+                setattr(algo, name, cross_replica(
+                    val, mesh, compress=self.compress,
+                    ef_shards=self.n_shards))
 
     # -- one iteration -------------------------------------------------------
+    def _collect(self, params, sampler_state):
+        if self.mesh is None:
+            return self.sampler.collect(params, sampler_state)
+        return self.sampler.local_collect(params, sampler_state)
+
     def collect_insert(self, params, sampler_state, replay_state):
-        sampler_state, batch = self.sampler.collect(params, sampler_state)
-        replay_state = self.replay.insert(replay_state, batch)
-        return sampler_state, replay_state
+        """collect -> insert; on a mesh, into this rank's ring (the state
+        as ``init_sharded`` gives it)."""
+        if self.mesh is None:
+            sampler_state, batch = self.sampler.collect(params, sampler_state)
+            return sampler_state, self.replay.insert(replay_state, batch)
+        sampler_state, batch = self.sampler.local_collect(params,
+                                                          sampler_state)
+        rs = self.replay.insert(self.replay.local_view(replay_state), batch)
+        return sampler_state, self.replay.merge_view(rs)
+
+    def _sample_generator(self, generator):
+        """The replay's generator: on a mesh, the rank's own, seeded
+        ``fold_seed(seed, rank)`` from the training generator's seed (JAX's
+        ``fold_in(k_s, shard)``: draws decorrelate across ranks while the
+        update's generator stays replicated).  It is built anew for each
+        training generator (a new ``run``) and each re-seed of one, so the
+        same seed gives the same draws however often the loop is run."""
+        if self.mesh is None:
+            return generator
+        key = (generator, generator.initial_seed())
+        if self._shard_gen is None or self._shard_gen[0] != key:
+            self._shard_gen = (key, torch.Generator(
+                device=generator.device).manual_seed(
+                    fold_seed(key[1], self.mesh.index)))
+        return self._shard_gen[1]
 
     def update_step(self, train_state, replay_state, generator, *, draws=None):
         """sample -> algo batch (with the IS weights) -> update -> priority
         update.  ``draws`` replaces the replay's random numbers (tests)."""
-        mb, idx, w = self.replay.sample(replay_state, generator,
-                                        self.batch_size, draws=draws)
+        mb, idx, w = self.replay.sample(
+            replay_state, self._sample_generator(generator),
+            self._local_batch, draws=draws)
         algo_batch = make_algo_batch(self.spec, mb, {"is_weights": w})
         train_state, info = self.algo.update(train_state, algo_batch, generator)
         replay_state = self.replay.update_priorities(
@@ -124,8 +221,9 @@ class TrainLoop:
                          *, draws=None):
         """bootstrap value at the batch boundary -> algo batch -> update.
         ``draws`` replaces the algorithm's permutations (PPO; tests)."""
-        bootstrap = self.sampler.bootstrap_value(train_state.params,
-                                                 sampler_state)
+        bootstrap = (self.sampler.bootstrap_value if self.mesh is None else
+                     self.sampler.local_bootstrap)(train_state.params,
+                                                   sampler_state)
         algo_batch = make_algo_batch(self.spec, batch,
                                      {"bootstrap_value": bootstrap})
         kw = {} if draws is None else {"perms": draws}
@@ -139,25 +237,79 @@ class TrainLoop:
             # the update norm
             prev = pytree.tree_map(lambda p: p.detach().clone(),
                                    train_state.params)
+        # on a mesh the replay state is this rank's block; its local view
+        # shares the block's memory, so the in-place writes reach it
+        local_rs = replay_state
+        if self.mesh is not None and replay_state is not None:
+            local_rs = self.replay.local_view(replay_state)
+        sampler_state, batch = self._collect(train_state.params,
+                                             sampler_state)
         if self.spec.on_policy:
-            sampler_state, batch = self.sampler.collect(train_state.params,
-                                                        sampler_state)
             train_state, info = self.on_policy_update(
                 train_state, sampler_state, batch, generator)
         else:
-            sampler_state, replay_state = self.collect_insert(
-                train_state.params, sampler_state, replay_state)
-            info = None
+            local_rs = self.replay.insert(local_rs, batch)
             for _ in range(self.k):
-                train_state, replay_state, info = self.update_step(
-                    train_state, replay_state, generator)
+                train_state, local_rs, info = self.update_step(
+                    train_state, local_rs, generator)
+        replay_state = local_rs
+        if self.mesh is not None:
+            info = self._replicate_info(info)
+            if local_rs is not None:
+                replay_state = self.replay.merge_view(local_rs)
         sent = None
         if self.sentinels_on:
+            cm = compress_metrics(train_state.opt_state)
             sent = sentinels_mod.compute(
                 prev, train_state.params, info.loss, info.grad_norm,
-                replay_state,
-                self.sampler.horizon * self.sampler.n_envs)
+                local_rs,
+                self.sampler.horizon * self.sampler.n_envs // self.n_shards,
+                compress_err_norm=cm.get("compress_err_norm"),
+                grad_norm_shard_max=cm.get("grad_norm_shard_max"))
+            if self.mesh is not None:
+                sent = sentinels_mod.replicate(sent, self.mesh)
         return train_state, sampler_state, replay_state, info, sent
+
+    # -- the mesh's replicated values -----------------------------------------
+    def _replicate_info(self, info):
+        """Make the OptInfo replicated: scalar leaves (losses, means over the
+        local batch) pmean to their global-batch value; batch-leading
+        leaves (per-sample td_abs) gather to global width."""
+        leaves, spec = pytree.tree_flatten(info)
+        scalars = [i for i, x in enumerate(leaves) if x.dim() == 0]
+        out = list(leaves)
+        for i, x in zip(scalars, self.mesh.pmean_all(
+                [leaves[i] for i in scalars])):
+            out[i] = x
+        for i, x in enumerate(leaves):
+            if x.dim() > 0:
+                out[i] = self.mesh.all_gather(x, dim=0)
+        return pytree.tree_unflatten(out, spec)
+
+    def _check_train_state(self, train_state):
+        """A compressed loop's train state must carry the EF residual."""
+        if not self.compress:
+            return
+        if not cross_replica_states(train_state.opt_state):
+            raise ValueError(
+                "compress= is set but the train state carries no error-"
+                "feedback residual: initialize it through the loop's "
+                "wrapped algo: loop.algo.init_train_state(...)")
+
+    def checkpoint_specs(self, tree):
+        """Which leaves of ``tree`` (a train state, a (train, replay) pair)
+        are per rank on this loop's mesh, as the prefix tree
+        ``train.checkpoint`` takes in ``shardings=``: the EF residuals and
+        the replay rings; everything else replicated (None).  None without
+        a mesh."""
+        if self.mesh is None:
+            return None
+        node = lambda x: isinstance(x, (CrossReplicaState, ReplayState))
+        return pytree.tree_map(
+            lambda x: cross_replica_specs(self.mesh)
+            if isinstance(x, CrossReplicaState) else
+            self.replay.shard_spec(self.mesh) if isinstance(x, ReplayState)
+            else None, tree, is_leaf=node)
 
     def _fused_body(self, train_state, sampler_state, replay_state,
                     generator):
@@ -194,9 +346,12 @@ class TrainLoop:
     def run_window(self, train_state, sampler_state, replay_state, generator,
                    n: int):
         """``n`` iterations; returns (ts, ss, rs, last info, stacked
-        sentinels or None).  Reads nothing on the host.  Fused, each
-        iteration is one graph replay; its sentinels are copied out before
-        the next, and the last info once at the end."""
+        sentinels or None).  Reads nothing on the host (on a mesh, the
+        collectives do).  Fused, each iteration is one graph replay; its
+        sentinels are copied out before the next, and the last info once at
+        the end."""
+        if self.mesh is not None:
+            self._check_train_state(train_state)
         step = self.fused_iteration if self.fuse else self.iteration
         info, sents = None, []
         for _ in range(n):
@@ -284,5 +439,7 @@ class TrainLoop:
                     payload = (train_state if ckpt_payload is None
                                else ckpt_payload(train_state, replay_state))
                     save_checkpoint(ckpt_dir, it, payload,
-                                    extra={"iteration": it})
+                                    extra={"iteration": it},
+                                    shardings=self.checkpoint_specs(payload),
+                                    mesh=self.mesh)
         return train_state, sampler_state, replay_state, last_info

@@ -4,3 +4,4 @@ offline-evaluation sampler."""
 from .serial import SerialSampler, SamplerState, RolloutBatch  # noqa: F401
 from .alternating import AlternatingSampler  # noqa: F401
 from .eval import EvalSampler  # noqa: F401
+from .sharded import ShardedSampler  # noqa: F401

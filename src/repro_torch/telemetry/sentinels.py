@@ -1,5 +1,4 @@
-"""Per-iteration health sentinels, port of ``repro/telemetry/sentinels.py``
-for one device.
+"""Per-iteration health sentinels, port of ``repro/telemetry/sentinels.py``.
 
 ``Sentinels`` is a namedtuple of 0-d device tensors computed after each
 update — norms, loss moments, non-finite counts, replay occupancy and
@@ -13,8 +12,11 @@ The optimizer writes the params in place, so ``compute`` needs a copy of
 the params from before the update (``prev_params``) for ``update_norm``;
 the loop takes that copy only when sentinels are on.
 
-``replicate`` (the SPMD reduction of shard-local sentinels) waits for the
-mesh, ROADMAP Queue 1 item 12.
+On the data-parallel mesh (``launch/mesh.py``) each rank computes its
+sentinels over its own env shard and replay ring, and ``replicate``
+reduces them to the global values field by field as JAX's does: pmean of
+the replicated norms and losses, pmax of the counts and maxima, psum of
+the extensive fields (replay occupancy and mass, env steps).
 """
 from __future__ import annotations
 
@@ -43,8 +45,8 @@ class Sentinels(NamedTuple):
     replay_priority_mass: Any   # sum-tree root (total priority mass)
     replay_priority_max: Any    # max leaf priority
     env_steps: Any          # env steps generated this iteration
-    # compression health (0 without a compressed gradient reduction, which
-    # waits for the mesh):
+    # compression health (0 / grad_norm without a compressed gradient
+    # reduction):
     compress_err_norm: Any
     grad_norm_shard_max: Any
 
@@ -72,13 +74,15 @@ def count_nonfinite(tree) -> torch.Tensor:
 
 
 def compute(prev_params, new_params, loss, grad_norm, replay_state,
-            env_steps: int) -> Sentinels:
+            env_steps: int, *, compress_err_norm=None,
+            grad_norm_shard_max=None) -> Sentinels:
     """Build one iteration's sentinels on the params' device.
 
     ``prev_params`` is a copy of the params from before the update (the
     optimizer wrote ``new_params`` in place); ``replay_state`` is a device
     ``ReplayState`` or None for on-policy loops; ``grad_norm`` is the
-    already-computed value from OptInfo.
+    already-computed value from OptInfo; the compression scalars come from
+    ``train.optim.compress_metrics`` (None without compression).
     """
     gn = torch.as_tensor(grad_norm).to(F32)
     dev = gn.device
@@ -105,15 +109,32 @@ def compute(prev_params, new_params, loss, grad_norm, replay_state,
         replay_priority_mass=mass,
         replay_priority_max=pmax,
         env_steps=torch.full((), env_steps, dtype=I32, device=dev),
-        compress_err_norm=zero,
-        grad_norm_shard_max=gn,
+        compress_err_norm=zero if compress_err_norm is None else
+        torch.as_tensor(compress_err_norm).to(F32),
+        grad_norm_shard_max=gn if grad_norm_shard_max is None else
+        torch.as_tensor(grad_norm_shard_max).to(F32),
     )
 
 
-def replicate(s: Sentinels, axis: str) -> Sentinels:
-    raise NotImplementedError(
-        "sentinels.replicate (shard-local -> global sentinels) is not ported "
-        "to repro_torch yet (ROADMAP Queue 1, item 12: the mesh)")
+# the reduction of each field over the mesh, as JAX's ``replicate``:
+# loss and norms are already replicated (or local means), so they pmean;
+# counts and maxima pmax; each rank owns an independent ring / env slice,
+# so the extensive fields psum; the compression scalars were reduced
+# inside cross_replica and pass through pmean / pmax unchanged
+_PMEAN = ("loss", "loss_sq", "grad_norm", "param_norm", "update_norm",
+          "compress_err_norm")
+_PMAX = ("nonfinite_grads", "nonfinite_params", "replay_priority_max",
+         "grad_norm_shard_max")
+_PSUM = ("replay_filled", "replay_priority_mass", "env_steps")
+
+
+def replicate(s: Sentinels, axis) -> Sentinels:
+    """Rank-local -> global sentinels over the mesh ``axis`` (a
+    ``launch.mesh.DataMesh``): one all-reduce a (reduction, dtype)."""
+    out = dict(zip(_PMEAN, axis.pmean_all([getattr(s, k) for k in _PMEAN])))
+    out.update(zip(_PMAX, axis.pmax_all([getattr(s, k) for k in _PMAX])))
+    out.update(zip(_PSUM, axis.psum_all([getattr(s, k) for k in _PSUM])))
+    return Sentinels(**out)
 
 
 def _host(stacked: Sentinels) -> Sentinels:

@@ -14,8 +14,20 @@ The port's Python-int leaves (``TrainState.step``) are stored as 0-d int32
 arrays, as JAX stores its int32 steps, and come back as ints; its 0-d int32
 tensors (``OptState.step``, the replay ring's ``cursor`` and ``filled``)
 are stored the same way and come back as tensors; ``None`` is no leaf, as
-in JAX.  No generator state is saved (JAX saves no PRNG key).  Elastic
-re-sharding (``shardings=``) waits for ROADMAP Queue 1 item 12.
+in JAX.  No generator state is saved (JAX saves no PRNG key).
+
+On a data mesh (``launch/mesh.py``) each rank holds its block of the leaves
+sharded over the mesh's axis (the replay rings, the EF residual) and the
+whole of the replicated ones.  ``shardings`` names the sharded leaves: a
+prefix tree of ``tree`` whose leaves are a ``DataMesh`` (sharded over its
+axis on dim 0) or None (replicated), as JAX's tree of NamedShardings.
+``save_checkpoint(shardings=, mesh=)`` gathers each sharded leaf to its
+global value, JAX's layout, and the mesh's rank 0 writes the files (the
+manifest's ``mesh_shape`` records the mesh); ``restore_checkpoint(shardings=)`` gives
+each rank the replicated leaves whole and its block of each sharded one,
+so a run saved on N ranks restores on M (elastic re-sharding) wherever the
+leaves' global shapes agree.  Without ``shardings`` a restore returns the
+global leaves whole.
 
 The port's optimizers keep their moments as flat lists in the params' leaf
 order, JAX's as trees shaped like the params.  ``save_checkpoint`` writes
@@ -45,7 +57,8 @@ from torch.utils import _pytree as pytree
 
 from ..core.algorithm import TrainState
 from ..models.convert import params_of_jax, params_to_jax
-from .optim import OptState
+from .compress import EFState
+from .optim import CrossReplicaState, OptState
 
 _INT32 = np.iinfo(np.int32)
 
@@ -77,13 +90,16 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+_SINGLE = (OptState, CrossReplicaState)
+
+
 def _moment_owners(train_state):
     """The params each optimizer state of ``train_state`` steps: the whole
-    params for a single OptState (DQN, R2D1, A2C, PPO); for a dict of them
-    (DDPG / TD3 / SAC) ``params[key]``, or ``extra["log_" + key]`` (SAC's
-    alpha)."""
+    params for a single OptState (DQN, R2D1, A2C, PPO; or its
+    CrossReplicaState); for a dict of them (DDPG / TD3 / SAC)
+    ``params[key]``, or ``extra["log_" + key]`` (SAC's alpha)."""
     opt, params = train_state.opt_state, train_state.params
-    if isinstance(opt, OptState):
+    if isinstance(opt, _SINGLE):
         return params
     return {k: params[k] if k in params else train_state.extra[f"log_{k}"]
             for k in opt}
@@ -94,13 +110,19 @@ def _map_opt(train_state, fn):
     if opt is None:
         return train_state
     owners = _moment_owners(train_state)
-    if isinstance(opt, OptState):
+    if isinstance(opt, _SINGLE):
         return train_state._replace(opt_state=fn(opt, owners))
     return train_state._replace(
         opt_state={k: fn(opt[k], owners[k]) for k in opt})
 
 
-def _moments_as(state: OptState, fn) -> OptState:
+def _moments_as(state, fn):
+    """``state`` with ``fn`` applied to each list shaped like the params: an
+    OptState's moments, and a CrossReplicaState's EF residual besides its
+    inner state's moments."""
+    if isinstance(state, CrossReplicaState):
+        return state._replace(inner=_moments_as(state.inner, fn),
+                              ef=EFState(residual=fn(state.ef.residual)))
     return state._replace(mu=None if state.mu is None else fn(state.mu),
                           nu=None if state.nu is None else fn(state.nu))
 
@@ -114,6 +136,33 @@ def _to_list(state, owner):
     return _moments_as(state, pytree.tree_leaves)
 
 
+def _is_mesh(x) -> bool:
+    """A sharding leaf: a mesh axis (``launch/mesh.DataMesh``) that gathers
+    and splits blocks."""
+    return hasattr(x, "all_gather") and hasattr(x, "block")
+
+
+def _sharded_paths(shardings) -> dict:
+    """{path: mesh} of every mesh leaf of a ``shardings`` prefix tree
+    (None leaves, replicated, are left out)."""
+    if shardings is None:
+        return {}
+    flat, _ = pytree.tree_flatten_with_path(
+        shardings, is_leaf=lambda x: x is None or _is_mesh(x))
+    return {_path_str(path): m for path, m in flat if _is_mesh(m)}
+
+
+def _mesh_for(path: str, sharded: dict):
+    """The mesh ``path`` is sharded over (its own entry or an ancestor's),
+    or None."""
+    parts = path.split("/")
+    for i in range(len(parts), 0, -1):
+        m = sharded.get("/".join(parts[:i]))
+        if m is not None:
+            return m
+    return sharded.get("")
+
+
 def _each_train_state(tree, fn):
     """``tree`` with ``_map_opt(ts, fn)`` for every TrainState ``ts`` in it;
     the tensors are shared."""
@@ -123,24 +172,43 @@ def _each_train_state(tree, fn):
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
-                    extra: Optional[dict] = None) -> str:
+                    extra: Optional[dict] = None, shardings: Any = None,
+                    mesh=None) -> str:
     """Write ``tree`` as ``step_{step:010d}.npz`` / ``.json`` in
-    ``ckpt_dir``; returns the ``.npz`` path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``ckpt_dir``; returns the ``.npz`` path.  ``mesh`` (default: the mesh
+    ``shardings`` names, see the module docstring) is the data mesh whose
+    ranks all call this: the sharded leaves are gathered, the mesh's rank
+    0 writes, every rank returns once the files are in place, and the
+    manifest's ``mesh_shape`` is the mesh's."""
+    sharded = _sharded_paths(shardings)
+    if mesh is None and sharded:
+        mesh = next(iter(sharded.values()))
     tree = _each_train_state(tree, _to_tree)
     arrays, manifest_leaves = {}, []
     for i, (path, leaf) in enumerate(_leaves(tree)):
         name = f"leaf_{i}"
+        over = _mesh_for(path, sharded)
+        if over is not None:
+            leaf = over.all_gather(torch.as_tensor(leaf), dim=0)
         arr = _to_numpy(leaf)
         arrays[name] = arr
         manifest_leaves.append({"name": name, "path": path,
                                 "shape": list(arr.shape),
                                 "dtype": str(arr.dtype)})
     manifest = {"step": int(step), "n_leaves": len(arrays),
-                "mesh_shape": None, "leaves": manifest_leaves,
-                "extra": extra or {}}
+                "mesh_shape": None if mesh is None else [mesh.size],
+                "leaves": manifest_leaves, "extra": extra or {}}
     final_npz = os.path.join(ckpt_dir, f"step_{step:010d}.npz")
     final_json = os.path.join(ckpt_dir, f"step_{step:010d}.json")
+    if mesh is None or mesh.index == 0:
+        _write(ckpt_dir, final_npz, final_json, arrays, manifest)
+    if mesh is not None and mesh.distributed:
+        mesh.barrier()   # every rank returns once rank 0 has written
+    return final_npz
+
+
+def _write(ckpt_dir, final_npz, final_json, arrays, manifest) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".npz.tmp")
     with os.fdopen(fd, "wb") as f:
         np.savez(f, **arrays)
@@ -149,7 +217,6 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
     with os.fdopen(fd, "w") as f:
         json.dump(manifest, f)
     os.replace(tmp, final_json)
-    return final_npz
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -178,11 +245,15 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any, *,
     """Restore into the structure of ``tree_like``; returns (tree,
     manifest).  Tensors land on ``device``, or where the matching leaf of
     ``tree_like`` lies when ``device`` is None; int, bool and float leaves
-    come back as Python values."""
-    if shardings is not None:
-        raise NotImplementedError("restore_checkpoint: shardings= is not "
-                                  "ported to repro_torch yet (ROADMAP Queue "
-                                  "1, item 12)")
+    come back as Python values.  ``shardings`` (see the module docstring):
+    each leaf under a ``DataMesh`` comes back as this rank's block of the
+    saved global leaf, on whatever mesh the checkpoint was saved."""
+    sharded = _sharded_paths(shardings)
+    for m in sharded.values():
+        if not m.distributed and m.size > 1:
+            raise ValueError("restore_checkpoint(shardings=): a mesh of "
+                             f"{m.size} shards without a process group has "
+                             "no rank to restore a block for")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -206,6 +277,9 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any, *,
             if key not in by_path:
                 raise KeyError(f"{key}: not in the checkpoint")
             arr = data[by_path[key]["name"]]
+            mesh = _mesh_for(key, sharded)
+            if mesh is not None:
+                arr = mesh.block(torch.from_numpy(arr), dim=0).numpy()
             if tuple(arr.shape) != tuple(np.shape(like)):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} vs "
                                  f"model {tuple(np.shape(like))}")

@@ -1,13 +1,15 @@
 """Optimizers from scratch: Adam / AdamW and SGD with global-norm clipping,
 LR schedules, Polyak target-network updates.
 
-Port of the single-device part of ``repro/train/optim.py`` (the
-cross-replica wrappers wait for ROADMAP Queue 1 item 12), as plain
-functions on lists of tensors with the JAX formulas (bias correction,
-``eps`` outside the square root, decoupled weight decay added to the
-step).  ``Optimizer(init, update)`` keeps the JAX
-interface: ``init(params) -> OptState`` and
+Port of ``repro/train/optim.py``, as plain functions on lists of tensors
+with the JAX formulas (bias correction, ``eps`` outside the square root,
+decoupled weight decay added to the step).  ``Optimizer(init, update)``
+keeps the JAX interface: ``init(params) -> OptState`` and
 ``update(grads, state, params) -> (params, state, grad_norm)``.
+``cross_replica`` wraps an optimizer for the data-parallel mesh
+(``launch/mesh.py``): the gradients are all-reduced over the mesh's ranks,
+in f32 or in int8 with error feedback (``train/compress.py``), before the
+inner update.
 
 Unlike JAX, ``update`` writes the new parameters and moments IN PLACE (into
 the tensors of ``params`` and ``state``) and returns them: at 1.4 B
@@ -21,12 +23,14 @@ step copies a scalar from the host.
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional
+from typing import Any, Callable, List, NamedTuple, Optional
 
 import math
 
 import torch
 from torch.utils import _pytree as pytree
+
+from .compress import EFState, cross_pod_allreduce
 
 F32 = torch.float32
 
@@ -35,6 +39,18 @@ class OptState(NamedTuple):
     step: torch.Tensor    # 0-d int32 on the params' device
     mu: Optional[List[torch.Tensor]]
     nu: Optional[List[torch.Tensor]]
+
+
+class CrossReplicaState(NamedTuple):
+    """State of a compressed ``cross_replica`` optimizer: the wrapped
+    optimizer's state plus this rank's error-feedback residual (a list in
+    the params' order, each leaf with a leading shard dim of 1: the rank's
+    block of the global (ef_shards, ...) leaf) and two replicated health
+    scalars the telemetry sentinels read."""
+    inner: Any
+    ef: EFState
+    shard_grad_norm: torch.Tensor   # pmax over ranks of the pre-reduce norm
+    ef_err_norm: torch.Tensor       # global Frobenius norm of the residual
 
 
 class Optimizer(NamedTuple):
@@ -142,6 +158,122 @@ def sgd(lr, momentum: float = 0.0, grad_clip: Optional[float] = None
         return params, OptState(step=step, mu=state.mu, nu=None), gnorm
 
     return Optimizer(init, update)
+
+
+def _axes(axis) -> tuple:
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def cross_replica(opt: Optimizer, axis, *, compress: Optional[str] = None,
+                  ef_shards: int = 1) -> Optimizer:
+    """Data-parallel wrapper: all-reduce grads over ``axis`` before the inner
+    update (paper §2.4 synchronous multi-GPU: "gradients all-reduced").
+
+    ``axis`` is a ``launch.mesh.DataMesh`` (the port's counterpart of a
+    bound axis name) or a tuple of them, outermost first.  Because every
+    loss in the repo is a mean over its (rank-local) batch, the pmean of
+    per-rank grads equals the gradient of the global-batch mean, so the
+    wrapped update, run on every rank with replicated params, is the SAME
+    update the serial loop takes on the full batch.  Clipping and the
+    reported grad norm see the reduced grads.  Idempotent: wrapping twice
+    with the same (axis, compress) is a no-op.
+
+    With ``compress=None`` the grads pmean over every axis of the tuple (one
+    all-reduce an axis).  With ``compress="int8_ef"`` the reduction has two
+    stages: a full-precision pmean over the inner axes (``axis[1:]``), then
+    the int8 error-feedback all-reduce (``cross_pod_allreduce``) over the
+    outermost axis.  Compression carries state: ``init`` wraps the inner
+    state in ``CrossReplicaState`` with this rank's EF residual, one slice
+    of the global (ef_shards, ...) leaf, so each leaf is (1,) + the
+    param's shape; ``ef_shards`` must be the outer axis' size.
+    """
+    axes = _axes(axis)
+    tag = (axes, compress)
+    if getattr(opt.update, "_cross_replica_axis", None) == tag:
+        return opt
+
+    if compress is None:
+        def update(grads, state, params):
+            grads = list(grads)
+            for ax in axes:
+                grads = ax.pmean_all(grads)
+            return opt.update(grads, state, params)
+
+        update._cross_replica_axis = tag
+        return Optimizer(opt.init, update)
+
+    if compress != "int8_ef":
+        raise ValueError(f"unknown compress mode {compress!r} "
+                         f"(supported: 'int8_ef')")
+    outer, inner_axes = axes[0], axes[1:]
+    if ef_shards != outer.size:
+        raise ValueError(f"ef_shards {ef_shards} but the compressed axis "
+                         f"{outer.axis!r} has {outer.size} ranks")
+
+    def init(params):
+        params = list(params)
+        return CrossReplicaState(
+            inner=opt.init(params),
+            ef=EFState(residual=[torch.zeros((1,) + tuple(p.shape), dtype=F32,
+                                             device=p.device)
+                                 for p in params]),
+            shard_grad_norm=torch.zeros((), dtype=F32,
+                                        device=params[0].device),
+            ef_err_norm=torch.zeros((), dtype=F32, device=params[0].device))
+
+    def update(grads, state: CrossReplicaState, params):
+        grads = list(grads)
+        for ax in inner_axes:  # stage 1: full-precision inner reduction
+            grads = ax.pmean_all(grads)
+        local_norm = global_norm(grads)
+        # stage 2: int8 + error feedback over the outermost axis, on this
+        # rank's slice of the residual (written back in place)
+        res = [r[0] for r in state.ef.residual]
+        grads, ef = cross_pod_allreduce(grads, EFState(residual=res),
+                                        axis=outer)
+        with torch.no_grad():
+            for r, new in zip(state.ef.residual, ef.residual):
+                r.copy_(new[None])
+        err_sq = sum(torch.sum(torch.square(r)) for r in ef.residual)
+        new_params, inner_state, gnorm = opt.update(grads, state.inner,
+                                                    params)
+        new_state = CrossReplicaState(
+            inner=inner_state, ef=state.ef,
+            shard_grad_norm=outer.pmax(local_norm),
+            ef_err_norm=torch.sqrt(outer.psum(err_sq)))
+        return new_params, new_state, gnorm
+
+    update._cross_replica_axis = tag
+    return Optimizer(init, update)
+
+
+def cross_replica_specs(mesh) -> CrossReplicaState:
+    """Which leaves of a ``CrossReplicaState`` are per rank, as a prefix
+    tree for ``train.checkpoint`` (``shardings=``): the EF residual is
+    sharded over ``mesh``'s axis (one slice a rank), everything else
+    replicated (None)."""
+    return CrossReplicaState(inner=None, ef=EFState(residual=mesh),
+                             shard_grad_norm=None, ef_err_norm=None)
+
+
+def cross_replica_states(opt_state) -> list:
+    """Every CrossReplicaState node of a tree (an optimizer state, a dict of
+    them)."""
+    return [s for s in pytree.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, CrossReplicaState))
+        if isinstance(s, CrossReplicaState)]
+
+
+def compress_metrics(opt_state) -> dict:
+    """Compression-health scalars from any tree holding CrossReplicaState
+    nodes: residual norm (summed in quadrature over several optimizers) and
+    max pre-reduce shard grad norm.  {} when nothing is compressed."""
+    states = cross_replica_states(opt_state)
+    if not states:
+        return {}
+    err = torch.sqrt(sum(torch.square(s.ef_err_norm) for s in states))
+    shard = torch.amax(torch.stack([s.shard_grad_norm for s in states]))
+    return {"compress_err_norm": err, "grad_norm_shard_max": shard}
 
 
 def soft_update(target, online, tau: float):

@@ -47,7 +47,7 @@ from repro_torch.algos.pg.gae import gae_scan  # noqa: E402
 from repro_torch.core.distributions import Categorical  # noqa: E402
 from repro_torch.envs import make_env  # noqa: E402
 from repro_torch.examples import mujoco_style_sac, r2d1_recurrent  # noqa: E402
-from repro_torch.launch.mesh import split_actor_learner  # noqa: E402
+from repro_torch.launch.mesh import DataMesh, split_actor_learner  # noqa: E402
 from repro_torch.models.rl_models import (make_pg_mlp, make_q_mlp,  # noqa: E402
                                           make_recurrent_q)
 from repro_torch.replay import host as thost  # noqa: E402
@@ -231,8 +231,15 @@ def test_split_actor_learner():
     assert split_actor_learner(devs) == (devs[3], devs[0])
     with pytest.raises(ValueError):
         split_actor_learner([])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        split_actor_learner(["cpu"], mesh=object())
+    # mesh=: the devices the mesh's ranks do not use, or a ValueError when
+    # they use every one (two ranks on one card)
+    mesh2 = DataMesh(axis="data", size=2, device=devs[0],
+                     devices=(devs[0], devs[1]))
+    assert split_actor_learner(devs, mesh=mesh2) == (devs[3], devs[2])
+    one_card = DataMesh(axis="data", size=2, device=devs[0],
+                        devices=(devs[0], devs[0]))
+    with pytest.raises(ValueError, match="every device"):
+        split_actor_learner(devs[:1], mesh=one_card)
 
 
 # ---------------------------------------------------------------------------

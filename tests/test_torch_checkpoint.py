@@ -31,6 +31,7 @@ from repro_torch.core.distributions import Categorical  # noqa: E402
 from repro_torch.envs import make_env  # noqa: E402
 from repro_torch.examples import catch_dqn_variants as catch_example  # noqa: E402
 from repro_torch.examples import pendulum_qpg  # noqa: E402
+from repro_torch.launch.mesh import make_data_mesh  # noqa: E402
 from repro_torch.models.convert import rl_params_from_jax  # noqa: E402
 from repro_torch.models.rl_models import make_pg_mlp  # noqa: E402
 from repro_torch.runners import OnPolicyRunner  # noqa: E402
@@ -105,9 +106,18 @@ def test_restore_errors(tmp_path):
                                                  "b": torch.zeros(2)})
     with pytest.raises(KeyError, match="c"):
         tckpt.restore_checkpoint(str(tmp_path), {"c": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # shardings=: None restores the leaf whole; a mesh of one rank gives
+    # its block (the whole leaf); a many-shard mesh without a process
+    # group has no rank to restore a block for
+    for spec in ({"a": None}, {"a": make_data_mesh(device="cpu")}):
+        out, _ = tckpt.restore_checkpoint(str(tmp_path),
+                                          {"a": torch.ones(2)},
+                                          shardings=spec)
+        assert torch.equal(out["a"], torch.zeros(2))
+    with pytest.raises(ValueError, match="process group"):
         tckpt.restore_checkpoint(str(tmp_path), {"a": torch.zeros(2)},
-                                 shardings={"a": None})
+                                 shardings={"a": make_data_mesh(
+                                     2, device="cpu")})
 
 
 def _jax_params():

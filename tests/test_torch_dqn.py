@@ -35,12 +35,13 @@ from repro_torch.algos import DQN  # noqa: E402
 from repro_torch.envs import make_env  # noqa: E402
 from repro_torch.examples import catch_dqn_variants as example  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.launch.mesh import make_data_mesh  # noqa: E402
 from repro_torch.models import rl_models as trl  # noqa: E402
 from repro_torch.models.convert import rl_params_from_jax  # noqa: E402
 from repro_torch.replay import device as treplay  # noqa: E402
 from repro_torch.replay.interface import DeviceReplay  # noqa: E402
 from repro_torch.runners import OffPolicyRunner, TrainLoop  # noqa: E402
-from repro_torch.samplers import SerialSampler  # noqa: E402
+from repro_torch.samplers import SerialSampler, ShardedSampler  # noqa: E402
 from repro_torch.telemetry import trace  # noqa: E402
 from repro_torch.train.optim import adam  # noqa: E402
 
@@ -314,15 +315,28 @@ def test_off_policy_runner_rainbow_short_run():
 
 
 def test_train_loop_refuses_what_is_not_ported():
-    """The mesh and compress still raise, naming their ROADMAP item;
-    sentinels, the NaN guard, checkpoints and the fused window (the
-    default; tests/test_torch_graphs.py) are ported and construct."""
+    """What the loop refuses: compress= without a mesh (ValueError naming
+    the mesh, as tests/test_mesh2d.py::test_trainloop_compress_requires_mesh)
+    and a mesh over a sampler that is not sharded.  The mesh (with a
+    ShardedSampler; tests/test_torch_mesh.py runs it), sentinels, the NaN
+    guard, checkpoints and the fused window (the default;
+    tests/test_torch_graphs.py) are ported and construct."""
     _, _, loop = _rainbow(64)
     args = (loop.sampler, loop.algo)
     kw = dict(replay=loop.replay, batch_size=8)
-    for bad in (dict(mesh=object()), dict(compress="int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TrainLoop(*args, **kw, **bad)
+    with pytest.raises(ValueError, match="mesh"):
+        TrainLoop(*args, **kw, compress="int8_ef")
+    mesh = make_data_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match="local_collect"):
+        TrainLoop(*args, **kw, mesh=mesh)
+    sharded = ShardedSampler(loop.sampler.env, loop.sampler.agent, n_envs=4,
+                             horizon=4, mesh=mesh)
+    for mkw in (dict(), dict(compress="int8_ef")):
+        ml = TrainLoop(sharded, loop.algo, **kw, mesh=mesh, **mkw)
+        assert ml.n_shards == 2 and ml.algo is not loop.algo
+    assert OffPolicyRunner(sharded, loop.algo, replay_capacity=64,
+                           batch_size=8, n_iterations=1,
+                           mesh=mesh).loop.n_shards == 2
     for ok in (dict(sentinels=True), dict(nan_guard=True)):
         assert TrainLoop(*args, **kw, **ok).sentinels_on
     assert TrainLoop(*args, **kw).fuse

@@ -67,6 +67,8 @@ from repro_torch.telemetry import sentinels as tsent  # noqa: E402
 from repro_torch.telemetry import trace  # noqa: E402
 from repro_torch.train.optim import adam  # noqa: E402
 
+import _torch_ranks as mesh_ranks  # noqa: E402
+
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
 LR = 7e-4
 
@@ -695,8 +697,23 @@ def test_sentinels_compute_matches_jax():
     for k in row:
         np.testing.assert_allclose(row[k], jrow[k], rtol=1e-6, err_msg=k)
     assert tsent.first_nonfinite_iter(stacked) is None
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tsent.replicate(ts, "data")
+    # replicate on 2 gloo ranks (rank i holding shard i) against JAX's
+    # under vmap(axis_name="data"): pmean / pmax / psum field by field,
+    # bit for bit (two terms a sum)
+    shards = [ts, ts._replace(loss=torch.tensor(3.5),
+                              env_steps=torch.tensor(64, dtype=torch.int32),
+                              nonfinite_grads=torch.tensor(
+                                  1, dtype=torch.int32))]
+    vals = {k: np.stack([getattr(x, k).numpy() for x in shards])
+            for k in ts._fields}
+    want = jax.vmap(lambda s: jsent.replicate(s, "data"), axis_name="data")(
+        jsent.Sentinels(**{k: jnp.asarray(v) for k, v in vals.items()}))
+    for r, got in enumerate(mesh_ranks.run_ranks(
+            mesh_ranks.replicate_body, 2, vals)):
+        for k in ts._fields:
+            w = np.asarray(getattr(want, k)[r])
+            assert got[k].dtype == w.dtype, k
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
 
 
 def test_sentinels_are_pure_reads():
