@@ -312,6 +312,7 @@ graph replays the eager step's kernels);
 """
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -545,9 +546,12 @@ MESH = {"ranks": 2, "a2c_iters": 20, "compress_iters": 10, "dqn_iters": 30,
         "bar_iters": 200, "bar_updates": 4, "timeout": 600,
         "allreduce_calls": 20}
 MESH_A2C_TOL = {"params": (2e-5, 2e-4), "loss": 1e-4}  # JAX's bounds
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+# the tooling phase (12b): rlpyt's variant launcher on the card, the dry
+# run's specs against allocations and its counts beside the phases' walls
+TOOLING = {"variants": {"arch": "gemma2-2b", "steps": 2, "batch": 4,
+                        "horizon": 8},
+           "grid": {"lr": [1e-4, 3e-4], "seed": [0, 1]}, "capacity": 2,
+           "serve": (8, 1024, 1089), "train": (8, 256), "timeout": 300}
 L2_BYTES = 50 * 2**20
 
 
@@ -598,10 +602,13 @@ from repro_torch.kernels.sum_tree import ops as st_ops  # noqa: E402
 from repro_torch.kernels.sum_tree import ref as st_ref  # noqa: E402
 from repro_torch.kernels.sum_tree.sum_tree import (  # noqa: E402
     sample_blocked, sample_plain)
-from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.launch.mesh import make_data_mesh, spawn_ranks  # noqa: E402
+from repro_torch.launch import dryrun, launcher, serve, specs, train  # noqa: E402
+from repro_torch.launch.mesh import (AbstractMesh, HBM_BW,  # noqa: E402
+                                     PEAK_FLOPS_BF16, make_data_mesh,
+                                     spawn_ranks)
 from repro_torch.models import backbones as bb  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
+from repro_torch.models.config import ShapeCell  # noqa: E402
 from repro_torch.models.layers import record_routing  # noqa: E402
 from repro_torch.models.rl_models import make_pg_mlp, make_recurrent_q  # noqa: E402
 from repro_torch.replay.host import SequenceSamples  # noqa: E402
@@ -614,6 +621,7 @@ from repro_torch.train import optim  # noqa: E402
 from repro_torch.train.checkpoint import restore_checkpoint  # noqa: E402
 from repro_torch.utils.logger import Logger  # noqa: E402
 
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 DEV = torch.device("cuda")
 BF16 = torch.bfloat16
 TPU_KERNEL = "src/repro/kernels/flash_attention/flash_attention.py:99"
@@ -725,8 +733,8 @@ def ssd_layers(cfg) -> int:
             "hybrid": n_sb * per_block + tail}.get(cfg.family, 0)
 
 
-def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FLOPS_BF16):
+    t_bytes, t_ops = nbytes / HBM_BW, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -1248,6 +1256,7 @@ def profile_phase(cfg, params, prompts, steps=8):
     replayed_busy(f"decode (graph) (B{batch}, prompt {prompt_len}, "
                   f"{steps} steps)", walls["decode (graph)"],
                   busy_of.get("decode"))
+    return walls
 
 # ---------------------------------------------------------------------------
 # phase 3 (SSD): the scan kernel against ssd_reference, then its time
@@ -3845,6 +3854,180 @@ def profile_walls(label, work, n):
     replayed_busy(f"{label} (eager)", work["eager"][1], busy)
 
 
+# ---------------------------------------------------------------------------
+# phase 12b: the tooling (launcher, specs, dry run)
+# ---------------------------------------------------------------------------
+TIMED_PYTHON = """#!/bin/bash
+# the interpreter, with the job's wall written into its --log-dir (the
+# last argument run_variants passes)
+start=$(date +%s.%N)
+"{python}" "$@"
+rc=$?
+echo "$start $(date +%s.%N)" > "${{@: -1}}/wall.txt"
+exit $rc
+"""
+
+
+def launcher_check(root: Path) -> None:
+    """(a) rlpyt's variant launcher queues the smoke trainer's variants on
+    the card, ``capacity`` at a time: every job exits 0 and leaves its
+    ``variant.json`` and one ``progress.jsonl`` row a step."""
+    wrapper = root / "timed_python"
+    wrapper.write_text(TIMED_PYTHON.format(python=sys.executable))
+    wrapper.chmod(0o755)
+    variants = launcher.make_variants(TOOLING["variants"], **TOOLING["grid"])
+    keys = list(TOOLING["grid"])
+    out_root = root / "runs"
+    t0 = time.perf_counter()
+    codes = launcher.run_variants("repro_torch.launch.train", variants, keys,
+                                  capacity=TOOLING["capacity"],
+                                  out_root=str(out_root),
+                                  python=str(wrapper))
+    queue_s = time.perf_counter() - t0
+    if codes != [0] * len(variants):
+        for i, c in enumerate(codes):
+            if c:
+                log = (out_root / f"job_{i:03d}.log").read_text()
+                print(f"  job {i} exited {c}:\n{log[-3000:]}",
+                      file=sys.stderr)
+        fail(f"launcher: exit codes {codes}")
+    walls = []
+    for v in variants:
+        vdir = out_root / launcher.variant_name(v, keys)
+        if json.loads((vdir / "variant.json").read_text()) != v:
+            fail(f"launcher: {vdir}/variant.json is not {v}")
+        rows = [json.loads(ln) for ln in
+                (vdir / "progress.jsonl").read_text().splitlines() if ln]
+        if len(rows) != v["steps"]:
+            fail(f"launcher: {vdir} logged {len(rows)} rows, --steps is "
+                 f"{v['steps']}")
+        start, end = map(float, (vdir / "wall.txt").read_text().split())
+        walls.append(end - start)
+    print(f"  launcher: {len(variants)} variants of `python -m "
+          f"repro_torch.launch.train` ({TOOLING['variants']}, grid "
+          f"{TOOLING['grid']}) at capacity {TOOLING['capacity']}: every job "
+          f"exited 0 with variant.json and {TOOLING['variants']['steps']} "
+          f"progress rows; queue wall {queue_s:.2f} s, the jobs' walls sum "
+          f"to {sum(walls):.2f} s ({', '.join(f'{w:.2f}' for w in walls)})"
+          f" ({smi()})")
+
+
+def specs_check() -> None:
+    """(b) ``specs`` give the shape and dtype of every tensor that serving
+    gemma2-2b allocates at phase 4's shape (B 8, cache S 1089), and the dry
+    run's ``argument_bytes`` on a 1 x 1 mesh are their bytes, exactly."""
+    cfg = get_config("gemma2-2b")
+    B, _, S = TOOLING["serve"]
+    cell = ShapeCell("phase4_decode", S, B, "decode")
+    want_params = specs.param_specs(cfg, "decode")
+    want = specs.decode_specs(cfg, cell)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    params = bb.init_lm(cfg, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(SEED))
+    cache = bb.init_cache(cfg, B, S, device=DEV)
+    tokens = torch.zeros((B,), dtype=torch.int32, device=DEV)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - m0
+    got = dict(params.named_parameters())
+    spec_params = dict(want_params.named_parameters())
+    if list(got) != list(spec_params):
+        fail("specs: param names differ from init_lm's")
+    pairs = [(n, got[n], spec_params[n]) for n in got]
+    pairs += [(f"cache/{k}", cache[k], want["cache"][k]) for k in cache]
+    pairs.append(("tokens", tokens, want["tokens"]))
+    if sorted(cache) != sorted(want["cache"]):
+        fail(f"specs: cache leaves {sorted(cache)} vs {sorted(want['cache'])}")
+    for name, t, spec in pairs:
+        if t.shape != spec.shape or t.dtype != spec.dtype or not spec.is_meta:
+            fail(f"specs: {name} allocated {tuple(t.shape)} {t.dtype}, spec "
+                 f"{tuple(spec.shape)} {spec.dtype} on {spec.device}")
+    nbytes = sum(t.numel() * t.element_size() for _, t, _ in pairs)
+    r = dryrun.run_cell("gemma2-2b", cell, cfg=cfg, verbose=False,
+                        mesh=AbstractMesh((1, 1), ("data", "model")))
+    if r["memory"]["argument_bytes"] != nbytes:
+        fail(f"specs: dry run argument_bytes {r['memory']['argument_bytes']}"
+             f" != {nbytes} allocated")
+    print(f"  specs: {len(pairs)} tensors of serving gemma2-2b (B{B}, cache "
+          f"S{S}) match their meta specs in shape and dtype; dry-run "
+          f"argument_bytes on a 1x1 mesh {r['memory']['argument_bytes']} = "
+          f"their bytes {nbytes}; memory_allocated grew {grown} B")
+    del params, cache, tokens
+    torch.cuda.empty_cache()
+
+
+def counts_beside_walls(prefill_ms: float, update_ms: float) -> None:
+    """(c) the dry run's counts of gemma2-2b's prefill at phase 4's shape
+    (B 8, T 1024 into a cache of S 1089, as timed) and of one PPO update at
+    phase 6a's, each over the wall its phase measured: TFLOP/s and the
+    share of the card's peak, counted (the reference route's work) and
+    ``model_flops`` (which counts the lm_head at every prefill position),
+    with ``useful_flops_ratio`` = model_flops / counted."""
+    cfg = get_config("gemma2-2b")
+    B, T, S = TOOLING["serve"]
+    Bt, Tt = TOOLING["train"]
+    card = smi()
+    for what, cell, wall_ms in (
+            (f"prefill (phase 4's B{B} x {T}, cache S{S}, its profile-phase "
+             "wall)", ShapeCell("phase4_prefill", T, B, "prefill"),
+             prefill_ms),
+            (f"PPO update (phase 6a's B{Bt} x {Tt}, its unprofiled wall)",
+             ShapeCell("phase6a_train", Tt, Bt, "train"), update_ms)):
+        step = dryrun.build_step(cfg, "gemma2_2b", cell, 1)
+        if cell.kind == "prefill":
+            step.args = (step.args[0], specs.cache_specs(cfg, B, S),
+                         *step.args[2:])
+        cost, _, _ = dryrun.count_step(step)
+        counted = cost["flops"]
+        if not (counted > 0 and math.isfinite(counted)):
+            fail(f"counts: {what} counted {counted} FLOPs")
+        model = dryrun.cell_model_flops(cfg, cell)
+        rates = {k: f / (wall_ms / 1e3) / 1e12 for k, f in
+                 (("counted", counted), ("model_flops", model))}
+        print(f"  counts: gemma2-2b {what}: {counted:.6g} FLOPs counted, "
+              f"{model:.6g} model_flops (useful_flops_ratio "
+              f"{model / counted:.3f}), wall {wall_ms:.3f} ms: "
+              + ", ".join(f"{k} {v:.2f} TFLOP/s ({v * 1e12 / PEAK_FLOPS_BF16:.3f}"
+                          " of 989)" for k, v in rates.items())
+              + f" ({card})")
+
+
+def dryrun_cli_check(root: Path) -> None:
+    """(d) the dry run's CLI on one cell, as a user runs it."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "gemma2-2b", "--shape", "decode_32k", "--out", str(root / "dr")]
+    r = subprocess.run(cmd, capture_output=True, text=True,
+                       timeout=TOOLING["timeout"], cwd=REPO)
+    ok = [ln for ln in r.stdout.splitlines()
+          if ln.startswith("[OK] gemma2_2b") and "decode_32k" in ln]
+    if r.returncode != 0 or len(ok) != 1:
+        fail(f"dry run CLI: rc {r.returncode}\n{r.stdout[-2000:]}\n"
+             f"{r.stderr[-2000:]}")
+    print(f"  dry run CLI: {ok[0]}")
+
+
+def tooling_phase(prefill_ms: float, update_ms: float) -> None:
+    """Phase 12b, after the phases whose walls it reads."""
+    print("tooling phase: the variant launcher, specs against allocations, "
+          "the dry run's counts and CLI")
+    t0 = time.perf_counter()
+    path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = str(REPO / "src") + (
+        os.pathsep + path if path else "")
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            launcher_check(Path(root))
+            specs_check()
+            counts_beside_walls(prefill_ms, update_ms)
+            dryrun_cli_check(Path(root))
+    finally:
+        if path is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = path
+    print(f"  phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     laps, mark = {}, [time.perf_counter()]
     t_start = mark[0]
@@ -3996,7 +4179,7 @@ def main() -> None:
     # last, because the profiler slows every later launch of the process
     print("profile: where the time goes (not the main path's counts)")
     params, prompts = served_weights(cfg)
-    profile_phase(cfg, params, prompts)
+    serve_walls = profile_phase(cfg, params, prompts)
     del params, prompts
     torch.cuda.empty_cache()
     for arch in (SLICE6[0], SLICE7[0]):
@@ -4020,6 +4203,8 @@ def main() -> None:
     profile_work("async SAC learner update (hidden 64, batch 128)", fn, wall,
                  ASYNC["profile_updates"])
     lap("12 profile training and RL")
+    tooling_phase(serve_walls["prefill"], gemma_training[4]["update"])
+    lap("12b tooling")
     # the main path is the fixed rounds, the continuous run and the gemma2
     # training run (attention) and the mamba2 training run (ssd_scan); the
     # kernel-vs-ref comparisons between them do not count

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import importlib
 
-from ..models.config import ModelConfig
+from ..models.config import SHAPES, ModelConfig, ShapeCell  # noqa: F401
 
 ARCH_IDS = (
     "mamba2_1p3b",
@@ -40,6 +40,14 @@ ALIASES = {
     "zamba2-7b": "zamba2_7b",
 }
 
+# long_500k applicability: sub-quadratic only
+LONG_CONTEXT_OK = {
+    "mamba2_1p3b",   # SSM, O(1) state
+    "zamba2_7b",     # hybrid; shared-attn KV sharded over (data, model)
+    "gemma2_2b",     # alternating local(4k window)/global
+    "mixtral_8x7b",  # SWA rolling KV, window 4k
+}
+
 
 def resolve(arch: str) -> str:
     aid = ALIASES.get(arch, arch.replace("-", "_").replace(".", "p"))
@@ -57,3 +65,16 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     mod = importlib.import_module(f".{resolve(arch)}", __package__)
     return mod.smoke_config()
+
+
+def cells(arch: str):
+    """The (shape) cells assigned to this arch, honoring long_500k skips."""
+    aid = resolve(arch)
+    return [s for s in SHAPES
+            if s.name != "long_500k" or aid in LONG_CONTEXT_OK]
+
+
+def skipped_cells(arch: str):
+    aid = resolve(arch)
+    return [s for s in SHAPES
+            if s.name == "long_500k" and aid not in LONG_CONTEXT_OK]

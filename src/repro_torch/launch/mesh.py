@@ -30,12 +30,19 @@ rank's result and raises if any rank raises or misses its deadline; the
 tests and ``chip_smoke.py`` run the mesh through it.  JAX's SPMD needs no
 launcher.
 
-The 2-D (data x model) mesh, ``install`` / ``install_2d`` and the TPU
-roofline constants belong to the LM half of the mesh (ROADMAP Queue 1 item
-12, part 2).
+``make_production_mesh`` describes the dry run's meshes (``(16, 16)``
+over ``("data", "model")``, ``(2, 16, 16)`` with an outer ``"pod"``) as an
+``AbstractMesh``: axis names and sizes, no devices and no processes.
+``record_collectives`` lists what a ``DataMesh`` puts on the wire while it
+is entered, for ``launch/hlo_analysis.py``'s ``collective_bytes``.  The
+roofline constants are the H100 SXM's.
+
+The 2-D (data x model) mesh and ``install`` / ``install_2d`` belong to the
+LM half of the mesh (ROADMAP Queue 1 item 12, part 2).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -53,6 +60,60 @@ import torch.distributed as dist
 
 BACKEND = "gloo"
 COLLECTIVE_TIMEOUT_S = 60.0   # a rank blocked this long in a collective raises
+
+# Hardware constants for the roofline: one NVIDIA H100 SXM, NVIDIA's data
+# sheet (dense rates, no sparsity, at the 700 W power limit)
+PEAK_FLOPS_BF16 = 989e12       # bf16 tensor-core FLOP/s per card
+HBM_BW = 3.35e12               # HBM3 bytes/s per card
+LINK_BW = 450e9                # NVLink bytes/s per direction (900 GB/s both)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes, with no devices behind it: what the
+    sharding rules and the dry run's byte counts read (``.shape[axis]``,
+    ``.axis_names``), as ``DataMesh`` offers them."""
+    axis_sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The dry run's mesh: (16, 16) over ('data', 'model'), or (2, 16, 16)
+    over ('pod', 'data', 'model') -- the JAX package's shapes, so the port's
+    rules and byte counts compare with JAX's."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
+
+
+_RECORDS: List[list] = []   # the active record_collectives lists
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Collect one ``(kind, result_bytes, group_size)`` record for every
+    collective a ``DataMesh`` sends inside the block: what goes on the
+    wire, so ``all_gather`` (an all-reduce of a zeroed byte buffer) records
+    an all-reduce of the whole buffer."""
+    records: list = []
+    _RECORDS.append(records)
+    try:
+        yield records
+    finally:
+        _RECORDS.remove(records)
+
+
+def _record(kind: str, t: torch.Tensor, group_size: int) -> None:
+    for records in _RECORDS:
+        records.append((kind, t.numel() * t.element_size(), group_size))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -108,6 +169,7 @@ class DataMesh:
             by_dtype.setdefault((t.dtype, t.device), []).append(i)
         for idx in by_dtype.values():
             flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+            _record("all-reduce", flat, self.size)
             dist.all_reduce(flat, op=op, group=self.group)
             off = 0
             for i in idx:
@@ -149,6 +211,7 @@ class DataMesh:
         buf = torch.zeros((self.size * b, raw.shape[1]), dtype=torch.uint8,
                           device=x.device)
         buf[self.index * b:(self.index + 1) * b] = raw
+        _record("all-reduce", buf, self.size)
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
         return buf.view(x.dtype).reshape((self.size * b,) + rest).movedim(
             0, dim)

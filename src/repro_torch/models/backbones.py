@@ -43,7 +43,8 @@ serving prefill / decode step.
 - Single-device only: the JAX sharding constraints are identities on one
   device and are dropped, and the moe dispatch has one group (JAX's
   ``groups=shd.n_batch_shards()``; the argument is kept for the
-  distributed half).
+  distributed half).  ``cache_pspecs`` keeps JAX's cache sharding rules
+  (the dry run's per-device bytes read them); nothing places a tensor.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from . import sharding as shd
 from .config import ModelConfig
 from .layers import (
     F32,
@@ -456,6 +458,57 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, device, img_len: int = 0,
     else:
         cache["k"], cache["v"] = kv(n_sb, Sw)
     return cache
+
+
+def _kv_cache_spec(cfg: ModelConfig, B: int, S: int):
+    """PartitionSpec for a stacked (n_sb, B, S, Hkv, dh) cache."""
+    dp, tpax, tp = shd.dp_axes(), shd.tp_axis(), shd.tp_size()
+    ndp = shd.n_batch_shards()
+    b_ax = dp if (ndp > 1 and B % ndp == 0) else None
+    if tp > 1 and cfg.n_kv_heads % tp == 0:
+        h_ax, s_ax = tpax, None
+    elif tp > 1 and S % tp == 0:
+        h_ax, s_ax = None, tpax
+    else:
+        h_ax, s_ax = None, None
+    if b_ax is None and ndp > 1 and S % (ndp * max(tp, 1)) == 0 \
+            and s_ax == tpax:
+        s_ax = tuple(dp) + (tpax,)
+    elif b_ax is None and ndp > 1 and S % ndp == 0 and s_ax is None:
+        s_ax = dp
+    return shd.P(None, b_ax, s_ax, h_ax, None)
+
+
+def cache_pspecs(cfg: ModelConfig, cache) -> Dict[str, Any]:
+    """``{leaf: PartitionSpec}`` for a cache, JAX's rules: K/V by
+    ``_kv_cache_spec``, SSM conv / state batch over the dp axes and heads /
+    channels over tp, ``lengths`` over dp (the sharding rules only; the
+    port places nothing)."""
+    dp = shd.dp_axes()
+    ndp = shd.n_batch_shards()
+    tp = shd.tp_size()
+
+    def spec(name, leaf):
+        if name == "lengths":
+            return shd.P(dp if ndp > 1 and leaf.shape[0] % ndp == 0
+                         else None)
+        if leaf.dim() == 5 and name in ("k", "v", "k_local", "v_local",
+                                        "k_global", "v_global", "cross_k",
+                                        "cross_v"):
+            return _kv_cache_spec(cfg, leaf.shape[1], leaf.shape[2])
+        # ssm conv/state: (n, B, ...) -- batch over dp, heads over tp
+        b_ax = dp if (ndp > 1 and leaf.shape[1] % ndp == 0) else None
+        if leaf.dim() == 5:  # ssm state (n,B,H,P,N)
+            h_ax = shd.tp_axis() if tp > 1 and leaf.shape[2] % tp == 0 \
+                else None
+            return shd.P(None, b_ax, h_ax, None, None)
+        if leaf.dim() == 4:  # conv state (n,B,K-1,C)
+            c_ax = shd.tp_axis() if tp > 1 and leaf.shape[3] % tp == 0 \
+                else None
+            return shd.P(None, b_ax, None, c_ax)
+        return shd.P(*([None] * leaf.dim()))
+
+    return {name: spec(name, leaf) for name, leaf in cache.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -369,3 +369,33 @@ def hanging_body(mesh):
     if mesh.index == 0:
         time.sleep(600)
     return mesh.index
+
+
+def a2c_records_body(mesh, compress=None):
+    """One A2C iteration through TrainLoop(mesh=..., compress=...) with the
+    mesh's collectives recorded (``record_collectives``); returns the
+    records and the gradient's element count."""
+    from repro_torch.launch.mesh import record_collectives
+    from repro_torch.runners import TrainLoop
+    dev = mesh.device
+    sampler, algo, params = a2c_stack(mesh)
+    loop = TrainLoop(sampler, algo, mesh=mesh, compress=compress)
+    ts = loop.algo.init_train_state(None, params)
+    ss = sampler.init(torch.Generator(device=dev).manual_seed(1))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    with record_collectives() as records:
+        loop.run_window(ts, ss, None, gen, 1)
+    leaves = pytree.tree_leaves(params)
+    return {"records": list(records),
+            "n_elems": sum(int(p.numel()) for p in leaves),
+            "n_leaves": len(leaves)}
+
+
+def records_body(mesh):
+    """The records of a psum of 3 f32 and an all_gather of (2, 5) f32."""
+    from repro_torch.launch.mesh import record_collectives
+    with record_collectives() as records:
+        mesh.psum(torch.ones(3, device=mesh.device))
+        got = mesh.all_gather(torch.full((2, 5), float(mesh.index),
+                                         device=mesh.device))
+    return {"records": list(records), "gathered": t2n(got)}
