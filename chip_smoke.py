@@ -53,7 +53,12 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    device time (a replayed CUDA graph of the calls; the back-to-back time
    of eager calls beside it) beside its plain version and its bound (bytes
    at 3.35 TB/s against flops at the bf16 tensor-core rate; no single
-   PyTorch call computes the scan: library_ms null).  Then the
+   PyTorch call computes the scan: library_ms null).  Then the two
+   full-width instances element by element against an f64 oracle of the
+   same math at their training shapes (``ssd_f64_check``): the quantiles
+   of |err| / bound of y and of the state beside the plain f32 version's,
+   and zamba2-7b's (64, 64, 256) instance's distribution against
+   mamba2-1.3b's (``SSD_F64_MATCH``).  Then the
    sum-tree sampler (``tree_sample_blocked``, csrc/sum_tree.cu) against its
    plain version (``sample_plain``) and the f64 flat oracle on sum trees at
    the rainbow example's shape (8192 leaves, batch 64), the replay bench's
@@ -263,6 +268,28 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    (``shardings=``) and whole in one process, bit for bit.  Each rank's
    A2C iteration wall and the host time of its gradient all-reduce are
    printed with the card's name and power limit;
+11c. slice phase, the LM mesh's data axis: two gloo ranks on cuda:0
+   (``spawn_ranks``), each running ``train.main --mesh 2x1`` on the group
+   the spawn initialized (``LM_MESH``): (a) gemma2-2b at full width cut to
+   4 layers with ``--compress`` (int8 error feedback, one scale a JAX
+   leaf), B 8 (4 a rank) x horizon 64, two steps; (b) mamba2-1.3b at full
+   width cut to 24 layers, uncompressed, B 8 x horizon 256 (the built
+   (64, 128, 256) SSD instance), two steps: each rank's launches equal
+   the counts its layers, horizon and steps imply (``flash_attn_fwd`` 2 an
+   attention site an update, ``flash_attn_decode`` one an attention site a
+   rollout step, ``ssd_scan`` 2 a Mamba-2 layer an update), every row
+   finite with JAX's keys (and ``compress_err_norm`` > 0), each rank's
+   rollout_s, update_s, gradient all-reduce host time and
+   ``max_memory_allocated`` printed; (c) on a fixed batch of 8 rows (the
+   advantages normalised over each rank's 4): one uncompressed update on
+   the ranks against the whole batch in one process, the gradient (sgd(0)'s
+   momentum buffer) within twice what rounding alone moves it (the whole
+   batch against its two halves, ``tools/train_route_spread.py``'s
+   method), the loss likewise; (d) one ``int8_ef`` update on the same
+   batch: the applied gradient within half the mean over ranks of each
+   rank's int8 scale of the uncompressed pmean, element by element, plus
+   f32 slack (``LM_MESH_EF_BOUND``: round to nearest, the residual 0 at the
+   first step), the residual's norm finite and non-zero;
 12. on the same weights (drawn again), a ``torch.profiler`` pass measures
    the device's busy time per prefill, per decode step (gemma2-2b, then
    qwen2-moe-a2.7b and zamba2-7b at full width), per rollout of
@@ -302,8 +329,9 @@ iterations profiled, the eager side printed beside their busy time; for
 serving, the eager decode profiled and 8 replayed steps beside it: a
 graph replays the eager step's kernels);
 13. each phase's wall time, the ``kernels`` JSON line (launch counts from
-   phases 4-7, 6a, 9 and 11b (both ranks' ``sum_tree_sample``
-   launches), the largest error of phase 3, times at the
+   phases 4-7, 6a, 9, 11b (both ranks' ``sum_tree_sample``
+   launches) and 11c (both ranks' attention and SSD launches), the
+   largest error of phase 3, times at the
    serving shape; phases 5a, 8, 10 and 11 launch none; one entry an
    instance of phase 3b, its launches from phases 3c, 5b, 5c and 6b, timed
    at the first config that runs it; one entry an SSD instance, its
@@ -432,6 +460,10 @@ SSD_INSTANCES = {
     "ssd_scan P64 N64": (64, 64, 256, 112, 8, 256, 2, "zamba2-7b"),
     "ssd_scan P16 N16": (16, 16, 8, 8, 16, 32, 2, "smoke mamba2 / zamba2")}
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+# the f64 check of the two full-width instances (ssd_f64_check): zamba2's
+# kernel-over-plain error ratio at each quantile may exceed mamba2's (or 1)
+# by at most this factor before its instance counts as faulty
+SSD_F64_MATCH = 2.0
 # the training slice (phase 6).  The random-weight model amplifies bf16
 # rounding through depth (CPU calibration at full width: serve-path and
 # train-path logp agree within 2e-3 in f32 at 48 layers, but differ by 0.52
@@ -546,6 +578,25 @@ MESH = {"ranks": 2, "a2c_iters": 20, "compress_iters": 10, "dqn_iters": 30,
         "bar_iters": 200, "bar_updates": 4, "timeout": 600,
         "allreduce_calls": 20}
 MESH_A2C_TOL = {"params": (2e-5, 2e-4), "loss": 1e-4}  # JAX's bounds
+# the LM mesh (phase 11c): two gloo ranks on the one card train full-width
+# gemma2-2b cut to 4 layers (1.49 B parameters, 1.18 B of them the untied
+# 256k embedding and lm_head: 6 GB of f32 weights, 12 GB of Adam moments,
+# 6 GB of EF residual and a 6 GB gradient a rank) with --compress, and
+# mamba2-1.3b at 24 of 48 layers uncompressed (horizon 256: the scan's
+# chunk is min(256, T), and only the (64, 128, 256) instance is built);
+# the identity and compression checks take LM_MESH_FIXED rows
+LM_MESH = {"ranks": 2, "timeout": 600,
+           "gemma2": {"arch": "gemma2-2b", "layers": 4, "batch": 8,
+                      "horizon": 64, "steps": 2, "compress": True},
+           "mamba2": {"arch": "mamba2-1.3b", "layers": 24, "batch": 8,
+                      "horizon": 256, "steps": 2, "compress": False}}
+LM_MESH_FIXED = 8
+# check (d): |applied - pmean| as a share of the ranks' mean int8 scale.
+# Round to nearest misses a rank's value by at most half its scale (the
+# residual is 0 at the first step), so the mean misses by at most half the
+# mean scale; 1e-3 of a scale covers the f32 sums (about 1e-5 of a scale
+# at 127 scales a value).  A quantiser that truncates lands near 1.
+LM_MESH_EF_BOUND = 0.5 + 1e-3
 # the tooling phase (12b): rlpyt's variant launcher on the card, the dry
 # run's specs against allocations and its counts beside the phases' walls
 TOOLING = {"variants": {"arch": "gemma2-2b", "steps": 2, "batch": 4,
@@ -609,6 +660,7 @@ from repro_torch.launch.mesh import (AbstractMesh, HBM_BW,  # noqa: E402
 from repro_torch.models import backbones as bb  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models.config import ShapeCell  # noqa: E402
+from repro_torch.models.convert import jax_leaf_groups  # noqa: E402
 from repro_torch.models.layers import record_routing  # noqa: E402
 from repro_torch.models.rl_models import make_pg_mlp, make_recurrent_q  # noqa: E402
 from repro_torch.replay.host import SequenceSamples  # noqa: E402
@@ -1293,22 +1345,24 @@ def ssd_share(y, s, yr, sr, tol):
     return float(sy), float(ss)
 
 
-def ssd_faulty(x, dt, A, Bm, Cm, chunk, fault=None):
+def ssd_faulty(x, dt, A, Bm, Cm, chunk, fault=None, dtype=torch.float32):
     """ssd_chunked's math (G = 1, T a multiple of chunk) with one fault, for
     the sensitivity checks: 'carry' drops y_off, 'causal' drops the
     diagonal of the mask (q > k), 'dt' leaves dt out of M, 'decay' does not
-    decay the state by exp(cum_last)."""
+    decay the state by exp(cum_last).  With ``dtype=torch.float64`` and no
+    fault it is the f64 oracle, y left unrounded."""
     Bsz, T, H, P = x.shape
     N = Bm.shape[-1]
-    S = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    A = A.to(dtype)
+    S = torch.zeros((Bsz, H, P, N), dtype=dtype, device=x.device)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device),
                      diagonal=-1 if fault == "causal" else 0)[None, :, :, None]
     ys = []
     for c in range(T // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        xq, dtq = x[:, sl].float(), dt[:, sl]
-        Bq, Cq = Bm[:, sl, 0].float(), Cm[:, sl, 0].float()
+        xq, dtq = x[:, sl].to(dtype), dt[:, sl].to(dtype)
+        Bq, Cq = Bm[:, sl, 0].to(dtype), Cm[:, sl, 0].to(dtype)
         cum = torch.cumsum(dtq * A, dim=1)
         Ld = torch.where(tri, cum[:, :, None, :] - cum[:, None, :, :], 0.0)
         L = torch.where(tri, torch.exp(Ld), 0.0)
@@ -1323,8 +1377,74 @@ def ssd_faulty(x, dt, A, Bm, Cm, chunk, fault=None):
         if fault != "decay":
             S = S * torch.exp(cum[:, -1])[..., None, None]
         S = S + torch.einsum("bqn,bqhp->bhpn", Bq, xq * w[..., None])
-        ys.append(y.to(x.dtype))
+        ys.append(y if dtype == torch.float64 else y.to(x.dtype))
     return torch.cat(ys, dim=1), S
+
+
+def quantiles(v, qs=(0.5, 0.99, 0.999, 1.0)):
+    """Quantiles of a tensor's entries (a sort: torch.quantile refuses more
+    than 2^24 entries)."""
+    v = v.flatten().double().sort().values
+    return [float(v[min(int(q * (v.numel() - 1)), v.numel() - 1)])
+            for q in qs]
+
+
+def ssd_f64_check():
+    """The element-wise error of each full-width SSD instance (mamba2-1.3b's
+    (64, 128, 256) and zamba2-7b's (64, 64, 256)) at its training shape
+    against the f64 oracle, beside the plain f32 version's on the same
+    inputs: quantiles of |err| / bound, the SSD_TPU_KERNEL note's bound
+    with y64 in place of y_ref, for y and for the final state.  Fails if a
+    share passes 1, or if zamba2's instance's distribution is not mamba2's:
+    each of its kernel quantiles within SSD_F64_MATCH of mamba2's (the
+    same ratio over the plain version's).  Returns {name: quantiles}."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    out = {}
+    for name in ("ssd_scan", "ssd_scan P64 N64"):
+        P, N, Q, H, B, T, _, arch = SSD_INSTANCES[name]
+        inp = ssd_inputs(B, T, gen, H=H, P=P, N=N)
+        y, s = ssd_ops.ssd_scan(*inp, chunk=Q)
+        yp, sp = ssd_reference(*inp, chunk=Q)
+        y64, s64 = ssd_faulty(*inp, Q, dtype=torch.float64)
+        ya, sa, eps = ssd_tolerance(*inp, Q)
+        ybound = 2.0 ** -7 * y64.abs() + eps * ya.double() + 1e-300
+        sbound = eps * sa.double() + 1e-300
+        row = {}
+        for route, yy, ss in (("kernel", y, s), ("plain", yp, sp)):
+            row[route] = {
+                "y": quantiles((yy.double() - y64).abs() / ybound),
+                "state": quantiles((ss.double() - s64).abs() / sbound),
+                "y_rel": quantiles((yy.double() - y64).abs()
+                                   / (y64.abs() + eps * ya.double())),
+                "bf16_mismatch": float((yy != y64.to(BF16)).float().mean())}
+        out[name] = row
+        for route in ("kernel", "plain"):
+            r = row[route]
+            print(f"  f64 oracle, {name} ({arch}, B{B} T{T} H{H}) {route}: "
+                  f"|err|/bound y p50/p99/p99.9/max "
+                  f"{'/'.join(f'{v:.3g}' for v in r['y'])}, state "
+                  f"{'/'.join(f'{v:.3g}' for v in r['state'])}; bf16 y "
+                  f"off round(y64) {r['bf16_mismatch']:.4f}")
+            if max(r["y"][-1], r["state"][-1]) > 1:
+                fail(f"{name} {route} vs the f64 oracle: "
+                     f"{r['y'][-1]:.2f} / {r['state'][-1]:.2f} x the bound")
+        del inp, y, s, yp, sp, y64, s64, ya, sa, ybound, sbound
+        torch.cuda.empty_cache()
+    m, z = out["ssd_scan"]["kernel"], out["ssd_scan P64 N64"]["kernel"]
+    mp, zp = out["ssd_scan"]["plain"], out["ssd_scan P64 N64"]["plain"]
+    for key in ("y", "state"):
+        for i, (a, b, ap, bp) in enumerate(zip(m[key], z[key], mp[key],
+                                               zp[key])):
+            # zamba2's kernel over its plain version against mamba2's
+            rz, rm = b / max(bp, 1e-30), a / max(ap, 1e-30)
+            if rz > SSD_F64_MATCH * max(rm, 1.0):
+                fail(f"SSD f64 check: zamba2's instance's {key} quantile "
+                     f"{i} is {rz:.2f}x its plain version's, mamba2's "
+                     f"{rm:.2f}x: not the same error distribution")
+    print(f"  f64 oracle: zamba2's (64, 64, 256) instance's error "
+          f"distribution matches mamba2's (64, 128, 256) within "
+          f"{SSD_F64_MATCH}x of each quantile's kernel / plain ratio")
+    return out
 
 
 def ssd_flops(B, T, H, P, G, N, chunk):
@@ -1428,6 +1548,9 @@ def ssd_kernel_phase():
               f"{flops / 1e9:.3f} GFLOP at the bf16 tensor-core rate), "
               "library_ms none (no single PyTorch call computes the scan)")
         del sets, fns
+    print("kernel phase: the full-width SSD instances element by element "
+          "against an f64 oracle")
+    ssd_f64_check()
     return errs, timing
 
 
@@ -3079,6 +3202,268 @@ def mesh_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 11c: the LM mesh's data axis (train --mesh 2x1 [--compress])
+# ---------------------------------------------------------------------------
+def lm_mesh_argv(name):
+    """``train.main``'s arguments for run ``name`` of LM_MESH."""
+    run = LM_MESH[name]
+    argv = ["--arch", run["arch"], "--full", "--layers", str(run["layers"]),
+            "--mesh", f"{LM_MESH['ranks']}x1", "--batch", str(run["batch"]),
+            "--horizon", str(run["horizon"]), "--steps", str(run["steps"]),
+            "--device", "cuda", "--seed", str(SEED)]
+    return argv + (["--compress"] if run["compress"] else [])
+
+
+def lm_fixed_batch(cfg, T, ranks):
+    """A fixed LM-PPO batch of LM_MESH_FIXED rows x T from a numpy seed: a
+    random trajectory's GAE, its advantages normalised over each rank's
+    slice of rows (as each rank's ``build_batch`` does), rows in rank
+    order."""
+    B = LM_MESH_FIXED
+    r = np.random.RandomState(SEED + 21)
+    traj = {"reward": r.randn(T, B).astype(np.float32),
+            "value": r.randn(T, B).astype(np.float32),
+            "done": r.rand(T, B) < 0.05,
+            "tokens": r.randint(0, cfg.vocab, (T, B)).astype(np.int32),
+            "actions": r.randint(0, cfg.vocab, (T, B)).astype(np.int32),
+            "logp": (-np.abs(r.randn(T, B))).astype(np.float32)}
+    v_last = r.randn(B).astype(np.float32)
+    k = B // ranks
+    parts = [train.build_batch(
+        {key: torch.from_numpy(np.ascontiguousarray(v[:, i * k:(i + 1) * k]))
+         .to(DEV) for key, v in traj.items()},
+        torch.from_numpy(v_last[i * k:(i + 1) * k]).to(DEV))
+        for i in range(ranks)]
+    return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+
+
+def rel_dist(a, b) -> float:
+    """||a - b|| / ||b|| over lists of tensors (the whole gradient)."""
+    num = sum(float(optim.sum_squares([x - y])) for x, y in zip(a, b))
+    return math.sqrt(num / float(optim.sum_squares(b)))
+
+
+def lm_mesh_model(cfg):
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = bb.init_lm(cfg, device=DEV, generator=gen, dtype=torch.float32,
+                        requires_grad=True)
+    return params, jax_leaf_groups([n for n, _ in params.named_parameters()],
+                                   cfg)
+
+
+def lm_gradient(cfg, params, opt, batch, n_micro=1):
+    """The gradient one update of ``opt`` (sgd(0): its momentum buffer is
+    the gradient it applied) takes on ``batch``, and its metrics."""
+    step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003,
+                                  n_microbatches=n_micro)
+    _, state, m = step(params, opt.init(params.parameters()), batch)
+    inner = state.inner if isinstance(state, optim.CrossReplicaState) \
+        else state
+    return inner.mu, state, m
+
+
+def lm_mesh_identity(mesh):
+    """(c) one uncompressed update on the ranks (each on its rows of the
+    fixed batch) against the whole batch in one process, on rank 0: the
+    whole batch at once and in the ranks' two halves (n_microbatches 2,
+    the mesh's sums); rounding alone is what the two single-process
+    updates differ by (tools/train_route_spread.py's method)."""
+    run = LM_MESH["gemma2"]
+    cfg = dataclasses.replace(get_config(run["arch"]), n_layers=run["layers"])
+    batch = lm_fixed_batch(cfg, run["horizon"], mesh.size)
+    k = LM_MESH_FIXED // mesh.size
+    mine = {key: v[mesh.index * k:(mesh.index + 1) * k]
+            for key, v in batch.items()}
+    params, _ = lm_mesh_model(cfg)
+    g_mesh, _, m = lm_gradient(cfg, params,
+                               optim.cross_replica(optim.sgd(0.0), mesh),
+                               mine)
+    out = {"loss_mesh": float(mesh.pmean(m["loss"]))}
+    if mesh.index == 0:
+        g1, _, m1 = lm_gradient(cfg, params, optim.sgd(0.0), batch)
+        out["mesh_vs_whole"] = rel_dist(g_mesh, g1)
+        g2, _, m2 = lm_gradient(cfg, params, optim.sgd(0.0), batch, 2)
+        out.update(mesh_vs_halves=rel_dist(g_mesh, g2),
+                   halves_vs_whole=rel_dist(g2, g1),
+                   loss_whole=float(m1["loss"]), loss_halves=float(m2["loss"]))
+        del g1, g2
+    del g_mesh, params
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    return out
+
+
+def lm_mesh_compressed(mesh):
+    """(d) one int8_ef update on the fixed batch: the gradient it applies
+    against the uncompressed pmean of the ranks' gradients, each element
+    as a share of the mean over ranks of the scale each rank quantised its
+    leaf's group with (``LM_MESH_EF_BOUND``); returns the worst share and
+    the step's compression metrics."""
+    run = LM_MESH["gemma2"]
+    cfg = dataclasses.replace(get_config(run["arch"]), n_layers=run["layers"])
+    batch = lm_fixed_batch(cfg, run["horizon"], mesh.size)
+    k = LM_MESH_FIXED // mesh.size
+    mine = {key: v[mesh.index * k:(mesh.index + 1) * k]
+            for key, v in batch.items()}
+    params, groups = lm_mesh_model(cfg)
+    copt = optim.cross_replica(optim.sgd(0.0), mesh, compress="int8_ef",
+                               ef_shards=mesh.size, scale_groups=groups)
+    worst = [0.0]
+
+    def update(grads, state, p):
+        scales = mesh.pmean(torch.stack([torch.amax(torch.stack(
+            [torch.amax(torch.abs(grads[i])) for i in g])) for g in groups])
+            / 127.0)
+        want = mesh.pmean_all(grads)  # before the update reduces grads
+        p, state, gnorm = copt.update(grads, state, p)
+        for gi, g in enumerate(groups):
+            for i in g:
+                err = torch.amax(torch.abs(state.inner.mu[i] - want[i]))
+                worst[0] = max(worst[0], float(err / scales[gi]))
+        del want
+        return p, state, gnorm
+
+    _, state, m = lm_gradient(cfg, params, optim.Optimizer(copt.init, update),
+                              mine)
+    out = {"worst_share": worst[0],
+           "residual_shape": tuple(state.ef.residual[0].shape),
+           **{key: float(m[key]) for key in ("compress_err_norm",
+                                             "grad_norm_shard_max", "loss")}}
+    del state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_rank(mesh, log_dir):
+    """One rank of phase 11c: (a) and (b) through ``train.main`` on the
+    group spawn_ranks initialized, their launches, peak memory and rows,
+    then (c) and (d)."""
+    torch.cuda.set_device(mesh.device)
+    out = {"device": str(mesh.device)}
+    for name in ("gemma2", "mamba2"):
+        d = Path(log_dir) / name
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_counters()
+        t0 = time.perf_counter()
+        params = train.main(lm_mesh_argv(name) + ["--log-dir", str(d)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mine = d if mesh.index == 0 else d / f"rank_{mesh.index}"
+        out[name] = {
+            "wall": wall, "launches": kernel_launches(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "finite": all(bool(torch.isfinite(p).all())
+                          for p in params.parameters()),
+            "rows": [json.loads(ln) for ln in
+                     (mine / "progress.jsonl").read_text().splitlines()]}
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["identity"] = lm_mesh_identity(mesh)
+    out["compressed"] = lm_mesh_compressed(mesh)
+    out["checks_s"] = time.perf_counter() - t0
+    return out
+
+
+def lm_mesh_phase():
+    """Phase 11c: two gloo ranks on cuda:0 train full-width gemma2-2b (4
+    layers, --compress) and mamba2-1.3b (24 layers) through ``train.main
+    --mesh 2x1``; then (c) the identity and (d) the compressed update on a
+    fixed batch.  Returns the ranks' summed launches by counter: gemma2's
+    and mamba2's."""
+    t_phase = time.perf_counter()
+    n = LM_MESH["ranks"]
+    print(f"slice phase: the LM mesh's data axis ({n} gloo ranks on {DEV}: "
+          + "; ".join(" ".join(lm_mesh_argv(k)) for k in ("gemma2",
+                                                           "mamba2")) + ")")
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spawn_ranks(lm_mesh_rank, n, (d,), device="cuda",
+                            timeout=LM_MESH["timeout"],
+                            collective_timeout=LM_MESH["timeout"])
+    card = smi()
+    total = {}
+    for name in ("gemma2", "mamba2"):
+        run = LM_MESH[name]
+        cfg = dataclasses.replace(get_config(run["arch"]),
+                                  n_layers=run["layers"])
+        steps, T, sites = run["steps"], run["horizon"], attn_sites(cfg)
+        want = {"flash_attention": 2 * sites * steps,
+                "flash_attention_decode": sites * (T + 1) * steps,
+                "ssd_scan": 2 * ssd_layers(cfg) * steps}
+        keys = {"avg_reward", "loss", "entropy", "samples_per_sec",
+                "rollout_s", "update_s", "allreduce_s"} | (
+            {"compress_err_norm", "grad_norm_shard_max"} if run["compress"]
+            else set())
+        for i, r in enumerate(ranks):
+            o = r[name]
+            got = {k: o["launches"].get(k, 0) for k in want}
+            if got != want:
+                fail(f"LM mesh {name} rank {i}: launches {got}, expected "
+                     f"{want} (forward + recompute an attention site and a "
+                     "Mamba-2 layer an update, a decode an attention site a "
+                     "rollout step)")
+            rows = o["rows"]
+            if [row["step"] for row in rows] != list(range(1, steps + 1)) \
+                    or not o["finite"] or any(
+                        not keys <= set(row) or not all(
+                            math.isfinite(row[k]) for k in keys)
+                        for row in rows):
+                fail(f"LM mesh {name} rank {i}: rows {rows}, params finite "
+                     f"{o['finite']}")
+            if run["compress"] and not all(row["compress_err_norm"] > 0
+                                           for row in rows):
+                fail(f"LM mesh {name}: compress_err_norm {rows}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            for row in rows:
+                print(f"  {name} rank {i} step {row['step']}: rollout_s "
+                      f"{row['rollout_s']:.3f}, update_s "
+                      f"{row['update_s']:.3f} (gradient all-reduce host time "
+                      f"{row['allreduce_s']:.3f}), samples_per_sec "
+                      f"{row['samples_per_sec']:.1f}, loss {row['loss']:.5f}"
+                      + (f", compress_err_norm {row['compress_err_norm']:.4g}"
+                         f", grad_norm_shard_max "
+                         f"{row['grad_norm_shard_max']:.4g}"
+                         if run["compress"] else ""))
+            print(f"  {name} rank {i} ({r['device']}): max_memory_allocated "
+                  f"{o['peak_gib']:.2f} GiB, train.main {o['wall']:.1f} s, "
+                  f"launches {got} ({card})")
+        if name == "mamba2":
+            total["mamba2 ssd_scan"] = total.pop("ssd_scan")
+    c = ranks[0]["identity"]
+    loss_tol = 2 * abs(c["loss_halves"] - c["loss_whole"]) + \
+        1e-6 * abs(c["loss_whole"])
+    grad_tol = max(2 * c["halves_vs_whole"], 1e-6)
+    print(f"  (c) identity on the fixed batch ({LM_MESH_FIXED} rows): the "
+          f"ranks' gradient {c['mesh_vs_whole']:.3e} of its norm from the "
+          f"whole batch's in one process, {c['mesh_vs_halves']:.3e} from its "
+          f"two halves' (n_microbatches 2); rounding alone (halves vs "
+          f"whole) {c['halves_vs_whole']:.3e}: bound {grad_tol:.3e} (2x); "
+          f"loss {c['loss_mesh']:.7f} vs {c['loss_whole']:.7f} (bound "
+          f"{loss_tol:.3e})")
+    if not (c["mesh_vs_whole"] <= grad_tol
+            and c["mesh_vs_halves"] <= grad_tol
+            and abs(c["loss_mesh"] - c["loss_whole"]) <= loss_tol):
+        fail(f"LM mesh identity: {c}")
+    for i, r in enumerate(ranks):
+        q = r["compressed"]
+        print(f"  (d) rank {i} int8_ef update: |applied - pmean| at most "
+              f"{q['worst_share']!r} of the mean scale (bound "
+              f"{LM_MESH_EF_BOUND!r}), "
+              f"compress_err_norm {q['compress_err_norm']:.4g}, "
+              f"grad_norm_shard_max {q['grad_norm_shard_max']:.4g}, residual "
+              f"slice {q['residual_shape']}; checks (c)-(d) "
+              f"{r['checks_s']:.1f} s")
+        if not (q["worst_share"] <= LM_MESH_EF_BOUND
+                and 0 < q["compress_err_norm"] < math.inf
+                and q["residual_shape"][0] == 1):
+            fail(f"LM mesh compressed update, rank {i}: {q}")
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # slice 6: the attention instances of the moe family and the other dense
 # configs, their serving runs and route checks, the smoke entry points
 # ---------------------------------------------------------------------------
@@ -4175,6 +4560,10 @@ def main() -> None:
         mesh_launches = mesh_phase()
         torch.cuda.empty_cache()
         lap("11b mesh")
+        lm_mesh_launches = lm_mesh_phase()
+        add_by_instance(inst_launches, get_config("mamba2-1.3b"),
+                        {"ssd_scan": lm_mesh_launches.pop("mamba2 ssd_scan")})
+        lap("11c lm mesh")
 
     # last, because the profiler slows every later launch of the process
     print("profile: where the time goes (not the main path's counts)")
@@ -4210,11 +4599,14 @@ def main() -> None:
     # kernel-vs-ref comparisons between them do not count
     launches = {
         "flash_attn_fwd": fixed["flash_attn_fwd"] + cont["flash_attn_fwd"]
-        + gemma_launches["flash_attention"],
+        + gemma_launches["flash_attention"]
+        + lm_mesh_launches["flash_attention"],
         "flash_attn_decode": fixed["flash_attn_decode"]
-        + cont["flash_attn_decode"] + gemma_launches["flash_attention_decode"]}
+        + cont["flash_attn_decode"] + gemma_launches["flash_attention_decode"]
+        + lm_mesh_launches["flash_attention_decode"]}
     print(f"attention launches on the main path: {launches} (fixed rounds "
-          f"{fixed}, continuous {cont}, gemma2 training {gemma_launches})")
+          f"{fixed}, continuous {cont}, gemma2 training {gemma_launches}, "
+          f"the LM mesh's ranks {lm_mesh_launches})")
     kernels = []
     for name in ("flash_attn_fwd", "flash_attn_decode"):
         t = timing[name]

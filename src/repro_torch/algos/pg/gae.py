@@ -5,6 +5,8 @@
   adv_t = delta_t + c_t * adv_{t+1} (c_t = gamma*lambda*(1-done_t)) as a
   scan over affine-map composition, in log2(T) doubling steps
   (Hillis-Steele), the counterpart of ``lax.associative_scan``.
+- ``discounted_returns``: the n-step discounted return-to-go (A2C's
+  target).
 
 Both operate time-major (T, B).
 """
@@ -48,3 +50,15 @@ def gae_associative(rewards, values, bootstrap_value, done, *, gamma=0.99,
         d *= 2
     advs = b.flip(0)
     return advs, advs + values
+
+
+def discounted_returns(rewards, bootstrap_value, done, *, gamma=0.99):
+    """n-step discounted return-to-go: ret_t = r_t + gamma * (1 - done_t)
+    * ret_{t+1}, from ret_T = bootstrap_value; (T, B) -> (T, B)."""
+    not_done = 1.0 - done.to(rewards.dtype)
+    rets = torch.empty_like(rewards)
+    ret = bootstrap_value
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        ret = rewards[t] + gamma * not_done[t] * ret
+        rets[t] = ret
+    return rets

@@ -4,12 +4,14 @@
 
 ``PPO.update`` runs epochs x minibatches gradient steps, eagerly, over one
 permutation of the T*B samples per epoch; the optimizer writes the params
-IN PLACE.  Single device: the JAX ``maybe_cast``
-(``cfg.cast_weights_bf16``) and ``param_pspecs`` sharding constraints of
-the LM step are mesh-only and dropped.
+IN PLACE.  The LM step keeps JAX's options: ``cfg.cast_weights_bf16``
+(the forward reads bf16 casts of the f32 weight matrices),
+``param_pspecs`` (the gradients pass ``sharding.constrain``) and the
+compression metrics of a ``cross_replica`` optimizer's state.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -19,7 +21,9 @@ from torch.utils import _pytree as pytree
 from ...core.algorithm import OptInfo, TrainState, grads_of
 from ...core.batch_spec import BatchSpec
 from ...models import backbones as bb
-from ...train.optim import Optimizer
+from ...models import sharding as shd
+from ...models.convert import jax_ndim
+from ...train.optim import Optimizer, compress_metrics
 from .gae import gae_associative, gae_scan
 
 F32 = torch.float32
@@ -134,10 +138,38 @@ class PPO:
         return ts, info
 
 
+@contextlib.contextmanager
+def _bf16_weights(params, cfg, specs=None):
+    """JAX's ``maybe_cast``: inside the block every f32 parameter whose
+    JAX leaf has two or more dims (a layer's norm scale counts its stacked
+    superblock dim, as in JAX) reads as its bf16 cast, a node of the
+    autograd graph, so the gradient reaches the f32 master.  The block
+    spans the backward too: a checkpointed superblock's recompute reads
+    the casts the forward read.  ``specs`` ({name: PartitionSpec}) pins
+    each cast to its param's spec (``sharding.constrain``)."""
+    swapped = []
+    for mname, mod in params.named_modules():
+        for name, p in list(mod._parameters.items()):
+            full = f"{mname}.{name}" if mname else name
+            if p is not None and p.dtype == torch.float32 and \
+                    jax_ndim(full, p.dim(), cfg) >= 2:
+                y = p.to(torch.bfloat16)
+                if specs is not None:
+                    y = shd.constrain(y, specs[full])
+                swapped.append((mod, name, p))
+                mod._parameters[name] = y
+    try:
+        yield
+    finally:
+        for mod, name, p in swapped:
+            mod._parameters[name] = p
+
+
 def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,
                            value_coeff=0.5, entropy_coeff=0.01,
                            n_microbatches: int = 1, aux_coeff: float = 0.01,
-                           img_len: int = 0, enc_len: int = 0):
+                           img_len: int = 0, enc_len: int = 0,
+                           unroll_micro: bool = False, param_pspecs=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics).
 
@@ -152,8 +184,20 @@ def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,
     ``params`` is an ``LM`` with f32 master weights that require grad.
     Microbatch gradient accumulation bounds activation memory; gradients
     accumulate in f32.  The optimizer updates ``params`` in place.  Metrics
-    (0-d f32 tensors): loss, grad_norm, pi_loss, v_loss, entropy.
+    (0-d f32 tensors): loss, grad_norm, pi_loss, v_loss, entropy, and
+    ``compress_metrics``' compress_err_norm and grad_norm_shard_max when the
+    optimizer is a compressed ``cross_replica`` one.
+
+    ``cfg.cast_weights_bf16``: the forward (and its recompute) reads bf16
+    casts of the f32 weight matrices (``_bf16_weights``), as JAX's
+    ``maybe_cast``.  ``param_pspecs`` ({name: PartitionSpec},
+    ``sharding.param_pspecs``): the casts and each microbatch's gradients
+    and their sum pass ``sharding.constrain`` with their param's spec, as
+    JAX's ``constrain_grads``.  ``unroll_micro`` is accepted for JAX's
+    signature: JAX scans the microbatches unless it is set, the port's
+    eager loop is the same either way.
     """
+    del unroll_micro  # the eager loop is JAX's unrolled form already
 
     def loss_fn(params, mb):
         kw = {}
@@ -186,30 +230,44 @@ def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,
             raise ValueError(f"batch {B} does not split into "
                              f"{n_microbatches} microbatches")
         mb_size = B // n_microbatches
-        leaves = [p for p in params.parameters()]
+        names = [n for n, _ in params.named_parameters()]
+        leaves = [p for _, p in params.named_parameters()]
+        specs = None if param_pspecs is None else \
+            [param_pspecs[n] for n in names]
+
+        def constrain_grads(gs):
+            if specs is None:
+                return gs
+            return [shd.constrain(g, sp) for g, sp in zip(gs, specs)]
+
         grads, loss, auxes = None, None, []
         for i in range(n_microbatches):
             mb = {k: v[i * mb_size:(i + 1) * mb_size] for k, v in batch.items()}
-            total, aux = loss_fn(params, mb)
+            # a fresh block each microbatch (a context manager enters once)
+            with (_bf16_weights(params, cfg, param_pspecs)
+                  if cfg.cast_weights_bf16 else contextlib.nullcontext()):
+                total, aux = loss_fn(params, mb)
+                gi = torch.autograd.grad(total, leaves,
+                                         materialize_grads=True)
             with torch.no_grad():
                 # g / n summed in f32, as JAX's 0 + g1/n + g2/n + ...; at
                 # n = 1 the gradients themselves, without a copy.  A leaf
                 # the loss does not reach (the hybrid's shared block when a
                 # depth cut leaves no superblock) gets zeros, as in JAX
-                g = [gi.to(F32) if n_microbatches == 1
-                     else gi.to(F32) / n_microbatches
-                     for gi in torch.autograd.grad(total, leaves,
-                                                   materialize_grads=True)]
-                grads = g if grads is None else [a.add_(b)
-                                                 for a, b in zip(grads, g)]
+                g = constrain_grads([x.to(F32) if n_microbatches == 1
+                                     else x.to(F32) / n_microbatches
+                                     for x in gi])
+                grads = g if grads is None else constrain_grads(
+                    [a.add_(b) for a, b in zip(grads, g)])
             part = total.detach() / n_microbatches
             loss = part if loss is None else loss + part
             auxes.append({k: v.detach() for k, v in aux.items()})
-            del g, total, aux
+            del g, gi, total, aux
         _, opt_state, gnorm = optimizer.update(grads, opt_state, leaves)
         metrics = {"loss": loss, "grad_norm": gnorm}
         for k in auxes[0]:
             metrics[k] = torch.mean(torch.stack([a[k] for a in auxes]))
+        metrics.update(compress_metrics(opt_state))
         return params, opt_state, metrics
 
     return train_step

@@ -16,6 +16,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .narrtup import namedarraytuple
+
+DistInfo = namedarraytuple("DistInfo", ["mean", "log_std"])
+DistInfoStd = DistInfo  # alias, rlpyt naming
+EPS = 1e-8
+
 
 class Categorical:
     def __init__(self, dim: int):

@@ -3,13 +3,16 @@
 
 ``Discrete`` and ``Box`` with their ``null_value`` (a numpy zero of one
 example, which the samplers and the replay use to shape their buffers) and
-``sample(generator, batch_shape)``, drawn on the generator's device.  The
-namedarraytuple-backed ``Composite`` waits for a slice whose env needs it.
+``sample(generator, batch_shape)``, drawn on the generator's device, and
+``Composite``, a named collection of sub-spaces whose samples and null
+values are namedarraytuples.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .narrtup import namedarraytuple
 
 
 class Space:
@@ -80,3 +83,26 @@ class Box(Space):
 
     def __repr__(self):
         return f"Box(shape={self.shape})"
+
+
+class Composite(Space):
+    """Named collection of sub-spaces; samples are namedarraytuples (each
+    sub-space drawn from the one generator, in order)."""
+
+    def __init__(self, typename: str, **subspaces):
+        self._cls = namedarraytuple(typename, tuple(subspaces.keys()))
+        self.subspaces = subspaces
+
+    @property
+    def shape(self):
+        return {k: s.shape for k, s in self.subspaces.items()}
+
+    def sample(self, generator, batch_shape=()):
+        return self._cls(*(s.sample(generator, batch_shape)
+                           for s in self.subspaces.values()))
+
+    def null_value(self):
+        return self._cls(*(s.null_value() for s in self.subspaces.values()))
+
+    def __repr__(self):
+        return f"Composite({list(self.subspaces)})"

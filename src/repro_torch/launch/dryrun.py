@@ -17,9 +17,16 @@ Per cell:
 - ``roofline``: per-device FLOPs and bytes are the global count divided by
   ``n_chips``, which assumes an ideal split of the work; H100 constants
   (``launch/mesh.py``).  The count is the reference route's work
-  (``hlo_analysis``'s docstring).  ``collectives_by_kind`` and
-  ``t_collective_s`` are null: the LM steps run no collective until the
-  LM mesh (ROADMAP item 12 part 2).
+  (``hlo_analysis``'s docstring).
+- ``collectives_by_kind`` and ``t_collective_s`` (wire bytes over
+  ``LINK_BW``) of a train cell: its optimizer is ``cross_replica`` over
+  the mesh's dp axes as ``launch.mesh.RecordingMesh``es, whose
+  all-reduces record one rank's wire bytes and send nothing: the f32
+  gradient (``compress=None``), or its int8 payload and one scale a JAX
+  (stacked) leaf on the outermost axis (``run_cell(compress="int8_ef")``,
+  ``compress.wire_bytes``).  The 'model' axis's collectives wait for
+  ROADMAP Queue 1 item 3; the cell's ``collectives_scope`` says so.
+  Serving cells run no collective of the data axis: null.
 - ``model_flops`` (6 N tokens for train, 2 N tokens for prefill, 2 N a
   sequence for decode, N the active parameters) and ``useful_flops_ratio``
   (model_flops over the counted FLOPs) as in JAX.
@@ -45,10 +52,15 @@ from ..configs import ARCH_IDS, get_config, resolve, skipped_cells
 from ..models import backbones as bb
 from ..models import sharding as shd
 from ..models.config import SHAPES
-from ..train.optim import adam
+from ..models.convert import jax_leaf_groups
+from ..train.optim import CrossReplicaState, adam, cross_replica
 from . import mesh as mesh_lib
 from . import specs as specs_lib
-from .hlo_analysis import op_cost, roofline_terms
+from .hlo_analysis import collective_bytes, op_cost, roofline_terms
+
+COLLECTIVES_SCOPE = (
+    "the gradient all-reduce over the dp axes (cross_replica) only; the "
+    "'model' axis's collectives wait for ROADMAP Queue 1 item 3")
 
 # gradient-accumulation microbatches per arch for train_4k (memory knob)
 DEFAULT_MICRO = {
@@ -72,11 +84,13 @@ SERVE_FSDP = {"llama32_vision_90b", "granite_34b", "mixtral_8x7b"}
 class Step:
     """A cell's step: ``fn(*args)``, and the partition spec of each input
     and output tensor (``in_specs(args)`` / ``out_specs(outputs)`` list
-    ``(tensor, PartitionSpec)`` pairs)."""
+    ``(tensor, PartitionSpec)`` pairs); ``collectives()`` (train cells)
+    lists the records of the step's collectives on the mesh."""
     fn: Callable
     args: tuple
     in_specs: Callable
     out_specs: Callable
+    collectives: Optional[Callable] = None
 
 
 def _batch_pspec(leaf, dp):
@@ -99,23 +113,57 @@ def _param_pairs(params, pspecs):
     return [(p, pspecs[name]) for name, p in params.named_parameters()]
 
 
-def build_train(cfg, aid, cell, *, n_micro) -> Step:
+def _data_axes():
+    """The installed mesh's dp axes as ``RecordingMesh``es (outermost
+    first), or None without a mesh."""
+    mesh = shd.get_global_mesh()
+    if mesh is None or not shd.dp_axes():
+        return None
+    return tuple(mesh_lib.RecordingMesh(axis=a, size=mesh.shape[a])
+                 for a in shd.dp_axes())
+
+
+def build_train(cfg, aid, cell, *, n_micro, compress=None) -> Step:
     dp = shd.dp_axes()
     opt = adam(1e-4, grad_clip=1.0)
     params = specs_lib.param_specs(cfg, "train")
+    axes = _data_axes()
+    if axes is not None:
+        opt = cross_replica(
+            opt, axes, compress=compress, ef_shards=axes[0].size,
+            scale_groups=jax_leaf_groups(
+                [n for n, _ in params.named_parameters()], cfg))
     p_pspecs = shd.param_pspecs(params, cfg, fsdp_axes=dp)
     leaf_specs = list(p_pspecs.values())
     train_step = make_lm_ppo_train_step(
         cfg, opt, n_microbatches=n_micro,
         img_len=cfg.n_img_tokens if cfg.family == "vlm" else 0,
-        enc_len=cfg.enc_len if cfg.family == "encdec" else 0)
+        enc_len=cfg.enc_len if cfg.family == "encdec" else 0,
+        param_pspecs=p_pspecs)
     opt_state = opt.init(list(params.parameters()))
     batch = specs_lib.train_batch_specs(cfg, cell)
 
     def state_pairs(params, opt_state):
+        extra = []
+        if isinstance(opt_state, CrossReplicaState):
+            # a rank's residual slice, (1,) + its param's shape
+            extra = [(r, shd.P(None, *sp)) for r, sp in
+                     zip(opt_state.ef.residual, leaf_specs)] + [
+                (opt_state.shard_grad_norm, shd.P()),
+                (opt_state.ef_err_norm, shd.P())]
+            opt_state = opt_state.inner
         return (_param_pairs(params, p_pspecs) + [(opt_state.step, shd.P())]
                 + list(zip(opt_state.mu, leaf_specs))
-                + list(zip(opt_state.nu, leaf_specs)))
+                + list(zip(opt_state.nu, leaf_specs)) + extra)
+
+    def collectives():
+        """One update's records, on meta gradients of the params'
+        shapes."""
+        ps = list(params.parameters())
+        with mesh_lib.record_collectives() as records:
+            opt.update([torch.empty_like(p, dtype=torch.float32)
+                        for p in ps], opt.init(ps), ps)
+        return records
 
     def in_specs(args):
         params, opt_state, batch = args
@@ -127,7 +175,8 @@ def build_train(cfg, aid, cell, *, n_micro) -> Step:
         return state_pairs(params, opt_state) + [
             (m, shd.P()) for m in metrics.values()]
 
-    return Step(train_step, (params, opt_state, batch), in_specs, out_specs)
+    return Step(train_step, (params, opt_state, batch), in_specs, out_specs,
+                collectives if axes is not None else None)
 
 
 def _serve_pairs(cfg, aid, params):
@@ -200,9 +249,10 @@ def build_prefill(cfg, aid, cell) -> Step:
                 in_specs, out_specs)
 
 
-def build_step(cfg, aid, cell, n_micro) -> Step:
+def build_step(cfg, aid, cell, n_micro, compress=None) -> Step:
     if cell.kind == "train":
-        return build_train(cfg, aid, cell, n_micro=n_micro)
+        return build_train(cfg, aid, cell, n_micro=n_micro,
+                           compress=compress)
     if cell.kind == "prefill":
         return build_prefill(cfg, aid, cell)
     return build_decode(cfg, aid, cell)
@@ -226,33 +276,31 @@ def cell_model_flops(cfg, cell) -> int:
     return mult * cfg.n_active_params() * tokens
 
 
-def _install(mesh) -> None:
-    shd.set_global_mesh(mesh, dp_axes=tuple(a for a in mesh.axis_names
-                                            if a != "model"),
-                        tp_axis="model")
-
-
 def run_cell(arch: str, cell, *, multi_pod: bool = False, n_micro=None,
              save_dir=None, verbose=True, cfg=None, mesh=None,
-             counted=None):
+             counted=None, compress=None):
     """One cell on the production mesh (``mesh`` in its place where given,
     ``cfg`` in place of the arch's config).  ``counted``: a list that
     carries the cell's count from one mesh to the next (the count does not
-    depend on the mesh): empty, the step is counted and its
-    ``count_step`` result appended; else ``counted[0]`` is reused."""
+    depend on the mesh: a ``RecordingMesh``'s results are its inputs):
+    empty, the step is counted and its ``count_step`` result appended;
+    else ``counted[0]`` is reused.  ``compress``: the train cells'
+    gradient all-reduce in int8 with error feedback."""
     aid = resolve(arch)
     cfg = cfg or get_config(arch)
     mesh = mesh or mesh_lib.make_production_mesh(multi_pod=multi_pod)
     n_micro = n_micro or DEFAULT_MICRO.get(aid, 2)
     prev = (shd.get_global_mesh(), shd.dp_axes(), shd.tp_axis())
-    _install(mesh)
+    mesh_lib.install(mesh)
     try:
-        step = build_step(cfg, aid, cell, n_micro)
+        step = build_step(cfg, aid, cell, n_micro, compress)
         if counted is None:
             counted = []
         if not counted:
             counted.append(count_step(step))
         cost, out, t_trace = counted[0]
+        coll = None if step.collectives is None else \
+            collective_bytes(step.collectives())
         memory = {
             "argument_bytes": sharded_bytes(step.in_specs(step.args), mesh),
             "output_bytes": sharded_bytes(step.out_specs(out), mesh),
@@ -265,7 +313,7 @@ def run_cell(arch: str, cell, *, multi_pod: bool = False, n_micro=None,
     n_chips = mesh.size
     roof = roofline_terms({"flops": cost["flops"] / n_chips,
                            "bytes accessed": cost["bytes accessed"] / n_chips},
-                          None, n_chips)
+                          coll, n_chips)
     model_flops = cell_model_flops(cfg, cell)
     result = {
         "arch": aid, "shape": cell.name, "kind": cell.kind,
@@ -275,7 +323,12 @@ def run_cell(arch: str, cell, *, multi_pod: bool = False, n_micro=None,
         "memory": memory,
         "n_params": cfg.n_params(), "n_active_params": cfg.n_active_params(),
         "roofline": roof,
-        "collectives_by_kind": None,
+        "collectives_by_kind": None if coll is None else {
+            k: coll[k] for k in ("all-gather", "all-reduce",
+                                 "reduce-scatter", "all-to-all",
+                                 "collective-permute")},
+        "collectives_scope": None if coll is None else (
+            f"{COLLECTIVES_SCOPE}; compress={compress}"),
         "model_flops": model_flops,
         "useful_flops_ratio": (model_flops / cost["flops"]
                                if cost["flops"] else None),
@@ -286,7 +339,8 @@ def run_cell(arch: str, cell, *, multi_pod: bool = False, n_micro=None,
               f"trace={t_trace:6.1f}s arg={arg:7.2f}GiB "
               f"bottleneck={roof['bottleneck']:10s} "
               f"t=(c {roof['t_compute_s']:.2e}|m {roof['t_memory_s']:.2e}"
-              f"|n -)s useful={result['useful_flops_ratio']:.2f}",
+              f"|n {_seconds(roof['t_collective_s'])})s "
+              f"useful={result['useful_flops_ratio']:.2f}",
               flush=True)
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
@@ -294,6 +348,10 @@ def run_cell(arch: str, cell, *, multi_pod: bool = False, n_micro=None,
         with open(os.path.join(save_dir, fn), "w") as f:
             json.dump(result, f, indent=1)
     return result
+
+
+def _seconds(t) -> str:
+    return "-" if t is None else f"{t:.2e}"
 
 
 def main(argv: Optional[List[str]] = None) -> int:

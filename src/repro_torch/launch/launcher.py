@@ -14,8 +14,10 @@ script that wants to choose).
 Multi-node: ``emit_pod_script`` writes the per-node launch script that
 joins ``torch.distributed`` (``MASTER_ADDR`` / ``MASTER_PORT`` from the
 coordinator, ``WORLD_SIZE`` the node count, ``RANK`` the node index) and
-runs ``repro_torch.launch.train.main``.  The script is written, never run
-here.
+runs ``repro_torch.launch.train.main`` on that group: the script sets
+``REPRO_MESH`` to ``<nodes>x1`` unless the environment sets it, so
+``train --mesh`` defaults to a data axis over the nodes, and ``train.main``
+joins the initialized group (``run_mesh``) rather than spawning ranks.
 """
 from __future__ import annotations
 
@@ -119,6 +121,7 @@ export MASTER_ADDR=${{COORDINATOR%:*}}
 export MASTER_PORT=${{COORDINATOR##*:}}
 export WORLD_SIZE={n_pods}
 export RANK=$POD_INDEX
+export REPRO_MESH=${{REPRO_MESH:-{n_pods}x1}}
 python -c "
 import torch.distributed as dist
 dist.init_process_group('nccl', init_method='env://')

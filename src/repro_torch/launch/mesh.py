@@ -9,8 +9,9 @@ the envs and of the replay, with the model and optimizer state replicated
 and every gradient all-reduced before the step.  ``DataMesh`` stands in for
 the mesh and its axis at once: the process group, the axis name, its size,
 this rank's index and device, and the collectives JAX binds to the axis
-name (``psum``, ``pmean``, ``pmax``, ``all_gather``).  Callers read the
-size as JAX's do, ``mesh.shape[axis]``.
+name (``psum``, ``pmean``, ``pmax``, ``all_gather``), packed into
+all-reduces of at most ``BUCKET_BYTES`` a dtype.  Callers read the size
+as JAX's do, ``mesh.shape[axis]``.
 
 Two ranks can share one card: the group is gloo, whose all-reduce takes
 CUDA tensors (NCCL refuses two ranks on one GPU), and each rank's device
@@ -34,11 +35,17 @@ launcher.
 over ``("data", "model")``, ``(2, 16, 16)`` with an outer ``"pod"``) as an
 ``AbstractMesh``: axis names and sizes, no devices and no processes.
 ``record_collectives`` lists what a ``DataMesh`` puts on the wire while it
-is entered, for ``launch/hlo_analysis.py``'s ``collective_bytes``.  The
-roofline constants are the H100 SXM's.
+is entered, for ``launch/hlo_analysis.py``'s ``collective_bytes``; a
+``RecordingMesh`` is a data axis with no ranks behind it whose
+collectives record their bytes and send nothing (the dry run's gradient
+all-reduce).  The roofline constants are the H100 SXM's.
 
-The 2-D (data x model) mesh and ``install`` / ``install_2d`` belong to the
-LM half of the mesh (ROADMAP Queue 1 item 12, part 2).
+The LM's 2-D (data x model) mesh (``make_2d_mesh``, ``Mesh2D``) is a data
+axis of ranks, as above, and a 'model' axis of extent 1: tensor
+parallelism needs all-gathers that gloo does not offer on CUDA tensors
+and a card a rank (ROADMAP Queue 1 item 3), so ``n_model > 1`` raises.
+``install`` / ``install_2d`` register a mesh with ``models/sharding.py``'s
+rules as JAX's do.
 """
 from __future__ import annotations
 
@@ -66,6 +73,9 @@ COLLECTIVE_TIMEOUT_S = 60.0   # a rank blocked this long in a collective raises
 PEAK_FLOPS_BF16 = 989e12       # bf16 tensor-core FLOP/s per card
 HBM_BW = 3.35e12               # HBM3 bytes/s per card
 LINK_BW = 450e9                # NVLink bytes/s per direction (900 GB/s both)
+# the largest staging buffer of one all-reduce: a collective on N bytes
+# holds at most this much beside its tensors
+BUCKET_BYTES = 256 * 2**20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,9 +121,30 @@ def record_collectives():
         _RECORDS.remove(records)
 
 
-def _record(kind: str, t: torch.Tensor, group_size: int) -> None:
+_TIMERS: List[list] = []   # the active time_collectives accumulators
+
+
+@contextlib.contextmanager
+def time_collectives():
+    """Accumulate into ``[seconds]`` the host time of every all-reduce a
+    ``DataMesh`` sends inside the block, each from a synchronised device to
+    its result copied back (so the time is the collective's, not the
+    device work queued before it)."""
+    acc = [0.0]
+    _TIMERS.append(acc)
+    try:
+        yield acc
+    finally:
+        _TIMERS.remove(acc)
+
+
+def _record_bytes(kind: str, nbytes: int, group_size: int) -> None:
     for records in _RECORDS:
-        records.append((kind, t.numel() * t.element_size(), group_size))
+        records.append((kind, nbytes, group_size))
+
+
+def _record(kind: str, t: torch.Tensor, group_size: int) -> None:
+    _record_bytes(kind, t.numel() * t.element_size(), group_size)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -155,36 +186,77 @@ class DataMesh:
                 "it on its ranks (launch.mesh.spawn_ranks)")
         return True
 
+    def _reduce_(self, tensors: List[torch.Tensor], op, what: str
+                 ) -> List[torch.Tensor]:
+        """``op`` over the axis of every tensor, IN PLACE (contiguous
+        tensors), in buckets of at most ``BUCKET_BYTES`` a dtype and
+        device: each bucket's elements are copied into one staging buffer,
+        all-reduced, and copied back, so a call holds one bucket beyond its
+        tensors (gloo stages a CUDA buffer through host memory).  Returns
+        the tensors."""
+        if not self._check(what):
+            return tensors
+        groups = {}
+        for t in tensors:
+            groups.setdefault((t.dtype, t.device), []).append(t.view(-1))
+        for flats in groups.values():
+            per = max(BUCKET_BYTES // flats[0].element_size(), 1)
+            pieces, n = [], 0
+            for f in flats:
+                start = 0
+                while start < f.numel():
+                    k = min(per - n, f.numel() - start)
+                    pieces.append(f[start:start + k])
+                    n, start = n + k, start + k
+                    if n == per:
+                        self._send_bucket(pieces, op)
+                        pieces, n = [], 0
+            if pieces:
+                self._send_bucket(pieces, op)
+        return tensors
+
+    def _send_bucket(self, pieces, op) -> None:
+        buf = torch.cat(pieces)
+        _record("all-reduce", buf, self.size)
+        timed = bool(_TIMERS) and buf.device.type == "cuda"
+        if _TIMERS:
+            if timed:
+                torch.cuda.synchronize(buf.device)
+            t0 = time.perf_counter()
+        dist.all_reduce(buf, op=op, group=self.group)
+        off = 0
+        for piece in pieces:
+            piece.copy_(buf[off:off + piece.numel()])
+            off += piece.numel()
+        if _TIMERS:
+            if timed:
+                torch.cuda.synchronize(buf.device)
+            for acc in _TIMERS:
+                acc[0] += time.perf_counter() - t0
+
     def _all_reduce(self, tensors: Sequence[torch.Tensor], op, what: str
                     ) -> List[torch.Tensor]:
-        """``op`` over the axis of every tensor, one collective per dtype
-        (the tensors are packed into one flat buffer); returns new
-        tensors."""
-        tensors = [torch.as_tensor(t) for t in tensors]
-        if not self._check(what):
-            return [t.detach().clone() for t in tensors]
-        out: List[Optional[torch.Tensor]] = [None] * len(tensors)
-        by_dtype = {}
-        for i, t in enumerate(tensors):
-            by_dtype.setdefault((t.dtype, t.device), []).append(i)
-        for idx in by_dtype.values():
-            flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
-            _record("all-reduce", flat, self.size)
-            dist.all_reduce(flat, op=op, group=self.group)
-            off = 0
-            for i in idx:
-                n = tensors[i].numel()
-                out[i] = flat[off:off + n].view(tensors[i].shape)
-                off += n
-        return out
+        """``op`` over the axis of every tensor (``_reduce_`` on copies);
+        returns new tensors."""
+        return self._reduce_([torch.as_tensor(t).detach().clone(
+            memory_format=torch.contiguous_format) for t in tensors], op, what)
 
     def psum_all(self, tensors) -> List[torch.Tensor]:
-        """Sum of each tensor over the axis, one all-reduce a dtype."""
+        """Sum of each tensor over the axis (new tensors)."""
         return self._all_reduce(tensors, dist.ReduceOp.SUM, "psum")
+
+    def psum_all_(self, tensors, *, int8_scales: Optional[int] = None
+                  ) -> List[torch.Tensor]:
+        """Sum of each (contiguous) tensor over the axis, IN PLACE.
+        ``int8_scales``: the tensors hold ``q * scale`` of int8 ``q`` with
+        this many f32 scales (``compress.cross_pod_allreduce_``): gloo
+        cannot add int8 tensors of different scales, so their f32 values
+        go on the wire; a ``RecordingMesh`` counts the int8 payload."""
+        return self._reduce_(list(tensors), dist.ReduceOp.SUM, "psum")
 
     def pmean_all(self, tensors) -> List[torch.Tensor]:
         """``psum / size`` of each tensor, as JAX's ``pmean``."""
-        return [t / self.size for t in
+        return [t.div_(self.size) for t in
                 self._all_reduce(tensors, dist.ReduceOp.SUM, "pmean")]
 
     def pmax_all(self, tensors) -> List[torch.Tensor]:
@@ -229,6 +301,127 @@ class DataMesh:
     def barrier(self) -> None:
         if self._check("barrier"):
             dist.barrier(group=self.group)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RecordingMesh(DataMesh):
+    """A data axis of ``size`` ranks that are not there: every collective
+    records what one rank would put on the wire (``record_collectives``:
+    one all-reduce a dtype) and sends nothing, so its results are its
+    inputs.  The dry run wraps a train cell's optimizer in
+    ``cross_replica`` over these to count the gradient all-reduce on meta
+    tensors.  The compressed all-reduce records its int8 payload and its
+    f32 scales (``compress.wire_bytes``), the bytes a lowering that sends
+    int8 puts on the wire."""
+
+    def _reduce_(self, tensors, op, what):
+        by_dtype = {}
+        for t in tensors:
+            by_dtype[t.dtype] = by_dtype.get(t.dtype, 0) + \
+                t.numel() * t.element_size()
+        for nbytes in by_dtype.values():
+            _record_bytes("all-reduce", nbytes, self.size)
+        return tensors
+
+    def pmean_all(self, tensors):
+        return self._reduce_([torch.as_tensor(t) for t in tensors], None,
+                             "pmean")
+
+    def psum_all_(self, tensors, *, int8_scales=None):
+        tensors = list(tensors)
+        if int8_scales is None:
+            return self._reduce_(tensors, None, "psum")
+        _record_bytes("all-reduce", sum(t.numel() for t in tensors)
+                      + 4 * int8_scales, self.size)
+        return tensors
+
+    def all_gather(self, x, dim=0):
+        raise NotImplementedError("RecordingMesh records all-reduces only")
+
+    def barrier(self) -> None:
+        return None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh2D:
+    """The LM's (data x model) mesh: ``data``, a ``DataMesh`` of ranks (or
+    its one-process view), and a 'model' axis of extent ``n_model`` (1: see
+    the module docstring).  ``shape`` / ``axis_names`` / ``size`` read as a
+    JAX mesh's, for the sharding rules."""
+    data: DataMesh
+    n_model: int = 1
+    axes: Tuple[str, str] = ("data", "model")
+
+    @property
+    def shape(self) -> dict:
+        return {self.axes[0]: self.data.size, self.axes[1]: self.n_model}
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.axes)
+
+    @property
+    def size(self) -> int:
+        return self.data.size * self.n_model
+
+
+MODEL_AXIS_ITEM = ("ROADMAP Queue 1 item 3 (the 'model' axis on four cards: "
+                   "NCCL, one card a rank)")
+
+
+def make_2d_mesh(n_data: int = 0, n_model: int = 1, axes=("data", "model"),
+                 *, device="cuda") -> Mesh2D:
+    """(data x model) mesh for LM-scale PPO (JAX's ``make_2d_mesh``).
+
+    The data axis is ``make_data_mesh(n_data, axes[0], device=device)``:
+    where ``torch.distributed`` is initialized, every rank of the world
+    (this rank's place, device ``cuda:(rank % cards)``); otherwise the
+    one-process view of ``n_data`` shards.  ``n_model > 1`` raises: the
+    'model' axis is ROADMAP Queue 1 item 3, and a mesh that ran it
+    replicated would train another model than asked."""
+    if n_model < 1:
+        raise ValueError(f"n_model must be >= 1, got {n_model}")
+    if n_model > 1:
+        raise NotImplementedError(
+            f"mesh {n_data}x{n_model}: the 'model' axis (tensor parallelism "
+            f"over {n_model} ranks) is not ported yet; it is "
+            f"{MODEL_AXIS_ITEM}.  Use --mesh Dx1")
+    return Mesh2D(data=make_data_mesh(n_data, axes[0], device=device),
+                  n_model=n_model, axes=tuple(axes))
+
+
+def make_test_mesh(n_data: int = 2, n_model: int = 1, *, device="cpu"
+                   ) -> Mesh2D:
+    """Small mesh for CPU tests: ``make_2d_mesh`` on the CPU (JAX's default
+    2 x 2 needs the 'model' axis, ROADMAP Queue 1 item 3)."""
+    return make_2d_mesh(n_data, n_model, device=device)
+
+
+def install(mesh):
+    """Register ``mesh`` with the sharding-rule module: every axis but
+    'model' is a dp axis, 'model' the tp axis.  ``None`` clears it."""
+    from ..models import sharding as shd
+    if mesh is None:
+        shd.set_global_mesh(None)
+        return None
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+    shd.set_global_mesh(mesh, dp_axes=dp, tp_axis="model")
+    return mesh
+
+
+def install_2d(mesh):
+    """Register a (data x model) mesh for the per-rank train path.  Unlike
+    ``install`` the data axes are NOT dp axes: inside a rank the batch is
+    already the rank's slice, so batch specs resolve to unsharded dims and
+    ``n_batch_shards()`` is 1, while the param rules keep their model
+    axis (JAX's ``install_2d``, whose batch dims are manual inside
+    ``shard_map``)."""
+    from ..models import sharding as shd
+    if mesh is None:
+        shd.set_global_mesh(None)
+        return None
+    shd.set_global_mesh(mesh, dp_axes=(), tp_axis="model")
+    return mesh
 
 
 def _rank_devices(n: int, device) -> Tuple[torch.device, ...]:

@@ -129,6 +129,21 @@ def make_phases(cfg, batch: int, prompt_len: int, gen: int,
     return prefill, decode
 
 
+def make_generate(cfg, batch: int, prompt_len: int, gen: int,
+                  temperature: float = 0.0, *, device, graph: bool = True):
+    """Composed prefill + decode (JAX's single-call generate API):
+    ``generate(params, prompts, generator) -> (batch, gen)`` tokens; the
+    generator goes to the decode phase only (prefill is deterministic)."""
+    prefill, decode = make_phases(cfg, batch, prompt_len, gen, temperature,
+                                  device=device, graph=graph)
+
+    def generate(params, prompts, generator):
+        logits, cache = prefill(params, prompts)
+        return decode(params, logits, cache, generator)
+
+    return generate
+
+
 def timed_generate(prefill, decode, params, prompts, generator, *,
                    batch: int, prompt_len: int, gen: int, device):
     """One serving round with per-phase timing.

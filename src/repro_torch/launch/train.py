@@ -1,6 +1,6 @@
 """LM-policy PPO training entry point of the PyTorch port.
 
-Port of the single-device path of ``repro/launch/train.py``.  The policy IS a language model over the
+Port of ``repro/launch/train.py``.  The policy IS a language model over the
 token-MDP environment: each iteration runs
 
 - a rollout: ``horizon`` batched ``decode_step``s with the KV / SSM cache,
@@ -38,6 +38,24 @@ between them and logs one row at the window's end, with JAX's keys
 (avg_reward, loss, entropy of the last step, samples_per_sec); the update
 stays eager (ROADMAP Queue 1 item 14).
 
+``--mesh DATAxMODEL`` (default ``$REPRO_MESH``, as JAX's) trains on a
+data-parallel mesh (``run_mesh``, JAX's 2-D mesh driver at a 'model'
+extent of 1: ``--mesh Dx1``; a larger one raises, ROADMAP Queue 1 item
+3).  ``train.main`` spawns the D ranks itself (``launch.mesh.
+spawn_ranks``: gloo, ``cuda:(rank % cards)``, so ranks may share a card)
+or, where ``torch.distributed`` is already initialized (the pod script,
+a test), joins that group and spawns nothing.  Each rank runs its own
+rollout on ``batch / D`` sequences and normalises its advantages over
+that slice (JAX's documented difference from the global batch); the
+gradients are averaged over the ranks by ``cross_replica``, in int8 with
+error feedback under ``--compress`` (which needs ``--mesh``), before one
+Adam step on every rank's replica.  Rank 0 logs JAX's keys averaged over
+the ranks (plus ``compress_err_norm`` and ``grad_norm_shard_max`` when
+compressed) and this rank's ``rollout_s``, ``update_s`` and
+``allreduce_s`` (the host time of the update's all-reduces, inside
+``update_s``) over the window, and writes the checkpoints; rank r > 0
+logs its own rows under ``<log-dir>/rank_<r>``.
+
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
       --steps 3
@@ -49,15 +67,22 @@ stays eager (ROADMAP Queue 1 item 14).
       --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
       --full --layers 15 --batch 8 --horizon 256 --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --mesh 2x1 --compress --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --full --layers 4 \\
+      --mesh 2x1 --compress --batch 8 --horizon 64 --steps 2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
+import sys
 import time
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..algos.pg.gae import gae_associative
@@ -67,13 +92,18 @@ from ..core.graphs import StepGraph
 from ..envs.token_lm import make_token_lm
 from ..kernels import registry as kernel_registry
 from ..models import backbones as bb
+from ..models import sharding as shd
 from ..models.config import ModelConfig
+from ..models.convert import jax_leaf_groups
+from ..samplers.eval import fold_seed
 from ..serving.engine import sample, sync
 from ..telemetry import trace
 from ..train.checkpoint import (latest_step, restore_lm_checkpoint,
                                 save_lm_checkpoint)
-from ..train.optim import adam
+from ..train.compress import wire_bytes
+from ..train.optim import adam, cross_replica
 from ..utils.logger import Logger
+from . import mesh as mesh_lib
 
 F32 = torch.float32
 
@@ -187,6 +217,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "read of the device between them (JAX's scanned "
                          "window); logs and checkpoints land on window "
                          "boundaries")
+    ap.add_argument("--mesh", default=os.environ.get("REPRO_MESH", ""),
+                    help="mesh spec 'DATAxMODEL' (e.g. '2x1'); '1x1' / '' "
+                         "runs the single-device path.  Defaults to "
+                         "$REPRO_MESH.  MODEL must be 1 (ROADMAP Queue 1 "
+                         "item 3); the DATA ranks share the cards, "
+                         "cuda:(rank %% cards)")
+    ap.add_argument("--compress", nargs="?", const="int8_ef", default=None,
+                    choices=["int8_ef"],
+                    help="compress the data-axis gradient all-reduce "
+                         "(int8 + error feedback); requires --mesh")
     ap.add_argument("--kernels", default=None,
                     help="kernel backend spec (REPRO_TORCH_KERNELS syntax: "
                          "'ref', 'cuda', 'attention=ref', 'ssd=ref', ...)")
@@ -270,18 +310,174 @@ def _run_windows(args, rollout, train_step, params, opt_state, gen, start,
         t0 = time.perf_counter()
 
 
+# a mesh rank blocked this long in a collective raises: rank 0 writes a
+# full-width checkpoint while the others wait at its barrier
+MESH_COLLECTIVE_TIMEOUT_S = 1800.0
+
+
+def run_mesh(args, cfg, logger, tracer, mesh_shape, device):
+    """The (data x model) mesh driver on this rank (JAX's ``run_mesh``;
+    see the module docstring); returns this rank's ``LM``.
+
+    Every rank draws the same weights from ``--seed``.  Step t's rollout
+    on rank r draws from ``fold_seed(fold_seed(seed, t), r)``, the port's
+    ``fold_in(ks[i], me)`` with the step's key a function of the step, so
+    a restored run continues the unbroken run's streams (JAX's restarts
+    its key stream).  A window of ``--fuse-window`` steps ends in one
+    all-reduce of its last step's metrics (JAX's ``pmean`` over 'data');
+    the update stays eager: a gloo all-reduce cannot sit in a CUDA graph
+    (ROADMAP Queue 1 item 4)."""
+    n_data, n_model = mesh_shape
+    mesh = mesh_lib.install_2d(mesh_lib.make_2d_mesh(n_data, n_model,
+                                                     device=device))
+    try:
+        return _mesh_steps(args, cfg, logger, tracer, mesh)
+    finally:
+        mesh_lib.install_2d(None)
+
+
+def _mesh_steps(args, cfg, logger, tracer, mesh):
+    data = mesh.data
+    if not data.distributed and data.size > 1:
+        raise ValueError(f"run_mesh: a mesh of {data.size} data shards "
+                         "needs its ranks (train.main spawns them)")
+    if args.batch % data.size:
+        raise SystemExit(f"--batch {args.batch} must divide by the data "
+                         f"axis ({data.size})")
+    local_batch = args.batch // data.size
+    dev, lead = data.device, data.index == 0
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if lead:
+        print(f"mesh {data.size}x{mesh.n_model} over ('data', 'model'), "
+              f"local batch {local_batch}, compress={args.compress or 'off'}")
+    env = make_token_lm(vocab=cfg.vocab, episode_len=args.horizon,
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = bb.init_lm(cfg, device=dev, generator=gen, dtype=F32,
+                        requires_grad=True)
+    pspecs = shd.param_pspecs(params, cfg)
+    # one int8 scale a JAX leaf, as JAX's compressor (its layers stacked)
+    groups = jax_leaf_groups(list(pspecs), cfg)
+    if args.compress and lead:
+        wb = wire_bytes(list(params.parameters()), groups)
+        print(f"int8 all-reduce payload: {wb['int8_bytes']:,} B/step "
+              f"(fp32 {wb['fp32_bytes']:,} B, {wb['ratio']:.2f}x reduction)")
+    opt = cross_replica(adam(args.lr, grad_clip=1.0), data,
+                        compress=args.compress, ef_shards=data.size,
+                        scale_groups=groups)
+    opt_state = opt.init(params.parameters())
+    rollout = make_lm_rollout(cfg, env, local_batch, args.horizon,
+                              device=dev)
+    train_step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003,
+                                        param_pspecs=pspecs)
+    start = 0
+    if args.restore and args.ckpt_dir and \
+            latest_step(args.ckpt_dir) is not None:
+        opt_state, manifest = restore_lm_checkpoint(
+            args.ckpt_dir, params, opt_state, cfg, mesh=data)
+        start = manifest["step"]
+        if lead:
+            print(f"restored step {start}")
+
+    t0 = time.perf_counter()
+    step = start
+    while step < args.steps:
+        chunk = min(args.fuse_window, args.steps - step)
+        if args.ckpt_dir and args.ckpt_interval:
+            nxt = step + args.ckpt_interval - (step % args.ckpt_interval)
+            chunk = min(chunk, nxt - step)
+        walls = {"rollout_s": 0.0, "update_s": 0.0, "allreduce_s": 0.0}
+        with tracer.span("mesh_window", step=step, iters=chunk):
+            for t in range(step, step + chunk):
+                gen.manual_seed(fold_seed(fold_seed(args.seed, t),
+                                          data.index))
+                ta = time.perf_counter()
+                traj, v_last = rollout(params, gen)
+                sync(dev)
+                tb = time.perf_counter()
+                batch = build_batch(traj, v_last)
+                with mesh_lib.time_collectives() as wire:
+                    params, opt_state, metrics = train_step(
+                        params, opt_state, batch)
+                    sync(dev)
+                walls["allreduce_s"] += wire[0]
+                walls["rollout_s"] += tb - ta
+                walls["update_s"] += time.perf_counter() - tb
+            metrics = dict(metrics, avg_reward=torch.mean(traj["reward"]))
+            names = list(metrics)
+            means = data.pmean_all([metrics[k].reshape(()) for k in names])
+        step += chunk
+        sps = args.batch * args.horizon * chunk / max(
+            time.perf_counter() - t0, 1e-9)
+        mean = {k: float(v) for k, v in zip(names, means)}
+        row = {"avg_reward": mean["avg_reward"], "loss": mean["loss"],
+               "entropy": mean["entropy"], "samples_per_sec": sps}
+        if "compress_err_norm" in mean:
+            row["compress_err_norm"] = mean["compress_err_norm"]
+            row["grad_norm_shard_max"] = mean["grad_norm_shard_max"]
+        row.update(walls)
+        with tracer.span("log", step=step):
+            logger.record(step, row)
+        tracer.memory_snapshot(f"window_{step}")
+        if _checkpoint_due(args, step):
+            with tracer.span("checkpoint", step=step):
+                save_lm_checkpoint(args.ckpt_dir, step, params, opt_state,
+                                   cfg, mesh=data)
+        t0 = time.perf_counter()
+    return params
+
+
+def _mesh_rank(mesh, argv):
+    """One rank of a ``--mesh`` run that ``main`` spawned: ``main`` on
+    the group ``spawn_ranks`` initialized."""
+    main(argv)
+
+
+def _spawn_mesh(args, argv, mesh_shape):
+    """Check the mesh and the batch as ``run_mesh`` will, then run
+    ``main(argv)`` on ``D`` spawned ranks; a rank that fails fails the
+    run."""
+    n_data, n_model = mesh_shape
+    mesh = mesh_lib.make_2d_mesh(n_data, n_model, device=args.device)
+    if args.batch % mesh.data.size:
+        raise SystemExit(f"--batch {args.batch} must divide by the data "
+                         f"axis ({mesh.data.size})")
+    mesh_lib.spawn_ranks(_mesh_rank, mesh.data.size, (list(argv),),
+                         device=args.device, timeout=math.inf,
+                         collective_timeout=MESH_COLLECTIVE_TIMEOUT_S)
+
+
+def _rank_log_dir(log_dir, rank: int):
+    if log_dir is None or rank == 0:
+        return log_dir
+    return os.path.join(log_dir, f"rank_{rank}")
+
+
 def main(argv=None):
-    """Run ``--steps`` iterations; returns the trained ``LM``."""
-    args = build_parser().parse_args(argv)
+    """Run ``--steps`` iterations; returns the trained ``LM`` (this rank's
+    on a mesh; None where ``main`` spawned the ranks)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    mesh_shape = mesh_lib.parse_mesh_arg(args.mesh)
+    if args.compress and mesh_shape is None:
+        ap.error("--compress requires --mesh DATAxMODEL (e.g. --mesh 2x1)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "
                            "pass --device cpu to run the plain versions")
-    tracer = trace.configure(os.path.join(args.log_dir, "trace.jsonl")
-                             if args.log_dir else None)
+    joined = dist.is_available() and dist.is_initialized()
+    if mesh_shape is not None and not joined:
+        return _spawn_mesh(args, argv, mesh_shape)
+    rank = dist.get_rank() if mesh_shape is not None else 0
+    log_dir = _rank_log_dir(args.log_dir, rank)
+    tracer = trace.configure(os.path.join(log_dir, "trace.jsonl")
+                             if log_dir else None)
     if args.kernels:
         kernel_registry.set_env(args.kernels)
-    print(f"kernel backends: {kernel_registry.describe(device)}")
+    if rank == 0:
+        print(f"kernel backends: {kernel_registry.describe(device)}")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
@@ -294,9 +490,23 @@ def main(argv=None):
             "encoder frames, and this launcher (as the JAX package's) "
             "passes none to its train step (enc_len 0); JAX's train fails "
             "in encoder_forward on enc_frames=None")
+    logger = Logger(log_dir, sinks=("console", "csv", "jsonl") if rank == 0
+                    else ("csv", "jsonl"))
+    try:
+        with trace.chrome_trace(args.profile, log_dir, device,
+                                "train_trace.json"):
+            if mesh_shape is not None:
+                return run_mesh(args, cfg, logger, tracer, mesh_shape,
+                                device)
+            return _run_single(args, cfg, logger, tracer, device)
+    finally:
+        logger.close()
+
+
+def _run_single(args, cfg, logger, tracer, device):
+    """The single-device path: ``--steps`` iterations on ``device``."""
     env = make_token_lm(vocab=cfg.vocab, episode_len=args.horizon,
                         device=device)
-    logger = Logger(args.log_dir)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = bb.init_lm(cfg, device=device, generator=gen, dtype=F32,
                         requires_grad=True)
@@ -312,17 +522,9 @@ def main(argv=None):
                                                     opt_state, cfg)
         start = manifest["step"]
         print(f"restored step {start}")
-    try:
-        with trace.chrome_trace(args.profile, args.log_dir, device,
-                                "train_trace.json"):
-            if args.fuse_window > 1:
-                _run_windows(args, rollout, train_step, params, opt_state,
-                             gen, start, logger, tracer, cfg, device)
-            else:
-                _run_steps(args, rollout, train_step, params, opt_state,
-                           gen, start, logger, tracer, cfg, device)
-    finally:
-        logger.close()
+    run = _run_windows if args.fuse_window > 1 else _run_steps
+    run(args, rollout, train_step, params, opt_state, gen, start, logger,
+        tracer, cfg, device)
     return params
 
 

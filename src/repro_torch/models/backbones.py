@@ -40,11 +40,15 @@ serving prefill / decode step.
   encoder layer) is checkpointed with ``torch.utils.checkpoint``
   (non-reentrant), the counterpart of ``jax.checkpoint`` over the scanned
   superblocks.
-- Single-device only: the JAX sharding constraints are identities on one
-  device and are dropped, and the moe dispatch has one group (JAX's
-  ``groups=shd.n_batch_shards()``; the argument is kept for the
-  distributed half).  ``cache_pspecs`` keeps JAX's cache sharding rules
-  (the dry run's per-device bytes read them); nothing places a tensor.
+- The sharding constraints sit at JAX's call sites: ``constrain_res`` on
+  the residual stream of the training forward and the prefill,
+  ``constrain_cache_kv`` on the K/V caches a decode step writes.  On the
+  port's meshes (``launch/mesh.py``: data ranks, a 'model' extent of 1)
+  they check the installed mesh's rules and move nothing
+  (``sharding.constrain``).  The moe dispatch splits into
+  ``shd.n_batch_shards()`` groups, as JAX's (1 inside a rank of
+  ``install_2d``'s mesh and with no mesh).  ``cache_pspecs`` keeps JAX's
+  cache sharding rules (the dry run's per-device bytes read them).
 """
 from __future__ import annotations
 
@@ -79,6 +83,20 @@ from .layers import (
 )
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+
+
+def _res_spec(seq_shard: bool = True):
+    """Residual stream (B, T, D): batch over the dp axes; seq over the tp
+    axis (sequence-parallel activations)."""
+    return shd.P(shd.dp_axes(), shd.tp_axis() if seq_shard else None, None)
+
+
+def constrain_res(x, cfg: ModelConfig):
+    T = x.shape[1]
+    tp = shd.tp_size()
+    if tp > 1 and T % tp == 0 and T >= tp:
+        return shd.constrain(x, _res_spec(True))
+    return shd.constrain(x, _res_spec(False))
 
 
 def superblock_layout(cfg: ModelConfig):
@@ -281,30 +299,30 @@ def _dense_layer_train(p, x, cfg: ModelConfig, *, window=None,
                             causal=causal, window=window, x_kv=x_kv)
     if cfg.post_norm:
         a = rmsnorm(p.attn_post_norm, a)
-    x = x + a
+    x = constrain_res(x + a, cfg)
     h = rmsnorm(p.mlp_norm, x)
     m = mlp(p.mlp, h)
     if cfg.post_norm:
         m = rmsnorm(p.mlp_post_norm, m)
-    return x + m, kv
+    return constrain_res(x + m, cfg), kv
 
 
-def _moe_layer_train(p, x, cfg: ModelConfig, *, window=None, groups=1):
+def _moe_layer_train(p, x, cfg: ModelConfig, *, window=None):
     """One moe layer over a sequence (JAX's ``_moe_layer_train``, and the
     moe branch of its prefill's ``attn_capture``): capacity-bounded dispatch
-    in ``groups`` groups.  Returns (x, aux, (k, v))."""
+    in ``shd.n_batch_shards()`` groups.  Returns (x, aux, (k, v))."""
     h = rmsnorm(p.attn_norm, x)
     a, kv = attention_train(p.attn, h, cfg, positions=None, window=window)
-    x = x + a
+    x = constrain_res(x + a, cfg)
     h = rmsnorm(p.moe_norm, x)
-    m, aux = moe(p.moe, h, cfg, groups=groups)
-    return x + m, aux, kv
+    m, aux = moe(p.moe, h, cfg, groups=shd.n_batch_shards())
+    return constrain_res(x + m, cfg), aux, kv
 
 
 def _ssm_layer_train(p, x, cfg: ModelConfig):
     h = rmsnorm(p.norm, x)
     y, _ = ssd_block_train(p.ssd, h, cfg)
-    return x + y
+    return constrain_res(x + y, cfg)
 
 
 def _encdec_layer_train(p, x, enc_out, cfg: ModelConfig):
@@ -313,21 +331,22 @@ def _encdec_layer_train(p, x, enc_out, cfg: ModelConfig):
     (k, v) of the self-attention, (k, v) of the cross-attention)."""
     h = rmsnorm(p.self_norm, x)
     a, kv = attention_train(p.self_attn, h, cfg)
-    x = x + a
+    x = constrain_res(x + a, cfg)
     h = rmsnorm(p.cross_norm, x)
     a, xkv = attention_train(p.cross_attn, h, cfg, x_kv=enc_out,
                              causal=False)
-    x = x + a
+    x = constrain_res(x + a, cfg)
     h = rmsnorm(p.mlp_norm, x)
-    return x + mlp(p.mlp, h), kv, xkv
+    return constrain_res(x + mlp(p.mlp, h), cfg), kv, xkv
 
 
-def _superblock_train(x, cfg: ModelConfig, ctx, *layers):
-    """One superblock forward (JAX's ``apply_superblock_train``): gemma2's
-    local then global layer, or one plain dense, moe, ssm or encdec layer;
-    hybrid's Mamba-2 layers then the shared attention block; vlm's self
-    layers then its cross layer.  ``ctx`` is (shared block, image tokens,
-    encoder output).  Returns (x, aux)."""
+def apply_superblock_train(x, cfg: ModelConfig, ctx, *layers):
+    """One superblock forward (JAX's ``apply_superblock_train``, its block
+    params as the superblock's layer modules): gemma2's local then global
+    layer, or one plain dense, moe, ssm or encdec layer; hybrid's Mamba-2
+    layers then the shared attention block; vlm's self layers then its
+    cross layer.  ``ctx`` is (shared block, image tokens, encoder output).
+    Returns (x, aux)."""
     shared, img, enc_out = ctx
     zero = torch.zeros((), dtype=F32, device=x.device)
     f = cfg.family
@@ -375,7 +394,7 @@ def encoder_forward(params, frames, cfg: ModelConfig):
     if frames is None:
         raise ValueError("encoder_forward: the encdec family needs "
                          "enc_frames (B, S_enc, D)")
-    x = frames.to(cdtype(cfg))
+    x = constrain_res(frames.to(cdtype(cfg)), cfg)
     pos = torch.arange(frames.shape[1], device=x.device)
     for lp in params.encoder.blocks:
         x = _maybe_checkpoint(cfg, _encoder_layer, x, pos, cfg, lp)
@@ -394,7 +413,7 @@ def forward_train(params, tokens, cfg: ModelConfig, *, img=None,
     non-reentrant), so every attention kernel and SSD scan of an update
     runs twice."""
     n_sb, per_block, _ = superblock_layout(cfg)
-    x = embed(params, tokens, cfg)
+    x = constrain_res(embed(params, tokens, cfg), cfg)
     enc_out = encoder_forward(params, enc_frames, cfg) \
         if cfg.family == "encdec" else None
     if img is not None:
@@ -403,7 +422,8 @@ def forward_train(params, tokens, cfg: ModelConfig, *, img=None,
     aux = torch.zeros((), dtype=F32, device=x.device)
     for i in range(n_sb):
         layers = params.layers[i * per_block:(i + 1) * per_block]
-        x, a = _maybe_checkpoint(cfg, _superblock_train, x, cfg, ctx, *layers)
+        x, a = _maybe_checkpoint(cfg, apply_superblock_train, x, cfg, ctx,
+                                 *layers)
         aux = aux + a
     for lp in getattr(params, "tail_blocks", ()):
         x = _maybe_checkpoint(cfg, _ssm_layer_train, lp, x, cfg)
@@ -477,6 +497,11 @@ def _kv_cache_spec(cfg: ModelConfig, B: int, S: int):
     elif b_ax is None and ndp > 1 and S % ndp == 0 and s_ax is None:
         s_ax = dp
     return shd.P(None, b_ax, s_ax, h_ax, None)
+
+
+def constrain_cache_kv(x, cfg: ModelConfig):
+    """Constrain a stacked (n_sb, B, S, Hkv, dh) K/V cache to its spec."""
+    return shd.constrain(x, _kv_cache_spec(cfg, x.shape[1], x.shape[2]))
 
 
 def cache_pspecs(cfg: ModelConfig, cache) -> Dict[str, Any]:
@@ -571,6 +596,8 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
         for t, lp in enumerate(getattr(params, "tail_blocks", ())):
             x = _ssm_step(lp, x, cache["tail_conv"][t], cache["tail_ssm"][t],
                           cfg)
+        for k in ("k", "v"):
+            new_cache[k] = constrain_cache_kv(cache[k], cfg)
     elif f == "vlm":
         ns = per_block - 1
         for i in range(n_sb):
@@ -605,6 +632,11 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, active=None):
             kn, vn, sb = _cache_slot(cfg, i)
             x, _, _ = layer_fn(lp, x, cache[kn][sb], cache[vn][sb], lengths,
                                cfg, window=window)
+        # JAX constrains the caches its scan wrote whole: the global pair
+        # of gemma2's alternating layers, every layer's otherwise
+        for k in (("k_global", "v_global") if cfg.alt_local_global
+                  else ("k", "v")):
+            new_cache[k] = constrain_cache_kv(cache[k], cfg)
     bump = 1 if active is None else active.to(torch.int32)
     new_cache["lengths"] = lengths + bump
     x = rmsnorm(params.final_norm, x)
@@ -666,7 +698,7 @@ def prefill(params, tokens, cfg: ModelConfig, cache, *, img=None,
     layers' source K/V as new ``cross_k`` / ``cross_v`` leaves of the
     source's length (JAX replaces those leaves)."""
     B, T = tokens.shape
-    x = embed(params, tokens, cfg)
+    x = constrain_res(embed(params, tokens, cfg), cfg)
     new_cache = dict(cache)
     f = cfg.family
     n_sb, per_block, _ = superblock_layout(cfg)

@@ -84,6 +84,23 @@ def _jax_leaf(name: str, cfg: ModelConfig):
     return name.replace(".", "/"), None
 
 
+def jax_ndim(name: str, ndim: int, cfg: ModelConfig) -> int:
+    """The rank of the JAX leaf that holds the port's parameter ``name``
+    (of rank ``ndim``): its own plus the stacked superblock dims."""
+    idx = _jax_leaf(name, cfg)[1]
+    return ndim + (len(idx) if idx is not None else 0)
+
+
+def jax_leaf_groups(names: Iterable[str], cfg: ModelConfig) -> list:
+    """The port's parameters (``names``, in order) grouped by the JAX leaf
+    that stacks them: a list of index lists, in order of first appearance.
+    JAX's int8 gradient compression keeps one scale a (stacked) leaf."""
+    groups: Dict[str, list] = {}
+    for i, name in enumerate(names):
+        groups.setdefault(_jax_leaf(name, cfg)[0], []).append(i)
+    return list(groups.values())
+
+
 def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
                     dtype=torch.float32, requires_grad: bool = False) -> LM:
     """JAX ``init_lm`` params (nested dict of numpy arrays) -> ``LM``.

@@ -12,8 +12,14 @@ JAX stacks each superblock leaf along leading scan dims
 ``None``s and keeps FSDP off the stacked dims, so the spec of a port leaf
 is JAX's spec of its stacked leaf with the stacked dims dropped.
 
-The execution half (``constrain``, ``make_shardings``) places tensors and
-comes with the LM mesh (ROADMAP item 12 part 2).
+The execution half: ``constrain(x, spec)`` is JAX's sharding constraint
+on the installed mesh.  The port's meshes (``launch/mesh.py``) are data
+axes of ranks, each rank holding its own slice of the batch, and a
+'model' axis of extent 1, so a constraint moves nothing: it checks the
+spec against the mesh and returns ``x`` itself.
+``make_shardings`` pairs each spec with the mesh, one ``(mesh, spec)``
+record a leaf, as JAX's ``NamedSharding``s (nothing in the port places a
+tensor by them: a rank's tensors are already its own).
 """
 from __future__ import annotations
 
@@ -75,6 +81,70 @@ def n_batch_shards() -> int:
     for a in _DP_AXES:
         n *= _GLOBAL_MESH.shape[a]
     return n
+
+
+def _axis_names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def constrain(x, spec: PartitionSpec):
+    """JAX's ``with_sharding_constraint`` on the installed mesh; identity
+    when none is installed.  On the port's meshes a rank already holds its
+    slice and the 'model' extent is 1, so this returns ``x`` unchanged
+    after checking the spec against the mesh: a spec longer than ``x``'s
+    rank or naming an axis the mesh lacks raises ValueError.  A dim that
+    its axes do not divide is allowed, as JAX pads it (``sharded_bytes``
+    counts the padding)."""
+    if _GLOBAL_MESH is None:
+        return x
+    if len(spec) > x.dim():
+        raise ValueError(f"constrain: spec {spec!r} has {len(spec)} entries "
+                         f"for a tensor of shape {tuple(x.shape)}")
+    sizes = _GLOBAL_MESH.shape
+    for entry in spec:
+        for a in _axis_names(entry):
+            if a not in sizes:
+                raise ValueError(f"constrain: axis {a!r} of {spec!r} is not "
+                                 f"on the mesh {dict(sizes)}")
+    return x
+
+
+class NamedSharding(tuple):
+    """``(mesh, spec)``: JAX's ``NamedSharding``, a spec bound to a mesh."""
+
+    def __new__(cls, mesh, spec: PartitionSpec):
+        return super().__new__(cls, (mesh, spec))
+
+    @property
+    def mesh(self):
+        return self[0]
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self[1]
+
+
+def make_shardings(pspec_tree, mesh=None):
+    """One ``NamedSharding(mesh, spec)`` a leaf of ``pspec_tree`` (a spec,
+    or a dict / list / tuple of them; ``param_pspecs``' dict), on ``mesh``
+    or the installed one; None when there is no mesh, as JAX's."""
+    mesh = mesh or _GLOBAL_MESH
+    if mesh is None:
+        return None
+
+    def walk(t):
+        if isinstance(t, PartitionSpec):
+            return NamedSharding(mesh, t)
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        raise TypeError(f"make_shardings: {type(t).__name__} is not a "
+                        "PartitionSpec tree")
+
+    return walk(pspec_tree)
 
 
 def batch_spec(*trailing) -> PartitionSpec:

@@ -101,6 +101,16 @@ def configure(path: Optional[str] = None) -> Tracer:
     return _global_tracer
 
 
+def span(name: str, **attrs):
+    """Module-level convenience: a span on the global tracer."""
+    return _global_tracer.span(name, **attrs)
+
+
+def emit(kind: str, name: str, **fields) -> dict:
+    """Module-level convenience: an event on the global tracer."""
+    return _global_tracer.emit(kind, name, **fields)
+
+
 @contextmanager
 def chrome_trace(profile: Optional[str], log_dir: Optional[str], device,
                  filename: str):

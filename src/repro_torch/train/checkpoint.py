@@ -58,7 +58,7 @@ from torch.utils import _pytree as pytree
 from ..core.algorithm import TrainState
 from ..models.convert import params_of_jax, params_to_jax
 from .compress import EFState
-from .optim import CrossReplicaState, OptState
+from .optim import CrossReplicaState, OptState, cross_replica_specs
 
 _INT32 = np.iinfo(np.int32)
 
@@ -288,48 +288,84 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any, *,
                              _to_list), manifest
 
 
-def _lm_tree(params, opt_state: OptState, cfg, fn):
+def _lm_tree(params, opt_state, cfg, fn):
     """``(params, opt_state)`` of an LM in JAX's layout, each tensor passed
-    through ``fn`` before it is stacked."""
+    through ``fn`` before it is stacked.  A ``CrossReplicaState``'s EF
+    residual (this rank's slice, (1,) + a param's shape a leaf) becomes
+    JAX's (1,) + the stacked leaf's shape: its block of the (ef_shards,
+    ...) global leaf."""
     names = [n for n, _ in params.named_parameters()]
 
     def tree(tensors):
         return params_to_jax(((n, fn(t)) for n, t in zip(names, tensors)),
                              cfg)
 
+    def opt_tree(state):
+        if isinstance(state, CrossReplicaState):
+            res = pytree.tree_map(lambda x: x[None], tree(
+                [r[0] for r in state.ef.residual]))
+            return state._replace(inner=opt_tree(state.inner),
+                                  ef=EFState(residual=res))
+        return _moments_as(state, tree)
+
     return (tree([p for _, p in params.named_parameters()]),
-            _moments_as(opt_state, tree))
+            opt_tree(opt_state))
 
 
-def save_lm_checkpoint(ckpt_dir: str, step: int, params, opt_state: OptState,
-                       cfg, *, extra: Optional[dict] = None) -> str:
+def _lm_shardings(opt_state, mesh):
+    """The ``shardings`` prefix of ``_lm_tree``'s pair: the EF residual
+    sharded over ``mesh``, everything else replicated."""
+    if mesh is None or not isinstance(opt_state, CrossReplicaState):
+        return None
+    return (None, cross_replica_specs(mesh))
+
+
+def save_lm_checkpoint(ckpt_dir: str, step: int, params, opt_state, cfg, *,
+                       extra: Optional[dict] = None, mesh=None) -> str:
     """Write an LM's ``(params, opt_state)`` in JAX's layout; returns the
-    ``.npz`` path."""
+    ``.npz`` path.  ``opt_state``: an ``OptState``, or on a data ``mesh``
+    (every rank calls this) a compressed ``cross_replica`` optimizer's
+    ``CrossReplicaState``, whose EF residual slices are gathered into
+    JAX's (ef_shards, ...) leaves; the mesh's rank 0 writes."""
     return save_checkpoint(ckpt_dir, step,
                            _lm_tree(params, opt_state, cfg,
                                     lambda t: t.detach().cpu()),
-                           extra=extra)
+                           extra=extra,
+                           shardings=_lm_shardings(opt_state, mesh),
+                           mesh=mesh)
 
 
 @torch.no_grad()
-def restore_lm_checkpoint(ckpt_dir: str, params, opt_state: OptState, cfg, *,
-                          step: Optional[int] = None):
+def restore_lm_checkpoint(ckpt_dir: str, params, opt_state, cfg, *,
+                          step: Optional[int] = None, mesh=None):
     """Restore an LM checkpoint (JAX's layout, written by either package)
-    into ``params`` and ``opt_state``'s moments in place, leaf by leaf
-    through host memory; returns (opt_state with the saved step,
-    manifest)."""
+    into ``params`` and ``opt_state``'s moments (and EF residual: this
+    rank's block on ``mesh``) in place, leaf by leaf through host memory;
+    returns (opt_state with the saved step, manifest)."""
     like = _lm_tree(params, opt_state, cfg,
                     lambda t: torch.empty_like(t, device="meta"))
-    (ptree, saved), manifest = restore_checkpoint(ckpt_dir, like, step=step,
-                                                  device="cpu")
+    (ptree, saved), manifest = restore_checkpoint(
+        ckpt_dir, like, step=step, device="cpu",
+        shardings=_lm_shardings(opt_state, mesh))
     names = [n for n, _ in params.named_parameters()]
     dests = [p for _, p in params.named_parameters()]
     srcs = params_of_jax(ptree, names, cfg)
-    for moments, tree in ((opt_state.mu, saved.mu), (opt_state.nu, saved.nu)):
+    inner, saved_inner = opt_state, saved
+    if isinstance(opt_state, CrossReplicaState):
+        inner, saved_inner = opt_state.inner, saved.inner
+        dests += [r[0] for r in opt_state.ef.residual]
+        srcs += params_of_jax(pytree.tree_map(lambda x: x[0],
+                                              saved.ef.residual), names, cfg)
+        dests += [opt_state.shard_grad_norm, opt_state.ef_err_norm]
+        srcs += [saved.shard_grad_norm, saved.ef_err_norm]
+    for moments, tree in ((inner.mu, saved_inner.mu),
+                          (inner.nu, saved_inner.nu)):
         if moments is not None:
             dests += moments
             srcs += params_of_jax(tree, names, cfg)
     for dst, src in zip(dests, srcs):
         dst.copy_(src)
-    return opt_state._replace(step=saved.step.to(opt_state.step.device)), \
-        manifest
+    inner = inner._replace(step=saved_inner.step.to(inner.step.device))
+    if isinstance(opt_state, CrossReplicaState):
+        return opt_state._replace(inner=inner), manifest
+    return inner, manifest

@@ -30,7 +30,7 @@ import math
 import torch
 from torch.utils import _pytree as pytree
 
-from .compress import EFState, cross_pod_allreduce
+from .compress import CHUNK, EFState, cross_pod_allreduce_
 
 F32 = torch.float32
 
@@ -74,13 +74,26 @@ def linear_warmup_cosine(peak_lr: float, warmup: int, total: int,
     return sched
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt(sum of squares) over every tensor, in f32."""
+def sum_squares(tensors) -> torch.Tensor:
+    """Sum of squares over every tensor, in f32; a leaf of more than
+    ``CHUNK`` elements is squared ``CHUNK`` at a time (no temporary the
+    size of the leaf)."""
     total = None
     for t in tensors:
-        sq = torch.sum(torch.square(t.to(F32)))
+        t = t.to(F32)
+        if t.numel() > CHUNK and t.is_contiguous():
+            flat = t.view(-1)
+            sq = sum(torch.sum(torch.square(flat[i:i + CHUNK]))
+                     for i in range(0, flat.numel(), CHUNK))
+        else:
+            sq = torch.sum(torch.square(t))
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt(sum of squares) over every tensor, in f32."""
+    return torch.sqrt(sum_squares(tensors))
 
 
 def clip_by_global_norm(tensors, max_norm: float):
@@ -104,9 +117,26 @@ def _step_zero(params) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=params[0].device)
 
 
+def _leaf_chunks(*tensors):
+    """Matching flat pieces of at most ``CHUNK`` elements of same-shape
+    tensors (each whole where one is not contiguous), so the element-wise
+    update of a 590 M-element embedding holds a few chunks of temporaries,
+    not a few copies of the leaf."""
+    n = tensors[0].numel()
+    if n <= CHUNK or not all(t.is_contiguous() for t in tensors):
+        return [tensors]
+    flats = [t.view(-1) for t in tensors]
+    return [tuple(f[i:i + CHUNK] for f in flats) for i in range(0, n, CHUNK)]
+
+
 def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
          weight_decay: float = 0.0, grad_clip: Optional[float] = None
          ) -> Optimizer:
+    """Adam (AdamW with ``weight_decay``) with optional global-norm
+    clipping.  The clip scale multiplies each gradient where the update
+    reads it (``clip_by_global_norm``'s values, without a clipped copy of
+    the whole gradient), and each leaf is updated ``CHUNK`` elements at a
+    time."""
     sched = lr if callable(lr) else constant(lr)
 
     def init(params):
@@ -116,22 +146,27 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     @torch.no_grad()
     def update(grads, state: OptState, params):
-        params = list(params)
-        grads, gnorm = _clip_or_norm(grads, grad_clip)
+        params, grads = list(params), list(grads)
+        gnorm = global_norm(grads)
+        clip = None if grad_clip is None else torch.clamp(
+            grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
         step = state.step + 1
         dev = params[0].device
         step_f = step.to(F32)
         lr_t = sched(step_f)
         bc1 = 1 - torch.full((), b1, dtype=F32, device=dev) ** step_f
         bc2 = 1 - torch.full((), b2, dtype=F32, device=dev) ** step_f
-        for p, g, m, v in zip(params, grads, state.mu, state.nu):
-            g = g.to(F32)
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * torch.square(g))
-            delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            if weight_decay:
-                delta = delta + weight_decay * p.to(F32)
-            p.copy_((p.to(F32) - lr_t * delta).to(p.dtype))
+        for leaf in zip(params, grads, state.mu, state.nu):
+            for p, g, m, v in _leaf_chunks(*leaf):
+                if clip is not None:
+                    g = g * clip.to(g.dtype)
+                g = g.to(F32)
+                m.copy_(b1 * m + (1 - b1) * g)
+                v.copy_(b2 * v + (1 - b2) * torch.square(g))
+                delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+                if weight_decay:
+                    delta = delta + weight_decay * p.to(F32)
+                p.copy_((p.to(F32) - lr_t * delta).to(p.dtype))
         return params, OptState(step=step, mu=state.mu, nu=state.nu), gnorm
 
     return Optimizer(init, update)
@@ -165,7 +200,7 @@ def _axes(axis) -> tuple:
 
 
 def cross_replica(opt: Optimizer, axis, *, compress: Optional[str] = None,
-                  ef_shards: int = 1) -> Optimizer:
+                  ef_shards: int = 1, scale_groups=None) -> Optimizer:
     """Data-parallel wrapper: all-reduce grads over ``axis`` before the inner
     update (paper §2.4 synchronous multi-GPU: "gradients all-reduced").
 
@@ -185,7 +220,12 @@ def cross_replica(opt: Optimizer, axis, *, compress: Optional[str] = None,
     outermost axis.  Compression carries state: ``init`` wraps the inner
     state in ``CrossReplicaState`` with this rank's EF residual, one slice
     of the global (ef_shards, ...) leaf, so each leaf is (1,) + the
-    param's shape; ``ef_shards`` must be the outer axis' size.
+    param's shape; ``ef_shards`` must be the outer axis' size.  The
+    compressed update reduces the gradients it is given in place (each
+    step's fresh ones: no caller reads them afterwards) where they are
+    contiguous f32.  ``scale_groups`` (``compress.cross_pod_allreduce_``'s ``groups``) lets
+    leaves share an int8 scale: an LM's layers, which JAX stacks into one
+    leaf (``models.convert.jax_leaf_groups``).
     """
     axes = _axes(axis)
     tag = (axes, compress)
@@ -221,20 +261,20 @@ def cross_replica(opt: Optimizer, axis, *, compress: Optional[str] = None,
                                         device=params[0].device),
             ef_err_norm=torch.zeros((), dtype=F32, device=params[0].device))
 
+    @torch.no_grad()
     def update(grads, state: CrossReplicaState, params):
         grads = list(grads)
         for ax in inner_axes:  # stage 1: full-precision inner reduction
             grads = ax.pmean_all(grads)
+        # reduced in place: a copy only of a gradient that is not
+        # contiguous f32
+        grads = [g.to(F32).contiguous() for g in grads]
         local_norm = global_norm(grads)
         # stage 2: int8 + error feedback over the outermost axis, on this
-        # rank's slice of the residual (written back in place)
-        res = [r[0] for r in state.ef.residual]
-        grads, ef = cross_pod_allreduce(grads, EFState(residual=res),
-                                        axis=outer)
-        with torch.no_grad():
-            for r, new in zip(state.ef.residual, ef.residual):
-                r.copy_(new[None])
-        err_sq = sum(torch.sum(torch.square(r)) for r in ef.residual)
+        # rank's slice of the residual (updated in place)
+        cross_pod_allreduce_(grads, [r[0] for r in state.ef.residual],
+                             axis=outer, groups=scale_groups)
+        err_sq = sum_squares(state.ef.residual)
         new_params, inner_state, gnorm = opt.update(grads, state.inner,
                                                     params)
         new_state = CrossReplicaState(

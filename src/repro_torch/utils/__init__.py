@@ -1,1 +1,2 @@
-"""Small utilities of the port (so far: the tabular ``Logger``)."""
+"""Small utilities of the port: the tabular ``Logger``."""
+from .logger import Logger  # noqa: F401

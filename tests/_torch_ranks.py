@@ -102,13 +102,14 @@ def inputs_info(n_ranks: int, b: int = 3, seed: int = 2):
 
 def _run_opt(opt, params, grads_of_rank):
     """N_STEPS updates of ``opt`` from ``params``; returns (params,
-    [state after each step], [gnorm])."""
+    [state after each step], [gnorm]).  Each update gets fresh gradient
+    tensors, as a step's own (the compressed one reduces them in place)."""
     p = [torch.from_numpy(params[k].copy()) for k in sorted(PARAM_SHAPES)]
     state = opt.init(p)
     states, norms = [], []
     for g in grads_of_rank:
         p, state, gn = opt.update(
-            [torch.from_numpy(g[k]) for k in sorted(PARAM_SHAPES)], state, p)
+            [torch.tensor(g[k]) for k in sorted(PARAM_SHAPES)], state, p)
         states.append(t2n(state))
         norms.append(float(gn))
     return t2n(p), states, norms
@@ -399,3 +400,79 @@ def records_body(mesh):
         got = mesh.all_gather(torch.full((2, 5), float(mesh.index),
                                          device=mesh.device))
     return {"records": list(records), "gathered": t2n(got)}
+
+
+# ---------------------------------------------------------------------------
+# the LM mesh (launch/train.py --mesh Dx1)
+# ---------------------------------------------------------------------------
+
+def lm_steps(mesh, np_params, cfg, batches, compress=None, lr=1e-3,
+             opt="adam", instrument=False):
+    """``make_lm_ppo_train_step`` under ``cross_replica`` on this rank: the
+    LM from JAX's ``init_lm`` params (numpy), one step a batch of
+    ``batches`` ({key: (n_ranks, B, T)} each, this rank's row).  ``opt``
+    "adam" (lr, clip 1.0) or "sgd" (lr, no momentum); ``instrument`` sums
+    the pmean'd (true) gradients beside the compressed update.  Returns
+    numpy: params, metrics a step (the loss also pmean'd), and with
+    compression this rank's residual and the ranks' mean residual."""
+    from repro_torch.algos.pg.ppo import make_lm_ppo_train_step
+    from repro_torch.models.convert import jax_leaf_groups, params_from_jax
+    from repro_torch.train.optim import Optimizer, adam, cross_replica, sgd
+    lm = params_from_jax(np_params, cfg, device="cpu", dtype=torch.float32,
+                         requires_grad=True)
+    base = adam(lr, grad_clip=1.0) if opt == "adam" else sgd(lr)
+    copt = cross_replica(base, mesh, compress=compress, ef_shards=mesh.size,
+                         scale_groups=jax_leaf_groups(
+                             [n for n, _ in lm.named_parameters()], cfg))
+    out = {"p0": [t2n(p) for p in lm.parameters()]}
+    o = copt
+    if instrument:
+        acc = [torch.zeros_like(p) for p in lm.parameters()]
+
+        def update(grads, state, params):
+            for a, g in zip(acc, mesh.pmean_all(grads)):
+                a.add_(g)
+            return copt.update(grads, state, params)
+
+        o = Optimizer(copt.init, update)
+    state = o.init(lm.parameters())
+    step = make_lm_ppo_train_step(cfg, o, entropy_coeff=0.003)
+    out["metrics"] = []
+    for b in batches:
+        mine = {k: torch.from_numpy(np.ascontiguousarray(v[mesh.index]))
+                for k, v in b.items()}
+        lm, state, m = step(lm, state, mine)
+        row = {k: float(v) for k, v in m.items()}
+        row["loss_pmean"] = float(mesh.pmean(m["loss"]))
+        out["metrics"].append(row)
+    out["names"] = [n for n, _ in lm.named_parameters()]
+    out["params"] = [t2n(p) for p in lm.parameters()]
+    if compress:
+        res = [r[0] for r in state.ef.residual]
+        out["residual"] = t2n(res)
+        out["residual_mean"] = t2n(mesh.pmean_all(res))
+    if instrument:
+        out["acc"] = t2n(acc)
+    return out
+
+
+def lm_steps_body(mesh, cases):
+    """``lm_steps`` for each case ({name: kwargs})."""
+    return {name: lm_steps(mesh, **kw) for name, kw in cases.items()}
+
+
+def train_main_restore_body(mesh, ckpt_dir, argv):
+    """``train.main`` on the group ``spawn_ranks`` initialized: ``argv``
+    with ``--steps 4`` unbroken, then ``--steps 2`` saving at 2, then
+    ``--steps 4 --restore``.  Returns (the unbroken run's params, the
+    restored run's), numpy, and the mesh ``train.main`` built."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_2d_mesh
+    whole = train.main(argv + ["--steps", "4"])
+    ck = ["--ckpt-dir", ckpt_dir, "--ckpt-interval", "2"]
+    train.main(argv + ["--steps", "2"] + ck)
+    resumed = train.main(argv + ["--steps", "4", "--restore"] + ck)
+    m = make_2d_mesh(device="cpu")
+    return {"whole": [t2n(p) for p in whole.parameters()],
+            "resumed": [t2n(p) for p in resumed.parameters()],
+            "mesh": (m.shape, m.data.index, m.data.distributed)}

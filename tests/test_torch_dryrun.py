@@ -49,12 +49,14 @@ from repro.launch import hlo_analysis as jhlo  # noqa: E402
 from repro.launch import specs as jspecs  # noqa: E402
 from repro.models import backbones as jbb  # noqa: E402
 from repro.models import sharding as jshd  # noqa: E402
+from repro.train import compress as jcompress  # noqa: E402
 from repro.train.optim import OptState as JOptState  # noqa: E402
 from repro.train.optim import adam as jax_adam  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.launch import dryrun, hlo_analysis  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.launch import specs as tspecs  # noqa: E402
 from repro_torch.models import backbones as tbb  # noqa: E402
 from repro_torch.models import sharding as tshd  # noqa: E402
 from repro_torch.models.config import ShapeCell  # noqa: E402
@@ -351,13 +353,22 @@ def test_run_cell_writes_jax_keys_and_argument_bytes(arch, kind, tmp_path):
     r = dryrun.run_cell(arch, cell, cfg=get_smoke_config(arch), n_micro=2,
                         save_dir=str(tmp_path), verbose=False)
     keys, memory = jax_result_keys()
-    assert set(r) == (keys - {"t_lower_s", "t_compile_s"}) | {"t_trace_s"}
+    assert set(r) == (keys - {"t_lower_s", "t_compile_s"}) | {
+        "t_trace_s", "collectives_scope"}
     assert set(r["memory"]) == memory
     assert r["memory"]["temp_bytes"] is None
     assert r["memory"]["peak_bytes"] is None
-    assert r["collectives_by_kind"] is None
-    assert r["roofline"]["t_collective_s"] is None
-    assert r["roofline"]["collective_bytes_per_device"] is None
+    if kind == "train":
+        # the gradient all-reduce over 'data' (test_train_cell_collectives)
+        assert set(r["collectives_by_kind"]) == set(
+            hlo_analysis._COLLECTIVES)
+        assert r["roofline"]["t_collective_s"] > 0
+        assert "Queue 1 item 3" in r["collectives_scope"]
+    else:
+        assert r["collectives_by_kind"] is None
+        assert r["collectives_scope"] is None
+        assert r["roofline"]["t_collective_s"] is None
+        assert r["roofline"]["collective_bytes_per_device"] is None
     assert r["mesh"] == "16x16" and r["n_chips"] == 256
     assert r["n_micro"] == (2 if kind == "train" else None)
     saved = json.loads((tmp_path / f"{r['arch']}__{cell.name}__16x16.json")
@@ -367,3 +378,51 @@ def test_run_cell_writes_jax_keys_and_argument_bytes(arch, kind, tmp_path):
         arch, cell, jax.sharding.AbstractMesh((16, 16), ("data", "model")))
     assert r["memory"]["argument_bytes"] == want
     assert tshd.get_global_mesh() is None  # run_cell restores the rules
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("compress", [None, "int8_ef"])
+def test_train_cell_collectives(compress, multi_pod):
+    """A train cell's optimizer is cross_replica over RecordingMeshes of
+    the dp axes: uncompressed, each axis all-reduces the f32 gradient (the
+    parameters' f32 bytes); compressed, the inner axis does so and the
+    outermost sends the int8 payload of JAX's compress.wire_bytes on JAX's
+    param tree (one scale a stacked leaf), plus the two health scalars (4
+    bytes each)."""
+    arch, cell = "mamba2-1.3b", SMALL["train"]
+    cfg = get_smoke_config(arch)
+    r = dryrun.run_cell(arch, cell, cfg=cfg, n_micro=2, verbose=False,
+                        compress=compress, multi_pod=multi_pod)
+    params = list(tspecs.param_specs(cfg, "train").parameters())
+    wb = jcompress.wire_bytes(jspecs.param_specs(jax_smoke(arch)))
+    assert wb["fp32_bytes"] == 4 * sum(p.numel() for p in params)
+    assert wb["int8_bytes"] < wire_bytes(params)["int8_bytes"]  # 2 layers
+    sizes = (2, 16) if multi_pod else (16,)
+    ring = [2 * (g - 1) / g for g in sizes]   # all-reduce wire factor
+    if compress is None:
+        want = sum(f * wb["fp32_bytes"] for f in ring)
+    else:
+        want = ring[0] * (wb["int8_bytes"] + 2 * 4) + sum(
+            f * wb["fp32_bytes"] for f in ring[1:])
+    coll = r["collectives_by_kind"]
+    assert coll["all-reduce"] == pytest.approx(want, rel=1e-12)
+    assert sum(coll.values()) == coll["all-reduce"]
+    assert r["roofline"]["collective_bytes_per_device"] == \
+        pytest.approx(want, rel=1e-12)
+    assert r["roofline"]["t_collective_s"] == pytest.approx(
+        want / tmesh.LINK_BW, rel=1e-12)
+    assert r["collectives_scope"].endswith(f"compress={compress}")
+
+
+def test_recording_mesh_sends_nothing():
+    """RecordingMesh: records one all-reduce a dtype, returns its inputs
+    (pmean undivided: the values of a meta count do not matter), and the
+    int8 psum records one byte an element and four a scale."""
+    m = tmesh.RecordingMesh(axis="data", size=4)
+    x, y = torch.ones(3), torch.ones(2, dtype=torch.int32)
+    with tmesh.record_collectives() as records:
+        out = m.pmean_all([x, y])
+        m.psum_all_([torch.ones(5), torch.ones(7)], int8_scales=2)
+    assert out[0] is x and out[1] is y
+    assert records == [("all-reduce", 12, 4), ("all-reduce", 8, 4),
+                       ("all-reduce", 5 + 4 + 7 + 4, 4)]

@@ -277,3 +277,28 @@ def test_port_draws_only_from_explicit_generators():
                     k.arg == "generator" for k in node.keywords):
                 bad.append((path.name, node.lineno, name))
     assert not bad, bad
+
+
+def _jax_exports(package: str) -> set:
+    """The names a package of the JAX package re-exports from its
+    ``__init__.py`` (read from its AST: this file imports no JAX)."""
+    tree = ast.parse((REPO / "src" / "repro" / package / "__init__.py")
+                     .read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+    return names
+
+
+@pytest.mark.parametrize("package", ["algos", "core", "models", "telemetry",
+                                     "train", "utils"])
+def test_packages_reexport_jax_names(package):
+    """Each of these port packages re-exports every name its JAX twin's
+    ``__init__.py`` does."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.{package}")
+    want = _jax_exports(package)
+    assert want, package
+    missing = sorted(n for n in want if not hasattr(mod, n))
+    assert not missing, f"repro_torch.{package} lacks {missing}"

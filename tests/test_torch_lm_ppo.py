@@ -593,3 +593,74 @@ def test_train_main_checkpoints_restore_and_profile(tmp_path, capsys):
             (tmp_path / "b" / "progress.jsonl").read_text().splitlines()]
     assert [r["step"] for r in rows] == [3]
     assert tckpt.latest_step(ck) == 3
+
+
+@pytest.mark.parametrize("arch", [DENSE, ARCH])
+def test_apply_superblock_train_matches_jax(arch):
+    """``backbones.apply_superblock_train`` (the public name of one
+    superblock's training forward) against JAX's on superblock 0 of the
+    smoke config at an f32 compute dtype, the plain routes: within 1e-4
+    (sums in another order)."""
+    jc = dataclasses.replace(jax_smoke(arch), compute_dtype="float32")
+    tc = torch_cfg(jc)
+    params = jbb.init_lm(jax.random.PRNGKey(0), jc)
+    lm = port_lm(params, jc)
+    x = np.random.RandomState(7).randn(2, 16, jc.d_model).astype(np.float32)
+    block = jax.tree_util.tree_map(lambda a: a[0], params["blocks"])
+    with jax_registry.override("ref"):
+        jy, jaux = jbb.apply_superblock_train(block, jnp.asarray(x), jc)
+    _, per_block, _ = bb.superblock_layout(tc)
+    with registry.override("ref"), torch.no_grad():
+        ty, taux = bb.apply_superblock_train(
+            torch.from_numpy(x), tc, (None, None, None),
+            *lm.layers[:per_block])
+    np.testing.assert_allclose(t2n(ty), j2n(jy), atol=1e-4, rtol=1e-4)
+    assert float(taux) == float(jaux) == 0.0
+
+
+@pytest.mark.parametrize("n_micro", [1, 2])
+def test_cast_weights_bf16_update_matches_jax(n_micro):
+    """``cfg.cast_weights_bf16`` (JAX's ``maybe_cast``): the forward and its
+    recompute read bf16 casts of every weight whose JAX leaf has two or
+    more dims, the gradients reach the f32 masters; one update of the
+    smoke gemma2 at an f32 compute dtype (remat on), in one microbatch and
+    in two (each enters its own cast), against JAX's with the same flag,
+    the plain routes: the dense test's bounds, and the casts move the loss
+    (it differs from the uncast update's)."""
+    jc, _, params = _dense(remat=True)
+    jc = dataclasses.replace(jc, cast_weights_bf16=True)
+    tc = torch_cfg(jc)
+    lm = port_lm(params, jc, requires_grad=True)
+    batch = _ppo_batch()
+    lr = 1e-3
+    jopt = joptim.adam(lr, grad_clip=1.0)
+    with jax_registry.override("ref"):
+        jstep = jax_ppo_step(jc, jopt, entropy_coeff=0.003,
+                             n_microbatches=n_micro)
+        jp, _, jm = jax.jit(jstep)(
+            params, jopt.init(params),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    topt = toptim.adam(lr, grad_clip=1.0)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with registry.override("ref"):
+        plain = make_lm_ppo_train_step(
+            dataclasses.replace(tc, cast_weights_bf16=False), topt,
+            entropy_coeff=0.003, n_microbatches=n_micro)
+        _, _, ref = plain(port_lm(params, jc, requires_grad=True),
+                          topt.init(lm.parameters()), tbatch)
+        lm, _, tm = make_lm_ppo_train_step(tc, topt, entropy_coeff=0.003,
+                                           n_microbatches=n_micro)(
+            lm, topt.init(lm.parameters()), tbatch)
+    assert all(p.dtype == torch.float32 for p in lm.parameters())
+    assert float(tm["loss"]) != float(ref["loss"])
+    for k in tm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    want = _named_jax(jp, lm, tc)
+    n_flip = n_all = 0
+    for name, p in lm.named_parameters():
+        err = np.abs(t2n(p) - want[name])
+        assert err.max() <= 1e-5 + 2 * lr, name
+        n_flip += int((err > 1e-5).sum())
+        n_all += err.size
+    assert n_flip <= 1e-3 * n_all, (n_flip, n_all)

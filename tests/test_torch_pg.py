@@ -826,3 +826,21 @@ def test_quickstart_defaults_and_cpu_run(tmp_path, capsys):
     assert row["sent_env_steps"] == 10 * 16 * 64
     assert all(math.isfinite(v) for v in row.values()
                if isinstance(v, float))
+
+
+def test_discounted_returns_matches_jax():
+    """``algos/pg/gae.py::discounted_returns`` (A2C's n-step target) and
+    its ``repro_torch.algos`` re-export against JAX's on the same (T, B)
+    rewards, dones and bootstrap: within 1e-6 (f32, one recurrence)."""
+    from repro.algos import discounted_returns as jret
+    from repro_torch.algos import discounted_returns as tret
+    r = np.random.RandomState(5)
+    rew = r.randn(9, 4).astype(np.float32)
+    done = r.rand(9, 4) < 0.2
+    boot = r.randn(4).astype(np.float32)
+    want = jret(jnp.asarray(rew), jnp.asarray(boot), jnp.asarray(done),
+                gamma=0.97)
+    got = tret(torch.from_numpy(rew), torch.from_numpy(boot),
+               torch.from_numpy(done), gamma=0.97)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                               rtol=1e-6)

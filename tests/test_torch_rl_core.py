@@ -370,3 +370,28 @@ def test_dqn_agent_matches_jax(n_atoms):
     a, _, _ = ta.step(tp, torch.Generator().manual_seed(0), torch.from_numpy(obs),
                       None, None, tst)
     assert a.shape == (B,) and set(a.tolist()) <= {0, 1, 2}
+
+
+def test_composite_space_and_dist_info_match_jax():
+    """``core/spaces.py::Composite`` (namedarraytuple samples and null
+    values of its sub-spaces) and ``core/distributions.py``'s ``DistInfo``
+    / ``DistInfoStd`` / ``EPS``, as JAX's."""
+    from repro.core import spaces as jspaces
+    from repro_torch.core import Composite
+    from repro_torch.core.distributions import DistInfo, DistInfoStd, EPS
+    jc = jspaces.Composite("Obs", pos=jspaces.Box(-1.0, 1.0, shape=(3,)),
+                           tok=jspaces.Discrete(5))
+    tc = Composite("Obs", pos=Box(-1.0, 1.0, shape=(3,)), tok=Discrete(5))
+    assert tc.shape == jc.shape == {"pos": (3,), "tok": ()}
+    assert repr(tc) == repr(jc)
+    jn, tn = jc.null_value(), tc.null_value()
+    assert type(tn)._fields == type(jn)._fields == ("pos", "tok")
+    for a, b in zip(tn, jn):
+        np.testing.assert_array_equal(a, np.asarray(b))
+        assert a.dtype == np.asarray(b).dtype
+    s = tc.sample(torch.Generator().manual_seed(0), (4,))
+    assert tuple(s.pos.shape) == (4, 3) and tuple(s.tok.shape) == (4,)
+    assert bool((s.pos.abs() <= 1).all()) and bool(((s.tok >= 0)
+                                                    & (s.tok < 5)).all())
+    assert DistInfo._fields == jdist.DistInfo._fields == ("mean", "log_std")
+    assert DistInfoStd is DistInfo and EPS == jdist.EPS

@@ -449,3 +449,27 @@ def test_serve_main_new_families_on_cpu(arch, tmp_path):
                           "--prompt-len", "16", "--gen", "6", "--log-dir",
                           str(tmp_path)])
     assert summary["n_finished"] == 4 and summary["decode_tok_per_sec"] > 0
+
+
+def test_make_generate_matches_jax_greedy():
+    """``launch/serve.py::make_generate`` (prefill and decode composed, the
+    generator to decode only) gives JAX's greedy tokens on the same smoke
+    gemma2 weights and prompts at an f32 compute dtype, and its own
+    phases' tokens."""
+    from repro.launch import serve as jserve
+    jc = dataclasses.replace(jax_smoke("gemma2-2b"), compute_dtype="float32")
+    params = jbb.init_lm(jax.random.PRNGKey(0), jc)
+    lm = port_lm(params, jc)
+    prompts = np.random.RandomState(6).randint(0, jc.vocab, (2, 8)).astype(
+        np.int32)
+    with jax_registry.override("ref"):
+        want = jserve.make_generate(jc, 2, 8, 5)(
+            params, jnp.asarray(prompts), jax.random.PRNGKey(1))
+    tc = torch_cfg(jc)
+    gen = serve.make_generate(tc, 2, 8, 5, device="cpu")
+    got = gen(lm, torch.from_numpy(prompts), torch.Generator())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    prefill, decode = serve.make_phases(tc, 2, 8, 5, device="cpu")
+    logits, cache = prefill(lm, torch.from_numpy(prompts))
+    np.testing.assert_array_equal(
+        decode(lm, logits, cache, torch.Generator()).numpy(), got.numpy())

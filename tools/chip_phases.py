@@ -1,0 +1,40 @@
+#!/usr/bin/env python3
+"""Run some phases of ``chip_smoke.py`` alone on one H100, with the
+kernels they need built first:
+
+    python3 tools/chip_phases.py PHASE [PHASE ...]
+
+PHASE is ``ssd_f64`` (phase 3's check of the full-width SSD instances
+against an f64 oracle, ``ssd_f64_check``) or ``lm_mesh`` (phase 11c, the
+LM mesh's data axis on two gloo ranks sharing the card,
+``lm_mesh_phase``).  Prints each phase's lines as ``chip_smoke.py`` does
+and the wall of each; exits non-zero where a check fails.
+"""
+import sys
+import time
+from pathlib import Path
+
+PHASES = {"ssd_f64": (["ssd_scan"], "ssd_f64_check"),
+          "lm_mesh": (None, "lm_mesh_phase")}
+
+if __name__ == "__main__":
+    names = sys.argv[1:]
+    unknown = [n for n in names if n not in PHASES]
+    if not names or unknown:
+        sys.exit(f"usage: chip_phases.py PHASE [PHASE ...] with PHASE in "
+                 f"{sorted(PHASES)} (unknown: {unknown})")
+    sys.argv = sys.argv[:1]
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs  # noqa: E402  (spawned ranks import it too)
+    print(cs.smi())
+    sources = set()
+    for n in names:
+        srcs = PHASES[n][0]
+        sources.update(srcs if srcs is not None else cs.build.SOURCES)
+    t0 = time.perf_counter()
+    cs.build.build(sorted(sources))
+    print(f"build {time.perf_counter() - t0:.1f} s")
+    for n in names:
+        t0 = time.perf_counter()
+        out = getattr(cs, PHASES[n][1])()
+        print(f"{n}: {time.perf_counter() - t0:.1f} s; returned {out}")
