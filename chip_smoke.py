@@ -87,7 +87,8 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    64-key tile) and granite, dh 16 with G 1, 2 and 4 at B 8, T 64, S 97;
    ``SLICE7``: zamba2-7b dh 112 G 1 and llama-3.2-vision-90b dh 128 G 8
    (H 64, Hkv 8) at T 1024, S 1089, whisper-medium dh 64 G 1 at T 384,
-   S 449),
+   S 449; ``TP_INSTANCES``: a granite-34b rank of a model axis of 2 and
+   4, dh 128 G 24 and G 12 with its one KV head, at T 1024, S 1089),
    at the continuous run's B 1 prompts and B 8 / B 1 decode steps, with
    the softcap reached (q x 20), and for decode at kv_len on every
    boundary of the split plan +-1 and at kv_len 1; the sensitivity checks
@@ -290,6 +291,21 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    rank's int8 scale of the uncompressed pmean, element by element, plus
    f32 slack (``LM_MESH_EF_BOUND``: round to nearest, the residual 0 at the
    first step), the residual's norm finite and non-zero;
+11d. slice phase, the LM mesh's 'model' axis: gloo ranks sharing cuda:0
+   run ``train.main --mesh DxM`` (``LM_TP``): two ranks (a)
+   qwen2-moe-a2.7b 1 x 2 at 4 layers, (b) mamba2-1.3b 1 x 2 at 4 and
+   granite-34b 1 x 2 at 2 (its (128, 24) decode instance); four ranks (c)
+   gemma2-2b 2 x 2 ``--compress`` at 4 and granite-34b 1 x 4 at 2 (its
+   (128, 12)), two steps each at full width: launches as their layers,
+   horizon and steps imply, rows finite with ``tp_allreduce_s``, the
+   ranks' peaks summing to at most ``PEAK_GIB``, the replicated leaves
+   equal bit for bit on a model group and its rollout's actions too; for
+   (a)-(c) on a fixed batch the ranks' update (bf16, the kernels) against
+   one process's at the same depth, the gradient and the loss within
+   twice what rounding alone moves the one-process update (bf16 against
+   f32 compute), where (b)'s split-use leaves left unsummed must fail;
+   (c)'s int8 update, the same pass, within ``LM_MESH_EF_BOUND`` of the
+   mean scale;
 12. on the same weights (drawn again), a ``torch.profiler`` pass measures
    the device's busy time per prefill, per decode step (gemma2-2b, then
    qwen2-moe-a2.7b and zamba2-7b at full width), per rollout of
@@ -330,7 +346,7 @@ serving, the eager decode profiled and 8 replayed steps beside it: a
 graph replays the eager step's kernels);
 13. each phase's wall time, the ``kernels`` JSON line (launch counts from
    phases 4-7, 6a, 9, 11b (both ranks' ``sum_tree_sample``
-   launches) and 11c (both ranks' attention and SSD launches), the
+   launches), 11c and 11d (every rank's attention and SSD launches), the
    largest error of phase 3, times at the
    serving shape; phases 5a, 8, 10 and 11 launch none; one entry an
    instance of phase 3b, its launches from phases 3c, 5b, 5c and 6b, timed
@@ -338,6 +354,7 @@ graph replays the eager step's kernels);
    launches from phases 3c, 6b and 6), then ``{"ok": true, "device":
    {...}}`` last.
 """
+import gc
 import json
 import math
 import os
@@ -597,6 +614,67 @@ LM_MESH_FIXED = 8
 # mean scale; 1e-3 of a scale covers the f32 sums (about 1e-5 of a scale
 # at 127 scales a value).  A quantiser that truncates lands near 1.
 LM_MESH_EF_BOUND = 0.5 + 1e-3
+# the LM mesh's 'model' axis (phase 11d): gloo ranks sharing the one card
+# train through train.main --mesh DxM, each rank holding its block of every
+# leaf the sharding rules split.  Widths are the published ones; depth is
+# cut as far as the ranks' state on one card forces (the ranks' peaks sum
+# to at most PEAK_GIB): (a) qwen2-moe-a2.7b at 4 of 24 layers on 1 x 2
+# (2.9 B parameters, about 23 GB of f32 weights, gradients and Adam
+# moments a rank), (c) gemma2-2b at 4 of 26 on 2 x 2 with --compress;
+# (b) mamba2-1.3b on 1 x 2 at horizon 256 (the scan's chunk is min(256,
+# T), and only the chunk-256 instances are built) is cut to 4 of 48 layers
+# by the phase's time, not its memory: its eager rollout sends 257 x (2 a
+# layer + 1) gloo collectives, about 2.5 ms each between two processes on
+# one card (at 24 layers the rollout took 50-61 s a step, at 4 layers
+# 7.8-8.6 s; the depth returns with the CUDA-graph rollout on NCCL ranks,
+# ROADMAP Queue 1 item 4).  granite-34b, one step at 1 of 88 layers on 1 x 2
+# and 1 x 4, gives its ranks' decode instances (128, 24) and (128, 12)
+# (its one KV head read by 24 and 12 query heads) their main-path launches
+# and holds its replicated wk / wv (split-use) equal after the update.
+# (a)-(c) hold the checks: the same actions and equal replicated leaves on a
+# model group, and the update on a fixed batch of LM_TP_FIXED rows against
+# one process's
+LM_TP = {"timeout": 600,
+         "qwen2": {"arch": "qwen2-moe-a2.7b", "layers": 4, "mesh": (1, 2),
+                   "batch": 8, "horizon": 32, "steps": 2, "compress": False},
+         "mamba2": {"arch": "mamba2-1.3b", "layers": 4, "mesh": (1, 2),
+                    "batch": 8, "horizon": 256, "steps": 2,
+                    "compress": False},
+         "granite24": {"arch": "granite-34b", "layers": 1, "mesh": (1, 2),
+                       "batch": 2, "horizon": 8, "steps": 1,
+                       "compress": False},
+         "gemma2": {"arch": "gemma2-2b", "layers": 4, "mesh": (2, 2),
+                    "batch": 8, "horizon": 64, "steps": 2, "compress": True},
+         "granite12": {"arch": "granite-34b", "layers": 1, "mesh": (1, 4),
+                       "batch": 2, "horizon": 8, "steps": 1,
+                       "compress": False}}
+# the decode instances only a model rank runs: granite-34b's one KV head
+# read by 24 (1 x 2) and 12 (1 x 4) query heads; phase 3b holds them
+TP_INSTANCES = (("granite-34b", 2), ("granite-34b", 4))
+LM_TP_SPAWNS = (("qwen2", "mamba2", "granite24"), ("gemma2", "granite12"))
+LM_TP_CHECKED = {"qwen2", "mamba2", "gemma2"}
+LM_TP_FIXED = 8
+LM_TP_ROLLOUT = {"batch": 4, "horizon": 16}
+# (c)'s f32 check: the M ranks' gradient on the plain versions in f32
+# against one process's f32 gradient of the same rows, as a share of its
+# norm (the whole and the split-use leaves), and the loss relative to
+# itself.  The ranks sum other partial products than one process, so f32
+# rounding alone separates them: 1.5e-06 (gemma2-2b) to 1.0e-04
+# (mamba2-1.3b, 4 layers) of the norm on the card; mamba2's split-use
+# leaves left partial read 0.42
+LM_TP_F32_BOUND = 1e-3
+LM_TP_F32_LOSS = 1e-4
+# the four-card proof (tools/chip_phases.py lm_tp4, not part of this
+# script's run): NCCL ranks, one card each, at full depth.  qwen2-moe's
+# 14.3 B parameters hold 53.4 GiB of f32 weights, gradients and Adam
+# moments a rank on 1 x 4; gemma2-2b's 3.2 B on 2 x 2 with --compress.
+LM_TP4 = {"timeout": 1800,
+          "qwen2": {"arch": "qwen2-moe-a2.7b", "layers": 24, "mesh": (1, 4),
+                    "batch": 8, "horizon": 256, "steps": 2,
+                    "compress": False},
+          "gemma2": {"arch": "gemma2-2b", "layers": 26, "mesh": (2, 2),
+                     "batch": 8, "horizon": 256, "steps": 2,
+                     "compress": True}}
 # the tooling phase (12b): rlpyt's variant launcher on the card, the dry
 # run's specs against allocations and its counts beside the phases' walls
 TOOLING = {"variants": {"arch": "gemma2-2b", "steps": 2, "batch": 4,
@@ -657,8 +735,10 @@ from repro_torch.launch import dryrun, launcher, serve, specs, train  # noqa: E4
 from repro_torch.launch.mesh import (AbstractMesh, HBM_BW,  # noqa: E402
                                      PEAK_FLOPS_BF16, make_data_mesh,
                                      spawn_ranks)
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import backbones as bb  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
+from repro_torch.models import sharding as shd  # noqa: E402
 from repro_torch.models.config import ShapeCell  # noqa: E402
 from repro_torch.models.convert import jax_leaf_groups  # noqa: E402
 from repro_torch.models.layers import record_routing  # noqa: E402
@@ -3464,6 +3544,629 @@ def lm_mesh_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 11d: the LM mesh's 'model' axis (train --mesh DxM, M > 1)
+# ---------------------------------------------------------------------------
+def lm_tp_cfg(name):
+    run = LM_TP[name]
+    return dataclasses.replace(get_config(run["arch"]),
+                               n_layers=run["layers"])
+
+
+def lm_tp_argv(name):
+    """``train.main``'s arguments for run ``name`` of LM_TP."""
+    run = LM_TP[name]
+    d, m = run["mesh"]
+    argv = ["--arch", run["arch"], "--full", "--layers", str(run["layers"]),
+            "--mesh", f"{d}x{m}", "--batch", str(run["batch"]),
+            "--horizon", str(run["horizon"]), "--steps", str(run["steps"]),
+            "--device", "cuda", "--seed", str(SEED)]
+    return argv + (["--compress"] if run["compress"] else [])
+
+
+def tp_local_cfg(cfg, n_model):
+    """``cfg`` as one rank of a model axis of ``n_model`` computes its
+    attention: its query heads and the KV heads they read
+    (``layers.kv_layout``), for the kernels line's instance names."""
+    heads, _, kv = tl.kv_layout(cfg, n_model)
+    return dataclasses.replace(cfg, name=f"{cfg.name} (1 of {n_model})",
+                               n_heads=heads, n_kv_heads=kv)
+
+
+def tp_mesh(name):
+    d, m = LM_TP[name]["mesh"]
+    return mesh_lib.install_2d(mesh_lib.make_2d_mesh(d, m, device="cuda"))
+
+
+def tp_release():
+    """Return this rank's freed blocks to the card (the ranks share it):
+    collect the cycles a run leaves (its closures, its optimizer state)
+    first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_replicated_equal(mesh, params, cfg) -> bool:
+    """Every leaf the rules replicate is equal bit for bit on the ranks of
+    this rank's model group."""
+    split = shd.model_split(params, cfg, mesh.model)
+    same = True
+    for p, sharded in zip(params.parameters(), split.sharded):
+        if not sharded:   # f32 master weights, compared as their bits
+            rows = mesh.model.all_gather(
+                p.detach().reshape(1, -1).view(torch.int32), dim=0)
+            same &= bool((rows == rows[:1]).all())
+    return same
+
+
+def tp_same_actions(mesh, params, cfg) -> bool:
+    """One eager rollout from a seeded generator on every rank: the actions
+    equal bit for bit across this rank's model group."""
+    env = make_token_lm(vocab=cfg.vocab, episode_len=LM_TP_ROLLOUT["horizon"],
+                        device=DEV)
+    rollout = train.make_lm_rollout(cfg, env, LM_TP_ROLLOUT["batch"],
+                                    LM_TP_ROLLOUT["horizon"], device=DEV,
+                                    graph=False)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 31 + mesh.data.index)
+    traj, _ = rollout(params, gen)
+    rows = mesh.model.all_gather(traj["actions"][None], dim=0)
+    return bool((rows == rows[:1]).all())
+
+
+def tp_update(name, sabotage=False):
+    """The update on run ``name``'s mesh on a fixed batch (its rows split
+    over the data axis, advantages normalised a data rank's slice), sgd(0)
+    so that its momentum buffer is the gradient it applied.  Returns this
+    rank's blocks of each pass's gradient, the passes' losses, the fixed
+    batch and this rank's rows:
+    - "bf16", on the kernels: split-use leaves summed over the model axis,
+      then the data mean.  A ``--compress`` run's update is the int8_ef
+      one, and the same pass holds it: the applied gradient against the
+      f32 data mean of the summed gradients (the blocks "bf16" keeps),
+      each element as a share of the mean over data ranks of the scale its
+      group was quantised with (the amax over the logical leaf: maxed over
+      the model axis).
+    - "f32" on the first data rank's model group, on the plain versions
+      in f32: the gradient of its own rows, split-use leaves summed (no
+      data mean, so one process's gradient of the same rows is its
+      reference); with ``sabotage``, "sabotaged", again with the split-use
+      leaves left partial."""
+    run = LM_TP[name]
+    mesh = tp_mesh(name)
+    try:
+        data, model = mesh.data, mesh.model
+        cfg = lm_tp_cfg(name)
+        batch = lm_fixed_batch(cfg, run["horizon"], data.size)
+        k = LM_TP_FIXED // data.size
+        mine = {key: v[data.index * k:(data.index + 1) * k]
+                for key, v in batch.items()}
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        params = bb.init_lm(cfg, device=DEV, generator=gen,
+                            dtype=torch.float32, requires_grad=True)
+        split = shd.model_split(params, cfg)
+        specs = shd.param_pspecs(params, cfg)
+        names = list(split.names)
+        groups = jax_leaf_groups(names, cfg)
+        out = {"split_use": [n for n, s in zip(names, split.split_use) if s],
+               "names": names, "specs": specs, "model": model,
+               "data_index": data.index, "data_size": data.size}
+
+        def compressed():
+            copt = optim.cross_replica(
+                optim.sgd(0.0), data, compress="int8_ef",
+                ef_shards=data.size, scale_groups=groups, model=split)
+
+            def update(grads, state, p):
+                summed = split.sum_split_(grads)
+                amax = model.pmax(torch.stack([torch.amax(torch.stack(
+                    [torch.amax(torch.abs(summed[i])) for i in g]))
+                    for g in groups]))
+                scales = data.pmean(amax / 127.0)
+                # the f32 data mean a leaf at a time, kept on the host:
+                # four ranks' int8 state share the card
+                want = [data.pmean(t).cpu() for t in summed]
+                del summed
+                p, state, gnorm = copt.update(grads, state, p)
+                worst = 0.0
+                for gi, g in enumerate(groups):
+                    for i in g:
+                        err = torch.amax(torch.abs(state.inner.mu[i]
+                                                   - want[i].to(DEV)))
+                        worst = max(worst, float(err / scales[gi]))
+                out["compressed"] = {"worst_share": worst}
+                out["bf16"] = want
+                return p, state, gnorm
+
+            return optim.Optimizer(copt.init, update)
+
+        def run_step(c, opt, rows):
+            step = make_lm_ppo_train_step(c, opt, entropy_coeff=0.003,
+                                          param_pspecs=specs)
+            _, state, m = step(params, opt.init(params.parameters()), rows)
+            return state, m
+
+        opt = compressed() if run["compress"] else \
+            optim.cross_replica(optim.sgd(0.0), data, model=split)
+        state, m = run_step(cfg, opt, mine)
+        if run["compress"]:
+            out["compressed"].update(
+                {key: float(m[key]) for key in ("compress_err_norm",
+                                                "grad_norm_shard_max")})
+        else:
+            out["bf16"] = state.mu
+        out["loss_bf16"] = float(data.pmean(m["loss"]))
+        del state
+        if data.index == 0:
+            passes = [("f32", split)]
+            if sabotage:
+                passes.append(("sabotaged", dataclasses.replace(
+                    split, split_use=(False,) * len(names))))
+            cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+            with registry.override("ref"):
+                for key, sp in passes:
+                    state, m = run_step(
+                        cfg32, optim.cross_replica(optim.sgd(0.0), (),
+                                                   model=sp), mine)
+                    out[key], out[f"loss_{key}"] = state.mu, float(m["loss"])
+                    del state
+        del params
+        tp_release()
+        return out, batch, mine
+    finally:
+        mesh_lib.install_2d(None)
+
+
+def tp_partial_dist(out, key, full):
+    """This rank's share of ``||ranks' - full||^2`` and ``||full||^2``
+    between pass ``key``'s blocks (``tp_update``) and the one-process
+    gradient ``full``, over the whole gradient and over the split-use
+    leaves: a sharded leaf's block against the same block of ``full``, a
+    replicated leaf whole, weighted 1 / M (every model rank adds it).
+    Summed over a model group's ranks they give the whole distance."""
+    model, specs = out["model"], out["specs"]
+    sums = [0.0, 0.0, 0.0, 0.0]
+    for n, a, b in zip(out["names"], out.pop(key), full):
+        sharded = bool(shd.model_dims(specs[n]))
+        if sharded:
+            b = shd.local_slice(n, b, specs[n], model)
+        w = 1.0 if sharded else 1.0 / model.size
+        d = w * float(optim.sum_squares([a.to(DEV) - b]))
+        r = w * float(optim.sum_squares([b]))
+        sums[0] += d
+        sums[1] += r
+        if n in out["split_use"]:
+            sums[2] += d
+            sums[3] += r
+    return sums
+
+
+def tp_identity(name, sabotage=False):
+    """(c) of phase 11d: the M-rank update against one process's on the
+    same fixed batch at the same depth.  Each rank of the first data
+    rank's model group, one at a time (the ranks share the card), draws
+    the whole model and computes one process's gradients, and returns its
+    share of each distance (``tp_partial_dist``); the report sums the
+    shares.  bf16 on the kernels: the ranks' partial products round
+    otherwise than one process's whole ones, so the yardstick is how far
+    rounding alone moves the one-process update (bf16 against f32, on
+    model rank 0).  f32 on the plain versions: within LM_TP_F32_BOUND.
+    The other ranks wait at the barriers."""
+    tp, batch, mine = tp_update(name, sabotage)
+    world = make_data_mesh(device="cuda")
+    model = tp["model"]
+    out = {"split_use": tp["split_use"], "compressed": tp.get("compressed"),
+           "loss_bf16": tp["loss_bf16"]}
+    cfg = lm_tp_cfg(name)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    if tp["data_index"]:
+        del tp["bf16"]   # the first data rank's blocks are the same
+    for turn in range(model.size):
+        if tp["data_index"] == 0 and model.index == turn:
+            params, _ = lm_mesh_model(cfg)
+            g1, _, m1 = lm_gradient(cfg, params, optim.sgd(0.0), batch)
+            out["bf16"] = tp_partial_dist(tp, "bf16", g1)
+            with registry.override("ref"):
+                g32, _, m32 = lm_gradient(cfg32, params, optim.sgd(0.0),
+                                          batch)
+                # the f32 passes' rows: the whole batch on one data rank
+                g32m, _, mm = (g32, None, m32) if tp["data_size"] == 1 \
+                    else lm_gradient(cfg32, params, optim.sgd(0.0), mine)
+            for key in ("f32", "sabotaged"):
+                if key in tp:
+                    out[key] = tp_partial_dist(tp, key, g32m)
+            out.update(loss_f32=tp["loss_f32"], loss_whole=float(m1["loss"]),
+                       loss_whole_f32=float(m32["loss"]),
+                       loss_mine_f32=float(mm["loss"]))
+            if model.index == 0:
+                split_idx = [tp["names"].index(n) for n in tp["split_use"]]
+                out["precision"] = rel_dist(g1, g32)
+                out["precision_split"] = rel_dist(
+                    [g1[i] for i in split_idx],
+                    [g32[i] for i in split_idx]) if split_idx else 0.0
+            del g1, g32, g32m, params
+        tp_release()
+        world.barrier()
+    del tp
+    tp_release()
+    return out
+
+
+def lm_tp_rank(world, names, log_dir):
+    """One rank of a phase-11d spawn: each run of ``names`` through
+    ``train.main`` on the group spawn_ranks initialized (launches, peak
+    memory, rows, finite parameters), the replicated leaves and the
+    actions of its model group, then (c)'s checks of the checked runs."""
+    torch.cuda.set_device(world.device)
+    out = {"device": str(world.device)}
+    for name in names:
+        d = Path(log_dir) / name
+        tp_release()
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_counters()
+        t0 = time.perf_counter()
+        params = train.main(lm_tp_argv(name) + ["--log-dir", str(d)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        mine = d if world.index == 0 else d / f"rank_{world.index}"
+        cfg = lm_tp_cfg(name)
+        mesh = tp_mesh(name)
+        try:
+            with torch.no_grad():
+                replicated = tp_replicated_equal(mesh, params, cfg)
+                actions = tp_same_actions(mesh, params, cfg)
+        finally:
+            mesh_lib.install_2d(None)
+        out[name] = {
+            "wall": wall, "launches": launches,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "finite": all(bool(torch.isfinite(p).all())
+                          for p in params.parameters()),
+            "replicated_equal": replicated, "same_actions": actions,
+            "rows": [json.loads(ln) for ln in
+                     (mine / "progress.jsonl").read_text().splitlines()]}
+        del params
+        tp_release()
+    t0 = time.perf_counter()
+    for name in names:
+        if name in LM_TP_CHECKED:
+            t1 = time.perf_counter()
+            out[name]["identity"] = tp_identity(name, sabotage=name == "mamba2")
+            out[name]["check_s"] = time.perf_counter() - t1
+    out["checks_s"] = time.perf_counter() - t0
+    return out
+
+
+def lm_tp_phase():
+    """Phase 11d: the 'model' axis on gloo ranks sharing cuda:0 (LM_TP):
+    two ranks train (a) qwen2-moe-a2.7b and (b) mamba2-1.3b on 1 x 2 and
+    granite-34b's (128, 24) ranks; four train (c) gemma2-2b on 2 x 2 with
+    --compress and granite-34b's (128, 12) ranks; then (a)-(c)'s updates
+    on the fixed batch against one process's (``tp_identity``).  Returns
+    the ranks' launches: the bare entry points' (gemma2-2b's dh 256) and
+    the instances' by name."""
+    t_phase = time.perf_counter()
+    tp_release()   # this process's cached blocks, before the ranks share
+    print("slice phase: the LM mesh's 'model' axis (gloo ranks on "
+          f"{DEV}, this process holding "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB: "
+          + "; ".join(" ".join(lm_tp_argv(k)) for k in LM_TP
+                      if k != "timeout") + ")")
+    bare, inst, checks_s = {}, {}, []
+    with tempfile.TemporaryDirectory() as d:
+        for names in LM_TP_SPAWNS:
+            n = math.prod(LM_TP[names[0]]["mesh"])
+            ranks = spawn_ranks(lm_tp_rank, n, (names, d), device="cuda",
+                                timeout=LM_TP["timeout"],
+                                collective_timeout=LM_TP["timeout"])
+            checks_s += [o["checks_s"] for o in ranks]
+            for name in names:
+                lm_tp_report(name, [o[name] for o in ranks], bare, inst)
+    print(f"  checks {max(checks_s):.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({smi()})")
+    return bare, inst
+
+
+def lm_tp_report(name, ranks, bare, inst):
+    """Hold and print run ``name``'s ranks' results (``lm_tp_rank``); add
+    its launches into ``bare`` / ``inst``."""
+    card = smi()
+    run = LM_TP[name]
+    cfg = lm_tp_cfg(name)
+    d, m = run["mesh"]
+    steps, T, sites = run["steps"], run["horizon"], attn_sites(cfg)
+    want = {"flash_attention": 2 * sites * steps,
+            "flash_attention_decode": sites * (T + 1) * steps,
+            "ssd_scan": 2 * ssd_layers(cfg) * steps}
+    keys = {"avg_reward", "loss", "entropy", "samples_per_sec",
+            "rollout_s", "update_s", "allreduce_s", "tp_allreduce_s"} | (
+        {"compress_err_norm", "grad_norm_shard_max"} if run["compress"]
+        else set())
+    peak = 0.0
+    for i, o in enumerate(ranks):
+        got = {k: o["launches"].get(k, 0) for k in want}
+        if got != want:
+            fail(f"LM model axis {name} rank {i}: launches {got}, "
+                 f"expected {want}")
+        rows = o["rows"]
+        if [row["step"] for row in rows] != list(range(1, steps + 1)) \
+                or not o["finite"] or any(
+                    not keys <= set(row) or not all(
+                        math.isfinite(row[k]) for k in keys)
+                    for row in rows):
+            fail(f"LM model axis {name} rank {i}: rows {rows}, params "
+                 f"finite {o['finite']}")
+        if not (o["replicated_equal"] and o["same_actions"]):
+            fail(f"LM model axis {name} rank {i}: replicated leaves "
+                 f"equal {o['replicated_equal']}, same actions "
+                 f"{o['same_actions']}")
+        peak += o["peak_gib"]
+        if cfg.d_head == 256:   # gemma2-2b's: the bare entry points
+            for k in ("flash_attention", "flash_attention_decode"):
+                bare[k] = bare.get(k, 0) + got[k]
+        else:
+            add_by_instance(inst, tp_local_cfg(cfg, m), got)
+        for row in rows:
+            print(f"  {name} {d}x{m} rank {i} step {row['step']}: "
+                  f"rollout_s {row['rollout_s']:.3f}, update_s "
+                  f"{row['update_s']:.3f} (data all-reduce "
+                  f"{row['allreduce_s']:.3f}), model-axis collectives "
+                  f"{row['tp_allreduce_s']:.3f} s, samples_per_sec "
+                  f"{row['samples_per_sec']:.1f}, loss {row['loss']:.5f}")
+        print(f"  {name} rank {i} ({o['launches']}): "
+              f"max_memory_allocated {o['peak_gib']:.2f} GiB, "
+              f"train.main {o['wall']:.1f} s, replicated leaves equal, "
+              f"same actions ({card})")
+    print(f"  {name}: the ranks' peaks sum to {peak:.2f} GiB (limit "
+          f"{PEAK_GIB})")
+    if peak > PEAK_GIB:
+        fail(f"LM model axis {name}: the ranks' peaks {peak:.2f} GiB > "
+             f"{PEAK_GIB}")
+    if name in LM_TP_CHECKED:
+        print(f"  {name} checks {ranks[0]['check_s']:.1f} s")
+        lm_tp_checks(name, [o["identity"] for o in ranks])
+
+
+def lm_tp_checks(name, ids):
+    """Hold run ``name``'s (c) and (d): its ranks' ``tp_identity``
+    results, in rank order."""
+    d, m = LM_TP[name]["mesh"]
+    shares = [c for c in ids if "bf16" in c]
+    c = dict(shares[0])
+
+    def dist(key):
+        """Pass ``key``'s distance from one process's, over the whole
+        gradient and over the split-use leaves: the ranks' shares
+        summed."""
+        t = [sum(sh[key][j] for sh in shares) for j in range(4)]
+        return math.sqrt(t[0] / t[1]), \
+            math.sqrt(t[2] / t[3]) if t[3] else 0.0
+
+    for key in ("bf16", "f32", "sabotaged"):
+        if key in c:
+            c[f"{key}_vs_whole"], c[f"{key}_split_vs_whole"] = dist(key)
+    grad_tol = 2 * c["precision"] + 1e-6
+    split_tol = 2 * c["precision_split"] + 1e-6
+    loss_tol = 2 * abs(c["loss_whole_f32"] - c["loss_whole"]) + \
+        1e-6 * abs(c["loss_whole"])
+    f32_loss_tol = LM_TP_F32_LOSS * abs(c["loss_mine_f32"])
+    print(f"  {name} update on the fixed batch ({LM_TP_FIXED} rows, bf16 on "
+          f"the kernels): the {d}x{m} gradient {c['bf16_vs_whole']:.3e} of "
+          f"its norm from one process's; rounding alone (one process in "
+          f"bf16 against f32) {c['precision']:.3e}: bound "
+          f"{grad_tol:.3e} (2x); split-use leaves ({len(c['split_use'])}) "
+          f"{c['bf16_split_vs_whole']:.3e}, bound {split_tol:.3e}; loss "
+          f"{c['loss_bf16']:.7f} vs {c['loss_whole']:.7f} (f32 "
+          f"{c['loss_whole_f32']:.7f}; bound {loss_tol:.3e})")
+    print(f"  {name} in f32 on the plain versions ({LM_TP_FIXED // d} rows, "
+          f"the first data rank's): the gradient {c['f32_vs_whole']:.3e} of "
+          f"its norm from one process's, split-use leaves "
+          f"{c['f32_split_vs_whole']:.3e} (bound {LM_TP_F32_BOUND:.0e}); "
+          f"loss {c['loss_f32']:.7f} vs {c['loss_mine_f32']:.7f} (bound "
+          f"{f32_loss_tol:.3e})")
+    if not (c["bf16_vs_whole"] <= grad_tol
+            and c["bf16_split_vs_whole"] <= split_tol
+            and abs(c["loss_bf16"] - c["loss_whole"]) <= loss_tol):
+        fail(f"LM model axis {name}: not the one-process update: {c}")
+    if not (c["f32_vs_whole"] <= LM_TP_F32_BOUND
+            and c["f32_split_vs_whole"] <= LM_TP_F32_BOUND
+            and abs(c["loss_f32"] - c["loss_mine_f32"]) <= f32_loss_tol):
+        fail(f"LM model axis {name}: not the one-process update in f32: {c}")
+    if "sabotaged_vs_whole" in c:
+        caught = not (c["sabotaged_vs_whole"] <= LM_TP_F32_BOUND
+                      and c["sabotaged_split_vs_whole"] <= LM_TP_F32_BOUND)
+        print(f"  {name} sabotage (split-use leaves left partial, f32): "
+              f"{c['sabotaged_vs_whole']:.3e} of the norm, split-use "
+              f"{c['sabotaged_split_vs_whole']:.3e}: caught {caught}")
+        if not caught:
+            fail(f"LM model axis {name}: the sabotaged split passed")
+    for i, o in enumerate(ids):
+        q = o["compressed"]
+        if q is None:
+            continue
+        print(f"  {name} rank {i} int8_ef update: |applied - pmean| at most "
+              f"{q['worst_share']!r} of the mean scale (bound "
+              f"{LM_MESH_EF_BOUND!r}), compress_err_norm "
+              f"{q['compress_err_norm']:.4g}, grad_norm_shard_max "
+              f"{q['grad_norm_shard_max']:.4g}")
+        if not (q["worst_share"] <= LM_MESH_EF_BOUND
+                and 0 < q["compress_err_norm"] < math.inf):
+            fail(f"LM model axis {name} compressed update, rank {i}: {q}")
+
+
+def lm_ppo_loss(params, cfg, batch):
+    """The LM-PPO step's loss (``algos/pg/ppo.py``'s ``loss_fn``, entropy
+    coefficient 0.003) and the per-token ``logp`` of the actions, with no
+    gradient."""
+    with torch.no_grad():
+        hidden, aux = bb.forward_train(params, batch["tokens"], cfg)
+        logits = bb.lm_logits(params, hidden, cfg).float()
+        value = bb.value_out(params, hidden)
+        logp_all = F.log_softmax(logits, dim=-1)
+        logp = torch.gather(logp_all, -1,
+                            batch["actions"].long()[..., None])[..., 0]
+        ratio = torch.exp(logp - batch["logp_old"])
+        adv = batch["advantage"]
+        pi = -torch.mean(torch.minimum(ratio * adv,
+                                       torch.clamp(ratio, 0.8, 1.2) * adv))
+        v = 0.5 * torch.mean(torch.square(value - batch["return_"]))
+        ent = -torch.mean(torch.sum(torch.exp(logp_all) * logp_all, dim=-1))
+        return float(pi + 0.5 * v - 0.003 * ent + 0.01 * aux), logp
+
+
+def lm_tp4_run(world, name, log_dir):
+    """One run of LM_TP4 on this rank through ``train.main``: its rows,
+    launches, peak memory, finite parameters; returns them and the
+    rank's LM."""
+    run = LM_TP4[name]
+    d, m = run["mesh"]
+    argv = ["--arch", run["arch"], "--full", "--layers", str(run["layers"]),
+            "--mesh", f"{d}x{m}", "--batch", str(run["batch"]),
+            "--horizon", str(run["horizon"]), "--steps", str(run["steps"]),
+            "--device", "cuda", "--seed", str(SEED),
+            "--log-dir", str(Path(log_dir) / name)]
+    tp_release()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counters()
+    t0 = time.perf_counter()
+    params = train.main(argv + (["--compress"] if run["compress"] else []))
+    torch.cuda.synchronize()
+    mine = Path(log_dir) / name
+    if world.index:
+        mine = mine / f"rank_{world.index}"
+    return params, {
+        "wall": time.perf_counter() - t0, "launches": kernel_launches(),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "finite": all(bool(torch.isfinite(p).all())
+                      for p in params.parameters()),
+        "rows": [json.loads(ln) for ln in
+                 (mine / "progress.jsonl").read_text().splitlines()]}
+
+
+def lm_tp4_rank(world, log_dir):
+    """A rank of the four-card proof: qwen2-moe-a2.7b at full width and
+    depth on 1 x 4, then its fixed-batch loss and logp on the ranks
+    against one card's forward of the same weights (gathered leaf by leaf
+    into f32 on rank 0), in bf16 and, as rounding's yardstick, in f32
+    with the plain kernels; then gemma2-2b on 2 x 2 --compress."""
+    torch.cuda.set_device(world.device)
+    out = {"device": str(world.device), "backend": world.backend}
+    params, out["qwen2"] = lm_tp4_run(world, "qwen2", log_dir)
+    run = LM_TP4["qwen2"]
+    cfg = dataclasses.replace(get_config(run["arch"]), n_layers=run["layers"])
+    batch = lm_fixed_batch(cfg, run["horizon"], 1)
+    d, m = run["mesh"]
+    mesh = mesh_lib.install_2d(mesh_lib.make_2d_mesh(d, m, device="cuda"))
+    try:
+        specs = shd.param_pspecs(params, cfg)
+        loss_tp, logp_tp = lm_ppo_loss(params, cfg, batch)
+        out["qwen2"]["loss_tp"] = loss_tp
+        names = [n for n, _ in params.named_parameters()]
+        locals_ = [p.detach().cpu() for p in params.parameters()]
+        del params
+        tp_release()
+    finally:
+        mesh_lib.install_2d(None)
+    torch.cuda.reset_peak_memory_stats()
+    full = bb.LM(cfg, device=DEV, dtype=torch.float32) \
+        if world.index == 0 else None
+    targets = dict(full.named_parameters()) if full is not None else {}
+    with torch.no_grad():
+        for n, t in zip(names, locals_):
+            g = shd.gather_leaf(n, t.to(DEV), specs[n], mesh.model)
+            if full is not None:
+                targets[n].copy_(g)
+            del g
+    del locals_
+    tp_release()
+    if full is not None:
+        loss_1, logp_1 = lm_ppo_loss(full, cfg, batch)
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        with registry.override("ref"):
+            loss_f32, logp_ref = lm_ppo_loss(full, f32, batch)
+        out["qwen2"].update(
+            loss_one=loss_1, loss_f32=loss_f32,
+            logp_tp_vs_one=float(torch.mean(torch.abs(logp_tp - logp_1))),
+            logp_one_vs_f32=float(torch.mean(torch.abs(logp_1 - logp_ref))),
+            logp_tp_vs_f32=float(torch.mean(torch.abs(logp_tp - logp_ref))),
+            logp_max_tp_vs_one=float(torch.amax(torch.abs(logp_tp - logp_1))),
+            one_card_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del full, targets, logp_1, logp_ref
+    del logp_tp
+    tp_release()
+    make_data_mesh(device="cuda").barrier()
+    params, out["gemma2"] = lm_tp4_run(world, "gemma2", log_dir)
+    del params
+    tp_release()
+    return out
+
+
+def lm_tp4_phase():
+    """The four-card proof of the 'model' axis (``tools/chip_phases.py
+    lm_tp4``): four NCCL ranks, a card each (LM_TP4).  Raises unless the
+    machine has 4 cards."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        fail(f"lm_tp4 needs 4 CUDA devices, found {n}")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spawn_ranks(lm_tp4_rank, 4, (d,), device="cuda",
+                            timeout=LM_TP4["timeout"],
+                            collective_timeout=LM_TP4["timeout"])
+    card = "; ".join(smi().splitlines())
+    print(f"four-card proof ({card}): ranks on "
+          f"{[r['device'] for r in ranks]}, collectives "
+          f"{ranks[0]['backend']}")
+    for name, run in LM_TP4.items():
+        if name == "timeout":
+            continue
+        cfg = dataclasses.replace(get_config(run["arch"]),
+                                  n_layers=run["layers"])
+        steps, T, sites = run["steps"], run["horizon"], attn_sites(cfg)
+        want = {"flash_attention": 2 * sites * steps,
+                "flash_attention_decode": sites * (T + 1) * steps}
+        for i, r in enumerate(ranks):
+            o = r[name]
+            got = {k: o["launches"].get(k, 0) for k in want}
+            rows = o["rows"]
+            ok = got == want and o["finite"] and \
+                [row["step"] for row in rows] == list(range(1, steps + 1))
+            for row in rows:
+                print(f"  {name} {run['mesh'][0]}x{run['mesh'][1]} rank {i} "
+                      f"step {row['step']}: rollout_s {row['rollout_s']:.3f},"
+                      f" update_s {row['update_s']:.3f} (data all-reduce "
+                      f"{row['allreduce_s']:.3f}), model-axis collectives "
+                      f"{row['tp_allreduce_s']:.3f} s, samples_per_sec "
+                      f"{row['samples_per_sec']:.1f}, loss {row['loss']:.5f}")
+            print(f"  {name} rank {i}: max_memory_allocated "
+                  f"{o['peak_gib']:.2f} GiB, train.main {o['wall']:.1f} s, "
+                  f"launches {got} ({card})")
+            if not ok:
+                fail(f"four-card {name} rank {i}: launches {got} (expected "
+                     f"{want}), finite {o['finite']}, rows {rows}")
+            if o["peak_gib"] > PEAK_GIB:
+                fail(f"four-card {name} rank {i}: peak {o['peak_gib']:.2f} "
+                     f"GiB > {PEAK_GIB}")
+    q = ranks[0]["qwen2"]
+    bound = 2 * q["logp_one_vs_f32"] + 1e-6
+    loss_bound = 2 * abs(q["loss_one"] - q["loss_f32"]) + 1e-6
+    print(f"  qwen2-moe-a2.7b fixed batch ({LM_TP_FIXED} x "
+          f"{LM_TP4['qwen2']['horizon']}) after training: loss on the 4 "
+          f"ranks {q['loss_tp']:.6f}, one card {q['loss_one']:.6f} (bf16), "
+          f"{q['loss_f32']:.6f} (f32, plain kernels): |ranks - one| "
+          f"{abs(q['loss_tp'] - q['loss_one']):.3e}, bound {loss_bound:.3e} "
+          f"(2x bf16 vs f32); mean |logp ranks - one| "
+          f"{q['logp_tp_vs_one']:.4e} (max {q['logp_max_tp_vs_one']:.4e}), "
+          f"bf16 vs f32 {q['logp_one_vs_f32']:.4e}: bound {bound:.4e}; one "
+          f"card's peak {q['one_card_peak_gib']:.2f} GiB")
+    if not (q["logp_tp_vs_one"] <= bound
+            and abs(q["loss_tp"] - q["loss_one"]) <= loss_bound):
+        fail(f"four-card qwen2: the ranks' forward is not the one card's: "
+             f"{q}")
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return ranks
+
+
+# ---------------------------------------------------------------------------
 # slice 6: the attention instances of the moe family and the other dense
 # configs, their serving runs and route checks, the smoke entry points
 # ---------------------------------------------------------------------------
@@ -3597,7 +4300,8 @@ def instance_phase():
     errs, timing = {}, {"grid": {}}
     shapes = [(slice6_cfg(a), SERVE6) for a in SLICE6] + \
         [(get_smoke_config(a), SMOKE_SERVE) for a in SMOKE6] + \
-        [(slice6_cfg(a), SERVE7[a]) for a in SLICE7]
+        [(slice6_cfg(a), SERVE7[a]) for a in SLICE7] + \
+        [(tp_local_cfg(slice6_cfg(a), m), SERVE6) for a, m in TP_INSTANCES]
     sensitive = {"glm4-9b", "qwen2-moe-a2.7b", "mixtral-smoke"} | set(SLICE7)
     for cfg, run in shapes:
         instance_checks(cfg, run, gen, errs, cfg.name in sensitive)
@@ -4564,6 +5268,11 @@ def main() -> None:
         add_by_instance(inst_launches, get_config("mamba2-1.3b"),
                         {"ssd_scan": lm_mesh_launches.pop("mamba2 ssd_scan")})
         lap("11c lm mesh")
+        tp_launches, tp_inst = lm_tp_phase()
+        for k, v in tp_inst.items():
+            inst_launches[k] = inst_launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+        lap("11d lm model axis")
 
     # last, because the profiler slows every later launch of the process
     print("profile: where the time goes (not the main path's counts)")
@@ -4600,13 +5309,16 @@ def main() -> None:
     launches = {
         "flash_attn_fwd": fixed["flash_attn_fwd"] + cont["flash_attn_fwd"]
         + gemma_launches["flash_attention"]
-        + lm_mesh_launches["flash_attention"],
+        + lm_mesh_launches["flash_attention"]
+        + tp_launches["flash_attention"],
         "flash_attn_decode": fixed["flash_attn_decode"]
         + cont["flash_attn_decode"] + gemma_launches["flash_attention_decode"]
-        + lm_mesh_launches["flash_attention_decode"]}
+        + lm_mesh_launches["flash_attention_decode"]
+        + tp_launches["flash_attention_decode"]}
     print(f"attention launches on the main path: {launches} (fixed rounds "
           f"{fixed}, continuous {cont}, gemma2 training {gemma_launches}, "
-          f"the LM mesh's ranks {lm_mesh_launches})")
+          f"the LM mesh's ranks {lm_mesh_launches}, the model axis' ranks "
+          f"{tp_launches})")
     kernels = []
     for name in ("flash_attn_fwd", "flash_attn_decode"):
         t = timing[name]
@@ -4620,7 +5332,7 @@ def main() -> None:
     # (instance_phase's order: the slice's main path first)
     print(f"instance launches on the main path: {inst_launches} (smoke "
           "entry points, slice-6 and slice-7 serving, zamba2-7b and "
-          "mamba2-1.3b training)")
+          "mamba2-1.3b training, the model axis' ranks)")
     primary = {}
     for (name, arch), t in inst_timing.items():
         primary.setdefault(name, (arch, t))

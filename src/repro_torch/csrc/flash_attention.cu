@@ -66,8 +66,9 @@
 //         G * EPL <= 16, so three share an SM.
 //       - G >= 8 (flash_decode_mma_kernel): G query rows per key make the
 //         product worth the tensor cores.  The G query heads of a KV head
-//         are the M of mma.sync m16n8k16 products (G / 16 row tiles; at G 8
-//         one tile half filled, its upper rows zero), a warp takes one row
+//         are the M of mma.sync m16n8k16 products (ceil(G / 16) row
+//         tiles, the rows past G of the last one zero: at G 8 / 12 one tile
+//         half / three quarters filled, at G 24 two), a warp takes one row
 //         tile and 16 keys of each 64-key stage, scores and P V on the
 //         tensor cores, P kept in registers between them.  (At G 8 the
 //         CUDA-core kernel would hold 2 x 64 floats of q and acc a lane.)
@@ -1030,7 +1031,7 @@ constexpr int kMmaStages = 3;
 
 template <int DH, int G>
 struct DecMmaSmem {
-  static constexpr int MT = (G + 15) / 16;  // row tiles of query heads (G 8: half of one)
+  static constexpr int MT = (G + 15) / 16;  // row tiles of query heads (G 8 / 12: one, part filled; 24: two)
   static constexpr int WARPS = MT * kMmaKeyGroups;
   static constexpr int THREADS = WARPS * 32;
   static constexpr int PITCH = DH + 8;  // elements a row in shared memory
@@ -1038,8 +1039,8 @@ struct DecMmaSmem {
   static constexpr int RING_BYTES = kMmaStages * STAGE_ELEMS * 2;
   static constexpr int PART_BYTES = WARPS * 16 * (DH + 2) * 4;
   static constexpr int BYTES = RING_BYTES > PART_BYTES ? RING_BYTES : PART_BYTES;
-  static_assert((G % 16 == 0 || G == 8) && DH % 16 == 0 && THREADS <= 1024,
-                "16-row tiles (rows G..15 of a half tile zero), 16-dim steps");
+  static_assert(G >= 8 && G % 4 == 0 && DH % 16 == 0 && THREADS <= 1024,
+                "16-row tiles (the rows past G of the last tile zero), 16-dim steps");
 };
 
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -1362,7 +1363,7 @@ cudaError_t max_clusters(int n_split, int* clusters) {
 #define REPRO_FWD_INSTANCES(X) X(16) X(64) X(96) X(112) X(128) X(256)
 #define REPRO_DECODE_INSTANCES(X)                                                    \
   X(16, 1) X(16, 2) X(16, 4) X(64, 1) X(96, 1) X(112, 1) X(128, 1) X(128, 4) X(128, 8) \
-  X(128, 16) X(128, 48) X(256, 2)
+  X(128, 12) X(128, 16) X(128, 24) X(128, 48) X(256, 2)
 
 extern "C" {
 

@@ -30,11 +30,14 @@ from .. import build
 # csrc/flash_attention.cu): the head dims of the ported configs and their
 # smoke configs for prefill, and each (head dim, query heads a KV head) pair
 # of theirs for decode.  A config that needs another shape adds its instance
-# there and its value here.
+# there and its value here.  (128, 12) and (128, 24) are granite-34b's
+# local group on a 'model' axis of 4 and 2 ranks (its one KV head
+# replicated, each rank's 12 / 24 query heads reading it).
 HEAD_DIMS = (16, 64, 96, 112, 128, 256)
 DECODE_INSTANCES = frozenset({(16, 1), (16, 2), (16, 4), (64, 1), (96, 1),
                               (112, 1), (128, 1), (128, 4), (128, 8),
-                              (128, 16), (128, 48), (256, 2)})
+                              (128, 12), (128, 16), (128, 24), (128, 48),
+                              (256, 2)})
 
 # flash_attn_fwd's launch: a block of two consumer warpgroups and one
 # producer warpgroup takes 128 query rows of one (batch, head)

@@ -18,15 +18,22 @@ Per cell:
   ``n_chips``, which assumes an ideal split of the work; H100 constants
   (``launch/mesh.py``).  The count is the reference route's work
   (``hlo_analysis``'s docstring).
-- ``collectives_by_kind`` and ``t_collective_s`` (wire bytes over
-  ``LINK_BW``) of a train cell: its optimizer is ``cross_replica`` over
-  the mesh's dp axes as ``launch.mesh.RecordingMesh``es, whose
-  all-reduces record one rank's wire bytes and send nothing: the f32
-  gradient (``compress=None``), or its int8 payload and one scale a JAX
-  (stacked) leaf on the outermost axis (``run_cell(compress="int8_ef")``,
-  ``compress.wire_bytes``).  The 'model' axis's collectives wait for
-  ROADMAP Queue 1 item 3; the cell's ``collectives_scope`` says so.
-  Serving cells run no collective of the data axis: null.
+- ``collectives_by_kind`` / ``collectives_by_axis`` and
+  ``t_collective_s`` (wire bytes over ``LINK_BW``) of a train or prefill
+  cell: one rank's step runs once more on meta tensors, on the rank's
+  blocks of every leaf the rules split over 'model' and its slice of the
+  batch (the global batch over the dp axes), with
+  ``launch.mesh.RecordingMesh``es standing for the axes: they record one
+  rank's wire bytes and send nothing.  The 'model' axis records the
+  layers' f / g all-reduces, the logits' all-gather, the split-use leaves'
+  gradient sums and the logical norm (``models/sharding.py``'s execution
+  half); a train cell's optimizer is ``cross_replica`` over the dp axes:
+  the rank's f32 gradient (``compress=None``), or its int8 payload and one
+  scale a JAX (stacked) leaf on the outermost axis
+  (``run_cell(compress="int8_ef")``, ``compress.wire_bytes``).  The rank
+  runs its batch as one microbatch: the wire bytes of a step do not
+  depend on how its rows split into microbatches (the counts do).
+  Decode cells: null.
 - ``model_flops`` (6 N tokens for train, 2 N tokens for prefill, 2 N a
   sequence for decode, N the active parameters) and ``useful_flops_ratio``
   (model_flops over the counted FLOPs) as in JAX.
@@ -38,12 +45,14 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -59,8 +68,10 @@ from . import specs as specs_lib
 from .hlo_analysis import collective_bytes, op_cost, roofline_terms
 
 COLLECTIVES_SCOPE = (
-    "the gradient all-reduce over the dp axes (cross_replica) only; the "
-    "'model' axis's collectives wait for ROADMAP Queue 1 item 3")
+    "one rank's step: the 'model' axis' f / g all-reduces, logits "
+    "all-gather, split-use gradient sums and norm, and (train) the "
+    "gradient all-reduce over the dp axes (cross_replica) of the rank's "
+    "blocks")
 
 # gradient-accumulation microbatches per arch for train_4k (memory knob)
 DEFAULT_MICRO = {
@@ -84,8 +95,9 @@ SERVE_FSDP = {"llama32_vision_90b", "granite_34b", "mixtral_8x7b"}
 class Step:
     """A cell's step: ``fn(*args)``, and the partition spec of each input
     and output tensor (``in_specs(args)`` / ``out_specs(outputs)`` list
-    ``(tensor, PartitionSpec)`` pairs); ``collectives()`` (train cells)
-    lists the records of the step's collectives on the mesh."""
+    ``(tensor, PartitionSpec)`` pairs); ``collectives()`` (train and
+    prefill cells) returns ``{axis: records}`` of one rank's step on the
+    mesh (``rank_collectives``)."""
     fn: Callable
     args: tuple
     in_specs: Callable
@@ -123,6 +135,70 @@ def _data_axes():
                  for a in shd.dp_axes())
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class RankView:
+    """One rank's view of a production mesh for ``rank_collectives``: the
+    mesh's axes, and a ``RecordingMesh`` standing for its 'model' axis
+    (what ``install_2d`` of a ``Mesh2D`` gives the sharding rules)."""
+    mesh: Any
+    model: Any
+
+    @property
+    def shape(self) -> dict:
+        return self.mesh.shape
+
+    @property
+    def axis_names(self) -> tuple:
+        return self.mesh.axis_names
+
+
+def rank_collectives(cfg, cell, *, compress=None) -> dict:
+    """``{axis: records}`` of one rank's train or prefill step on the
+    installed production mesh (see the module docstring): its blocks of
+    the leaves, its slice of the batch, one microbatch."""
+    mesh, dp = shd.get_global_mesh(), shd.dp_axes()
+    n_dp = math.prod(mesh.shape[a] for a in dp)
+    local = dataclasses.replace(cell, global_batch=max(
+        cell.global_batch // n_dp, 1))
+    axes = tuple(mesh_lib.RecordingMesh(axis=a, size=mesh.shape[a])
+                 for a in dp)
+    view = RankView(mesh, mesh_lib.RecordingMesh(axis="model",
+                                                 size=mesh.shape["model"]))
+    prev = (shd.get_global_mesh(), shd.dp_axes(), shd.tp_axis())
+    shd.set_global_mesh(view, dp_axes=(), tp_axis="model")
+    try:
+        kind = "train" if cell.kind == "train" else "prefill"
+        with shd.slicing(cfg):
+            params = specs_lib.param_specs(cfg, kind)
+        if cell.kind == "train":
+            opt = cross_replica(
+                adam(1e-4, grad_clip=1.0), axes,
+                compress=compress if axes else None,
+                ef_shards=axes[0].size if axes else 1,
+                scale_groups=jax_leaf_groups(
+                    [n for n, _ in params.named_parameters()], cfg),
+                model=shd.model_split(params, cfg))
+            fn = make_lm_ppo_train_step(
+                cfg, opt, img_len=cfg.n_img_tokens if cfg.family == "vlm"
+                else 0, enc_len=cfg.enc_len if cfg.family == "encdec" else 0,
+                param_pspecs=shd.param_pspecs(params, cfg))
+            args = (params, opt.init(list(params.parameters())),
+                    specs_lib.train_batch_specs(cfg, local))
+        else:
+            fn = prefill_fn(cfg)
+            kw = specs_lib.prefill_specs(cfg, local)
+            args = (params, kw["cache"], kw["tokens"],
+                    *[kw[k] for k in ("img", "enc_frames") if k in kw])
+        names = ("model",) + tuple(dp)
+        with contextlib.ExitStack() as stack:
+            records = {a: stack.enter_context(mesh_lib.record_collectives(a))
+                       for a in names}
+            fn(*args)
+        return records
+    finally:
+        shd.set_global_mesh(prev[0], dp_axes=prev[1], tp_axis=prev[2])
+
+
 def build_train(cfg, aid, cell, *, n_micro, compress=None) -> Step:
     dp = shd.dp_axes()
     opt = adam(1e-4, grad_clip=1.0)
@@ -157,13 +233,7 @@ def build_train(cfg, aid, cell, *, n_micro, compress=None) -> Step:
                 + list(zip(opt_state.nu, leaf_specs)) + extra)
 
     def collectives():
-        """One update's records, on meta gradients of the params'
-        shapes."""
-        ps = list(params.parameters())
-        with mesh_lib.record_collectives() as records:
-            opt.update([torch.empty_like(p, dtype=torch.float32)
-                        for p in ps], opt.init(ps), ps)
-        return records
+        return rank_collectives(cfg, cell, compress=compress)
 
     def in_specs(args):
         params, opt_state, batch = args
@@ -218,8 +288,9 @@ def build_decode(cfg, aid, cell) -> Step:
                 out_specs)
 
 
-def build_prefill(cfg, aid, cell) -> Step:
-    dp = shd.dp_axes()
+def prefill_fn(cfg):
+    """A prefill cell's step: the prompt into the cache, the last token's
+    greedy choice."""
 
     @torch.no_grad()
     def prefill_step(params, cache, tokens, *extra):
@@ -232,6 +303,12 @@ def build_prefill(cfg, aid, cell) -> Step:
         logits = bb.lm_logits(params, hidden, cfg)
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
 
+    return prefill_step
+
+
+def build_prefill(cfg, aid, cell) -> Step:
+    dp = shd.dp_axes()
+    prefill_step = prefill_fn(cfg)
     params = specs_lib.param_specs(cfg, "prefill")
     kw = specs_lib.prefill_specs(cfg, cell)
     extra = [kw[k] for k in ("img", "enc_frames") if k in kw]
@@ -246,7 +323,7 @@ def build_prefill(cfg, aid, cell) -> Step:
         return [(tok, shd.P(dp))] + _cache_pairs(cfg, cache)
 
     return Step(prefill_step, (params, kw["cache"], kw["tokens"], *extra),
-                in_specs, out_specs)
+                in_specs, out_specs, lambda: rank_collectives(cfg, cell))
 
 
 def build_step(cfg, aid, cell, n_micro, compress=None) -> Step:
@@ -299,8 +376,13 @@ def run_cell(arch: str, cell, *, multi_pod: bool = False, n_micro=None,
         if not counted:
             counted.append(count_step(step))
         cost, out, t_trace = counted[0]
-        coll = None if step.collectives is None else \
-            collective_bytes(step.collectives())
+        coll = by_axis = None
+        if step.collectives is not None:
+            per_axis = step.collectives()
+            coll = collective_bytes([r for recs in per_axis.values()
+                                     for r in recs])
+            by_axis = {a: collective_bytes(recs)["total"]
+                       for a, recs in per_axis.items()}
         memory = {
             "argument_bytes": sharded_bytes(step.in_specs(step.args), mesh),
             "output_bytes": sharded_bytes(step.out_specs(out), mesh),
@@ -327,6 +409,7 @@ def run_cell(arch: str, cell, *, multi_pod: bool = False, n_micro=None,
             k: coll[k] for k in ("all-gather", "all-reduce",
                                  "reduce-scatter", "all-to-all",
                                  "collective-permute")},
+        "collectives_by_axis": by_axis,
         "collectives_scope": None if coll is None else (
             f"{COLLECTIVES_SCOPE}; compress={compress}"),
         "model_flops": model_flops,

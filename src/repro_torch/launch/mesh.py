@@ -13,12 +13,15 @@ name (``psum``, ``pmean``, ``pmax``, ``all_gather``), packed into
 all-reduces of at most ``BUCKET_BYTES`` a dtype.  Callers read the size
 as JAX's do, ``mesh.shape[axis]``.
 
-Two ranks can share one card: the group is gloo, whose all-reduce takes
-CUDA tensors (NCCL refuses two ranks on one GPU), and each rank's device
-is ``cuda:(rank % device_count)``.  Gloo offers only broadcast, all-reduce
-and barrier on CUDA tensors, so ``all_gather`` is an all-reduce SUM of a
-zeroed global buffer of bytes into which each rank writes its block: every
-other addend is zero, so the result is its inputs bit for bit.
+The backend is chosen, not configured (``choose_backend``): NCCL where
+every rank has a card of its own (the world no larger than the cards),
+gloo where ranks share a card (NCCL refuses two ranks on one GPU) or run
+on the CPU.  Each rank's device is ``cuda:(rank % device_count)``.  Gloo
+offers only broadcast, all-reduce and barrier on CUDA tensors, so there
+``all_gather`` is an all-reduce SUM of a zeroed global buffer of bytes
+into which each rank writes its block (every other addend is zero, so the
+result is its inputs bit for bit); under NCCL it is NCCL's own
+``all_gather_into_tensor``, and a CPU tensor goes through the rank's card.
 
 A mesh without a process group (``make_data_mesh`` where
 ``torch.distributed`` is not initialized) is the one-process view of
@@ -40,12 +43,14 @@ is entered, for ``launch/hlo_analysis.py``'s ``collective_bytes``; a
 collectives record their bytes and send nothing (the dry run's gradient
 all-reduce).  The roofline constants are the H100 SXM's.
 
-The LM's 2-D (data x model) mesh (``make_2d_mesh``, ``Mesh2D``) is a data
-axis of ranks, as above, and a 'model' axis of extent 1: tensor
-parallelism needs all-gathers that gloo does not offer on CUDA tensors
-and a card a rank (ROADMAP Queue 1 item 3), so ``n_model > 1`` raises.
-``install`` / ``install_2d`` register a mesh with ``models/sharding.py``'s
-rules as JAX's do.
+The LM's 2-D (data x model) mesh (``make_2d_mesh``, ``Mesh2D``) is two
+axes of ranks laid out row-major as ``jax.make_mesh`` lays out devices: a
+model group is M consecutive ranks, a data group every M-th.  The 'model'
+axis runs tensor parallelism by ``param_pspecs``' rules: each rank holds
+its block of every leaf the rules split, and the layers call Megatron's
+f / g collectives and an all-gather on ``Mesh2D.model``
+(``models/sharding.py``'s execution half).  ``install`` / ``install_2d``
+register a mesh with ``models/sharding.py``'s rules as JAX's do.
 """
 from __future__ import annotations
 
@@ -65,7 +70,6 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-BACKEND = "gloo"
 COLLECTIVE_TIMEOUT_S = 60.0   # a rank blocked this long in a collective raises
 
 # Hardware constants for the roofline: one NVIDIA H100 SXM, NVIDIA's data
@@ -104,47 +108,82 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     return AbstractMesh((16, 16), ("data", "model"))
 
 
-_RECORDS: List[list] = []   # the active record_collectives lists
+_RECORDS: List[tuple] = []   # the active record_collectives (axis, list)
 
 
 @contextlib.contextmanager
-def record_collectives():
+def record_collectives(axis: Optional[str] = None):
     """Collect one ``(kind, result_bytes, group_size)`` record for every
-    collective a ``DataMesh`` sends inside the block: what goes on the
-    wire, so ``all_gather`` (an all-reduce of a zeroed byte buffer) records
-    an all-reduce of the whole buffer."""
+    collective a ``DataMesh`` of axis ``axis`` (None: any) sends inside
+    the block: what goes on the wire, so a gloo ``all_gather`` (an
+    all-reduce of a zeroed byte buffer) records an all-reduce of the whole
+    buffer."""
     records: list = []
-    _RECORDS.append(records)
+    entry = (axis, records)
+    _RECORDS.append(entry)
     try:
         yield records
     finally:
-        _RECORDS.remove(records)
+        _RECORDS.remove(entry)
 
 
-_TIMERS: List[list] = []   # the active time_collectives accumulators
+_TIMERS: List[tuple] = []   # the active time_collectives (axis, timer)
+
+
+class CollectiveTime:
+    """What ``time_collectives`` accumulates.  A collective staged
+    through the host (gloo, the CPU) adds its host time, from a
+    synchronised device to its result copied back (so the time is the
+    collective's, not the device work queued before it).  Under NCCL a
+    collective adds a pair of CUDA events recorded on the stream around
+    it, and nothing waits for them: ``seconds()`` reads the pairs once,
+    after the caller's own synchronisation."""
+
+    def __init__(self):
+        self.host = 0.0
+        self.events: list = []
+
+    def seconds(self) -> float:
+        if not self.events:
+            return self.host
+        self.events[-1][1].synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        return self.host + ms / 1e3
 
 
 @contextlib.contextmanager
-def time_collectives():
-    """Accumulate into ``[seconds]`` the host time of every all-reduce a
-    ``DataMesh`` sends inside the block, each from a synchronised device to
-    its result copied back (so the time is the collective's, not the
-    device work queued before it)."""
-    acc = [0.0]
-    _TIMERS.append(acc)
+def time_collectives(axis: Optional[str] = None):
+    """Accumulate into a ``CollectiveTime`` the time of every collective
+    a ``DataMesh`` of axis ``axis`` (None: any) sends inside the block."""
+    acc = CollectiveTime()
+    entry = (axis, acc)
+    _TIMERS.append(entry)
     try:
         yield acc
     finally:
-        _TIMERS.remove(acc)
+        _TIMERS.remove(entry)
 
 
-def _record_bytes(kind: str, nbytes: int, group_size: int) -> None:
-    for records in _RECORDS:
-        records.append((kind, nbytes, group_size))
+def choose_backend(world: int, device) -> str:
+    """NCCL where each of ``world`` ranks has a card of its own, gloo where
+    ranks share a card or run on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and dist.is_nccl_available() and \
+            torch.cuda.is_available() and world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
 
 
-def _record(kind: str, t: torch.Tensor, group_size: int) -> None:
-    _record_bytes(kind, t.numel() * t.element_size(), group_size)
+def _record_bytes(kind: str, nbytes: int, group_size: int,
+                  axis: Optional[str] = None) -> None:
+    for want, records in _RECORDS:
+        if want is None or want == axis:
+            records.append((kind, nbytes, group_size))
+
+
+def _record(kind: str, t: torch.Tensor, group_size: int,
+            axis: Optional[str] = None) -> None:
+    _record_bytes(kind, t.numel() * t.element_size(), group_size, axis)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -173,6 +212,51 @@ class DataMesh:
     @property
     def distributed(self) -> bool:
         return self.group is not None
+
+    @property
+    def backend(self) -> Optional[str]:
+        return None if self.group is None else dist.get_backend(self.group)
+
+    def _timers(self) -> list:
+        return [acc for axis, acc in _TIMERS if axis in (None, self.axis)]
+
+    @contextlib.contextmanager
+    def _timed(self, device):
+        """Add the block's time to the active ``time_collectives`` of this
+        axis (``CollectiveTime``): under NCCL a pair of events on
+        ``device``'s stream, else the host time from a synchronised
+        ``device`` to a synchronised one."""
+        accs = self._timers()
+        if not accs:
+            yield
+            return
+        device = torch.device(device)
+        cuda = device.type == "cuda"
+        if cuda and self.backend == "nccl":
+            stream = torch.cuda.current_stream(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            yield
+            end.record(stream)
+            for acc in accs:
+                acc.events.append((start, end))
+            return
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        yield
+        if cuda:
+            torch.cuda.synchronize(device)
+        for acc in accs:
+            acc.host += time.perf_counter() - t0
+
+    def _on_wire(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` where the backend can send it: NCCL sends from the card,
+        so a CPU tensor goes through this rank's device."""
+        if self.backend == "nccl" and t.device.type != "cuda":
+            return t.to(self.device)
+        return t
 
     # -- collectives (JAX's lax.psum / pmean / pmax / all_gather) ----------
     def _check(self, what: str) -> bool:
@@ -217,22 +301,16 @@ class DataMesh:
 
     def _send_bucket(self, pieces, op) -> None:
         buf = torch.cat(pieces)
-        _record("all-reduce", buf, self.size)
-        timed = bool(_TIMERS) and buf.device.type == "cuda"
-        if _TIMERS:
-            if timed:
-                torch.cuda.synchronize(buf.device)
-            t0 = time.perf_counter()
-        dist.all_reduce(buf, op=op, group=self.group)
-        off = 0
-        for piece in pieces:
-            piece.copy_(buf[off:off + piece.numel()])
-            off += piece.numel()
-        if _TIMERS:
-            if timed:
-                torch.cuda.synchronize(buf.device)
-            for acc in _TIMERS:
-                acc[0] += time.perf_counter() - t0
+        _record("all-reduce", buf, self.size, self.axis)
+        with self._timed(buf.device):
+            wire = self._on_wire(buf)
+            dist.all_reduce(wire, op=op, group=self.group)
+            if wire is not buf:
+                buf.copy_(wire)
+            off = 0
+            for piece in pieces:
+                piece.copy_(buf[off:off + piece.numel()])
+                off += piece.numel()
 
     def _all_reduce(self, tensors: Sequence[torch.Tensor], op, what: str
                     ) -> List[torch.Tensor]:
@@ -273,18 +351,28 @@ class DataMesh:
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Concatenate every rank's ``x`` along ``dim`` in axis order (JAX's
-        ``all_gather(..., tiled=True)``), bit for bit: an all-reduce SUM of
-        a zeroed byte buffer into which this rank writes its block."""
+        ``all_gather(..., tiled=True)``), bit for bit: NCCL's
+        ``all_gather_into_tensor``, or under gloo an all-reduce SUM of a
+        zeroed byte buffer into which this rank writes its block."""
         if not self._check("all_gather"):
             return x
         xt = x.detach().movedim(dim, 0).contiguous()
         b, rest = xt.shape[0], tuple(xt.shape[1:])
         raw = xt.reshape(b, -1).view(torch.uint8)
-        buf = torch.zeros((self.size * b, raw.shape[1]), dtype=torch.uint8,
-                          device=x.device)
-        buf[self.index * b:(self.index + 1) * b] = raw
-        _record("all-reduce", buf, self.size)
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
+        with self._timed(x.device):
+            if self.backend == "nccl":
+                raw = self._on_wire(raw)
+                buf = torch.empty((self.size * b, raw.shape[1]),
+                                  dtype=torch.uint8, device=raw.device)
+                _record("all-gather", buf, self.size, self.axis)
+                dist.all_gather_into_tensor(buf, raw, group=self.group)
+                buf = buf.to(x.device)
+            else:
+                buf = torch.zeros((self.size * b, raw.shape[1]),
+                                  dtype=torch.uint8, device=x.device)
+                buf[self.index * b:(self.index + 1) * b] = raw
+                _record("all-reduce", buf, self.size, self.axis)
+                dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
         return buf.view(x.dtype).reshape((self.size * b,) + rest).movedim(
             0, dim)
 
@@ -320,7 +408,7 @@ class RecordingMesh(DataMesh):
             by_dtype[t.dtype] = by_dtype.get(t.dtype, 0) + \
                 t.numel() * t.element_size()
         for nbytes in by_dtype.values():
-            _record_bytes("all-reduce", nbytes, self.size)
+            _record_bytes("all-reduce", nbytes, self.size, self.axis)
         return tensors
 
     def pmean_all(self, tensors):
@@ -332,11 +420,15 @@ class RecordingMesh(DataMesh):
         if int8_scales is None:
             return self._reduce_(tensors, None, "psum")
         _record_bytes("all-reduce", sum(t.numel() for t in tensors)
-                      + 4 * int8_scales, self.size)
+                      + 4 * int8_scales, self.size, self.axis)
         return tensors
 
     def all_gather(self, x, dim=0):
-        raise NotImplementedError("RecordingMesh records all-reduces only")
+        """Records an all-gather of the result's bytes and returns ``x``
+        repeated ``size`` times along ``dim`` (free on meta tensors)."""
+        out = torch.cat([x] * self.size, dim=dim)
+        _record("all-gather", out, self.size, self.axis)
+        return out
 
     def barrier(self) -> None:
         return None
@@ -344,17 +436,26 @@ class RecordingMesh(DataMesh):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh2D:
-    """The LM's (data x model) mesh: ``data``, a ``DataMesh`` of ranks (or
-    its one-process view), and a 'model' axis of extent ``n_model`` (1: see
-    the module docstring).  ``shape`` / ``axis_names`` / ``size`` read as a
-    JAX mesh's, for the sharding rules."""
+    """The LM's (data x model) mesh: ``data`` and ``model``, a ``DataMesh``
+    each (this rank's group of the axis, or the one-process view of its
+    extent).  ``shape`` / ``axis_names`` / ``size`` read as a JAX mesh's,
+    for the sharding rules; ``lead`` is the mesh's first rank (global rank
+    0: the one that prints and writes)."""
     data: DataMesh
-    n_model: int = 1
+    model: DataMesh
     axes: Tuple[str, str] = ("data", "model")
 
     @property
+    def n_model(self) -> int:
+        return self.model.size
+
+    @property
+    def lead(self) -> bool:
+        return self.data.index == 0 and self.model.index == 0
+
+    @property
     def shape(self) -> dict:
-        return {self.axes[0]: self.data.size, self.axes[1]: self.n_model}
+        return {self.axes[0]: self.data.size, self.axes[1]: self.model.size}
 
     @property
     def axis_names(self) -> tuple:
@@ -365,35 +466,37 @@ class Mesh2D:
         return self.data.size * self.n_model
 
 
-MODEL_AXIS_ITEM = ("ROADMAP Queue 1 item 3 (the 'model' axis on four cards: "
-                   "NCCL, one card a rank)")
-
-
 def make_2d_mesh(n_data: int = 0, n_model: int = 1, axes=("data", "model"),
                  *, device="cuda") -> Mesh2D:
     """(data x model) mesh for LM-scale PPO (JAX's ``make_2d_mesh``).
 
-    The data axis is ``make_data_mesh(n_data, axes[0], device=device)``:
-    where ``torch.distributed`` is initialized, every rank of the world
-    (this rank's place, device ``cuda:(rank % cards)``); otherwise the
-    one-process view of ``n_data`` shards.  ``n_model > 1`` raises: the
-    'model' axis is ROADMAP Queue 1 item 3, and a mesh that ran it
-    replicated would train another model than asked."""
+    Where ``torch.distributed`` is initialized, the world's ranks row-major
+    over ``(n_data, n_model)`` (``make_axis_meshes``; ``n_data`` 0 takes
+    ``world // n_model``), this rank's place on both axes and its device
+    ``cuda:(rank % cards)``; a mesh larger or smaller than the world
+    raises.  Otherwise the one-process view of both axes."""
     if n_model < 1:
         raise ValueError(f"n_model must be >= 1, got {n_model}")
-    if n_model > 1:
-        raise NotImplementedError(
-            f"mesh {n_data}x{n_model}: the 'model' axis (tensor parallelism "
-            f"over {n_model} ranks) is not ported yet; it is "
-            f"{MODEL_AXIS_ITEM}.  Use --mesh Dx1")
-    return Mesh2D(data=make_data_mesh(n_data, axes[0], device=device),
-                  n_model=n_model, axes=tuple(axes))
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        n_data = n_data or max(world // n_model, 1)
+        if n_data * n_model != world:
+            raise ValueError(f"mesh {n_data}x{n_model} needs "
+                             f"{n_data * n_model} ranks, the world has "
+                             f"{world}")
+        data, model = make_axis_meshes((n_data, n_model), axes,
+                                       device=device)
+        return Mesh2D(data=data, model=model, axes=tuple(axes))
+    n = n_data or 1
+    return Mesh2D(data=make_data_mesh(n, axes[0], device=device),
+                  model=make_data_mesh(n_model, axes[1], device=device),
+                  axes=tuple(axes))
 
 
-def make_test_mesh(n_data: int = 2, n_model: int = 1, *, device="cpu"
+def make_test_mesh(n_data: int = 2, n_model: int = 2, *, device="cpu"
                    ) -> Mesh2D:
-    """Small mesh for CPU tests: ``make_2d_mesh`` on the CPU (JAX's default
-    2 x 2 needs the 'model' axis, ROADMAP Queue 1 item 3)."""
+    """Small mesh for CPU tests: ``make_2d_mesh`` on the CPU, JAX's 2 x 2
+    by default."""
     return make_2d_mesh(n_data, n_model, device=device)
 
 
@@ -446,7 +549,8 @@ def make_data_mesh(n_data: int = 0, axis: str = "data", *,
     Where ``torch.distributed`` is initialized: the mesh over every rank of
     the world (``n_data`` must be 0 or the world size), this rank's place on
     it and its device.  Otherwise the one-process view of ``n_data`` shards
-    (0: one) on ``device``, with no process group."""
+    (0: one) on ``device``, with no process group (the first shard's
+    device: the one-process view runs on one device)."""
     if dist.is_available() and dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
         if n_data not in (0, world):
@@ -485,7 +589,8 @@ def make_axis_meshes(shape: Sequence[int], axes: Sequence[str], *,
         for line in sorted({c[:a] + c[a + 1:] for c in coords}):
             members = tuple(_flat(line[:a] + (i,) + line[a:], shape)
                             for i in range(shape[a]))
-            group = dist.new_group(ranks=list(members), backend=BACKEND,
+            group = dist.new_group(ranks=list(members),
+                                   backend=dist.get_backend(),
                                    timeout=datetime.timedelta(
                                        seconds=COLLECTIVE_TIMEOUT_S))
             if rank in members:
@@ -568,8 +673,12 @@ def split_actor_learner(devices, *, mesh=None):
 def _rank_main(fn, rank, n, init_method, device, timeout_s, args, results):
     torch.set_num_threads(1)
     try:
+        if torch.device(device).type == "cuda":
+            # NCCL binds a rank's communicators to its current card
+            torch.cuda.set_device(_rank_devices(n, device)[rank])
         dist.init_process_group(
-            BACKEND, init_method=init_method, world_size=n, rank=rank,
+            choose_backend(n, device), init_method=init_method,
+            world_size=n, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s))
         try:
             out = fn(make_data_mesh(device=device), *args)
@@ -585,8 +694,9 @@ def _rank_main(fn, rank, n, init_method, device, timeout_s, args, results):
 def spawn_ranks(fn: Callable, n: int, args: tuple = (), *, device="cuda",
                 timeout: float = 120.0,
                 collective_timeout: float = COLLECTIVE_TIMEOUT_S) -> list:
-    """Run ``fn(mesh, *args)`` on ``n`` gloo ranks, one spawned process
-    each, and return their results in rank order.
+    """Run ``fn(mesh, *args)`` on ``n`` ranks, one spawned process each
+    (``choose_backend``: NCCL where each has a card of its own, else gloo),
+    and return their results in rank order.
 
     ``fn`` and ``args`` must pickle (a module-level function), and so must
     what ``fn`` returns (move tensors to the CPU).  Each rank sets one

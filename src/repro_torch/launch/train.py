@@ -39,22 +39,29 @@ between them and logs one row at the window's end, with JAX's keys
 stays eager (ROADMAP Queue 1 item 14).
 
 ``--mesh DATAxMODEL`` (default ``$REPRO_MESH``, as JAX's) trains on a
-data-parallel mesh (``run_mesh``, JAX's 2-D mesh driver at a 'model'
-extent of 1: ``--mesh Dx1``; a larger one raises, ROADMAP Queue 1 item
-3).  ``train.main`` spawns the D ranks itself (``launch.mesh.
-spawn_ranks``: gloo, ``cuda:(rank % cards)``, so ranks may share a card)
-or, where ``torch.distributed`` is already initialized (the pod script,
-a test), joins that group and spawns nothing.  Each rank runs its own
-rollout on ``batch / D`` sequences and normalises its advantages over
-that slice (JAX's documented difference from the global batch); the
-gradients are averaged over the ranks by ``cross_replica``, in int8 with
-error feedback under ``--compress`` (which needs ``--mesh``), before one
-Adam step on every rank's replica.  Rank 0 logs JAX's keys averaged over
-the ranks (plus ``compress_err_norm`` and ``grad_norm_shard_max`` when
+2-D mesh of D x M ranks (``run_mesh``, JAX's 2-D mesh loop).
+``train.main`` spawns the ranks itself (``launch.mesh.spawn_ranks``:
+NCCL where each rank has a card of its own, else gloo, ``cuda:(rank %
+cards)``, so ranks may share a card) or, where ``torch.distributed`` is
+already initialized (the pod script, a test), joins that group and spawns
+nothing.  The 'model' axis (M > 1) is tensor parallelism by
+``param_pspecs``' rules (``models/sharding.py``): a rank holds its block
+of every leaf they split and computes its heads and hidden widths, and
+the M ranks of a model group hold the same batch, sample the same actions
+from the same gathered logits and keep their replicated leaves equal.
+Each data rank runs its own rollout on ``batch / D`` sequences and
+normalises its advantages over that slice (JAX's documented difference
+from the global batch); the gradients are averaged over the data axis by
+``cross_replica``, in int8 with error feedback under ``--compress``
+(which needs ``--mesh``), before one Adam step whose clip reads the
+logical tensors' norm.  Rank 0 logs JAX's keys averaged over the data
+axis (plus ``compress_err_norm`` and ``grad_norm_shard_max`` when
 compressed) and this rank's ``rollout_s``, ``update_s`` and
-``allreduce_s`` (the host time of the update's all-reduces, inside
-``update_s``) over the window, and writes the checkpoints; rank r > 0
-logs its own rows under ``<log-dir>/rank_<r>``.
+``allreduce_s`` (the time of the update's data-axis all-reduces, inside
+``update_s``), with ``tp_allreduce_s`` (the time of the model axis's
+collectives in the rollout and the update) at M > 1, over the window
+(``mesh.CollectiveTime``: host time on gloo, CUDA events under NCCL), and writes the checkpoints; rank r > 0 logs its own rows
+under ``<log-dir>/rank_<r>``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
@@ -71,10 +78,15 @@ logs its own rows under ``<log-dir>/rank_<r>``.
       --mesh 2x1 --compress --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --full --layers 4 \\
       --mesh 2x1 --compress --batch 8 --horizon 64 --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --mesh 1x2 --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
+      --full --mesh 1x4 --batch 8 --horizon 64 --steps 2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
 import os
@@ -91,10 +103,12 @@ from ..configs import get_config, get_smoke_config
 from ..core.graphs import StepGraph
 from ..envs.token_lm import make_token_lm
 from ..kernels import registry as kernel_registry
+from ..kernels.flash_attention.flash_attention import DECODE_INSTANCES
 from ..models import backbones as bb
 from ..models import sharding as shd
 from ..models.config import ModelConfig
 from ..models.convert import jax_leaf_groups
+from ..models.layers import kv_layout
 from ..samplers.eval import fold_seed
 from ..serving.engine import sample, sync
 from ..telemetry import trace
@@ -218,11 +232,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "window); logs and checkpoints land on window "
                          "boundaries")
     ap.add_argument("--mesh", default=os.environ.get("REPRO_MESH", ""),
-                    help="mesh spec 'DATAxMODEL' (e.g. '2x1'); '1x1' / '' "
-                         "runs the single-device path.  Defaults to "
-                         "$REPRO_MESH.  MODEL must be 1 (ROADMAP Queue 1 "
-                         "item 3); the DATA ranks share the cards, "
-                         "cuda:(rank %% cards)")
+                    help="mesh spec 'DATAxMODEL' (e.g. '2x1', '1x4'); "
+                         "'1x1' / '' runs the single-device path.  "
+                         "Defaults to $REPRO_MESH.  DATA x MODEL ranks, "
+                         "cuda:(rank %% cards); MODEL > 1 is tensor "
+                         "parallelism by the sharding rules")
     ap.add_argument("--compress", nargs="?", const="int8_ef", default=None,
                     choices=["int8_ef"],
                     help="compress the data-axis gradient all-reduce "
@@ -319,13 +333,16 @@ def run_mesh(args, cfg, logger, tracer, mesh_shape, device):
     """The (data x model) mesh driver on this rank (JAX's ``run_mesh``;
     see the module docstring); returns this rank's ``LM``.
 
-    Every rank draws the same weights from ``--seed``.  Step t's rollout
-    on rank r draws from ``fold_seed(fold_seed(seed, t), r)``, the port's
-    ``fold_in(ks[i], me)`` with the step's key a function of the step, so
-    a restored run continues the unbroken run's streams (JAX's restarts
-    its key stream).  A window of ``--fuse-window`` steps ends in one
-    all-reduce of its last step's metrics (JAX's ``pmean`` over 'data');
-    the update stays eager: a gloo all-reduce cannot sit in a CUDA graph
+    Every rank draws the same weights from ``--seed`` and keeps its block
+    of each (``bb.init_lm`` on the installed model axis).  Step t's
+    rollout on data rank r draws from ``fold_seed(fold_seed(seed, t),
+    r)``, the port's ``fold_in(ks[i], me)`` with the step's key a
+    function of the step, so a restored run continues the unbroken run's
+    streams (JAX's restarts its key stream); every rank of a model group
+    draws the same stream.  A window of ``--fuse-window`` steps ends in
+    one all-reduce of its last step's metrics (JAX's ``pmean`` over
+    'data'); the update stays eager and so does a rollout with model-axis
+    collectives: a collective cannot sit in the port's CUDA graphs yet
     (ROADMAP Queue 1 item 4)."""
     n_data, n_model = mesh_shape
     mesh = mesh_lib.install_2d(mesh_lib.make_2d_mesh(n_data, n_model,
@@ -336,46 +353,67 @@ def run_mesh(args, cfg, logger, tracer, mesh_shape, device):
         mesh_lib.install_2d(None)
 
 
+def check_instances(cfg, n_model: int, device) -> None:
+    """Raise, before any weight is drawn, where a model rank's attention
+    would need a decode kernel instance that is not built: its local
+    (head dim, query heads a KV head) on the kernel route."""
+    if not cfg.n_heads or kernel_registry.backend_for(
+            "attention", site="attention_decode",
+            device=torch.device(device)) == "ref":
+        return
+    Hl, _, nk = kv_layout(cfg, n_model)
+    need = (cfg.d_head, Hl // nk)
+    if need not in DECODE_INSTANCES:
+        raise ValueError(
+            f"{cfg.name} on a model axis of {n_model}: a rank's decode "
+            f"attention needs flash_attn_decode instance (dh, G) = {need}, "
+            f"not built (csrc/flash_attention.cu: {sorted(DECODE_INSTANCES)})")
+
+
 def _mesh_steps(args, cfg, logger, tracer, mesh):
-    data = mesh.data
-    if not data.distributed and data.size > 1:
-        raise ValueError(f"run_mesh: a mesh of {data.size} data shards "
-                         "needs its ranks (train.main spawns them)")
+    data, model = mesh.data, mesh.model
+    if not data.distributed and mesh.size > 1:
+        raise ValueError(f"run_mesh: a mesh of {mesh.size} ranks needs its "
+                         "ranks (train.main spawns them)")
     if args.batch % data.size:
         raise SystemExit(f"--batch {args.batch} must divide by the data "
                          f"axis ({data.size})")
     local_batch = args.batch // data.size
-    dev, lead = data.device, data.index == 0
+    dev, lead = data.device, mesh.lead
+    tp = model.size > 1
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     if lead:
-        print(f"mesh {data.size}x{mesh.n_model} over ('data', 'model'), "
+        print(f"mesh {data.size}x{model.size} over ('data', 'model'), "
               f"local batch {local_batch}, compress={args.compress or 'off'}")
+    check_instances(cfg, model.size, dev)
     env = make_token_lm(vocab=cfg.vocab, episode_len=args.horizon,
                         device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = bb.init_lm(cfg, device=dev, generator=gen, dtype=F32,
                         requires_grad=True)
     pspecs = shd.param_pspecs(params, cfg)
+    split = shd.model_split(params, cfg)
     # one int8 scale a JAX leaf, as JAX's compressor (its layers stacked)
     groups = jax_leaf_groups(list(pspecs), cfg)
     if args.compress and lead:
         wb = wire_bytes(list(params.parameters()), groups)
         print(f"int8 all-reduce payload: {wb['int8_bytes']:,} B/step "
-              f"(fp32 {wb['fp32_bytes']:,} B, {wb['ratio']:.2f}x reduction)")
+              f"(fp32 {wb['fp32_bytes']:,} B, {wb['ratio']:.2f}x reduction)"
+              + (" a model rank" if tp else ""))
     opt = cross_replica(adam(args.lr, grad_clip=1.0), data,
                         compress=args.compress, ef_shards=data.size,
-                        scale_groups=groups)
+                        scale_groups=groups, model=split)
     opt_state = opt.init(params.parameters())
     rollout = make_lm_rollout(cfg, env, local_batch, args.horizon,
-                              device=dev)
+                              device=dev, graph=not tp)
     train_step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003,
                                         param_pspecs=pspecs)
     start = 0
     if args.restore and args.ckpt_dir and \
             latest_step(args.ckpt_dir) is not None:
         opt_state, manifest = restore_lm_checkpoint(
-            args.ckpt_dir, params, opt_state, cfg, mesh=data)
+            args.ckpt_dir, params, opt_state, cfg, mesh=mesh)
         start = manifest["step"]
         if lead:
             print(f"restored step {start}")
@@ -388,20 +426,27 @@ def _mesh_steps(args, cfg, logger, tracer, mesh):
             nxt = step + args.ckpt_interval - (step % args.ckpt_interval)
             chunk = min(chunk, nxt - step)
         walls = {"rollout_s": 0.0, "update_s": 0.0, "allreduce_s": 0.0}
+        if tp:
+            walls["tp_allreduce_s"] = 0.0
         with tracer.span("mesh_window", step=step, iters=chunk):
             for t in range(step, step + chunk):
                 gen.manual_seed(fold_seed(fold_seed(args.seed, t),
                                           data.index))
-                ta = time.perf_counter()
-                traj, v_last = rollout(params, gen)
-                sync(dev)
-                tb = time.perf_counter()
-                batch = build_batch(traj, v_last)
-                with mesh_lib.time_collectives() as wire:
-                    params, opt_state, metrics = train_step(
-                        params, opt_state, batch)
+                with contextlib.ExitStack() as stack:
+                    tp_wire = stack.enter_context(
+                        mesh_lib.time_collectives(model.axis)) if tp else None
+                    ta = time.perf_counter()
+                    traj, v_last = rollout(params, gen)
                     sync(dev)
-                walls["allreduce_s"] += wire[0]
+                    tb = time.perf_counter()
+                    batch = build_batch(traj, v_last)
+                    with mesh_lib.time_collectives(data.axis) as wire:
+                        params, opt_state, metrics = train_step(
+                            params, opt_state, batch)
+                        sync(dev)
+                walls["allreduce_s"] += wire.seconds()
+                if tp:
+                    walls["tp_allreduce_s"] += tp_wire.seconds()
                 walls["rollout_s"] += tb - ta
                 walls["update_s"] += time.perf_counter() - tb
             metrics = dict(metrics, avg_reward=torch.mean(traj["reward"]))
@@ -423,7 +468,7 @@ def _mesh_steps(args, cfg, logger, tracer, mesh):
         if _checkpoint_due(args, step):
             with tracer.span("checkpoint", step=step):
                 save_lm_checkpoint(args.ckpt_dir, step, params, opt_state,
-                                   cfg, mesh=data)
+                                   cfg, mesh=mesh)
         t0 = time.perf_counter()
     return params
 
@@ -436,14 +481,14 @@ def _mesh_rank(mesh, argv):
 
 def _spawn_mesh(args, argv, mesh_shape):
     """Check the mesh and the batch as ``run_mesh`` will, then run
-    ``main(argv)`` on ``D`` spawned ranks; a rank that fails fails the
-    run."""
+    ``main(argv)`` on ``D x M`` spawned ranks; a rank that fails fails
+    the run."""
     n_data, n_model = mesh_shape
     mesh = mesh_lib.make_2d_mesh(n_data, n_model, device=args.device)
     if args.batch % mesh.data.size:
         raise SystemExit(f"--batch {args.batch} must divide by the data "
                          f"axis ({mesh.data.size})")
-    mesh_lib.spawn_ranks(_mesh_rank, mesh.data.size, (list(argv),),
+    mesh_lib.spawn_ranks(_mesh_rank, mesh.size, (list(argv),),
                          device=args.device, timeout=math.inf,
                          collective_timeout=MESH_COLLECTIVE_TIMEOUT_S)
 
@@ -477,7 +522,9 @@ def main(argv=None):
     if args.kernels:
         kernel_registry.set_env(args.kernels)
     if rank == 0:
-        print(f"kernel backends: {kernel_registry.describe(device)}")
+        print(f"kernel backends: {kernel_registry.describe(device)}"
+              + (f"; mesh collectives: {dist.get_backend()}"
+                 if mesh_shape is not None else ""))
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)

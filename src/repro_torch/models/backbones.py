@@ -42,13 +42,22 @@ serving prefill / decode step.
   superblocks.
 - The sharding constraints sit at JAX's call sites: ``constrain_res`` on
   the residual stream of the training forward and the prefill,
-  ``constrain_cache_kv`` on the K/V caches a decode step writes.  On the
-  port's meshes (``launch/mesh.py``: data ranks, a 'model' extent of 1)
-  they check the installed mesh's rules and move nothing
+  ``constrain_cache_kv`` on the K/V caches a decode step writes.  They
+  check the installed mesh's rules and move nothing
   (``sharding.constrain``).  The moe dispatch splits into
   ``shd.n_batch_shards()`` groups, as JAX's (1 inside a rank of
   ``install_2d``'s mesh and with no mesh).  ``cache_pspecs`` keeps JAX's
   cache sharding rules (the dry run's per-device bytes read them).
+- On a 'model' axis of ranks (``install_2d`` of a ``Mesh2D`` whose model
+  extent is above 1) ``init_lm`` draws every leaf whole from the
+  generator, as on one device, and keeps this rank's block of it, leaf by
+  leaf (``sharding.slicing``): the sharded model is the unsharded one
+  exactly.  ``embed`` is a vocab-parallel lookup (this rank's rows, the
+  others masked, summed over the axis) and ``lm_logits`` a vocab-parallel
+  product whose logits are gathered over the axis: every rank holds the
+  full (B, T, V) logits, as the sampler and the loss read them.  The
+  residual stream and the norms stay replicated; ``init_cache`` holds the
+  rank's KV heads (``layers.kv_layout``) and SSD heads.
 """
 from __future__ import annotations
 
@@ -71,10 +80,12 @@ from .layers import (
     RMSNorm,
     _dense_init,
     _empty,
+    _model_axis,
     attention_decode,
     attention_train,
     cdtype,
     cross_attention_decode,
+    kv_layout,
     mlp,
     moe,
     rmsnorm,
@@ -188,21 +199,30 @@ class LM(nn.Module):
     """Leaves ``tok_embed`` (Vp,D), ``layers``, ``final_norm``, ``lm_head``
     (D,Vp), ``value_head`` (D,1); hybrid adds ``tail_blocks`` and
     ``shared_attn``, encdec ``encoder``.  Matrices are stored in ``dtype``,
-    norm scales in f32."""
+    norm scales in f32.  On a model axis (``sharding.slicing``)
+    ``tok_embed`` / ``lm_head`` hold this rank's vocab rows / columns
+    (``tp_split``); the value head reads the replicated hidden state."""
+
+    TP_REPLICATED_USE = ("value_head",)
 
     def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
         super().__init__()
         n_sb, per_block, tail = superblock_layout(cfg)
         Vp, D = cfg.padded_vocab, cfg.d_model
         kw = dict(device=device, dtype=dtype, generator=generator)
+        self.tp_global = {}
 
-        def mat(shape, fan_in):
+        def mat(name, shape, fan_in):
             if generator is None:
-                return _empty(shape, device=device, dtype=dtype)
-            return _dense_init(shape, fan_in, generator=generator,
-                               device=device, dtype=dtype)
+                w = _empty(shape, device=device, dtype=dtype, name=name)
+            else:
+                w = _dense_init(shape, fan_in, generator=generator,
+                                device=device, dtype=dtype, name=name)
+            if tuple(w.shape) != tuple(shape):
+                self.tp_global[name] = tuple(shape)
+            return w
 
-        self.tok_embed = mat((Vp, D), D)
+        self.tok_embed = mat("tok_embed", (Vp, D), D)
         layer = {"ssm": SSMLayer, "hybrid": SSMLayer, "moe": MoELayer,
                  "encdec": EncDecLayer}.get(cfg.family, DenseLayer)
         self.layers = nn.ModuleList(layer(cfg, **kw)
@@ -214,8 +234,9 @@ class LM(nn.Module):
         if cfg.family == "encdec":
             self.encoder = Encoder(cfg, **kw)
         self.final_norm = RMSNorm(D, device=device)
-        self.lm_head = mat((D, Vp), D)
-        self.value_head = mat((D, 1), D)
+        self.lm_head = mat("lm_head", (D, Vp), D)
+        self.value_head = mat("value_head", (D, 1), D)
+        self.tp_split = bool(self.tp_global)
 
 
 def layer_windows(cfg: ModelConfig):
@@ -239,9 +260,12 @@ def init_lm(cfg: ModelConfig, *, device, generator: torch.Generator,
     """Random full model: matrices N(0, 1/fan_in) in ``dtype`` (default the
     compute dtype) drawn from ``generator`` on ``device``, norm scales 1
     (SSM ``A_log`` = log(linspace(1, 16, H)), ``dt_bias`` 0).  Training asks
-    for f32 master weights with ``requires_grad=True``."""
-    lm = LM(cfg, device=device, dtype=dtype or cdtype(cfg),
-            generator=generator)
+    for f32 master weights with ``requires_grad=True``.  On an installed
+    model axis each leaf is drawn whole and this rank's block kept (the
+    peak is one leaf)."""
+    with shd.slicing(cfg):
+        lm = LM(cfg, device=device, dtype=dtype or cdtype(cfg),
+                generator=generator)
     return lm.requires_grad_(requires_grad)
 
 
@@ -263,8 +287,19 @@ def _rounded(v: float, dtype: torch.dtype) -> float:
 
 
 def embed(params, tokens, cfg: ModelConfig):
-    x = params.tok_embed.index_select(0, tokens.reshape(-1))
-    x = x.reshape(*tokens.shape, -1).to(cdtype(cfg))
+    m = _model_axis(params)
+    if m is None:
+        x = params.tok_embed.index_select(0, tokens.reshape(-1))
+        x = x.reshape(*tokens.shape, -1).to(cdtype(cfg))
+    else:
+        # vocab-parallel: this rank's rows, zeros for the others' tokens,
+        # summed over the axis (one nonzero a token: exact)
+        n = params.tok_embed.shape[0]
+        local = tokens.reshape(-1).long() - m.index * n
+        mine = (local >= 0) & (local < n)
+        x = params.tok_embed.index_select(0, torch.where(mine, local, 0))
+        x = (x * mine[:, None].to(x.dtype)).reshape(*tokens.shape, -1)
+        x = shd.tp_reduce(x.to(cdtype(cfg)))
     if cfg.family == "encdec" or cfg.softcap_logits is not None:
         # gemma / whisper scale: sqrt(d_model) rounded to x's dtype, as a
         # Python float (a scalar tensor made here would be a copy from the
@@ -275,10 +310,15 @@ def embed(params, tokens, cfg: ModelConfig):
 
 
 def lm_logits(params, hidden, cfg: ModelConfig):
+    """hidden (..., D) -> logits (..., Vp); on a model axis each rank's
+    vocab columns, gathered over the axis (every rank holds them all)."""
+    m = _model_axis(params)
+    if m is not None:
+        hidden = shd.tp_copy(hidden)
     logits = hidden @ params.lm_head.to(hidden.dtype)
     if cfg.softcap_logits is not None:
         logits = torch.tanh(logits / cfg.softcap_logits) * cfg.softcap_logits
-    return logits
+    return logits if m is None else shd.tp_gather(logits, -1)
 
 
 def value_out(params, hidden):
@@ -441,7 +481,9 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, device, img_len: int = 0,
     source positions, as JAX's."""
     dt = dtype or cdtype(cfg)
     n_sb, _, tail = superblock_layout(cfg)
-    Hkv, dh = cfg.n_kv_heads, cfg.d_head
+    m = shd.model_axis()
+    tp, idx = (1, 0) if m is None else (m.size, m.index)
+    Hkv, dh = kv_layout(cfg, tp, idx)[2], cfg.d_head
     f = cfg.family
     cache: Dict[str, Any] = {
         "lengths": torch.zeros((B,), dtype=torch.int32, device=device)}
@@ -453,6 +495,8 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, device, img_len: int = 0,
     def ssm_states(n):
         Hs, Pd, G, N = (cfg.ssm_n_heads, cfg.ssm_headdim, cfg.ssm_n_groups,
                         cfg.d_state)
+        if Hs % tp == 0:   # the rank's heads (the rules split them)
+            Hs //= tp
         conv_dim = Hs * Pd + 2 * G * N
         return (torch.zeros((n, B, cfg.conv_kernel - 1, conv_dim), dtype=dt,
                             device=device),

@@ -31,6 +31,11 @@ asks for f32 master weights with ``requires_grad=True``.
 in the params' order), stacked back into JAX's nested dict, so a
 checkpoint written from the port has JAX's layout (``train/checkpoint.py``).
 
+On a 'model' axis of ranks (``mesh=``, default the installed one:
+``models/sharding.py``) ``params_from_jax`` gives this rank its block of
+each leaf the rules split, and ``params_to_jax(specs=, mesh=)`` gathers
+the blocks back into the global leaves (every rank of the axis calls it).
+
 ``rl_params_from_jax`` carries the parameter pytree of a small RL model
 (``repro.models.rl_models``: the Q, PG and continuous models, and
 ``make_recurrent_q`` with its ``lstm/{wx,wh,b}``) into the port's
@@ -45,6 +50,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from . import sharding as shd
 from .backbones import LM, superblock_layout
 from .config import ModelConfig
 
@@ -102,15 +108,19 @@ def jax_leaf_groups(names: Iterable[str], cfg: ModelConfig) -> list:
 
 
 def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
-                    dtype=torch.float32, requires_grad: bool = False) -> LM:
+                    dtype=torch.float32, requires_grad: bool = False,
+                    mesh=None) -> LM:
     """JAX ``init_lm`` params (nested dict of numpy arrays) -> ``LM``.
-    Raises if a leaf is missing, unexpected, or of the wrong shape."""
+    Raises if a leaf is missing, unexpected, or of the wrong shape.
+    ``mesh``: the model axis whose rank's blocks to keep (default: the
+    installed one, if any)."""
     leaves = _flatten(np_params)
-    lm = LM(cfg, device=device, dtype=dtype)
-    targets = {}  # jax leaf name -> list of (torch param, index or None)
+    with shd.slicing(cfg, mesh) as slicer:
+        lm = LM(cfg, device=device, dtype=dtype)
+    targets = {}  # jax leaf name -> list of (name, torch param, index)
     for name, p in lm.named_parameters():
         jax_name, idx = _jax_leaf(name, cfg)
-        targets.setdefault(jax_name, []).append((p, idx))
+        targets.setdefault(jax_name, []).append((name, p, idx))
     missing = sorted(set(targets) - set(leaves))
     extra = sorted(set(leaves) - set(targets))
     if missing or extra:
@@ -119,12 +129,14 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
     with torch.no_grad():
         for jax_name, dests in targets.items():
             src = leaves[jax_name]
-            lead = _stacked_dims([idx for _, idx in dests])
+            lead = _stacked_dims([idx for _, _, idx in dests])
             if tuple(src.shape[:len(lead)]) != lead:
                 raise ValueError(f"{jax_name}: leading dims "
                                  f"{src.shape[:len(lead)]} != {lead}")
-            for p, idx in dests:
+            for name, p, idx in dests:
                 val = src if idx is None else src[idx]
+                if slicer is not None:
+                    val = slicer.slice(name, val)
                 if tuple(val.shape) != tuple(p.shape):
                     raise ValueError(f"{jax_name}: shape {val.shape} != "
                                      f"{tuple(p.shape)}")
@@ -133,14 +145,18 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig, *, device,
 
 
 def params_to_jax(named: Iterable[Tuple[str, torch.Tensor]],
-                  cfg: ModelConfig) -> Dict:
+                  cfg: ModelConfig, *, specs=None, mesh=None) -> Dict:
     """The inverse of ``params_from_jax``: ``(name, tensor)`` pairs named as
     in ``LM.named_parameters()`` -> JAX's nested dict, each superblock leaf
     stacked over its superblocks (new tensors; the others are the given
-    ones, detached)."""
+    ones, detached).  With ``specs`` ({name: PartitionSpec},
+    ``sharding.param_pspecs``) and a model axis ``mesh`` each tensor is a
+    rank's block, gathered to its global value first."""
     stacks: Dict[str, dict] = {}
     tree: Dict = {}
     for name, t in named:
+        if specs is not None and mesh is not None:
+            t = shd.gather_leaf(name, t.detach(), specs[name], mesh)
         jax_name, idx = _jax_leaf(name, cfg)
         if idx is None:
             _set(tree, jax_name, t.detach())

@@ -22,6 +22,17 @@ writes the new token's K/V into the cache tensors it is given and returns
 the same tensors.  Cross-attention (``attention_train`` with ``x_kv``, and
 ``cross_attention_decode`` against a frozen source KV) takes the plain path,
 as in JAX.
+
+On a 'model' axis of ranks (``models/sharding.py``'s execution half) a
+module built inside ``sharding.slicing`` holds this rank's block of each
+leaf the rules split (``tp_split``; ``tp_global`` keeps the global shapes)
+and its function runs the rank's part: attention its query heads (with
+their KV heads: its block where the KV heads divide, else the heads
+``h // G`` of its query heads, ``kv_layout``), the MLP and the experts their
+block of the hidden width, the SSD its heads (with every B / C channel of
+the conv, and the gated norm's mean of squares summed over the axis).  A
+replicated input enters through ``tp_copy`` and a row-parallel product
+leaves through ``tp_reduce``; the kernels run on the local heads.
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import sharding as shd
 from .config import ModelConfig
 from ..kernels import registry as kernel_registry
 from ..kernels.flash_attention.ops import flash_attention, flash_attention_decode
@@ -48,14 +60,26 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
-def _dense_init(shape, in_axis_size, *, generator, device, dtype):
-    """N(0, 1/in_axis_size) weights, the scale of the JAX ``_dense_init``."""
+def _dense_init(shape, in_axis_size, *, generator, device, dtype,
+                name: str = ""):
+    """N(0, 1/in_axis_size) weights, the scale of the JAX ``_dense_init``.
+    Inside ``sharding.slicing`` the whole leaf is drawn (the same stream)
+    and this rank's block of leaf ``name`` kept."""
     scale = 1.0 / math.sqrt(max(in_axis_size, 1))
     w = torch.randn(shape, generator=generator, device=device, dtype=dtype)
-    return nn.Parameter(w.mul_(scale), requires_grad=False)
+    w.mul_(scale)
+    slicer = shd.current_slicer()
+    if slicer is not None:
+        w = slicer.slice(name, w)
+    return nn.Parameter(w, requires_grad=False)
 
 
-def _empty(shape, *, device, dtype):
+def _empty(shape, *, device, dtype, name: str = ""):
+    """An uninitialised leaf (this rank's block inside
+    ``sharding.slicing``)."""
+    slicer = shd.current_slicer()
+    if slicer is not None:
+        shape = slicer.local_shape(name, shape)
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 
@@ -63,12 +87,33 @@ def _empty(shape, *, device, dtype):
 def _add_matrices(module, shapes, *, device, dtype, generator):
     """Register each ``name: (shape, fan_in)`` of ``shapes`` on ``module``:
     N(0, 1/fan_in) drawn from ``generator`` in dict order, or uninitialised
-    when ``generator`` is None (weights loaded afterwards)."""
+    when ``generator`` is None (weights loaded afterwards).  Inside
+    ``sharding.slicing`` each leaf is this rank's block: ``module.tp_global``
+    maps a split leaf to its global shape, and ``module.tp_split`` says
+    whether any is split (the module then runs its rank's part)."""
+    module.tp_global = getattr(module, "tp_global", {})
     for name, (shape, fan_in) in shapes.items():
         setattr(module, name,
-                _empty(shape, device=device, dtype=dtype) if generator is None
+                _empty(shape, device=device, dtype=dtype, name=name)
+                if generator is None
                 else _dense_init(shape, fan_in, generator=generator,
-                                 device=device, dtype=dtype))
+                                 device=device, dtype=dtype, name=name))
+        if tuple(getattr(module, name).shape) != tuple(shape):
+            module.tp_global[name] = tuple(shape)
+    module.tp_split = bool(module.tp_global)
+
+
+def _model_axis(params):
+    """The model axis a module built as a rank's block runs on; None for
+    a module of whole leaves."""
+    if not getattr(params, "tp_split", False):
+        return None
+    m = shd.model_axis()
+    if m is None:
+        raise RuntimeError(
+            f"{type(params).__name__} holds one model rank's block of its "
+            "leaves but no model axis is installed (launch.mesh.install_2d)")
+    return m
 
 
 class RMSNorm(nn.Module):
@@ -124,6 +169,38 @@ class Attention(nn.Module):
                   "wv": ((D, Hkv, dh), D), "wo": ((H, dh, D), H * dh)}
         _add_matrices(self, shapes, device=device, dtype=dtype,
                       generator=generator)
+
+
+def kv_layout(cfg: ModelConfig, tp: int = 1, index: int = 0):
+    """(query heads, first KV head, KV heads) that model rank ``index`` of
+    ``tp`` computes: every head on one rank or where the query heads do not
+    divide (the rules replicate the attention); its block of each where
+    the KV heads divide; else the KV heads ``h // G`` its query heads read,
+    a local group of ``min(G, H / tp)``.  A layout where neither the group
+    nor the rank's query heads divide the other raises."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if tp <= 1 or H % tp:
+        return H, 0, Hkv
+    Hl = H // tp
+    if Hkv % tp == 0:
+        return Hl, index * (Hkv // tp), Hkv // tp
+    G = H // Hkv
+    if G % Hl and Hl % G:
+        raise ValueError(f"{cfg.name}: {Hl} query heads a rank of {tp} and "
+                         f"groups of {G} split a KV head's group unevenly")
+    return Hl, index * Hl // G, max(Hl // G, 1)
+
+
+def _kv_weights(params, cfg, m):
+    """(wk, wv) of the KV heads this rank computes: its leaves where they
+    are its block or whole on one rank, else the columns of the KV heads
+    its query heads read."""
+    if m is None:
+        return params.wk, params.wv
+    _, k0, nk = kv_layout(cfg, m.size, m.index)
+    if params.wk.shape[1] == nk:
+        return params.wk, params.wv
+    return params.wk[:, k0:k0 + nk], params.wv[:, k0:k0 + nk]
 
 
 def _proj(x, w):
@@ -205,10 +282,15 @@ def attention_train(params, x, cfg: ModelConfig, *, positions=None,
     is reference math, as JAX's ``custom_vjp``), the ``ref`` route through
     plain autograd."""
     B, T, D = x.shape
+    m = _model_axis(params)
+    if m is not None:
+        x = shd.tp_copy(x)
+        x_kv = None if x_kv is None else shd.tp_copy(x_kv)
     src = x if x_kv is None else x_kv
+    wk, wv = _kv_weights(params, cfg, m)
     q = _proj(x, params.wq)
-    k = _proj(src, params.wk)
-    v = _proj(src, params.wv)
+    k = _proj(src, wk)
+    v = _proj(src, wv)
     contiguous = positions is None
     if positions is None:
         positions = torch.arange(T, device=x.device)
@@ -233,7 +315,8 @@ def attention_train(params, x, cfg: ModelConfig, *, positions=None,
                                   causal=causal and not cross, window=window,
                                   softcap=cfg.softcap_attn,
                                   chunk_q=cfg.attn_chunk_q)
-    return _out_proj(out, params.wo), (k, v)
+    y = _out_proj(out, params.wo)
+    return (y if m is None else shd.tp_reduce(y)), (k, v)
 
 
 def attention_decode(params, x, cache_k, cache_v, lengths, cfg: ModelConfig,
@@ -244,9 +327,13 @@ def attention_decode(params, x, cache_k, cache_v, lengths, cfg: ModelConfig,
     layers use a rolling buffer (S == window)."""
     B = x.shape[0]
     S = cache_k.shape[1]
+    m = _model_axis(params)
+    if m is not None:
+        x = shd.tp_copy(x)
+    wk, wv = _kv_weights(params, cfg, m)
     q = _proj(x, params.wq)
-    k = _proj(x, params.wk)
-    v = _proj(x, params.wv)
+    k = _proj(x, wk)
+    v = _proj(x, wv)
     pos = lengths[:, None]  # (B,1) absolute position of the new token
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
@@ -256,7 +343,7 @@ def attention_decode(params, x, cache_k, cache_v, lengths, cfg: ModelConfig,
     cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
 
-    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    H, Hkv, dh = q.shape[2], cache_k.shape[2], cfg.d_head
     G = H // Hkv
     # Both cache layouts reduce to a pure valid-length mask: slots 0..len are
     # written (dense), or the whole rolling buffer once warm — slot order in
@@ -277,7 +364,8 @@ def attention_decode(params, x, cache_k, cache_v, lengths, cfg: ModelConfig,
         out = _attend_block(qg, cache_k.to(dt), cache_v.to(dt), mask,
                             cfg.softcap_attn, 1.0 / math.sqrt(dh))
         out = out.reshape(B, 1, H, dh)
-    return _out_proj(out, params.wo), cache_k, cache_v
+    y = _out_proj(out, params.wo)
+    return (y if m is None else shd.tp_reduce(y)), cache_k, cache_v
 
 
 def cross_attention_decode(params, x, cross_k, cross_v, cfg: ModelConfig):
@@ -286,13 +374,17 @@ def cross_attention_decode(params, x, cross_k, cross_v, cfg: ModelConfig):
     in JAX.  x:(B,1,D) -> (B,1,D)."""
     B = x.shape[0]
     dt = x.dtype
-    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    m = _model_axis(params)
+    if m is not None:
+        x = shd.tp_copy(x)
+    H, Hkv, dh = params.wq.shape[1], cross_k.shape[2], cfg.d_head
     qg = _proj(x, params.wq).reshape(B, 1, Hkv, H // Hkv, dh)
     S = cross_k.shape[1]
     mask = torch.ones((B, 1, 1, 1, S), dtype=torch.bool, device=x.device)
     out = _attend_block(qg, cross_k.to(dt), cross_v.to(dt), mask, None,
                         1.0 / math.sqrt(dh))
-    return _out_proj(out.reshape(B, 1, H, dh), params.wo)
+    y = _out_proj(out.reshape(B, 1, H, dh), params.wo)
+    return y if m is None else shd.tp_reduce(y)
 
 
 # ---------------------------------------------------------------------------
@@ -311,11 +403,18 @@ class MLP(nn.Module):
                       generator=generator)
 
 
-def mlp(params, x):
+def mlp(params, x, reduce: bool = True):
+    """SwiGLU; on a model axis this rank's block of the hidden width, its
+    partial output summed over the axis (``reduce=False``: left partial,
+    for a caller that sums it with another partial first)."""
+    m = _model_axis(params)
+    if m is not None:
+        x = shd.tp_copy(x)
     dt = x.dtype
     h = x @ params.wi.to(dt)
     g = x @ params.wg.to(dt)
-    return (F.silu(g) * h) @ params.wd.to(dt)
+    y = (F.silu(g) * h) @ params.wd.to(dt)
+    return y if m is None or not reduce else shd.tp_reduce(y)
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +424,11 @@ class MoE(nn.Module):
     """Leaves ``router`` (D,E), ``experts_wi``/``experts_wg`` (E,D,Fe),
     ``experts_wd`` (E,Fe,D), and ``shared`` (an ``MLP`` of width
     ``n_shared_experts * d_ff_expert``) when the config has shared
-    experts, as JAX's ``init_moe``."""
+    experts, as JAX's ``init_moe``.  On a model axis the router, top-k and
+    dispatch run whole on every rank (``TP_REPLICATED_USE``), the experts
+    on the rank's block of their hidden width."""
+
+    TP_REPLICATED_USE = ("router",)
 
     def __init__(self, cfg: ModelConfig, *, device, dtype, generator=None):
         super().__init__()
@@ -423,6 +526,14 @@ def moe(params, x, cfg: ModelConfig, groups: int = 1, no_drop: bool = False,
     contrib = xf[:, None] * keep[..., None].to(dt)  # (G,K,S,D)
     expert_in = torch.zeros((G, E, C, D), dtype=dt, device=x.device)
     expert_in.index_put_((gidx, eidx, pos_clip), contrib, accumulate=True)
+    # on a model axis: the replicated dispatch and combine weights enter
+    # the rank's block of the experts (f), whose partial outputs are
+    # summed once, with the shared experts' (g)
+    split = _model_axis(params) is not None
+    combine = wgt * keep
+    if split:
+        expert_in = shd.tp_copy(expert_in)
+        combine = shd.tp_copy(combine)
 
     h = torch.einsum("gecd,edf->gecf", expert_in, params.experts_wi.to(dt))
     g = torch.einsum("gecd,edf->gecf", expert_in, params.experts_wg.to(dt))
@@ -431,11 +542,14 @@ def moe(params, x, cfg: ModelConfig, groups: int = 1, no_drop: bool = False,
 
     # gather back: y[s] = sum_k w * expert_out[e_k, p_k]
     o = expert_out[gidx, eidx, pos_clip]  # (G,K,S,D)
-    y = torch.sum(o * (wgt * keep)[..., None].to(o.dtype), dim=1)
+    y = torch.sum(o * combine[..., None].to(o.dtype), dim=1)
     y = y.reshape(B, T, D)
 
     if cfg.n_shared_experts:
-        y = y + mlp(params.shared, x)
+        # the shared width is a multiple of the experts': split with them
+        y = y + mlp(params.shared, x, reduce=not split)
+    if split:
+        y = shd.tp_reduce(y)
 
     # GShard aux load-balance loss: E * mean_e(frac_tokens_e * mean_gate_e)
     frac = torch.mean(onehot.float().sum(2), dim=(0, 1)) / K  # (E,)
@@ -500,6 +614,57 @@ def _ssd_proj(params, u, cfg: ModelConfig):
     Cs = _proj(u, params.wC)
     dt = _proj(u, params.wdt)
     return z, x, Bs, Cs, dt
+
+
+class _SSDPart:
+    """The part of an SSD mixer one rank runs: its heads ``[h0, h0 + H)``
+    of ``H_all`` (all of them with no model axis), the B / C groups they
+    read ``[g0, g0 + G)``, and the replicated leaves cut to them (the
+    conv's x channels of its heads and every B / C channel, ``A_log`` /
+    ``dt_bias`` / ``norm_scale`` of its heads)."""
+
+    def __init__(self, params, cfg: ModelConfig):
+        self.m = _model_axis(params)
+        H_all, Pd = cfg.ssm_n_heads, cfg.ssm_headdim
+        G_all, N = cfg.ssm_n_groups, cfg.d_state
+        self.H, self.H_all, self.Pd = params.wz.shape[1], H_all, Pd
+        self.h0 = 0 if self.m is None else self.m.index * self.H
+        per_g = H_all // G_all
+        if self.m is not None and self.H % per_g and per_g % self.H:
+            raise ValueError(f"{cfg.name}: {self.H} SSD heads a rank split "
+                             f"groups of {per_g} heads unevenly")
+        self.g0 = self.h0 // per_g
+        self.G = max(self.H // per_g, 1)
+        conv_w = params.conv_w
+        self.A_log, self.dt_bias = params.A_log, params.dt_bias
+        self.norm_scale = params.norm_scale
+        if self.m is not None:
+            xs = slice(self.h0 * Pd, (self.h0 + self.H) * Pd)
+            conv_w = torch.cat([conv_w[:, xs], conv_w[:, H_all * Pd:]], 1)
+            hs = slice(self.h0, self.h0 + self.H)
+            self.A_log, self.dt_bias = self.A_log[hs], self.dt_bias[hs]
+            self.norm_scale = self.norm_scale[xs]
+        self.conv_w = conv_w
+        self.GN = G_all * N
+
+    def groups(self, t):
+        """This rank's groups of B or C (..., G_all, N)."""
+        if self.m is None:
+            return t
+        return t[..., self.g0:self.g0 + self.G, :]
+
+    def norm(self, y):
+        """The gated RMSNorm over every head's channels: the mean of
+        squares summed over the model axis (forward and backward)."""
+        if self.m is None:
+            return _rmsnorm_scale(self.norm_scale, y)
+        yf = y.float()
+        ss = shd.tp_allsum(torch.sum(yf * yf, dim=-1, keepdim=True))
+        var = ss / (self.H_all * self.Pd)
+        return (yf * torch.rsqrt(var + 1e-6) * self.norm_scale).to(y.dtype)
+
+    def out(self, y):
+        return y if self.m is None else shd.tp_reduce(y)
 
 
 def ssd_chunked(x, dt, A, Bs, Cs, chunk: int, state=None,
@@ -572,17 +737,20 @@ def ssd_block_train(params, u, cfg: ModelConfig, conv_state=None,
     """Full mamba2 mixer over a sequence. u:(B,T,D) -> y:(B,T,D),
     (conv_st, ssm_st)."""
     B_, T, D = u.shape
-    H, Pd, G, N = cfg.ssm_n_heads, cfg.ssm_headdim, cfg.ssm_n_groups, cfg.d_state
+    part = _SSDPart(params, cfg)
+    if part.m is not None:
+        u = shd.tp_copy(u)
+    H, Pd, G, N = part.H, cfg.ssm_headdim, cfg.ssm_n_groups, cfg.d_state
     z, x, Bs, Cs, dt = _ssd_proj(params, u, cfg)
     # conv over [x, B, C]
     xBC = torch.cat([x.reshape(B_, T, H * Pd), Bs.reshape(B_, T, G * N),
                      Cs.reshape(B_, T, G * N)], dim=-1)
-    xBC, conv_state = _causal_conv1d(xBC, params.conv_w, conv_state)
+    xBC, conv_state = _causal_conv1d(xBC, part.conv_w, conv_state)
     x = xBC[..., : H * Pd].reshape(B_, T, H, Pd)
-    Bs = xBC[..., H * Pd: H * Pd + G * N].reshape(B_, T, G, N)
-    Cs = xBC[..., H * Pd + G * N:].reshape(B_, T, G, N)
-    dt = F.softplus(dt.float() + params.dt_bias)
-    A = -torch.exp(params.A_log)
+    Bs = part.groups(xBC[..., H * Pd: H * Pd + G * N].reshape(B_, T, G, N))
+    Cs = part.groups(xBC[..., H * Pd + G * N:].reshape(B_, T, G, N))
+    dt = F.softplus(dt.float() + part.dt_bias)
+    A = -torch.exp(part.A_log)
     # Kernel dispatch: the SSD kernel covers the zero-initial-state train
     # shape in f32.  Chunked-prefill continuation (ssm_state) and the
     # bf16-intra knob (a ref-path traffic optimization the kernel subsumes)
@@ -601,8 +769,8 @@ def ssd_block_train(params, u, cfg: ModelConfig, conv_state=None,
         y, ssm_state = ssd_chunked(x, dt, A, Bs, Cs, cfg.ssd_chunk, ssm_state,
                                    intra_bf16=cfg.ssd_bf16)
     y = y.reshape(B_, T, H * Pd) * F.silu(z.reshape(B_, T, H * Pd))
-    y = _rmsnorm_scale(params.norm_scale, y)
-    return _out_proj(y.reshape(B_, T, H, Pd), params.out_proj), \
+    y = part.norm(y)
+    return part.out(_out_proj(y.reshape(B_, T, H, Pd), params.out_proj)), \
         (conv_state, ssm_state)
 
 
@@ -611,17 +779,20 @@ def ssd_block_decode(params, u, conv_state, ssm_state, cfg: ModelConfig):
     Returns (y (B,1,D), (conv_state, ssm_state)) -- new tensors; the
     caller writes them back into its cache."""
     B_ = u.shape[0]
-    H, Pd, G, N = cfg.ssm_n_heads, cfg.ssm_headdim, cfg.ssm_n_groups, cfg.d_state
+    part = _SSDPart(params, cfg)
+    if part.m is not None:
+        u = shd.tp_copy(u)
+    H, Pd, G, N = part.H, cfg.ssm_headdim, cfg.ssm_n_groups, cfg.d_state
     z, x, Bs, Cs, dt = _ssd_proj(params, u, cfg)
     xBC = torch.cat([x.reshape(B_, 1, H * Pd), Bs.reshape(B_, 1, G * N),
                      Cs.reshape(B_, 1, G * N)], dim=-1)
-    xBC, conv_state = _causal_conv1d(xBC, params.conv_w, conv_state)
+    xBC, conv_state = _causal_conv1d(xBC, part.conv_w, conv_state)
     x = xBC[..., : H * Pd].reshape(B_, H, Pd)
-    Bs = xBC[..., H * Pd: H * Pd + G * N].reshape(B_, G, N)
-    Cs = xBC[..., H * Pd + G * N:].reshape(B_, G, N)
-    dt = F.softplus(dt.float() + params.dt_bias)[:, 0]  # (B,H)
-    A = -torch.exp(params.A_log)
-    rep = H // G
+    Bs = part.groups(xBC[..., H * Pd: H * Pd + G * N].reshape(B_, G, N))
+    Cs = part.groups(xBC[..., H * Pd + G * N:].reshape(B_, G, N))
+    dt = F.softplus(dt.float() + part.dt_bias)[:, 0]  # (B,H)
+    A = -torch.exp(part.A_log)
+    rep = H // Bs.shape[1]
     Bh = Bs.repeat_interleave(rep, dim=1).float()  # (B,H,N)
     Ch = Cs.repeat_interleave(rep, dim=1).float()
     dA = torch.exp(dt * A)  # (B,H)
@@ -629,7 +800,7 @@ def ssd_block_decode(params, u, conv_state, ssm_state, cfg: ModelConfig):
         "bhn,bhp->bhpn", Bh * dt[..., None], x.float())
     y = torch.einsum("bhn,bhpn->bhp", Ch, ssm_state)  # (B,H,P)
     y = y.reshape(B_, 1, H * Pd).to(u.dtype) * F.silu(z.reshape(B_, 1, H * Pd))
-    y = _rmsnorm_scale(params.norm_scale, y)
-    out = _out_proj(y.reshape(B_, 1, H, Pd), params.out_proj)
+    y = part.norm(y)
+    out = part.out(_out_proj(y.reshape(B_, 1, H, Pd), params.out_proj))
     return out, (conv_state, ssm_state)
 

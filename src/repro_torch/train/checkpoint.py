@@ -42,7 +42,12 @@ opt_state)`` as JAX's ``launch/train.py`` does, in JAX's layout: stacked
 ``blocks``, moments shaped like the params (``models/convert.py``
 ``params_to_jax``), staged through host memory; ``restore_lm_checkpoint``
 reads such a checkpoint, from either package, back into the LM's
-parameters and moments in place.
+parameters and moments in place.  On a (data x model) mesh
+(``launch/mesh.py``'s ``Mesh2D``) the save gathers each leaf the model
+axis splits to its global value, leaf by leaf through the host (a 14 B
+parameter state does not fit one card), the mesh's first rank writes and
+the manifest's ``mesh_shape`` is (D, M); the restore hands each rank its
+block, so a checkpoint saved at one model extent restores at another.
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..core.algorithm import TrainState
+from ..models import sharding as shd
 from ..models.convert import params_of_jax, params_to_jax
 from .compress import EFState
 from .optim import CrossReplicaState, OptState, cross_replica_specs
@@ -173,13 +179,16 @@ def _each_train_state(tree, fn):
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
                     extra: Optional[dict] = None, shardings: Any = None,
-                    mesh=None) -> str:
+                    mesh=None, model=None) -> str:
     """Write ``tree`` as ``step_{step:010d}.npz`` / ``.json`` in
     ``ckpt_dir``; returns the ``.npz`` path.  ``mesh`` (default: the mesh
     ``shardings`` names, see the module docstring) is the data mesh whose
     ranks all call this: the sharded leaves are gathered, the mesh's rank
     0 writes, every rank returns once the files are in place, and the
-    manifest's ``mesh_shape`` is the mesh's."""
+    manifest's ``mesh_shape`` is the mesh's.  ``model``: a model axis
+    beside it (every rank of both calls this; ``tree`` holds global
+    values): its rank 0 of data rank 0 writes, and ``mesh_shape`` is
+    (D, M)."""
     sharded = _sharded_paths(shardings)
     if mesh is None and sharded:
         mesh = next(iter(sharded.values()))
@@ -195,15 +204,22 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
         manifest_leaves.append({"name": name, "path": path,
                                 "shape": list(arr.shape),
                                 "dtype": str(arr.dtype)})
+    shape = None if mesh is None else [mesh.size]
+    if model is not None:
+        shape = [1 if mesh is None else mesh.size, model.size]
     manifest = {"step": int(step), "n_leaves": len(arrays),
-                "mesh_shape": None if mesh is None else [mesh.size],
+                "mesh_shape": shape,
                 "leaves": manifest_leaves, "extra": extra or {}}
     final_npz = os.path.join(ckpt_dir, f"step_{step:010d}.npz")
     final_json = os.path.join(ckpt_dir, f"step_{step:010d}.json")
-    if mesh is None or mesh.index == 0:
+    if (mesh is None or mesh.index == 0) and \
+            (model is None or model.index == 0):
         _write(ckpt_dir, final_npz, final_json, arrays, manifest)
-    if mesh is not None and mesh.distributed:
-        mesh.barrier()   # every rank returns once rank 0 has written
+    # every rank returns once the writer has written: the writer's data
+    # group waits for it, then each model group for its data rank
+    for axis in (mesh, model):
+        if axis is not None and axis.distributed:
+            axis.barrier()
     return final_npz
 
 
@@ -290,14 +306,14 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any, *,
 
 def _lm_tree(params, opt_state, cfg, fn):
     """``(params, opt_state)`` of an LM in JAX's layout, each tensor passed
-    through ``fn`` before it is stacked.  A ``CrossReplicaState``'s EF
-    residual (this rank's slice, (1,) + a param's shape a leaf) becomes
-    JAX's (1,) + the stacked leaf's shape: its block of the (ef_shards,
-    ...) global leaf."""
+    through ``fn(name, tensor)`` before it is stacked.  A
+    ``CrossReplicaState``'s EF residual (this rank's slice, (1,) + a
+    param's shape a leaf) becomes JAX's (1,) + the stacked leaf's shape:
+    its block of the (ef_shards, ...) global leaf."""
     names = [n for n, _ in params.named_parameters()]
 
     def tree(tensors):
-        return params_to_jax(((n, fn(t)) for n, t in zip(names, tensors)),
+        return params_to_jax(((n, fn(n, t)) for n, t in zip(names, tensors)),
                              cfg)
 
     def opt_tree(state):
@@ -320,19 +336,46 @@ def _lm_shardings(opt_state, mesh):
     return (None, cross_replica_specs(mesh))
 
 
+def _lm_axes(params, cfg, mesh):
+    """(data axis, model axis or None, {name: spec} on the model axis) of
+    ``mesh``: a data ``DataMesh``, a ``Mesh2D`` or None."""
+    model = getattr(mesh, "model", None)
+    data = getattr(mesh, "data", mesh)
+    if model is None or model.size == 1:
+        return data, None, None
+    return data, model, shd.param_pspecs(params, cfg, tp=model.size)
+
+
+def _leaf_dim(t, spec) -> int:
+    """How many leading dims ``t`` has before its param's (the EF
+    residual's shard dim)."""
+    return t.dim() - len(spec)
+
+
 def save_lm_checkpoint(ckpt_dir: str, step: int, params, opt_state, cfg, *,
                        extra: Optional[dict] = None, mesh=None) -> str:
     """Write an LM's ``(params, opt_state)`` in JAX's layout; returns the
     ``.npz`` path.  ``opt_state``: an ``OptState``, or on a data ``mesh``
     (every rank calls this) a compressed ``cross_replica`` optimizer's
     ``CrossReplicaState``, whose EF residual slices are gathered into
-    JAX's (ef_shards, ...) leaves; the mesh's rank 0 writes."""
+    JAX's (ef_shards, ...) leaves; the mesh's rank 0 writes.  ``mesh`` may
+    be a ``Mesh2D``: each leaf its model axis splits is gathered, one at a
+    time, to its global value on the host."""
+    data, model, specs = _lm_axes(params, cfg, mesh)
+
+    def host(name, t):
+        if model is not None:
+            sp = specs[name]
+            lead = _leaf_dim(t, sp)
+            t = shd.gather_leaf(name, t.detach(),
+                                shd.P(*([None] * lead), *sp), model)
+        return t.detach().cpu()
+
     return save_checkpoint(ckpt_dir, step,
-                           _lm_tree(params, opt_state, cfg,
-                                    lambda t: t.detach().cpu()),
+                           _lm_tree(params, opt_state, cfg, host),
                            extra=extra,
-                           shardings=_lm_shardings(opt_state, mesh),
-                           mesh=mesh)
+                           shardings=_lm_shardings(opt_state, data),
+                           mesh=data, model=model)
 
 
 @torch.no_grad()
@@ -341,29 +384,44 @@ def restore_lm_checkpoint(ckpt_dir: str, params, opt_state, cfg, *,
     """Restore an LM checkpoint (JAX's layout, written by either package)
     into ``params`` and ``opt_state``'s moments (and EF residual: this
     rank's block on ``mesh``) in place, leaf by leaf through host memory;
-    returns (opt_state with the saved step, manifest)."""
-    like = _lm_tree(params, opt_state, cfg,
-                    lambda t: torch.empty_like(t, device="meta"))
+    returns (opt_state with the saved step, manifest).  On a ``Mesh2D``
+    each rank takes its block of every leaf its model axis splits."""
+    data, model, specs = _lm_axes(params, cfg, mesh)
+
+    def global_like(name, t):
+        shape = list(t.shape)
+        if model is not None:
+            for d in shd.model_dims(specs[name]):
+                shape[_leaf_dim(t, specs[name]) + d] *= model.size
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    like = _lm_tree(params, opt_state, cfg, global_like)
     (ptree, saved), manifest = restore_checkpoint(
         ckpt_dir, like, step=step, device="cpu",
-        shardings=_lm_shardings(opt_state, mesh))
+        shardings=_lm_shardings(opt_state, data))
     names = [n for n, _ in params.named_parameters()]
     dests = [p for _, p in params.named_parameters()]
+    owners = list(names)
     srcs = params_of_jax(ptree, names, cfg)
     inner, saved_inner = opt_state, saved
     if isinstance(opt_state, CrossReplicaState):
         inner, saved_inner = opt_state.inner, saved.inner
         dests += [r[0] for r in opt_state.ef.residual]
+        owners += names
         srcs += params_of_jax(pytree.tree_map(lambda x: x[0],
                                               saved.ef.residual), names, cfg)
         dests += [opt_state.shard_grad_norm, opt_state.ef_err_norm]
+        owners += [None, None]
         srcs += [saved.shard_grad_norm, saved.ef_err_norm]
     for moments, tree in ((inner.mu, saved_inner.mu),
                           (inner.nu, saved_inner.nu)):
         if moments is not None:
             dests += moments
+            owners += names
             srcs += params_of_jax(tree, names, cfg)
-    for dst, src in zip(dests, srcs):
+    for dst, src, name in zip(dests, srcs, owners):
+        if model is not None and name is not None:
+            src = shd.local_slice(name, src, specs[name], model)
         dst.copy_(src)
     inner = inner._replace(step=saved_inner.step.to(inner.step.device))
     if isinstance(opt_state, CrossReplicaState):

@@ -72,7 +72,8 @@ def _chunks(flat):
     return [flat[i:i + CHUNK] for i in range(0, flat.numel(), CHUNK)]
 
 
-def cross_pod_allreduce_(grads, residual, *, axis, groups=None) -> list:
+def cross_pod_allreduce_(grads, residual, *, axis, groups=None,
+                         model=None) -> list:
     """``cross_pod_allreduce`` IN PLACE on lists of contiguous f32 tensors:
     each gradient becomes the mean of the dequantized sum, each residual
     the new residual; returns ``grads``.  ``ef_quantize``'s arithmetic, a
@@ -81,16 +82,25 @@ def cross_pod_allreduce_(grads, residual, *, axis, groups=None) -> list:
     for bit.  ``groups`` (index lists that partition the leaves; None:
     each leaf alone) share one scale a group, the amax over its leaves:
     JAX quantizes a stacked layer leaf with one scale, the port keeps its
-    layers apart (``models.convert.jax_leaf_groups``)."""
+    layers apart (``models.convert.jax_leaf_groups``).  ``model``: the
+    model axis the leaves are split over (a ``DataMesh``): a scale is the
+    amax over the logical leaf, so the groups' amaxes are maxed over it
+    (one all-reduce); each rank's residual holds its block."""
     if groups is None:
         groups = [[i] for i in range(len(grads))]
+    parts, amaxes = [], []
     for group in groups:
         pieces = [(_chunks(grads[i].view(-1)), _chunks(residual[i].view(-1)))
                   for i in group]
-        amaxes = [torch.amax(torch.abs(a + b))
-                  for gs, rs in pieces for a, b in zip(gs, rs)]
-        amax = torch.amax(torch.stack(amaxes)) if amaxes else \
-            torch.zeros((), dtype=F32, device=grads[group[0]].device)
+        chunk_max = [torch.amax(torch.abs(a + b))
+                     for gs, rs in pieces for a, b in zip(gs, rs)]
+        amaxes.append(torch.amax(torch.stack(chunk_max)) if chunk_max else
+                      torch.zeros((), dtype=F32,
+                                  device=grads[group[0]].device))
+        parts.append(pieces)
+    if model is not None and amaxes:
+        amaxes = list(model.pmax(torch.stack(amaxes)).unbind())
+    for pieces, amax in zip(parts, amaxes):
         q_scale, scale = _scales(amax)
         for gs, rs in pieces:
             for a, b in zip(gs, rs):

@@ -11,6 +11,14 @@ keeps the JAX interface: ``init(params) -> OptState`` and
 in f32 or in int8 with error feedback (``train/compress.py``), before the
 inner update.
 
+On a 'model' axis of ranks each rank holds a block of some leaves
+(``models/sharding.py``'s ``ModelSplit``).  ``cross_replica(model=)`` owns
+the split: it first sums the split-use leaves' partial gradients over the
+model axis, then reduces over the data axis, and hands the split to the
+wrapped update (``update(..., tp=)``), whose global norm, and so its clip,
+is then the norm of the logical tensors (a sharded leaf's sum of squares
+summed over the model axis, a replicated one counted once).
+
 Unlike JAX, ``update`` writes the new parameters and moments IN PLACE (into
 the tensors of ``params`` and ``state``) and returns them: at 1.4 B
 parameters a second copy of the weights and moments would cost 17 GB.
@@ -74,10 +82,20 @@ def linear_warmup_cosine(peak_lr: float, warmup: int, total: int,
     return sched
 
 
-def sum_squares(tensors) -> torch.Tensor:
+def sum_squares(tensors, tp=None) -> torch.Tensor:
     """Sum of squares over every tensor, in f32; a leaf of more than
     ``CHUNK`` elements is squared ``CHUNK`` at a time (no temporary the
-    size of the leaf)."""
+    size of the leaf).  ``tp`` (a ``sharding.ModelSplit`` of the tensors'
+    leaves): the sum over the logical tensors, every rank's blocks of a
+    sharded leaf summed over the model axis."""
+    if tp is not None:
+        tensors = list(tensors)
+        sharded = [t for t, s in zip(tensors, tp.sharded) if s]
+        whole = [t for t, s in zip(tensors, tp.sharded) if not s]
+        dev = tensors[0].device
+        zero = torch.zeros((), dtype=F32, device=dev)
+        return tp.mesh.psum(sum_squares(sharded) if sharded else zero) + \
+            (sum_squares(whole) if whole else zero)
     total = None
     for t in tensors:
         t = t.to(F32)
@@ -91,13 +109,14 @@ def sum_squares(tensors) -> torch.Tensor:
     return total
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt(sum of squares) over every tensor, in f32."""
-    return torch.sqrt(sum_squares(tensors))
+def global_norm(tensors, tp=None) -> torch.Tensor:
+    """sqrt(sum of squares) over every tensor, in f32 (the logical
+    tensors' under ``tp``, see ``sum_squares``)."""
+    return torch.sqrt(sum_squares(tensors, tp))
 
 
-def clip_by_global_norm(tensors, max_norm: float):
-    norm = global_norm(tensors)
+def clip_by_global_norm(tensors, max_norm: float, tp=None):
+    norm = global_norm(tensors, tp)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return [g * scale.to(g.dtype) for g in tensors], norm
 
@@ -106,10 +125,10 @@ def _zeros_like_f32(params):
     return [torch.zeros(p.shape, dtype=F32, device=p.device) for p in params]
 
 
-def _clip_or_norm(grads, grad_clip):
+def _clip_or_norm(grads, grad_clip, tp=None):
     if grad_clip is not None:
-        return clip_by_global_norm(grads, grad_clip)
-    return list(grads), global_norm(grads)
+        return clip_by_global_norm(grads, grad_clip, tp)
+    return list(grads), global_norm(grads, tp)
 
 
 def _step_zero(params) -> torch.Tensor:
@@ -136,7 +155,9 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     clipping.  The clip scale multiplies each gradient where the update
     reads it (``clip_by_global_norm``'s values, without a clipped copy of
     the whole gradient), and each leaf is updated ``CHUNK`` elements at a
-    time."""
+    time.  ``update``'s ``tp`` is the params' ``ModelSplit`` on a model
+    axis, which ``cross_replica(model=)`` passes (the norm of the logical
+    tensors)."""
     sched = lr if callable(lr) else constant(lr)
 
     def init(params):
@@ -145,9 +166,9 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                         nu=_zeros_like_f32(params))
 
     @torch.no_grad()
-    def update(grads, state: OptState, params):
+    def update(grads, state: OptState, params, tp=None):
         params, grads = list(params), list(grads)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, tp)
         clip = None if grad_clip is None else torch.clamp(
             grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
         step = state.step + 1
@@ -182,9 +203,9 @@ def sgd(lr, momentum: float = 0.0, grad_clip: Optional[float] = None
                         nu=None)
 
     @torch.no_grad()
-    def update(grads, state: OptState, params):
+    def update(grads, state: OptState, params, tp=None):
         params = list(params)
-        grads, gnorm = _clip_or_norm(grads, grad_clip)
+        grads, gnorm = _clip_or_norm(grads, grad_clip, tp)
         step = state.step + 1
         lr_t = sched(step.to(F32))
         for p, g, m in zip(params, grads, state.mu):
@@ -200,7 +221,8 @@ def _axes(axis) -> tuple:
 
 
 def cross_replica(opt: Optimizer, axis, *, compress: Optional[str] = None,
-                  ef_shards: int = 1, scale_groups=None) -> Optimizer:
+                  ef_shards: int = 1, scale_groups=None,
+                  model=None) -> Optimizer:
     """Data-parallel wrapper: all-reduce grads over ``axis`` before the inner
     update (paper §2.4 synchronous multi-GPU: "gradients all-reduced").
 
@@ -226,18 +248,33 @@ def cross_replica(opt: Optimizer, axis, *, compress: Optional[str] = None,
     contiguous f32.  ``scale_groups`` (``compress.cross_pod_allreduce_``'s ``groups``) lets
     leaves share an int8 scale: an LM's layers, which JAX stacks into one
     leaf (``models.convert.jax_leaf_groups``).
+
+    ``model`` (a ``sharding.ModelSplit``): the params are a rank's blocks
+    on a model axis.  The split-use leaves' partial gradients are summed
+    over it first; ``axis`` reduces over the data axes only; the int8
+    scales are maxed over the model axis (``cross_pod_allreduce_``);
+    ``shard_grad_norm`` / ``ef_err_norm`` and the wrapped update's norm
+    (``opt.update(..., tp=model)``) are the logical tensors' norms.
     """
     axes = _axes(axis)
-    tag = (axes, compress)
+    tag = (axes, compress) if model is None else (axes, compress, model)
     if getattr(opt.update, "_cross_replica_axis", None) == tag:
         return opt
 
+    def model_sums(grads):
+        return list(grads) if model is None else model.sum_split_(grads)
+
+    def inner_update(grads, state, params):
+        if model is None:
+            return opt.update(grads, state, params)
+        return opt.update(grads, state, params, tp=model)
+
     if compress is None:
         def update(grads, state, params):
-            grads = list(grads)
+            grads = model_sums(grads)
             for ax in axes:
                 grads = ax.pmean_all(grads)
-            return opt.update(grads, state, params)
+            return inner_update(grads, state, params)
 
         update._cross_replica_axis = tag
         return Optimizer(opt.init, update)
@@ -263,20 +300,21 @@ def cross_replica(opt: Optimizer, axis, *, compress: Optional[str] = None,
 
     @torch.no_grad()
     def update(grads, state: CrossReplicaState, params):
-        grads = list(grads)
+        grads = model_sums(grads)
         for ax in inner_axes:  # stage 1: full-precision inner reduction
             grads = ax.pmean_all(grads)
         # reduced in place: a copy only of a gradient that is not
         # contiguous f32
         grads = [g.to(F32).contiguous() for g in grads]
-        local_norm = global_norm(grads)
+        local_norm = global_norm(grads, model)
         # stage 2: int8 + error feedback over the outermost axis, on this
         # rank's slice of the residual (updated in place)
         cross_pod_allreduce_(grads, [r[0] for r in state.ef.residual],
-                             axis=outer, groups=scale_groups)
-        err_sq = sum_squares(state.ef.residual)
-        new_params, inner_state, gnorm = opt.update(grads, state.inner,
-                                                    params)
+                             axis=outer, groups=scale_groups,
+                             model=None if model is None else model.mesh)
+        err_sq = sum_squares(state.ef.residual, model)
+        new_params, inner_state, gnorm = inner_update(grads, state.inner,
+                                                      params)
         new_state = CrossReplicaState(
             inner=inner_state, ef=state.ef,
             shard_grad_norm=outer.pmax(local_norm),

@@ -354,18 +354,24 @@ def test_run_cell_writes_jax_keys_and_argument_bytes(arch, kind, tmp_path):
                         save_dir=str(tmp_path), verbose=False)
     keys, memory = jax_result_keys()
     assert set(r) == (keys - {"t_lower_s", "t_compile_s"}) | {
-        "t_trace_s", "collectives_scope"}
+        "t_trace_s", "collectives_scope", "collectives_by_axis"}
     assert set(r["memory"]) == memory
     assert r["memory"]["temp_bytes"] is None
     assert r["memory"]["peak_bytes"] is None
-    if kind == "train":
-        # the gradient all-reduce over 'data' (test_train_cell_collectives)
+    if kind in ("train", "prefill"):
+        # one rank's step: the 'model' axis' collectives (the smoke vocab
+        # splits over 16), and a train cell's gradient all-reduce over
+        # 'data' (test_train_cell_collectives)
         assert set(r["collectives_by_kind"]) == set(
             hlo_analysis._COLLECTIVES)
         assert r["roofline"]["t_collective_s"] > 0
-        assert "Queue 1 item 3" in r["collectives_scope"]
+        assert "'model' axis" in r["collectives_scope"]
+        assert set(r["collectives_by_axis"]) == {"model", "data"}
+        assert r["collectives_by_axis"]["model"] > 0
+        assert (r["collectives_by_axis"]["data"] > 0) == (kind == "train")
     else:
         assert r["collectives_by_kind"] is None
+        assert r["collectives_by_axis"] is None
         assert r["collectives_scope"] is None
         assert r["roofline"]["t_collective_s"] is None
         assert r["roofline"]["collective_bytes_per_device"] is None
@@ -384,11 +390,14 @@ def test_run_cell_writes_jax_keys_and_argument_bytes(arch, kind, tmp_path):
 @pytest.mark.parametrize("compress", [None, "int8_ef"])
 def test_train_cell_collectives(compress, multi_pod):
     """A train cell's optimizer is cross_replica over RecordingMeshes of
-    the dp axes: uncompressed, each axis all-reduces the f32 gradient (the
-    parameters' f32 bytes); compressed, the inner axis does so and the
-    outermost sends the int8 payload of JAX's compress.wire_bytes on JAX's
-    param tree (one scale a stacked leaf), plus the two health scalars (4
-    bytes each)."""
+    the dp axes, on one rank's blocks of the leaves (the 'model' axis of
+    16 splits the smoke vocab): uncompressed, each axis all-reduces the
+    rank's f32 gradient; compressed, the inner axis does so and the
+    outermost sends its int8 payload with one scale a stacked leaf, as
+    many as JAX's compress.wire_bytes counts on JAX's param tree, plus the
+    two health scalars (4 bytes each).  The 'model' axis' collectives
+    (``collectives_by_axis``) come on top, all-reduces and the logits'
+    all-gather."""
     arch, cell = "mamba2-1.3b", SMALL["train"]
     cfg = get_smoke_config(arch)
     r = dryrun.run_cell(arch, cell, cfg=cfg, n_micro=2, verbose=False,
@@ -397,20 +406,31 @@ def test_train_cell_collectives(compress, multi_pod):
     wb = jcompress.wire_bytes(jspecs.param_specs(jax_smoke(arch)))
     assert wb["fp32_bytes"] == 4 * sum(p.numel() for p in params)
     assert wb["int8_bytes"] < wire_bytes(params)["int8_bytes"]  # 2 layers
+    n_scales = (wb["int8_bytes"] - wb["fp32_bytes"] // 4) // 4
+    with tshd.slicing(cfg, tmesh.RecordingMesh(axis="model", size=16)):
+        local = sum(p.numel() for p in
+                    tspecs.param_specs(cfg, "train").parameters())
+    assert local < wb["fp32_bytes"] // 4     # the vocab split over 16
     sizes = (2, 16) if multi_pod else (16,)
     ring = [2 * (g - 1) / g for g in sizes]   # all-reduce wire factor
     if compress is None:
-        want = sum(f * wb["fp32_bytes"] for f in ring)
+        want = sum(f * 4 * local for f in ring)
     else:
-        want = ring[0] * (wb["int8_bytes"] + 2 * 4) + sum(
-            f * wb["fp32_bytes"] for f in ring[1:])
+        want = ring[0] * (local + 4 * n_scales + 2 * 4) + sum(
+            f * 4 * local for f in ring[1:])
+    by_axis = r["collectives_by_axis"]
+    dp = ("pod", "data") if multi_pod else ("data",)
+    assert set(by_axis) == {"model", *dp}
+    assert sum(by_axis[a] for a in dp) == pytest.approx(want, rel=1e-12)
+    assert by_axis["model"] > 0
     coll = r["collectives_by_kind"]
-    assert coll["all-reduce"] == pytest.approx(want, rel=1e-12)
-    assert sum(coll.values()) == coll["all-reduce"]
+    total = sum(by_axis.values())
+    assert coll["all-reduce"] + coll["all-gather"] == \
+        pytest.approx(total, rel=1e-12)
     assert r["roofline"]["collective_bytes_per_device"] == \
-        pytest.approx(want, rel=1e-12)
+        pytest.approx(total, rel=1e-12)
     assert r["roofline"]["t_collective_s"] == pytest.approx(
-        want / tmesh.LINK_BW, rel=1e-12)
+        total / tmesh.LINK_BW, rel=1e-12)
     assert r["collectives_scope"].endswith(f"compress={compress}")
 
 

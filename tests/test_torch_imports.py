@@ -113,11 +113,15 @@ def test_every_config_has_its_kernel_instances(arch, smoke):
     its path on the card runs in the built lists, so no entry point needs
     to refuse a config: attention (every family but ssm) at its head dim
     for prefill and its (head dim, query heads a KV head) for decode, and
-    the SSD scan (ssm, hybrid; training) at its (P, N, chunk)."""
+    the SSD scan (ssm, hybrid; training) at its (P, N, chunk); and so does
+    each rank of a 'model' axis of 2 and 4 (``train --mesh 1xM``): its
+    local (head dim, group) (``layers.kv_layout``) and its SSD heads'
+    instance."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels.flash_attention.flash_attention import (
         DECODE_INSTANCES, HEAD_DIMS)
     from repro_torch.kernels.ssd_scan.ssd_scan import INSTANCES
+    from repro_torch.models.layers import kv_layout
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     runs_attention = cfg.family != "ssm"
     runs_ssd = cfg.family in ("ssm", "hybrid")
@@ -125,6 +129,11 @@ def test_every_config_has_its_kernel_instances(arch, smoke):
     if runs_attention:
         assert cfg.d_head in HEAD_DIMS
         assert (cfg.d_head, cfg.n_heads // cfg.n_kv_heads) in DECODE_INSTANCES
+        for tp in (2, 4):
+            for rank in range(tp):
+                heads, _, kv = kv_layout(cfg, tp, rank)
+                assert (cfg.d_head, heads // kv) in DECODE_INSTANCES, (tp,
+                                                                      rank)
     if runs_ssd:
         assert (cfg.ssm_headdim, cfg.d_state, cfg.ssd_chunk) in INSTANCES
 

@@ -324,11 +324,12 @@ def test_main_joins_its_callers_group_and_restores_bit_for_bit(tmp_path):
 @pytest.mark.parametrize("argv, error, match", [
     (["--compress"], SystemExit, None),
     (["--mesh", "2x1", "--batch", "5"], SystemExit, "must divide"),
-    (["--mesh", "1x2"], NotImplementedError, "Queue 1 item 3"),
+    (["--mesh", "1x0"], ValueError, "n_model"),
 ])
 def test_main_mesh_errors_as_jax(argv, error, match):
     """--compress without --mesh is a parser error, an indivisible --batch
-    exits (JAX's messages), and a 'model' axis raises naming its item."""
+    exits (JAX's messages), and a 'model' axis of no rank raises as JAX's
+    ``make_2d_mesh``."""
     with pytest.raises(error) as e:
         train.main(["--device", "cpu"] + argv)
     if match:
@@ -361,7 +362,7 @@ def _spec(p):
 @pytest.mark.parametrize("shape", [(2, 1), (16, 16)])
 def test_install_gives_jax_rules(fresh_rules, how, shape):
     jm = jax.sharding.AbstractMesh(shape, ("data", "model"))
-    tm = tmesh.make_test_mesh(2) if shape == (2, 1) else \
+    tm = tmesh.make_test_mesh(2, 1) if shape == (2, 1) else \
         tmesh.AbstractMesh(shape, ("data", "model"))
     assert getattr(jmesh, how)(jm) is jm
     assert getattr(tmesh, how)(tm) is tm
@@ -393,11 +394,24 @@ def test_constrain_and_make_shardings(fresh_rules):
     assert tshd.make_shardings(spec, other).mesh is other
 
 
-def test_make_2d_mesh_shapes_and_refusals():
+def test_make_2d_mesh_shapes_and_refusals(tmp_path):
     m = tmesh.make_2d_mesh(2, 1, device="cpu")
     assert m.shape == {"data": 2, "model": 1} and m.size == 2
     assert m.axis_names == ("data", "model") and not m.data.distributed
     with pytest.raises(ValueError, match="n_model"):
         tmesh.make_2d_mesh(1, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tmesh.make_2d_mesh(2, 2, device="cpu")
+    # the 'model' axis: one-process views of both axes (JAX's 2 x 2
+    # default), and on a world of one rank a 2 x 2 mesh is refused
+    m = tmesh.make_test_mesh()
+    assert m.shape == {"data": 2, "model": 2} and m.size == 4
+    assert m.model.axis == "model" and not m.model.distributed
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        with pytest.raises(ValueError, match="needs 4 ranks"):
+            tmesh.make_2d_mesh(2, 2, device="cpu")
+        one = tmesh.make_2d_mesh(1, 1, device="cpu")
+        assert one.data.distributed and one.lead
+    finally:
+        dist.destroy_process_group()

@@ -5,17 +5,26 @@ kernels they need built first:
     python3 tools/chip_phases.py PHASE [PHASE ...]
 
 PHASE is ``ssd_f64`` (phase 3's check of the full-width SSD instances
-against an f64 oracle, ``ssd_f64_check``) or ``lm_mesh`` (phase 11c, the
+against an f64 oracle, ``ssd_f64_check``), ``lm_mesh`` (phase 11c, the
 LM mesh's data axis on two gloo ranks sharing the card,
-``lm_mesh_phase``).  Prints each phase's lines as ``chip_smoke.py`` does
+``lm_mesh_phase``), ``lm_tp`` (phase 11d, the 'model' axis on gloo ranks
+sharing the card, ``lm_tp_phase``) or ``lm_tp4`` (the four-card proof:
+qwen2-moe-a2.7b at full width and depth on 1 x 4 and gemma2-2b on 2 x 2
+--compress, NCCL ranks a card each, ``lm_tp4_phase``; raises unless the
+machine has 4 cards).  Prints each phase's lines as ``chip_smoke.py`` does
 and the wall of each; exits non-zero where a check fails.
+
+    python3 tools/chip_phases.py lm_tp        # one card
+    python3 tools/chip_phases.py lm_tp4       # a machine with four cards
 """
 import sys
 import time
 from pathlib import Path
 
 PHASES = {"ssd_f64": (["ssd_scan"], "ssd_f64_check"),
-          "lm_mesh": (None, "lm_mesh_phase")}
+          "lm_mesh": (None, "lm_mesh_phase"),
+          "lm_tp": (None, "lm_tp_phase"),
+          "lm_tp4": (["flash_attention"], "lm_tp4_phase")}
 
 if __name__ == "__main__":
     names = sys.argv[1:]
