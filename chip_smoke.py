@@ -306,6 +306,21 @@ Needs one CUDA device of compute capability 9.0 and the CUDA toolkit
    f32 compute), where (b)'s split-use leaves left unsummed must fail;
    (c)'s int8 update, the same pass, within ``LM_MESH_EF_BOUND`` of the
    mean scale;
+11e. slice phase, NCCL collectives in a CUDA graph: one spawned rank, a
+   world-1 NCCL group on cuda:0 (``spawn_ranks(fn, 1, device="cuda")``),
+   captures a ``StepGraph`` body that calls ``dist.all_reduce`` and
+   ``dist.all_gather_into_tensor`` inside the mesh's event timing, and
+   replays it 100 times on inputs that change between replays: each
+   replay equal to an eager call of the body on the same inputs bit for
+   bit (the eager calls on the same communicator between the replays),
+   the captured collectives' event time finite and positive; then a gloo
+   group on the same card must refuse the capture (``DataMesh.
+   _refuse_capture``).  ``DataMesh``'s own collectives send nothing on one
+   rank, so this phase holds the capture machinery on the installed torch
+   and NCCL, not agreement across ranks: that is the four-card proof
+   (``tools/chip_phases.py mesh4``, ``mesh4_phase``: ``TrainLoop(mesh=,
+   fuse=True)`` and the graphed model-axis rollout on four NCCL ranks,
+   not part of this script's run);
 12. on the same weights (drawn again), a ``torch.profiler`` pass measures
    the device's busy time per prefill, per decode step (gemma2-2b, then
    qwen2-moe-a2.7b and zamba2-7b at full width), per rollout of
@@ -675,6 +690,31 @@ LM_TP4 = {"timeout": 1800,
           "gemma2": {"arch": "gemma2-2b", "layers": 26, "mesh": (2, 2),
                      "batch": 8, "horizon": 256, "steps": 2,
                      "compress": True}}
+# the fused mesh's four-card proof (tools/chip_phases.py mesh4, not part of
+# this script's run): four NCCL ranks, a card each.  (a) RL, each run fused
+# against unfused on the same ranks: A2C (16 envs, int8_ef, sentinels),
+# PPO at the quickstart's settings, prioritized rainbow DQN at the catch
+# example's (across its target copy at update 100); a checkpoint at the
+# first of restore_iters restored into a new fused loop; the Catch bar,
+# fused.  (b) LM at full width: mamba2-1.3b at all 48 layers and
+# qwen2-moe-a2.7b at all 24 on 1 x 4, gemma2-2b at 26 on 2 x 2
+# --compress, each two steps, then a rollout of the trained LM replayed
+# from its graph against an eager one from the same seed
+MESH4 = {"timeout": 1500, "collective_timeout": 300, "envs": 16, "a2c_iters": 20, "ppo_iters": 8,
+         "dqn_iters": 60, "bar_iters": 200, "bar_updates": 4,
+         "restore_iters": (20, 20), "wall_iters": 20,
+         "lm": {"mamba2": {"arch": "mamba2-1.3b", "layers": 48,
+                           "mesh": (1, 4), "batch": 8, "horizon": 256,
+                           "steps": 2, "compress": False},
+                "qwen2": {"arch": "qwen2-moe-a2.7b", "layers": 24,
+                          "mesh": (1, 4), "batch": 8, "horizon": 256,
+                          "steps": 2, "compress": False},
+                "gemma2": {"arch": "gemma2-2b", "layers": 26,
+                           "mesh": (2, 2), "batch": 8, "horizon": 256,
+                           "steps": 2, "compress": True}}}
+# phase 11e: one NCCL rank (a world of one on the card) captures
+# all_reduce and all_gather_into_tensor on n f32 and replays them
+CAPTURE = {"n": 2**20, "replays": 100, "timeout": 300}
 # the tooling phase (12b): rlpyt's variant launcher on the card, the dry
 # run's specs against allocations and its counts beside the phases' walls
 TOOLING = {"variants": {"arch": "gemma2-2b", "steps": 2, "batch": 4,
@@ -745,6 +785,7 @@ from repro_torch.models.layers import record_routing  # noqa: E402
 from repro_torch.models.rl_models import make_pg_mlp, make_recurrent_q  # noqa: E402
 from repro_torch.replay.host import SequenceSamples  # noqa: E402
 from repro_torch.replay.interface import transition_example  # noqa: E402
+from repro_torch.samplers.eval import fold_seed  # noqa: E402
 from repro_torch.runners import AsyncRunner, OffPolicyRunner, TrainLoop  # noqa: E402
 from repro_torch.samplers import SerialSampler, ShardedSampler  # noqa: E402
 from repro_torch.serving import (ContinuousBatchEngine,  # noqa: E402
@@ -2996,11 +3037,13 @@ def mesh_a2c(mesh, n_iters, compress=None, sentinels=False):
     return out, ts
 
 
-def mesh_dqn_runner(mesh, variant, n_iterations, updates, ckpt_dir=None):
+def mesh_dqn_runner(mesh, variant, n_iterations, updates, ckpt_dir=None,
+                    fuse=False):
     """The catch_dqn_variants example's ``variant`` at its settings (16 envs
     x horizon 16, replay 8192, batch 64, epsilon 0.2, Adam 5e-4, target copy
-    every 100 updates) through ``OffPolicyRunner(mesh=...)``: 8 envs, a
-    ring of 4096 and 32 samples an update a rank; ``fuse=False``."""
+    every 100 updates) through ``OffPolicyRunner(mesh=...)``: 16 envs, a
+    ring of 8192 and 64 samples an update over the ranks; ``fuse`` as
+    given (gloo ranks sharing a card run unfused)."""
     from repro_torch.agents import make_dqn_agent
     from repro_torch.algos import DQN
     from repro_torch.models.rl_models import make_q_conv
@@ -3019,7 +3062,7 @@ def mesh_dqn_runner(mesh, variant, n_iterations, updates, ckpt_dir=None):
         n_iterations=n_iterations, updates_per_collect=updates,
         min_replay=512, prioritized=v["prioritized"],
         log_interval=n_iterations, logger=Logger(sinks=()),
-        agent_state_kwargs={"epsilon": 0.2}, mesh=mesh, fuse=False,
+        agent_state_kwargs={"epsilon": 0.2}, mesh=mesh, fuse=fuse,
         ckpt_dir=ckpt_dir, ckpt_interval=n_iterations if ckpt_dir else 0)
 
 
@@ -4167,6 +4210,453 @@ def lm_tp4_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 11e: NCCL collectives captured in a CUDA graph, on the one card
+# ---------------------------------------------------------------------------
+def capture_body(mesh, n):
+    """A step over NCCL collectives called directly (``DataMesh``'s send
+    nothing on a world of one): the state ``x`` and this step's input
+    ``inp`` through an all-reduce and an all-gather, each inside the
+    mesh's event timing (``DataMesh._timed``)."""
+    import torch.distributed as dist
+
+    world = mesh.size
+
+    def body(x, inp):
+        a = torch.sin(x) * 1.5 + inp
+        with mesh._timed(mesh.device):
+            dist.all_reduce(a, group=mesh.group)
+        g = torch.empty(world * n, device=mesh.device)
+        with mesh._timed(mesh.device):
+            dist.all_gather_into_tensor(g, a, group=mesh.group)
+        y = g.view(world, n).sum(0) * 0.5 + a.square()
+        return (y, inp), y.sum()
+
+    return body
+
+
+def capture_rank(mesh):
+    """The rank of phase 11e: a world-1 NCCL group on the card.  Its body
+    captured in a ``StepGraph`` and replayed CAPTURE["replays"] times on
+    inputs that change between replays, each result against an eager call
+    of the same body on the same inputs (the same communicator, eager
+    between the replays); the captured collectives' event time; then a
+    gloo group on the same card refusing the capture."""
+    import torch.distributed as dist
+    from repro_torch.core.graphs import StepGraph
+    from repro_torch.launch.mesh import DataMesh
+
+    torch.cuda.set_device(mesh.device)
+    dev, n = mesh.device, CAPTURE["n"]
+    out = {"backend": mesh.backend, "capturable": mesh.capturable,
+           "device": str(dev)}
+    body = capture_body(mesh, n)
+    step = StepGraph(body, device=dev, name="nccl_capture")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(n, generator=gen, device=dev)
+    mismatched, walls = [], {"graph": [], "eager": []}
+    with mesh_lib.time_collectives() as acc:
+        for i in range(CAPTURE["replays"] + 2):   # warm-up, capture, replays
+            inp = torch.randn(n, generator=gen, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (want, _), want_sum = body(x.clone(), inp.clone())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (x, _), got_sum = step(x, inp)
+            torch.cuda.synchronize()
+            if i >= 2:
+                walls["eager"].append((t1 - t0) * 1e3)
+                walls["graph"].append((time.perf_counter() - t1) * 1e3)
+            if not (torch.equal(x, want) and torch.equal(got_sum, want_sum)):
+                mismatched.append(i)
+            x = x.clone()   # the next input, not the graph's own state
+        eager_pairs = len(acc.events)
+        total = acc.seconds()
+    out.update(replays=step.replays, mismatched=mismatched,
+               captured_s=acc.replayed, eager_pairs=eager_pairs,
+               total_s=total, walls={k: float(np.median(v))
+                                     for k, v in walls.items()})
+    # gloo on the same card: the refusal comes before anything is sent, so
+    # a group of this one rank, claimed two ranks wide, shows it
+    gloo = DataMesh(axis="gloo", size=2, index=0, device=dev,
+                    devices=(dev, dev), group=dist.new_group(
+                        backend="gloo"))
+    refuse = StepGraph(lambda y: ((gloo.psum(y * 2.0),), None), device=dev,
+                       name="gloo_capture")
+    y = torch.ones(8, device=dev)
+    refuse(y)   # the eager warm-up: gloo sends from the host
+    try:
+        refuse(y)
+    except RuntimeError as e:
+        out["refused"] = str(e)
+    else:
+        fail("gloo on the card: the CUDA graph's capture was not refused")
+    out["gloo_capturable"] = gloo.capturable
+    torch.cuda.synchronize()
+    return out
+
+
+def capture_phase():
+    """Phase 11e (see the module docstring); returns its lines' numbers."""
+    t_phase = time.perf_counter()
+    print(f"slice phase: NCCL collectives in a CUDA graph (one rank, a "
+          f"world-1 NCCL group on {DEV}; {CAPTURE['replays']} replays of "
+          f"all_reduce + all_gather_into_tensor on {CAPTURE['n']} f32)")
+    (r,) = spawn_ranks(capture_rank, 1, device="cuda",
+                       timeout=CAPTURE["timeout"])
+    card = smi()
+    if r["backend"] != "nccl" or not r["capturable"]:
+        fail(f"nccl capture: backend {r['backend']}, capturable "
+             f"{r['capturable']}")
+    if r["mismatched"] or r["replays"] != CAPTURE["replays"] + 1:
+        fail(f"nccl capture: replays {r['replays']}, calls differing from "
+             f"eager {r['mismatched'][:5]}")
+    if not (math.isfinite(r["captured_s"]) and r["captured_s"] > 0):
+        fail(f"nccl capture: the captured collectives' event time "
+             f"{r['captured_s']}")
+    msg = r["refused"]
+    if r["gloo_capturable"] or "NCCL" not in msg or "gloo" not in msg:
+        fail(f"gloo capture not refused: {msg}")
+    w = r["walls"]
+    print(f"  rank on {r['device']}, backend nccl, capturable: "
+          f"{CAPTURE['replays'] + 1} replays (capture_error_mode "
+          "thread_local) each equal to an eager call on the same inputs, "
+          "bit for bit, with eager collectives on the same communicator "
+          "between them")
+    print(f"  the captured collectives' event time over the replays "
+          f"{r['captured_s'] * 1e3:.3f} ms ({r['captured_s'] * 1e6 / (CAPTURE['replays'] + 1):.2f} "
+          f"us a replay); eager event pairs {r['eager_pairs']}, all "
+          f"{r['total_s'] * 1e3:.3f} ms ({card})")
+    print(f"  a step's wall {w['eager']:.3f} ms eager, {w['graph']:.3f} ms "
+          f"graph (median, synchronised; {card})")
+    print(f"  gloo on the same card refused the capture: {msg[:110]}...")
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return r
+
+
+# ---------------------------------------------------------------------------
+# the fused mesh's four-card proof (tools/chip_phases.py mesh4)
+# ---------------------------------------------------------------------------
+def dev_sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh4_a2c(mesh, n):
+    """A2C on CartPole through ``ShardedSampler`` (MESH4's envs x 16) and
+    ``OnPolicyRunner(mesh=)`` whose loop compresses (``int8_ef``) and
+    keeps sentinels; (runner, None) for ``fused_identity``."""
+    from repro_torch.runners import OnPolicyRunner
+    model = make_pg_mlp(4, 2)
+    agent = make_categorical_pg_agent(model)
+    algo = A2C(model.apply, optim.adam(1e-3), distribution=Categorical(2))
+    sampler = ShardedSampler(make_env("cartpole"), agent,
+                             n_envs=MESH4["envs"], horizon=16, mesh=mesh)
+    runner = OnPolicyRunner(sampler, algo, n_iterations=n, log_interval=n,
+                            logger=Logger(sinks=()), mesh=mesh)
+    runner.loop = TrainLoop(sampler, algo, mesh=mesh, compress="int8_ef",
+                            sentinels=True)
+    return runner, None
+
+
+def mesh4_ppo(mesh, n):
+    """PPO on CartPole at the quickstart's settings (Adam 7e-4, clip 0.5,
+    4 epochs x 4 minibatches of a rank's batch, 16 envs x 64, sentinels)
+    through ``OnPolicyRunner(mesh=)``."""
+    from repro_torch.algos import PPO
+    from repro_torch.runners import OnPolicyRunner
+    model = make_pg_mlp(4, 2)
+    agent = make_categorical_pg_agent(model)
+    algo = PPO(model.apply, optim.adam(7e-4, grad_clip=0.5),
+               distribution=Categorical(2), epochs=4, minibatches=4)
+    sampler = ShardedSampler(make_env("cartpole"), agent, n_envs=16,
+                             horizon=64, mesh=mesh)
+    return OnPolicyRunner(sampler, algo, n_iterations=n, log_interval=n,
+                          logger=Logger(sinks=()), mesh=mesh,
+                          sentinels=True), None
+
+
+def mesh4_walls(make, n, dev):
+    """Median wall (ms) of one iteration, eager (``iteration``) and fused
+    (``fused_iteration``, a graph replay), each after its runner's run and
+    two iterations; synchronised."""
+    out = {}
+    for fuse in (False, True):
+        runner, params = make()
+        runner.loop.fuse = fuse
+        ts, ss, _ = runner.run(SEED, params=params, device=dev)
+        state = [ts, ss, getattr(runner, "replay_state", None),
+                 torch.Generator(device=dev).manual_seed(SEED + 3)]
+        step = runner.loop.fused_iteration if fuse else runner.loop.iteration
+        walls = []
+        for i in range(n + 2):
+            dev_sync(dev)
+            t0 = time.perf_counter()
+            state[0], state[1], state[2], _, _ = step(*state)
+            dev_sync(dev)
+            if i >= 2:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        out["graph" if fuse else "eager"] = float(np.median(walls))
+    return out
+
+
+def mesh4_restore(mesh, ckpt_dir, dev):
+    """Rainbow through ``OffPolicyRunner(mesh=, fuse=True)`` to
+    MESH4["restore_iters"][0], checkpointed there; then the same loop on
+    to the second count from that state, and a new fused loop from the
+    checkpoint's train and replay states (the sampler state and generator
+    as the first had them: the checkpoint holds neither) to the same
+    count.  True when the two end bit for bit alike."""
+    first, more = MESH4["restore_iters"]
+    _, runner = mesh_dqn_runner(mesh, "rainbow", first, 2, ckpt_dir,
+                                fuse=True)
+    ts, ss, _ = runner.run(SEED, device=dev)
+    rs = runner.replay_state
+    # the fused loop's sampler state lives in its graph's memory
+    ss0 = pytree.tree_map(
+        lambda x: torch.Generator(device=x.device).set_state(x.get_state())
+        if isinstance(x, torch.Generator) else
+        x.clone() if torch.is_tensor(x) else x, ss, is_leaf=graph_leaf)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    a = runner.loop.run_window(ts, ss, rs, gen, more)[:3]
+    want = snapshot(a + (gen,))
+    _, fresh = mesh_dqn_runner(mesh, "rainbow", first, 2, fuse=True)
+    ex = transition_example(fresh.sampler.env, device=dev)
+    like = (fresh.loop.algo.init_train_state(None, fresh.sampler.agent
+                                             .init_params(torch.Generator(
+                                                 device=dev))),
+            fresh.replay.init_sharded(ex, mesh.size, index=mesh.index))
+    (ts2, rs2), manifest = restore_checkpoint(
+        ckpt_dir, like, shardings=fresh.loop.checkpoint_specs(like))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    b = fresh.loop.run_window(ts2, ss0, rs2, gen, more)[:3]
+    return {"equal": same_snapshot(want, snapshot(b + (gen,))),
+            "iteration": manifest["extra"]["iteration"],
+            "step": b[0].step}
+
+
+def mesh4_rl(mesh, ckpt_dir):
+    """(a) of the four-card proof on this rank."""
+    dev = mesh.device
+    out = {}
+    # the conv backward of Catch's Q net adds in a fixed order only so
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, make, n in (
+                ("a2c", lambda: mesh4_a2c(mesh, MESH4["a2c_iters"]),
+                 MESH4["a2c_iters"]),
+                ("ppo", lambda: mesh4_ppo(mesh, MESH4["ppo_iters"]),
+                 MESH4["ppo_iters"]),
+                ("rainbow", lambda: (mesh_dqn_runner(
+                    mesh, "rainbow", MESH4["dqn_iters"], 2,
+                    fuse=True)[1], None), MESH4["dqn_iters"])):
+            launches = {}
+            replays = fused_identity(f"rank {mesh.index} {name}", make, n,
+                                     launches)
+            out[name] = {"replays": replays, "launches": launches,
+                         "walls": mesh4_walls(make, MESH4["wall_iters"],
+                                              dev)}
+        out["restore"] = mesh4_restore(mesh, ckpt_dir, dev)
+        sampler, runner = mesh_dqn_runner(mesh, "dueling", MESH4["bar_iters"],
+                                          MESH4["bar_updates"], fuse=True)
+        zero_kernel_counters()
+        t0 = time.perf_counter()
+        ts, ss, info = runner.run(SEED, device=dev)
+        out["bar"] = mesh_greedy(sampler, ts.params, ss)
+        dev_sync(dev)
+        out["bar_wall_s"] = time.perf_counter() - t0
+        out["bar_launches"] = kernel_launches()
+        out["bar_replays"] = sum(g.replays for g in runner.loop.graphs.values())
+    finally:
+        torch.backends.cudnn.deterministic = was
+    return out
+
+
+def mesh4_lm_run(world, name, log_dir):
+    """One LM run of MESH4 on this rank through ``train.main`` (its rows,
+    launches, peak memory), then two rollouts of the trained LM from one
+    seed on the same ranks, the step replayed from a CUDA graph and
+    eager: their trajectories, walls, model-axis collectives' time and
+    launches."""
+    run = MESH4["lm"][name]
+    d, m = run["mesh"]
+    dev = world.device
+    argv = ["--arch", run["arch"], "--full", "--layers", str(run["layers"]),
+            "--mesh", f"{d}x{m}", "--batch", str(run["batch"]),
+            "--horizon", str(run["horizon"]), "--steps", str(run["steps"]),
+            "--device", dev.type, "--seed", str(SEED),
+            "--log-dir", str(Path(log_dir) / name)]
+    tp_release()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counters()
+    t0 = time.perf_counter()
+    params = train.main(argv + (["--compress"] if run["compress"] else []))
+    dev_sync(dev)
+    mine = Path(log_dir) / name
+    if world.index:
+        mine = mine / f"rank_{world.index}"
+    out = {"wall": time.perf_counter() - t0, "launches": kernel_launches(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
+           else 0.0,
+           "finite": all(bool(torch.isfinite(p).all())
+                         for p in params.parameters()),
+           "rows": [json.loads(ln) for ln in
+                    (mine / "progress.jsonl").read_text().splitlines()]}
+    cfg = dataclasses.replace(get_config(run["arch"]), n_layers=run["layers"])
+    mesh = mesh_lib.install_2d(mesh_lib.make_2d_mesh(d, m, device=dev.type))
+    rolls = {}
+    try:
+        env = make_token_lm(vocab=cfg.vocab, episode_len=run["horizon"],
+                            device=dev)
+        for graph in (True, False):
+            rollout = train.make_lm_rollout(cfg, env, run["batch"] // d,
+                                            run["horizon"], device=dev,
+                                            graph=graph)
+            gen = torch.Generator(device=dev).manual_seed(
+                fold_seed(SEED + 11, mesh.data.index))
+            zero_kernel_counters()
+            dev_sync(dev)
+            t0 = time.perf_counter()
+            with mesh_lib.time_collectives(mesh.model.axis) as wire:
+                traj, v_last = rollout(params, gen)
+                dev_sync(dev)
+            rolls[graph] = {
+                "wall": time.perf_counter() - t0, "tp_s": wire.seconds(),
+                "launches": kernel_launches(),
+                "snap": [traj[k].clone() for k in ("tokens", "actions",
+                                                   "logp", "value")]
+                + [v_last.clone()]}
+            del rollout, traj, v_last
+            tp_release()
+    finally:
+        mesh_lib.install_2d(None)
+    a, b = rolls[True].pop("snap"), rolls[False].pop("snap")
+    out["rollout_equal"] = all(torch.equal(x, y) for x, y in zip(a, b))
+    out["rollout_diff"] = [float((x.double() - y.double()).abs().max())
+                           for x, y in zip(a, b)]
+    out["rollouts"] = rolls
+    del params, a, b
+    tp_release()
+    return out
+
+
+def mesh4_rank(world, log_dir):
+    """One rank of the four-card proof: (a) RL fused against unfused, the
+    restore, the Catch bar; (b) the LM runs of MESH4."""
+    if world.device.type == "cuda":
+        torch.cuda.set_device(world.device)
+    out = {"device": str(world.device), "backend": world.backend,
+           "capturable": world.capturable}
+    out["rl"] = mesh4_rl(world, str(Path(log_dir) / "rl_ckpt"))
+    for name in MESH4["lm"]:
+        out[name] = mesh4_lm_run(world, name, log_dir)
+        make_data_mesh(device=world.device.type).barrier()
+    return out
+
+
+def mesh4_phase(device="cuda"):
+    """The four-card proof of the fused mesh (``tools/chip_phases.py
+    mesh4``): four NCCL ranks, a card each (MESH4).  Raises unless the
+    machine has 4 cards."""
+    n = torch.cuda.device_count() if device == "cuda" else 4
+    if n < 4:
+        fail(f"mesh4 needs 4 CUDA devices, found {n}")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spawn_ranks(mesh4_rank, 4, (d,), device=device,
+                            timeout=MESH4["timeout"],
+                            collective_timeout=MESH4["collective_timeout"])
+    card = "; ".join(smi().splitlines()) if device == "cuda" else "the CPU"
+    print(f"fused mesh, four-card proof ({card}): ranks on "
+          f"{[r['device'] for r in ranks]}, collectives "
+          f"{ranks[0]['backend']}, capturable {ranks[0]['capturable']}")
+    bad = []
+    for i, r in enumerate(ranks):
+        rl = r["rl"]
+        for name in ("a2c", "ppo", "rainbow"):
+            o = rl[name]
+            w = o["walls"]
+            print(f"  rank {i} {name}: fused == unfused bit for bit, graph "
+                  f"replays by branch {o['replays']}, launches fused "
+                  f"{o['launches'][True]} / unfused {o['launches'][False]}; "
+                  f"an iteration {w['eager']:.3f} ms eager, {w['graph']:.3f}"
+                  f" ms graph ({w['eager'] / w['graph']:.2f}x)")
+            if o["launches"][True] != o["launches"][False]:
+                bad.append(f"rank {i} {name}: launches {o['launches']}")
+        st = rl["rainbow"]["launches"][True]["tree_sample_blocked"]
+        if st != 2 * MESH4["dqn_iters"]:
+            bad.append(f"rank {i} rainbow: sum_tree_sample {st} launches, "
+                       f"want {2 * MESH4['dqn_iters']}")
+        rs = rl["restore"]
+        print(f"  rank {i} restore: checkpoint of iteration "
+              f"{rs['iteration']} into a new fused loop, on to step "
+              f"{rs['step']}: bit for bit {rs['equal']}")
+        if not rs["equal"]:
+            bad.append(f"rank {i}: the restored fused loop differs")
+        st_bar = rl["bar_launches"]["tree_sample_blocked"]
+        print(f"  rank {i} Catch bar (dueling + double + prioritized, "
+              f"{MESH4['bar_iters']} x {MESH4['bar_updates']}, fused, "
+              f"{rl['bar_replays']} replays): greedy {rl['bar']}, "
+              f"sum_tree_sample {st_bar}, {rl['bar_wall_s']:.1f} s")
+        if not rl["bar"]["avg_return"] > 0.0 or \
+                st_bar != MESH4["bar_iters"] * MESH4["bar_updates"]:
+            bad.append(f"rank {i}: Catch bar {rl['bar']}, {st_bar}")
+    for name, run in MESH4["lm"].items():
+        cfg = dataclasses.replace(get_config(run["arch"]),
+                                  n_layers=run["layers"])
+        steps, T, sites = run["steps"], run["horizon"], attn_sites(cfg)
+        want = {"flash_attention": 2 * sites * steps,
+                "flash_attention_decode": sites * (T + 1) * steps,
+                "ssd_scan": 2 * ssd_layers(cfg) * steps}
+        d, m = run["mesh"]
+        for i, r in enumerate(ranks):
+            o = r[name]
+            got = {k: o["launches"].get(k, 0) for k in want}
+            for row in o["rows"]:
+                print(f"  {name} {d}x{m} rank {i} step {row['step']}: "
+                      f"rollout_s {row['rollout_s']:.3f}, update_s "
+                      f"{row['update_s']:.3f} (data all-reduce "
+                      f"{row['allreduce_s']:.3f}), model-axis collectives "
+                      f"{row['tp_allreduce_s']:.3f} s, samples_per_sec "
+                      f"{row['samples_per_sec']:.1f}, loss {row['loss']:.5f}")
+            g, e = o["rollouts"][True], o["rollouts"][False]
+            print(f"  {name} rank {i}: max_memory_allocated "
+                  f"{o['peak_gib']:.2f} GiB, train.main {o['wall']:.1f} s, "
+                  f"launches {got}; a rollout of the trained LM from one "
+                  f"seed: graph {g['wall']:.3f} s (model-axis collectives "
+                  f"{g['tp_s']:.3f} s, flash_attn_decode "
+                  f"{g['launches']['flash_attention_decode']}) == eager "
+                  f"{e['wall']:.3f} s ({e['tp_s']:.3f} s, "
+                  f"{e['launches']['flash_attention_decode']}) bit for bit:"
+                  f" {o['rollout_equal']} ({card})")
+            rows = o["rows"]
+            if not (got == want and o["finite"] and o["rollout_equal"]
+                    and [row["step"] for row in rows]
+                    == list(range(1, steps + 1))
+                    and all(math.isfinite(row[k]) for row in rows
+                            for k in ("loss", "rollout_s",
+                                      "tp_allreduce_s"))):
+                bad.append(f"{name} rank {i}: launches {got} (want {want}), "
+                           f"finite {o['finite']}, rollout equal "
+                           f"{o['rollout_equal']} (max |diff| "
+                           f"{o['rollout_diff']}), rows {rows}")
+            if o["peak_gib"] > PEAK_GIB:
+                bad.append(f"{name} rank {i}: peak {o['peak_gib']:.2f} GiB")
+    q = [row["rollout_s"] for r in ranks for row in r["qwen2"]["rows"]]
+    e = [r["qwen2"]["rollouts"][False]["wall"] for r in ranks]
+    print(f"  qwen2-moe-a2.7b 1x4 rollout_s, graphed: {min(q):.3f}-"
+          f"{max(q):.3f} s (the trained LM's eager rollout on the same "
+          f"ranks: {min(e):.3f}-{max(e):.3f} s; {card})")
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    if bad:
+        fail("mesh4: " + "; ".join(bad))
+    return ranks
+
+
+# ---------------------------------------------------------------------------
 # slice 6: the attention instances of the moe family and the other dense
 # configs, their serving runs and route checks, the smoke entry points
 # ---------------------------------------------------------------------------
@@ -4851,13 +5341,14 @@ def rollout_graph_check(cfg, run):
     torch.cuda.empty_cache()
 
 
-def fused_identity(label, make, n):
+def fused_identity(label, make, n, launches=None):
     """``make()``'s runner (a fresh (runner, params) pair each call) run
     from SEED twice for ``n`` iterations, fused (each iteration a graph
     replay, after each graph's eager warm-up) and unfused: after every
     iteration the train, sampler and replay states, the generators' states
-    and the iteration's info bit for bit.  Returns the fused loop's graph
-    replays by branch key."""
+    and the iteration's info and sentinels bit for bit.  Returns the fused
+    loop's graph replays by branch key; ``launches`` (a dict) gets each
+    mode's kernel launches by ``fuse``."""
     trail, mismatch, replays = [], [], {}
     # cuDNN's default convolution backward adds in an order that changes
     # from run to run (two eager runs of Catch's conv model differ in the
@@ -4870,13 +5361,15 @@ def fused_identity(label, make, n):
         loop = runner.loop
         loop.fuse = fuse
         inner = loop.run_window
+        if launches is not None:
+            zero_kernel_counters()
 
         def run_window(ts, ss, rs, gen, k, inner=inner, fuse=fuse):
             sents = []
             for _ in range(k):
                 ts, ss, rs, info, sent = inner(ts, ss, rs, gen, 1)
                 sents.append(sent)
-                snap = snapshot((ts, ss, rs, gen, info))
+                snap = snapshot((ts, ss, rs, gen, info, sent))
                 i = run_window.i
                 if fuse:
                     trail.append(snap)
@@ -4890,6 +5383,8 @@ def fused_identity(label, make, n):
         run_window.i = 0
         loop.run_window = run_window
         runner.run(SEED, params=params, device=DEV)
+        if launches is not None:
+            launches[fuse] = kernel_launches()
         if fuse:
             replays = {k: g.replays for k, g in loop.graphs.items()}
         del runner, loop
@@ -5273,6 +5768,8 @@ def main() -> None:
             inst_launches[k] = inst_launches.get(k, 0) + v
         torch.cuda.empty_cache()
         lap("11d lm model axis")
+        capture_phase()
+        lap("11e nccl capture")
 
     # last, because the profiler slows every later launch of the process
     print("profile: where the time goes (not the main path's counts)")

@@ -16,7 +16,16 @@ already the state's leaf back into it.
   eager call draws from the same generator state: the counterpart of JAX's
   ``split_keys``, where fused and unfused runs see identical keys.  A
   capture or replay that fails raises; nothing falls back to the eager
-  step.
+  step.  The capture runs in ``capture_error_mode="thread_local"``: NCCL's
+  collectives can be captured (a data mesh's, a model axis'; see
+  launch/mesh.py), and NCCL's watchdog thread queries its events while
+  another thread captures, which the default "global" mode turns into a
+  failed capture.  Only this thread's calls are checked.  The
+  communicators the body uses exist by the capture: an NCCL rank binds
+  its group to its card, which creates them eagerly, and the warm-up's
+  collectives would create any other.  The event pairs that time the
+  captured collectives (``launch.mesh.GraphTimes``) are read between
+  replays while a ``time_collectives`` is active.
 - On a CPU device every call runs the same body eagerly: a CPU has no
   graphs.
 
@@ -103,7 +112,8 @@ class StepGraph:
     written).  A later call whose tensor leaves are not the state's (a
     restore, state made elsewhere) has them copied in first; its plain
     leaves (Python ints such as a step count) reach ``fn`` on eager calls,
-    and its generators and modules must be the first call's.
+    and its generators and modules must be the first call's
+    (``call_adopting`` takes others' generators by their state).
     ``new_args`` holds the state's tensors and the plain leaves ``fn``
     returned: on a replay, those of the capture, which the caller
     advances itself.  ``device`` decides the mode
@@ -124,6 +134,7 @@ class StepGraph:
         self._new = None        # new_args of the capture
         self._out = None
         self._deltas = None
+        self._times = None      # the captured collectives' event pairs
 
     # -- the body ---------------------------------------------------------------
     def _body(self):
@@ -184,7 +195,37 @@ class StepGraph:
         torch.cuda.synchronize(self.device)
         return result
 
+    def call_adopting(self, *args):
+        """``self(*args)``, where a generator among ``args`` that is not the
+        graph's own lends its state: it is copied into the graph's
+        generator in its place before the step, and the graph's state is
+        copied back into it after.  A new run's generators (a runner run
+        again, a sampler state made anew) so reach the graph captured on
+        the first run's, and advance as an eager step advances them."""
+        if self.args is None:
+            return self(*args)
+        mine = _leaves(self.args)
+        leaves, spec = pytree.tree_flatten(tuple(args), is_leaf=is_leaf)
+        if len(mine) != len(leaves):
+            raise ValueError(f"{self.name}: state has {len(mine)} leaves, "
+                             f"the call passed {len(leaves)}")
+        lent = [(t, m) for t, m in zip(leaves, mine)
+                if isinstance(t, torch.Generator) and t is not m]
+        for theirs, own in lent:
+            if theirs.device != own.device:
+                raise ValueError(f"{self.name}: a generator on "
+                                 f"{theirs.device} for the graph's on "
+                                 f"{own.device}")
+            own.set_state(theirs.get_state())
+        out = self(*pytree.tree_unflatten(
+            [m if isinstance(t, torch.Generator) else t
+             for t, m in zip(leaves, mine)], spec))
+        for theirs, own in lent:
+            theirs.set_state(own.get_state())
+        return out
+
     def _capture(self) -> None:
+        from ..launch.mesh import capture_times
         gens = [x for x in _leaves(self.args)
                 if isinstance(x, torch.Generator)]
         for g in gens:
@@ -202,7 +243,8 @@ class StepGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with capture_times() as times, torch.cuda.graph(
+                    graph, pool=self.pool, capture_error_mode="thread_local"):
                 new, out = self._body()
         finally:
             if collecting:
@@ -211,6 +253,7 @@ class StepGraph:
         for c, b in zip(counters, before):
             c.launches = b   # the capture launched nothing
         self.graph, self._new, self._out = graph, new, out
+        self._times = times
         if self.pool is None:
             self.pool = graph.pool()
 
@@ -224,7 +267,9 @@ class StepGraph:
             return self._warmup()
         if self.graph is None:
             self._capture()
+        self._times.settle()
         self.graph.replay()
+        self._times.replayed()
         self.replays += 1
         for c, d in zip(launch_counters(), self._deltas):
             c.launches += d

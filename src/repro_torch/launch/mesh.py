@@ -23,6 +23,14 @@ into which each rank writes its block (every other addend is zero, so the
 result is its inputs bit for bit); under NCCL it is NCCL's own
 ``all_gather_into_tensor``, and a CPU tensor goes through the rank's card.
 
+NCCL's collectives are kernels on the card, so a CUDA graph can hold them
+(``DataMesh.capturable``): ``TrainLoop(mesh=, fuse=True)`` and the model
+axis' rollout replay them (core/graphs.py).  Gloo's run on the host: one
+issued while the stream captures a graph raises (``_refuse_capture``)
+rather than freeze its result into the graph.  An NCCL rank binds its
+group to its card (``init_process_group(device_id=)``), so the
+communicators exist before any capture, which cannot create one.
+
 A mesh without a process group (``make_data_mesh`` where
 ``torch.distributed`` is not initialized) is the one-process view of
 ``size`` shards: ``ShardedSampler.collect`` then runs the shards in turn,
@@ -137,18 +145,80 @@ class CollectiveTime:
     collective's, not the device work queued before it).  Under NCCL a
     collective adds a pair of CUDA events recorded on the stream around
     it, and nothing waits for them: ``seconds()`` reads the pairs once,
-    after the caller's own synchronisation."""
+    after the caller's own synchronisation.  A collective inside a
+    replayed CUDA graph is timed by the event pair its capture recorded
+    (``GraphTimes``): each replay owes its pairs' times to the
+    accumulators active when it ran."""
 
     def __init__(self):
         self.host = 0.0
         self.events: list = []
+        self.replayed = 0.0          # seconds read from graph replays
+        self.owed: list = []         # GraphTimes whose last replay is unread
 
     def seconds(self) -> float:
-        if not self.events:
-            return self.host
-        self.events[-1][1].synchronize()
-        ms = sum(a.elapsed_time(b) for a, b in self.events)
-        return self.host + ms / 1e3
+        for times in list(self.owed):
+            times.settle()
+        ms = 0.0
+        if self.events:
+            self.events[-1][1].synchronize()
+            ms = sum(a.elapsed_time(b) for a, b in self.events)
+        return self.host + self.replayed + ms / 1e3
+
+
+class GraphTimes:
+    """The event pairs one CUDA graph's capture recorded around its
+    collectives: ``torch.cuda.Event(enable_timing=True, external=True)``,
+    recorded under capture as event nodes that every replay records again.
+    ``StepGraph`` calls ``replayed`` after each replay, which owes the
+    pairs' times to the ``time_collectives`` of their axes active then,
+    and ``settle`` before the next replay, which would overwrite them: it
+    waits for the last replay's last collective and adds the times to
+    those accumulators.  So a graph's collectives cost the host one wait a
+    replay while a ``time_collectives`` reads them, and none otherwise."""
+
+    def __init__(self):
+        self.pairs: list = []        # (axis, start, end) in capture order
+        self._owed: list = []        # (CollectiveTime, [(start, end)])
+
+    def replayed(self) -> None:
+        for want, acc in _TIMERS:
+            mine = [(a, b) for axis, a, b in self.pairs
+                    if want is None or want == axis]
+            if mine:
+                self._owed.append((acc, mine))
+                acc.owed.append(self)
+
+    def settle(self) -> None:
+        if not self._owed:
+            return
+        self.pairs[-1][2].synchronize()
+        for acc, mine in self._owed:
+            acc.replayed += sum(a.elapsed_time(b) for a, b in mine) / 1e3
+            acc.owed.remove(self)
+        self._owed = []
+
+
+_CAPTURES: List[GraphTimes] = []   # the active capture_times, innermost last
+
+
+@contextlib.contextmanager
+def capture_times():
+    """Collect into a ``GraphTimes`` the event pairs of every NCCL
+    collective a ``DataMesh`` issues while a CUDA graph is captured inside
+    the block (``StepGraph``'s capture)."""
+    times = GraphTimes()
+    _CAPTURES.append(times)
+    try:
+        yield times
+    finally:
+        _CAPTURES.remove(times)
+
+
+def capturing(device) -> bool:
+    """True while ``device``'s current stream captures a CUDA graph."""
+    device = torch.device(device)
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 @contextlib.contextmanager
@@ -217,6 +287,26 @@ class DataMesh:
     def backend(self) -> Optional[str]:
         return None if self.group is None else dist.get_backend(self.group)
 
+    @property
+    def capturable(self) -> bool:
+        """True where a CUDA graph can hold what this axis sends: nothing
+        (one rank, or no process group) or NCCL's collectives on the card.
+        Gloo's run on the host (``_refuse_capture``)."""
+        return self.size == 1 or self.group is None or (
+            self.device.type == "cuda" and self.backend == "nccl")
+
+    def _refuse_capture(self, device, what: str) -> None:
+        """Raise where a collective that no graph can hold is issued while
+        ``device``'s stream captures one: a gloo collective would run once,
+        on the host, and its result freeze into the graph."""
+        if capturing(device) and not self.capturable:
+            raise RuntimeError(
+                f"{what} over {self.axis!r} while {device}'s stream captures "
+                f"a CUDA graph: this axis' collectives are "
+                f"{self.backend}'s, which run on the host; only NCCL's (a "
+                "card a rank) can be captured.  Run this path eagerly "
+                "(TrainLoop(fuse=False), make_lm_rollout(graph=False))")
+
     def _timers(self) -> list:
         return [acc for axis, acc in _TIMERS if axis in (None, self.axis)]
 
@@ -225,12 +315,26 @@ class DataMesh:
         """Add the block's time to the active ``time_collectives`` of this
         axis (``CollectiveTime``): under NCCL a pair of events on
         ``device``'s stream, else the host time from a synchronised
-        ``device`` to a synchronised one."""
+        ``device`` to a synchronised one.  Under a graph's capture (NCCL
+        only) the pair is recorded as event nodes into the capture's
+        ``GraphTimes``, whatever is active: the replays are timed."""
+        device = torch.device(device)
+        if capturing(device):
+            if not _CAPTURES:
+                yield
+                return
+            stream = torch.cuda.current_stream(device)
+            start = torch.cuda.Event(enable_timing=True, external=True)
+            end = torch.cuda.Event(enable_timing=True, external=True)
+            start.record(stream)
+            yield
+            end.record(stream)
+            _CAPTURES[-1].pairs.append((self.axis, start, end))
+            return
         accs = self._timers()
         if not accs:
             yield
             return
-        device = torch.device(device)
         cuda = device.type == "cuda"
         if cuda and self.backend == "nccl":
             stream = torch.cuda.current_stream(device)
@@ -278,6 +382,8 @@ class DataMesh:
         all-reduced, and copied back, so a call holds one bucket beyond its
         tensors (gloo stages a CUDA buffer through host memory).  Returns
         the tensors."""
+        if tensors:
+            self._refuse_capture(tensors[0].device, what)
         if not self._check(what):
             return tensors
         groups = {}
@@ -354,6 +460,7 @@ class DataMesh:
         ``all_gather(..., tiled=True)``), bit for bit: NCCL's
         ``all_gather_into_tensor``, or under gloo an all-reduce SUM of a
         zeroed byte buffer into which this rank writes its block."""
+        self._refuse_capture(x.device, "all_gather")
         if not self._check("all_gather"):
             return x
         xt = x.detach().movedim(dim, 0).contiguous()
@@ -464,6 +571,11 @@ class Mesh2D:
     @property
     def size(self) -> int:
         return self.data.size * self.n_model
+
+    @property
+    def capturable(self) -> bool:
+        """Both axes' collectives can sit in a CUDA graph."""
+        return self.data.capturable and self.model.capturable
 
 
 def make_2d_mesh(n_data: int = 0, n_model: int = 1, axes=("data", "model"),
@@ -673,13 +785,19 @@ def split_actor_learner(devices, *, mesh=None):
 def _rank_main(fn, rank, n, init_method, device, timeout_s, args, results):
     torch.set_num_threads(1)
     try:
+        backend, bound = choose_backend(n, device), {}
         if torch.device(device).type == "cuda":
             # NCCL binds a rank's communicators to its current card
-            torch.cuda.set_device(_rank_devices(n, device)[rank])
+            card = _rank_devices(n, device)[rank]
+            torch.cuda.set_device(card)
+            if backend == "nccl":
+                # bound to its card, the group and every group split from
+                # it create their communicators now: a CUDA graph's capture
+                # cannot create one
+                bound["device_id"] = card
         dist.init_process_group(
-            choose_backend(n, device), init_method=init_method,
-            world_size=n, rank=rank,
-            timeout=datetime.timedelta(seconds=timeout_s))
+            backend, init_method=init_method, world_size=n, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_s), **bound)
         try:
             out = fn(make_data_mesh(device=device), *args)
         finally:

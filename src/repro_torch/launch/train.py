@@ -36,7 +36,8 @@ as serve's) cuts the config to its first N layers.  ``--fuse-window N``
 (JAX's scanned window of N steps) runs N steps with no read of the device
 between them and logs one row at the window's end, with JAX's keys
 (avg_reward, loss, entropy of the last step, samples_per_sec); the update
-stays eager (ROADMAP Queue 1 item 14).
+stays eager, as the port's LM update does everywhere (its graph waits for
+the performance work).
 
 ``--mesh DATAxMODEL`` (default ``$REPRO_MESH``, as JAX's) trains on a
 2-D mesh of D x M ranks (``run_mesh``, JAX's 2-D mesh loop).
@@ -60,8 +61,13 @@ compressed) and this rank's ``rollout_s``, ``update_s`` and
 ``allreduce_s`` (the time of the update's data-axis all-reduces, inside
 ``update_s``), with ``tp_allreduce_s`` (the time of the model axis's
 collectives in the rollout and the update) at M > 1, over the window
-(``mesh.CollectiveTime``: host time on gloo, CUDA events under NCCL), and writes the checkpoints; rank r > 0 logs its own rows
-under ``<log-dir>/rank_<r>``.
+(``mesh.CollectiveTime``: host time on gloo, CUDA events under NCCL, the
+replayed rollout's by the event nodes its capture recorded), and writes
+the checkpoints; rank r > 0 logs its own rows under
+``<log-dir>/rank_<r>``.  The rollout replays its CUDA graph wherever the
+model axis' collectives can be captured (NCCL, or no model axis); a model
+axis of gloo ranks (ranks sharing a card, the CPU) rolls out eagerly, and
+rank 0's first line says which.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
@@ -341,9 +347,9 @@ def run_mesh(args, cfg, logger, tracer, mesh_shape, device):
     streams (JAX's restarts its key stream); every rank of a model group
     draws the same stream.  A window of ``--fuse-window`` steps ends in
     one all-reduce of its last step's metrics (JAX's ``pmean`` over
-    'data'); the update stays eager and so does a rollout with model-axis
-    collectives: a collective cannot sit in the port's CUDA graphs yet
-    (ROADMAP Queue 1 item 4)."""
+    'data').  The rollout step is a CUDA graph, its model-axis collectives
+    captured, where the model axis is ``capturable`` (NCCL ranks, a card
+    each, or M = 1), and eager on gloo; the update stays eager."""
     n_data, n_model = mesh_shape
     mesh = mesh_lib.install_2d(mesh_lib.make_2d_mesh(n_data, n_model,
                                                      device=device))
@@ -381,9 +387,15 @@ def _mesh_steps(args, cfg, logger, tracer, mesh):
     local_batch = args.batch // data.size
     dev, lead = data.device, mesh.lead
     tp = model.size > 1
+    # the rollout's only collectives are the model axis'
+    graph = model.capturable
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     if lead:
+        how = ("CUDA graph" if dev.type == "cuda" else "eager (CPU)") \
+            if graph else f"eager ({model.backend})"
+        print(f"kernel backends: {kernel_registry.describe(dev)}; mesh "
+              f"collectives: {data.backend}; rollout: {how}")
         print(f"mesh {data.size}x{model.size} over ('data', 'model'), "
               f"local batch {local_batch}, compress={args.compress or 'off'}")
     check_instances(cfg, model.size, dev)
@@ -406,7 +418,7 @@ def _mesh_steps(args, cfg, logger, tracer, mesh):
                         scale_groups=groups, model=split)
     opt_state = opt.init(params.parameters())
     rollout = make_lm_rollout(cfg, env, local_batch, args.horizon,
-                              device=dev, graph=not tp)
+                              device=dev, graph=graph)
     train_step = make_lm_ppo_train_step(cfg, opt, entropy_coeff=0.003,
                                         param_pspecs=pspecs)
     start = 0
@@ -521,10 +533,8 @@ def main(argv=None):
                              if log_dir else None)
     if args.kernels:
         kernel_registry.set_env(args.kernels)
-    if rank == 0:
-        print(f"kernel backends: {kernel_registry.describe(device)}"
-              + (f"; mesh collectives: {dist.get_backend()}"
-                 if mesh_shape is not None else ""))
+    if mesh_shape is None:
+        print(f"kernel backends: {kernel_registry.describe(device)}")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)

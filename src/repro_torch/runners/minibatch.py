@@ -21,7 +21,8 @@ gradients (``TrainLoop``'s module docstring).  ``OffPolicyRunner``
 initializes the replay sharded, each rank samples batch_size / n_shards an
 update (the global batch unchanged), ``min_replay`` counts global
 transitions, and checkpoints gather the rings and restore each rank's.
-On the card the mesh runs ``fuse=False``.
+On the card a mesh of NCCL ranks (a card each) runs fused, as off the
+mesh; gloo ranks sharing a card need ``fuse=False``.
 """
 from __future__ import annotations
 

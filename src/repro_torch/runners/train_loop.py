@@ -34,7 +34,10 @@ branches on the host-side step (DQN's target copy, TD3's policy delay)
 names the branch in ``update_variant(step)``; the loop keeps one graph per
 tuple of branches an iteration takes and picks it on the host, which knows
 the step without a sync.  The first iteration of each graph runs eagerly
-(its warm-up), the second captures it.  On the CPU, which has no graphs,
+(its warm-up), the second captures it.  The graph holds the generators of
+its first iteration; a later run's (a runner run again) lend it their
+state (``StepGraph.call_adopting``), so a second run from the same seed
+repeats its draws fused as unfused.  On the CPU, which has no graphs,
 the same body runs eagerly.  ``fuse=False`` runs ``iteration`` eagerly.
 
 Data parallelism (paper §2.4 synchronous multi-GPU RL)
@@ -53,10 +56,16 @@ the replicated metrics (``_replicate_info``) and sentinels
 the update IS the serial update on the concatenated batch: rlpyt's
 "replicated model, all-reduced gradients".  ``compress="int8_ef"`` sends
 the gradients in int8 with error feedback; the train state must then come
-from the loop's wrapped algorithm (``loop.algo.init_train_state``).  A
-gloo all-reduce cannot sit inside a CUDA graph, so on the card the mesh
-runs ``fuse=False`` (``fuse=True`` raises); on the CPU, ``fuse=True`` is
-the same eager body.
+from the loop's wrapped algorithm (``loop.algo.init_train_state``).
+``fuse=True`` on a mesh is JAX's default ``shard_map``'d window: on NCCL
+ranks (a card each) one iteration's graph holds every collective above,
+replayed as off the mesh, one graph a branch tuple; the rank's replay
+generator is one per loop, a leaf of the graph's state re-seeded in
+place.  The window's ends stay eager between replays (the log row's
+reads, checkpoints behind rank 0's barrier, a restore copied into the
+graph's state).  A gloo all-reduce cannot sit inside a CUDA graph, so a
+mesh of gloo ranks on the card (ranks sharing a card) refuses
+``fuse=True``; on the CPU, ``fuse=True`` is the same eager body.
 """
 from __future__ import annotations
 
@@ -131,7 +140,8 @@ class TrainLoop:
         self.tracer = trace.get_tracer()
         self.n_shards = 1
         self._local_batch = batch_size
-        self._shard_gen = None
+        self._shard_gen = None   # the rank's replay generator (a mesh)
+        self._shard_key = None   # the (generator, seed) it was seeded for
         if mesh is not None:
             self._init_mesh(sampler, spec, batch_size)
 
@@ -147,13 +157,13 @@ class TrainLoop:
         if mesh.axis != axis:
             raise ValueError(f"the mesh's axis is {mesh.axis!r}, TrainLoop "
                              f"was given axis={axis!r}")
-        if self.fuse and mesh.device.type == "cuda":
+        if self.fuse and mesh.device.type == "cuda" and not mesh.capturable:
             raise ValueError(
-                "TrainLoop(mesh=..., fuse=True) on the card: the mesh's gloo "
-                "all-reduce cannot sit inside a CUDA graph (and NCCL, which "
-                "captures, refuses two ranks on one GPU); pass fuse=False. "
-                "Capturing the segments between collectives waits in ROADMAP "
-                "Queue 2's notes (the rest of item 14: the mesh)")
+                "TrainLoop(mesh=..., fuse=True) on the card needs NCCL "
+                "collectives (a card a rank), which a CUDA graph can hold; "
+                f"this mesh's are {mesh.backend}'s, which run on the host "
+                "(ranks sharing a card get gloo: NCCL refuses two ranks on "
+                "one GPU); pass fuse=False")
         self.n_shards = mesh.shape[axis]
         if spec.replayed:
             if batch_size % self.n_shards:
@@ -189,21 +199,33 @@ class TrainLoop:
         rs = self.replay.insert(self.replay.local_view(replay_state), batch)
         return sampler_state, self.replay.merge_view(rs)
 
+    def _seed_shard(self, generator):
+        """On a mesh, the rank's replay generator, seeded ``fold_seed(seed,
+        rank)`` from the training generator's seed (JAX's ``fold_in(k_s,
+        shard)``: draws decorrelate across ranks while the update's
+        generator stays replicated); None off the mesh.  One generator a
+        loop, so a graph holds it as a leaf of its state; it is seeded
+        again, in place, for each training generator (a new ``run``) and
+        each re-seed of one, so the same seed gives the same draws however
+        often the loop is run.  Called on the host, outside the body."""
+        if self.mesh is None or generator is None:
+            return None
+        key = (generator, generator.initial_seed())
+        if self._shard_key != key:
+            if self._shard_gen is None:
+                self._shard_gen = torch.Generator(device=generator.device)
+            self._shard_gen.manual_seed(fold_seed(key[1], self.mesh.index))
+            self._shard_key = key
+        return self._shard_gen
+
     def _sample_generator(self, generator):
-        """The replay's generator: on a mesh, the rank's own, seeded
-        ``fold_seed(seed, rank)`` from the training generator's seed (JAX's
-        ``fold_in(k_s, shard)``: draws decorrelate across ranks while the
-        update's generator stays replicated).  It is built anew for each
-        training generator (a new ``run``) and each re-seed of one, so the
-        same seed gives the same draws however often the loop is run."""
+        """The replay's generator: ``generator`` off the mesh, the rank's
+        own on it (``_seed_shard``)."""
         if self.mesh is None:
             return generator
-        key = (generator, generator.initial_seed())
-        if self._shard_gen is None or self._shard_gen[0] != key:
-            self._shard_gen = (key, torch.Generator(
-                device=generator.device).manual_seed(
-                    fold_seed(key[1], self.mesh.index)))
-        return self._shard_gen[1]
+        if self._shard_gen is None:
+            return self._seed_shard(generator)
+        return self._shard_gen
 
     def update_step(self, train_state, replay_state, generator, *, draws=None):
         """sample -> algo batch (with the IS weights) -> update -> priority
@@ -231,6 +253,12 @@ class TrainLoop:
 
     def iteration(self, train_state, sampler_state, replay_state, generator):
         """One iteration; returns (ts, ss, rs, info, sentinels-or-None)."""
+        self._seed_shard(generator)
+        return self._iteration(train_state, sampler_state, replay_state,
+                               generator)
+
+    def _iteration(self, train_state, sampler_state, replay_state,
+                   generator):
         prev = None
         if self.sentinels_on:
             # the optimizer updates the params in place: keep a copy for
@@ -312,10 +340,13 @@ class TrainLoop:
             else None, tree, is_leaf=node)
 
     def _fused_body(self, train_state, sampler_state, replay_state,
-                    generator):
-        ts, ss, rs, info, sent = self.iteration(train_state, sampler_state,
-                                                replay_state, generator)
-        return (ts, ss, rs, generator), (info, sent)
+                    generator, shard_generator):
+        """``iteration``'s body; the rank's replay generator
+        (``shard_generator``, None off the mesh) comes in as a leaf, so the
+        graph registers it."""
+        ts, ss, rs, info, sent = self._iteration(train_state, sampler_state,
+                                                 replay_state, generator)
+        return (ts, ss, rs, generator, shard_generator), (info, sent)
 
     def fused_iteration(self, train_state, sampler_state, replay_state,
                         generator):
@@ -335,8 +366,9 @@ class TrainLoop:
                 pool=pools[0] if pools else None,
                 name=f"train_loop.iteration{'' if key is None else key}")
         step = train_state.step + n_updates
-        (ts, ss, rs, _), (info, sent) = graph(train_state, sampler_state,
-                                              replay_state, generator)
+        (ts, ss, rs, *_), (info, sent) = graph.call_adopting(
+            train_state, sampler_state, replay_state, generator,
+            self._seed_shard(generator))
         if graph.graph is None and ts.step != step:
             raise RuntimeError(f"TrainLoop(fuse=True): {n_updates} updates "
                                f"moved the train step from "

@@ -7,7 +7,7 @@ their body, so it imports torch and the port only, never JAX.  Inputs are
 drawn from seeded numpy in ``inputs_*`` so the test process hands the
 same numbers to the JAX reference.  Every body returns numpy.
 """
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -308,12 +308,11 @@ def dqn_body(mesh, ckpt_dir):
             "launches": st_ops.tree_sample_blocked.launches}
 
 
-def rerun_body(mesh):
+def rerun_body(mesh, fuse):
     """One sharded DQN runner run twice from seed 0 on a rank: the params
     and this rank's replay after each run (the rank's replay draws must
-    start again with the seed).  Unfused, as the mesh runs on the card (a
-    fused loop's graphs hold the first run's generator)."""
-    runner = dqn_runner(mesh, n_iterations=2, fuse=False)
+    start again with the seed), with ``fuse`` as given."""
+    runner = dqn_runner(mesh, n_iterations=2, fuse=fuse)
     out = []
     for _ in range(2):
         ts, _, _ = runner.run(0, device=mesh.device)
@@ -476,3 +475,200 @@ def train_main_restore_body(mesh, ckpt_dir, argv):
     return {"whole": [t2n(p) for p in whole.parameters()],
             "resumed": [t2n(p) for p in resumed.parameters()],
             "mesh": (m.shape, m.data.index, m.data.distributed)}
+
+
+# ---------------------------------------------------------------------------
+# the fused mesh (TrainLoop(mesh=, fuse=True), the model axis' rollout)
+# ---------------------------------------------------------------------------
+
+FUSED_MESH_ALGOS = ("a2c", "ppo", "dqn")
+
+
+def fused_mesh_stack(mesh, name):
+    """(loop, (ts, ss, rs, generator)) of a fused-mesh case on ``mesh``:
+    ``a2c`` (JAX's sharded A2C stack, int8_ef, sentinels), ``ppo`` (PPO on
+    CartPole, 8 envs x 16, 2 epochs x 2 minibatches, sentinels), ``dqn``
+    (the sharded prioritized DQN smoke, its replay warmed to
+    ``min_replay``)."""
+    from repro_torch.algos import PPO
+    from repro_torch.core.distributions import Categorical
+    from repro_torch.replay.interface import transition_example
+    from repro_torch.runners import TrainLoop
+    from repro_torch.train.optim import adam
+    dev = mesh.device
+    gens = [torch.Generator(device=dev).manual_seed(i) for i in range(3)]
+    if name == "dqn":
+        runner = dqn_runner(mesh)
+        loop, sampler = runner.loop, runner.sampler
+        params = sampler.agent.init_params(gens[0])
+        ts = loop.algo.init_train_state(gens[0], params)
+        ss = sampler.init(gens[1], runner.agent_state_kwargs)
+        rs = runner.replay.init_sharded(
+            transition_example(sampler.env, device=dev), mesh.size,
+            index=mesh.index)
+        while int(rs.filled) * mesh.size < runner.min_replay:
+            ss, rs = loop.collect_insert(ts.params, ss, rs)
+        return loop, (ts, ss, rs, gens[2])
+    sampler, algo, params = a2c_stack(mesh)
+    if name == "a2c":
+        loop = TrainLoop(sampler, algo, mesh=mesh, compress="int8_ef",
+                         sentinels=True)
+    else:
+        algo = PPO(algo.apply, adam(7e-4, grad_clip=0.5),
+                   distribution=Categorical(2), epochs=2, minibatches=2)
+        loop = TrainLoop(sampler, algo, mesh=mesh, sentinels=True)
+    ts = loop.algo.init_train_state(None, params)
+    return loop, (ts, sampler.init(gens[1]), None, gens[2])
+
+
+def _snap(tree):
+    """Numpy of every leaf, generators by their state."""
+    return [x.get_state().numpy().copy() if isinstance(x, torch.Generator)
+            else x.detach().cpu().numpy().copy()
+            if isinstance(x, torch.Tensor) else x
+            for x in pytree.tree_leaves(tree, is_leaf=lambda v: isinstance(
+                v, torch.Generator))]
+
+
+def fused_mesh_body(mesh, n, archs, drawn):
+    """The fused mesh's CPU checks on this rank: for each of
+    FUSED_MESH_ALGOS, ``n`` iterations unfused and fused from the same
+    seeds (the fused ones under ``NoHostReads``), each iteration's state,
+    info and sentinels, and the collectives it recorded; whether the
+    rank's replay generator is a leaf of the fused graph's state.  Then
+    the model axis' rollout at 1 x 2 under ``NoHostReads`` for each of
+    ``archs`` (smoke configs), and ``a2c_drawn`` on ``drawn``."""
+    from _torch_host_reads import NoHostReads
+    from repro_torch.core.graphs import is_leaf
+    from repro_torch.launch.mesh import record_collectives
+    out = {}
+    for name in FUSED_MESH_ALGOS:
+        res = {"snaps": {}, "records": {}}
+        for fuse in (False, True):
+            loop, state = fused_mesh_stack(mesh, name)
+            loop.fuse = fuse
+            snaps, records = [], []
+            for _ in range(n):
+                with record_collectives() as rec, \
+                        NoHostReads() if fuse else nullcontext():
+                    ts, ss, rs, info, sent = loop.run_window(*state, 1)
+                state = (ts, ss, rs, state[3])
+                snaps.append(_snap((ts, ss, rs, state[3], info, sent)))
+                records.append(list(rec))
+            res["snaps"][fuse], res["records"][fuse] = snaps, records
+            if fuse:
+                (graph,) = loop.graphs.values()
+                res["shard_leaf"] = any(
+                    x is loop._shard_gen for x in pytree.tree_leaves(
+                        graph.args, is_leaf=is_leaf))
+        out[name] = res
+    out["rollouts"] = rollout_host_reads(mesh, archs)
+    out["drawn"] = a2c_drawn(mesh, **drawn)
+    return out
+
+
+def rollout_host_reads(world, archs, batch=2, horizon=5):
+    """``make_lm_rollout(graph=True)`` on a 1 x 2 mesh of this world (the
+    model axis' tp collectives inside its step) for each smoke config of
+    ``archs``: a warm-up rollout, then one under ``NoHostReads``; returns
+    each second rollout's actions."""
+    from _torch_host_reads import NoHostReads
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.envs.token_lm import make_token_lm
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.train import make_lm_rollout
+    from repro_torch.models import backbones as bb
+    tmesh.install_2d(tmesh.make_2d_mesh(1, 2, device="cpu"))
+    out = {}
+    try:
+        for arch in archs:
+            cfg = get_smoke_config(arch)
+            lm = bb.init_lm(cfg, device="cpu", generator=torch.Generator()
+                            .manual_seed(0), dtype=torch.float32)
+            env = make_token_lm(vocab=cfg.vocab, episode_len=horizon,
+                                device="cpu")
+            rollout = make_lm_rollout(cfg, env, batch, horizon, device="cpu",
+                                      graph=True)
+            gen = torch.Generator().manual_seed(3)
+            rollout(lm, gen)
+            with NoHostReads():
+                traj, _ = rollout(lm, gen)
+            out[arch] = t2n(traj["actions"])
+    finally:
+        tmesh.install_2d(None)
+    return out
+
+
+def a2c_drawn(mesh, params, env_state, obs, agent_noise, env_noise, n,
+              B, T):
+    """A2C (Adam 1e-3, JAX's defaults) on CartPole through
+    ``TrainLoop(mesh=, fuse=True)``, this rank's block of ``B`` envs x
+    ``T`` drawing JAX's numbers (``agent_noise``: the Gumbel noise of
+    JAX's categorical sample a step, (B, 2); ``env_noise``: the fresh
+    CartPole state a step, (B, 4)) from JAX's initial ``env_state`` /
+    ``obs`` and its ``params``; returns the params and each iteration's
+    loss after ``n`` iterations."""
+    from repro_torch.agents import make_categorical_pg_agent
+    from repro_torch.algos import A2C
+    from repro_torch.core.distributions import Categorical
+    from repro_torch.envs import cartpole
+    from repro_torch.models.convert import rl_params_from_jax
+    from repro_torch.models.rl_models import make_pg_mlp
+    from repro_torch.runners import TrainLoop
+    from repro_torch.samplers import ShardedSampler
+    from repro_torch.train.optim import adam
+    b = B // mesh.size
+    mine = slice(mesh.index * b, (mesh.index + 1) * b)
+    it_env = iter([x[mine] for x in env_noise])
+    it_agent = iter([x[mine] for x in agent_noise])
+    model, dist = make_pg_mlp(4, 2), Categorical(2)
+
+    def agent_step(params, generator, obs, pa, pr, state):
+        logits, value = model.apply(params, obs, pa, pr)
+        action = torch.argmax(logits + torch.from_numpy(next(it_agent)), -1)
+        return action, {"logp": dist.log_likelihood(action, logits),
+                        "value": value}, state
+
+    def env_step(state, action, generator):
+        return cartpole.step_with_noise(state, action,
+                                        torch.from_numpy(next(it_env)))
+
+    env = cartpole.make_cartpole()._replace(step=env_step)
+    agent = make_categorical_pg_agent(model)._replace(step=agent_step)
+    sampler = ShardedSampler(env, agent, n_envs=B, horizon=T, mesh=mesh)
+    algo = A2C(model.apply, adam(1e-3), distribution=dist)
+    loop = TrainLoop(sampler, algo, mesh=mesh, fuse=True)
+    ts = loop.algo.init_train_state(None, rl_params_from_jax(params))
+    ss = sampler.init(torch.Generator())
+    ss = ss._replace(env_state=pytree.tree_map(
+        lambda x: torch.from_numpy(np.ascontiguousarray(x[mine])), env_state),
+        obs=torch.from_numpy(np.ascontiguousarray(obs[mine])))
+    gen, losses = torch.Generator(), []
+    for _ in range(n):
+        ts, ss, _, info, _ = loop.run_window(ts, ss, None, gen, 1)
+        losses.append(float(info.loss))
+    return {"params": t2n(pytree.tree_leaves(ts.params)), "losses": losses,
+            "step": ts.step}
+
+
+def fused_pair_body(mesh, name, n):
+    """``n`` iterations of ``fused_mesh_stack(name)`` unfused and fused on
+    this rank (cuDNN deterministic): each iteration's state, info and
+    sentinels (numpy), and the fused loop's graph replays."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for fuse in (False, True):
+            loop, state = fused_mesh_stack(mesh, name)
+            loop.fuse = fuse
+            snaps = []
+            for _ in range(n):
+                ts, ss, rs, info, sent = loop.run_window(*state, 1)
+                state = (ts, ss, rs, state[3])
+                snaps.append(_snap((ts, ss, rs, state[3], info, sent)))
+            out[fuse] = snaps
+        out["replays"] = sum(g.replays for g in loop.graphs.values())
+    finally:
+        torch.backends.cudnn.deterministic = was
+    return out

@@ -32,10 +32,8 @@ Replay against eager on the card is ``tests/test_torch_graphs_cuda.py``
 and ``chip_smoke.py``.
 """
 import dataclasses
-import gc
 import json
 import math
-import warnings
 
 import numpy as np
 import pytest
@@ -45,7 +43,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro import agents as jagents  # noqa: E402
 from repro.algos import DQN as JDQN, PPO as JPPO  # noqa: E402
@@ -82,7 +79,8 @@ from repro_torch.serving import ContinuousBatchEngine, poisson_trace  # noqa: E4
 from repro_torch.train.optim import adam  # noqa: E402
 from repro_torch.utils.logger import Logger  # noqa: E402
 
-aten = torch.ops.aten
+from _torch_host_reads import HostRead, NoHostReads  # noqa: E402
+
 ARCHS = ("gemma2-2b", "glm4-9b", "phi3-mini-3.8b", "granite-34b",
          "qwen2-moe-a2.7b", "mixtral-8x7b", "mamba2-1.3b", "zamba2-7b",
          "llama-3.2-vision-90b", "whisper-medium")
@@ -102,57 +100,9 @@ def _one_thread():
 
 
 # ---------------------------------------------------------------------------
-# the host-read detector
+# the host-read detector (tests/_torch_host_reads.py: the mesh's ranks
+# import it too)
 # ---------------------------------------------------------------------------
-class HostRead(AssertionError):
-    pass
-
-
-class NoHostReads(TorchDispatchMode):
-    """Raise on what a CUDA graph capture refuses or silently freezes (see
-    the module docstring).  Tensors alive when the mode is entered (state,
-    weights, cached constants) are known; so is every op's output."""
-
-    BANNED = {aten._local_scalar_dense, aten.nonzero, aten.lift_fresh,
-              aten.lift_fresh_copy, aten.masked_select, aten._unique2,
-              aten.unique_consecutive, aten.unique_dim}
-    # indexing by a boolean mask runs nonzero inside the op
-    INDEXING = {aten.index, aten.index_put, aten.index_put_,
-                aten._index_put_impl_}
-
-    def __enter__(self):
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            self._alive = [t for t in gc.get_objects()
-                           if isinstance(t, torch.Tensor)]
-        self._known = {id(t) for t in self._alive}
-        self._made = []
-        return super().__enter__()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func.overloadpacket in self.BANNED:
-            raise HostRead(f"host read or host data: {func}")
-        ins = [t for t in pytree.tree_leaves((args, kwargs))
-               if isinstance(t, torch.Tensor)]
-        if func.overloadpacket in self.INDEXING and any(
-                t is not None and t.dtype == torch.bool for t in args[1]):
-            raise HostRead(f"{func} by a boolean mask")
-        if len({t.device for t in ins}) > 1:
-            raise HostRead(f"{func} across devices "
-                           f"{sorted(str(t.device) for t in ins)}")
-        for t in ins:
-            if id(t) not in self._known:
-                raise HostRead(f"{func} reads a {tuple(t.shape)} tensor that "
-                               "no op made (host data)")
-        out = func(*args, **kwargs)
-        for t in pytree.tree_leaves(out):
-            if isinstance(t, torch.Tensor):
-                self._known.add(id(t))
-                self._made.append(t)
-        return out
-
-
 def test_no_host_reads_catches_what_a_capture_refuses():
     x = torch.ones(4)
     for bad in (lambda: float(x.sum()), lambda: x[x > 0],

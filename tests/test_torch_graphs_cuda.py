@@ -13,7 +13,9 @@ test here skips on a machine without CUDA.  Imports no JAX:
   algorithms, since its default conv backward is not): DQN, prioritized DQN
   (rainbow, whose sum-tree kernel runs inside the graph: one launch an
   update, counted under replay), PPO, A2C, DDPG, TD3 and SAC at small
-  widths, across DQN's target copies and TD3's delayed actor steps;
+  widths, across DQN's target copies and TD3's delayed actor steps; on 2
+  NCCL ranks (skipped below 2 cards), A2C with int8 error feedback and
+  sentinels, its collectives captured;
 - serve's decode and the engine's decode block (smoke configs of every
   family), the rollout (smoke gemma2-2b and mamba2-1.3b) and
   ``train --fuse-window 2`` (smoke gemma2-2b) against their eager runs:
@@ -204,6 +206,28 @@ def test_fused_iterations_equal_unfused_bit_for_bit(name, cuda,
     assert f_launches == p_launches
     if name == "rainbow":
         assert f_launches == 6 * loop.k
+
+
+def test_fused_mesh_equals_unfused_on_nccl_ranks(cuda):
+    """``TrainLoop(mesh=, fuse=True)`` on 2 NCCL ranks, a card each: A2C
+    with int8 error feedback and sentinels, its collectives captured in
+    the iteration's graph, equals ``fuse=False`` on the same ranks after
+    every iteration, bit for bit (state, info, sentinels)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices (NCCL takes a card a rank)")
+    import _torch_ranks as R
+    from repro_torch.launch.mesh import spawn_ranks
+    n = 6
+    for r in spawn_ranks(R.fused_pair_body, 2, ("a2c", n), device="cuda",
+                         timeout=300):
+        assert r["replays"] == n - 1
+        assert len(r[True]) == len(r[False]) == n
+        for a, b in zip(r[False], r[True]):
+            for x, y in zip(a, b):
+                if isinstance(x, np.ndarray):
+                    np.testing.assert_array_equal(x, y)
+                else:
+                    assert x == y
 
 
 # ---------------------------------------------------------------------------

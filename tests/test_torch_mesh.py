@@ -31,6 +31,7 @@ Tolerances:
 Every multi-rank call has its own deadline (``_torch_ranks.DEADLINE_S``)
 and a collective timeout, so a fault fails in seconds.
 """
+import dataclasses
 import types
 
 import numpy as np
@@ -325,16 +326,28 @@ def test_spawn_ranks_deadline():
         R.run_ranks(R.hanging_body, 2, timeout=6)
 
 
-def _fake_mesh(device="cpu", size=2):
+@dataclasses.dataclass(frozen=True, eq=False)
+class _FakeMesh(tmesh.DataMesh):
+    """A mesh whose group is a stand-in with the backend given."""
+    fake_backend: str = "gloo"
+
+    @property
+    def backend(self):
+        return self.fake_backend
+
+
+def _fake_mesh(device="cpu", size=2, backend="gloo"):
     d = torch.device(device)
-    return tmesh.DataMesh(axis="data", size=size, index=0, device=d,
-                          devices=(d,) * size, group=object())
+    return _FakeMesh(axis="data", size=size, index=0, device=d,
+                     devices=(d,) * size, group=object(),
+                     fake_backend=backend)
 
 
 def test_train_loop_mesh_checks():
     """JAX's construction checks and messages (train_loop.py:115-131), the
-    refusal of fuse=True on the card, and the caller's algo left
-    unwrapped."""
+    refusal of fuse=True on the card where the mesh's collectives cannot
+    sit in a CUDA graph (gloo ranks sharing a card) and its acceptance
+    where they can (NCCL ranks), and the caller's algo left unwrapped."""
     sampler, algo, _ = R.a2c_stack(tmesh.make_data_mesh(2, device="cpu"))
     mesh = _fake_mesh()
     with pytest.raises(ValueError, match="mesh"):
@@ -343,8 +356,12 @@ def test_train_loop_mesh_checks():
         TrainLoop(object.__new__(type("S", (), {})), algo, mesh=mesh)
     with pytest.raises(ValueError, match="axis"):
         TrainLoop(sampler, algo, mesh=mesh, axis="pod")
-    with pytest.raises(ValueError, match="CUDA graph"):
+    with pytest.raises(ValueError, match="CUDA graph") as err:
         TrainLoop(sampler, algo, mesh=_fake_mesh("cuda"))
+    assert "NCCL" in str(err.value) and "gloo" in str(err.value)
+    nccl = _fake_mesh("cuda", backend="nccl")
+    assert nccl.capturable and not _fake_mesh("cuda").capturable
+    assert TrainLoop(sampler, algo, mesh=nccl).fuse
     loop = TrainLoop(sampler, algo, mesh=_fake_mesh("cuda"), fuse=False)
     assert loop.n_shards == 2 and loop.algo is not algo
     assert loop.algo.opt.update._cross_replica_axis == ((loop.mesh,), None)
@@ -565,12 +582,15 @@ def test_sharded_dqn_and_elastic_checkpoint(tmp_path):
         assert e["saved_mesh"] == [4]
 
 
-def test_sharded_dqn_rerun_repeats_its_draws():
+@pytest.mark.parametrize("fuse", [False, True])
+def test_sharded_dqn_rerun_repeats_its_draws(fuse):
     """Two runs of one OffPolicyRunner(mesh=) from the same seed give the
     same params and replay bit for bit on every rank, as off the mesh: the
     rank's replay generator is seeded again for the second run's training
-    generator, not carried over from the first."""
-    for first, second in R.run_ranks(R.rerun_body, 2):
+    generator, not carried over from the first; fused, it is a leaf of the
+    graphs' state, seeded again in place, and the second run's generators
+    lend the graphs their state."""
+    for first, second in R.run_ranks(R.rerun_body, 2, fuse):
         for key in ("params", "replay"):
             for a, b in zip(first[key], second[key]):
                 np.testing.assert_array_equal(a, b)
