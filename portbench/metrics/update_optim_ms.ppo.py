@@ -1,0 +1,14 @@
+"""Device milliseconds of the optimizer (the clip and Adam over every leaf) in
+the traced update: the profiler's time of every device operation launched
+inside the program's ``optim.update`` span, over the updates traced.  Each
+operation is joined to its launch on the host (``bench/progspans.py``), so
+work that runs after its span has ended counts too."""
+from bench import progspans
+
+
+def read(rec):
+    pt = progspans.read(rec)
+    if not pt or not pt.ops:
+        return None
+    return progspans.device_ms(progspans.update_phases(pt)["optim.update"],
+                               len(pt.named("ppo.step")))

@@ -23,6 +23,7 @@ from ...core.batch_spec import BatchSpec
 from ...models import backbones as bb
 from ...models import sharding as shd
 from ...models.convert import jax_ndim
+from ...telemetry import trace
 from ...train.optim import Optimizer, compress_metrics
 from .gae import gae_associative, gae_scan
 
@@ -196,6 +197,10 @@ def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,
     JAX's ``constrain_grads``.  ``unroll_micro`` is accepted for JAX's
     signature: JAX scans the microbatches unless it is set, the port's
     eager loop is the same either way.
+
+    Spans (``telemetry/trace.py``): ``ppo.step`` holds ``ppo.forward`` (the
+    casts and the loss) and ``ppo.backward`` (``autograd.grad``) a
+    microbatch, then ``optim.update``.
     """
     del unroll_micro  # the eager loop is JAX's unrolled form already
 
@@ -225,6 +230,10 @@ def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,
         return total, {"pi_loss": pi_loss, "v_loss": v_loss, "entropy": ent}
 
     def train_step(params, opt_state, batch):
+        with trace.span("ppo.step", microbatches=n_microbatches):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         B = batch["tokens"].shape[0]
         if B % n_microbatches:
             raise ValueError(f"batch {B} does not split into "
@@ -243,12 +252,17 @@ def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,
         grads, loss, auxes = None, None, []
         for i in range(n_microbatches):
             mb = {k: v[i * mb_size:(i + 1) * mb_size] for k, v in batch.items()}
-            # a fresh block each microbatch (a context manager enters once)
-            with (_bf16_weights(params, cfg, param_pspecs)
-                  if cfg.cast_weights_bf16 else contextlib.nullcontext()):
-                total, aux = loss_fn(params, mb)
-                gi = torch.autograd.grad(total, leaves,
-                                         materialize_grads=True)
+            # a fresh block each microbatch (a context manager enters once);
+            # the casts belong to the forward, which reads them
+            with contextlib.ExitStack() as casts:
+                with trace.span("ppo.forward", microbatch=i):
+                    if cfg.cast_weights_bf16:
+                        casts.enter_context(
+                            _bf16_weights(params, cfg, param_pspecs))
+                    total, aux = loss_fn(params, mb)
+                with trace.span("ppo.backward", microbatch=i):
+                    gi = torch.autograd.grad(total, leaves,
+                                             materialize_grads=True)
             with torch.no_grad():
                 # g / n summed in f32, as JAX's 0 + g1/n + g2/n + ...; at
                 # n = 1 the gradients themselves, without a copy.  A leaf
@@ -263,7 +277,8 @@ def make_lm_ppo_train_step(cfg, optimizer: Optimizer, *, clip_eps=0.2,
             loss = part if loss is None else loss + part
             auxes.append({k: v.detach() for k, v in aux.items()})
             del g, gi, total, aux
-        _, opt_state, gnorm = optimizer.update(grads, opt_state, leaves)
+        with trace.span("optim.update"):
+            _, opt_state, gnorm = optimizer.update(grads, opt_state, leaves)
         metrics = {"loss": loss, "grad_norm": gnorm}
         for k in auxes[0]:
             metrics[k] = torch.mean(torch.stack([a[k] for a in auxes]))

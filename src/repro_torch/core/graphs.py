@@ -33,6 +33,9 @@ already the state's leaf back into it.
 by the next replay: read or clone it before the next call.  Kernel launch
 counters (each wrapper's ``launches`` attribute) count real launches: the
 counts a capture adds are taken back, and each replay adds them again.
+Each capture and each replay is a ``graph.capture`` / ``graph.replay``
+span (``telemetry/trace.py``) with the graph's ``name``; a second capture
+span of one name is a recapture.
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ from typing import Callable, List, Optional
 
 import torch
 from torch.utils import _pytree as pytree
+
+from ..telemetry import trace
 
 __all__ = ["StepGraph"]
 
@@ -243,8 +248,10 @@ class StepGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with capture_times() as times, torch.cuda.graph(
-                    graph, pool=self.pool, capture_error_mode="thread_local"):
+            with trace.span("graph.capture", graph=self.name), \
+                    capture_times() as times, torch.cuda.graph(
+                        graph, pool=self.pool,
+                        capture_error_mode="thread_local"):
                 new, out = self._body()
         finally:
             if collecting:
@@ -268,7 +275,8 @@ class StepGraph:
         if self.graph is None:
             self._capture()
         self._times.settle()
-        self.graph.replay()
+        with trace.span("graph.replay", graph=self.name):
+            self.graph.replay()
         self._times.replayed()
         self.replays += 1
         for c, d in zip(launch_counters(), self._deltas):

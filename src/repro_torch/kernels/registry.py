@@ -109,7 +109,7 @@ def backend_for(op: str, site: Optional[str] = None, *,
 
         tracer = trace.get_tracer()
         key = (op, site, be)
-        if key not in tracer.dispatch_seen:
+        if tracer.recording() and key not in tracer.dispatch_seen:
             tracer.dispatch_seen.add(key)
             tracer.emit("kernel_dispatch", f"{op}@{site}", op=op, site=site,
                         backend=be)

@@ -198,6 +198,7 @@ def _run_fixed(args, cfg, params, tracer, registry):
                             "prompt_len": args.prompt_len, "gen": args.gen,
                             **metrics})
         tracer.memory_snapshot(f"round_{r}")
+        tracer.flush()
     if toks is not None:  # --rounds 0 runs nothing — nothing to echo
         print(f"first seq: {toks[0][:8].tolist()}")
     return toks
@@ -312,6 +313,7 @@ def main(argv=None):
                 out = _run_fixed(args, cfg, params, tracer, registry)
     finally:
         registry.close()
+        tracer.flush()
     return out
 
 

@@ -287,6 +287,7 @@ def _run_steps(args, rollout, train_step, params, opt_state, gen, start,
                 "update_s": t2 - t1,
             })
         tracer.memory_snapshot(f"step_{step + 1}")
+        tracer.flush()
         if _checkpoint_due(args, step + 1):
             with tracer.span("checkpoint", step=step + 1):
                 save_lm_checkpoint(args.ckpt_dir, step + 1, params,
@@ -323,6 +324,7 @@ def _run_windows(args, rollout, train_step, params, opt_state, gen, start,
                                  "entropy": float(metrics["entropy"]),
                                  "samples_per_sec": sps})
         tracer.memory_snapshot(f"window_{step}")
+        tracer.flush()
         if _checkpoint_due(args, step):
             with tracer.span("checkpoint", step=step):
                 save_lm_checkpoint(args.ckpt_dir, step, params, opt_state,
@@ -477,6 +479,7 @@ def _mesh_steps(args, cfg, logger, tracer, mesh):
         with tracer.span("log", step=step):
             logger.record(step, row)
         tracer.memory_snapshot(f"window_{step}")
+        tracer.flush()
         if _checkpoint_due(args, step):
             with tracer.span("checkpoint", step=step):
                 save_lm_checkpoint(args.ckpt_dir, step, params, opt_state,
@@ -558,6 +561,7 @@ def main(argv=None):
             return _run_single(args, cfg, logger, tracer, device)
     finally:
         logger.close()
+        tracer.flush()
 
 
 def _run_single(args, cfg, logger, tracer, device):

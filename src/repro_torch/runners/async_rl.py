@@ -646,6 +646,7 @@ class AsyncRunner:
         }
         self.logger.record(boundary * self.steps_per_iter, row)
         self.tracer.memory_snapshot(f"async_log_{boundary}")
+        self.tracer.flush()
 
     # -- checkpoint / restore ----------------------------------------------
     def _replay_path(self, step: int) -> str:

@@ -465,6 +465,7 @@ class TrainLoop:
                         row.update({f"eval_{k}": v for k, v in em.items()})
                     logger.record(it * steps_per_iter, row)
                 tracer.memory_snapshot(f"log_boundary_{it}")
+                tracer.flush()
                 t0, since_log = time.time(), 0
             if ckpt_dir and ckpt_interval and it % ckpt_interval == 0:
                 with tracer.span("checkpoint", iteration=it):

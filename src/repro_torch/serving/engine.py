@@ -24,6 +24,12 @@ mask and the new masks after it, as JAX's engine does.  ``graph=False``
 runs the block eagerly, with the same tokens bit for bit.  One generator,
 re-seeded at every ``run``, draws the samples.
 
+Spans (``telemetry/trace.py``): ``engine.admit`` an admission (``rid``,
+``slot``, ``prompt_len``) holding ``slots.prefill`` and ``slots.tail``
+(``tokens`` each), and ``engine.block`` a block (``block``, ``active``
+slots, counted only while the span records) holding the graph's
+``graph.replay``.
+
 The summary keeps every key of the JAX schema except ``recompile_events``:
 eager PyTorch compiles nothing, so there is nothing to count.
 """
@@ -38,6 +44,7 @@ import torch
 from ..core.graphs import StepGraph
 from ..models import backbones as bb
 from ..models.config import ModelConfig
+from ..telemetry.trace import NO_SPAN, span
 from .scheduler import Scheduler
 from .slots import DEFAULT_BUCKETS, SlotCache
 from .workload import Request, summarize_requests
@@ -113,6 +120,7 @@ class ContinuousBatchEngine:
         self._decode_block = make_decode_block(cfg, decode_block, temperature,
                                                eos_id)
         self._gen = torch.Generator(device=self.device)
+        self.blocks_run = 0
         self._block_fn = StepGraph(self._block_step, device=self.device,
                                    name="engine.decode_block") \
             if graph else self._block_step
@@ -128,10 +136,14 @@ class ContinuousBatchEngine:
         """One decode block from the host's masks; returns the device's
         (active, remaining, toks (block, n), emitted (block, n)) and keeps
         the new slot logits and cache."""
-        state, (toks, emitted) = self._block_fn(
-            self.params, self.slots.logits, self.slots.cache,
-            torch.as_tensor(active, device=self.device),
-            torch.as_tensor(remaining, device=self.device), self._gen)
+        self.blocks_run += 1
+        with span("engine.block", block=self.blocks_run) as sp:
+            if sp is not NO_SPAN:
+                sp.set(active=int(np.count_nonzero(active)))
+            state, (toks, emitted) = self._block_fn(
+                self.params, self.slots.logits, self.slots.cache,
+                torch.as_tensor(active, device=self.device),
+                torch.as_tensor(remaining, device=self.device), self._gen)
         _, self.slots.logits, self.slots.cache, act_d, rem_d, _ = state
         return act_d, rem_d, toks, emitted
 
@@ -186,15 +198,18 @@ class ContinuousBatchEngine:
             if mode == "continuous" or not active.any():
                 while (pair := sched.admit()) is not None:
                     req, slot = pair
-                    tp = time.perf_counter()
-                    self.slots.write_prefill_at(self.params, slot, req.prompt)
-                    sync(self.device)
-                    prefill_s += time.perf_counter() - tp
-                    req.t_admitted = now()
-                    req.tokens = []
-                    slot_req[slot] = req
-                    active[slot] = True
-                    remaining[slot] = req.max_tokens
+                    with span("engine.admit", rid=req.rid, slot=slot,
+                              prompt_len=len(req.prompt)):
+                        tp = time.perf_counter()
+                        self.slots.write_prefill_at(self.params, slot,
+                                                    req.prompt)
+                        sync(self.device)
+                        prefill_s += time.perf_counter() - tp
+                        req.t_admitted = now()
+                        req.tokens = []
+                        slot_req[slot] = req
+                        active[slot] = True
+                        remaining[slot] = req.max_tokens
             if not active.any():
                 if i_next < len(pending):  # idle until the next arrival
                     gap = pending[i_next].arrival_s - now()

@@ -27,6 +27,7 @@ import torch
 
 from ..models import backbones as bb
 from ..models.config import ModelConfig
+from ..telemetry import trace
 
 F32 = torch.float32
 
@@ -131,9 +132,12 @@ class SlotCache:
         b = bucket_for(plen, self.buckets)
         toks = torch.as_tensor(np.asarray(prompt, np.int32),
                                device=self.device)
-        logits1, cache1 = self._prefill_one(params, toks[None, :b])
-        for i in range(b, plen):  # exact tail advance (B=1)
-            logits1, cache1 = self._advance_one(params, cache1, toks[i:i + 1])
+        with trace.span("slots.prefill", tokens=b):
+            logits1, cache1 = self._prefill_one(params, toks[None, :b])
+        with trace.span("slots.tail", tokens=plen - b):
+            for i in range(b, plen):  # exact tail advance (B=1)
+                logits1, cache1 = self._advance_one(params, cache1,
+                                                    toks[i:i + 1])
         _write_slot(self.cache, self.logits, cache1, logits1, slot)
         self.prefill_tokens += plen
 

@@ -11,4 +11,4 @@ and metric sinks.
 """
 from .metrics import MetricsRegistry  # noqa: F401
 from .sentinels import NonFiniteError, Sentinels  # noqa: F401
-from .trace import Tracer, configure, get_tracer, span  # noqa: F401
+from .trace import Tracer, configure, get_tracer, reset, span  # noqa: F401

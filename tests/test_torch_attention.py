@@ -290,7 +290,7 @@ def test_registry_env_and_dispatch_event(monkeypatch):
         assert events[0]["name"] == "attention@attention_train"
         assert events[0]["backend"] == "cuda"
     finally:
-        trace.configure(None)
+        trace.reset()
     with pytest.raises(ValueError):
         registry.set_env("attention=mosaic")
 

@@ -312,7 +312,7 @@ def test_sac_restore_resumes_with_its_replay_and_skips_warmup(tmp_path):
                  if e["kind"] == "span" and e["name"] == "checkpoint"]
         assert spans == [2, 4]
     finally:
-        trace.configure(None)
+        trace.reset()
     rs1 = r1.replay_state
     (ts_s, rs_s), manifest = tckpt.restore_checkpoint(str(tmp_path),
                                                       (ts1, rs1))

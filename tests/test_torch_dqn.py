@@ -311,7 +311,7 @@ def test_off_policy_runner_rainbow_short_run():
         stats = example.greedy_eval(sampler, ts.params, ss, collects=1)
         assert stats["episodes"] > 0 and math.isfinite(stats["avg_return"])
     finally:
-        trace.configure(None)
+        trace.reset()
 
 
 def test_train_loop_refuses_what_is_not_ported():

@@ -761,7 +761,63 @@ def test_nan_guard_reports_first_bad_iteration():
         guards = [e for e in tracer.events if e["kind"] == "nan_guard"]
         assert guards and guards[-1]["iteration"] == 2
     finally:
-        trace.configure(None)
+        trace.reset()
+
+
+def _lm_ppo_step(record: bool):
+    """One LM-PPO train step of smoke gemma2-2b over two microbatches, from
+    the same weights and batch each call; the tracer configured or not.
+    Returns (metrics, params, the tracer's span events)."""
+    import copy
+    from repro_torch.algos.pg.ppo import make_lm_ppo_train_step
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import backbones as bb
+    cfg = get_smoke_config("gemma2-2b")
+    lm = bb.init_lm(cfg, device="cpu", dtype=torch.float32,
+                    generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    rng = np.random.RandomState(1)
+    B, T = 4, 6
+    batch = {"tokens": torch.from_numpy(
+                 rng.randint(0, cfg.vocab, (B, T)).astype(np.int32)),
+             "actions": torch.from_numpy(
+                 rng.randint(0, cfg.vocab, (B, T)).astype(np.int32))}
+    for k in ("logp_old", "advantage", "return_"):
+        batch[k] = torch.from_numpy(rng.randn(B, T).astype(np.float32))
+    batch["logp_old"] = -batch["logp_old"].abs() - 5.0
+    opt = adam(1e-3, grad_clip=1.0)
+    state = opt.init(lm.parameters())
+    step = make_lm_ppo_train_step(cfg, opt, n_microbatches=2)
+    tracer = trace.configure(None) if record else trace.reset()
+    try:
+        lm, state, met = step(copy.deepcopy(lm), state, batch)
+    finally:
+        trace.reset()
+    spans = [e for e in tracer.events if e["kind"] == "span"]
+    return met, [p.detach() for p in lm.parameters()], spans
+
+
+def test_lm_ppo_step_spans_and_bit_identity():
+    """The LM-PPO step records ``ppo.step`` holding ``ppo.forward`` and
+    ``ppo.backward`` once a microbatch and ``optim.update`` once; with the
+    tracer on, the loss and the updated weights are bit for bit those of
+    a step that records nothing (which leaves no event)."""
+    met_off, params_off, spans_off = _lm_ppo_step(False)
+    met_on, params_on, spans = _lm_ppo_step(True)
+    assert spans_off == []
+    for k in met_off:
+        assert torch.equal(met_off[k], met_on[k]), k
+    for a, b in zip(params_off, params_on):
+        assert torch.equal(a, b)
+    (top,) = [e for e in spans if e["name"] == "ppo.step"]
+    assert top["parent"] is None and top["microbatches"] == 2
+    kids = [(e["name"], e.get("microbatch")) for e in spans
+            if e["parent"] == top["id"]]
+    assert kids == [("ppo.forward", 0), ("ppo.backward", 0),
+                    ("ppo.forward", 1), ("ppo.backward", 1),
+                    ("optim.update", None)]
+    assert all(e["t0_ns"] >= top["t0_ns"] and e["t1_ns"] <= top["t1_ns"]
+               for e in spans if e["parent"] == top["id"])
 
 
 def test_off_policy_sentinels_read_the_replay():

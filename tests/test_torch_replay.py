@@ -349,7 +349,7 @@ def test_device_replay_interface_and_dispatch():
         assert [(e["name"], e["backend"]) for e in ev] == [
             ("sum_tree@replay.tree_sample", "ref")]
     finally:
-        trace.configure(None)
+        trace.reset()
 
 
 def test_registry_resolves_sum_tree():

@@ -62,6 +62,7 @@ from repro_torch.models import backbones as bb  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.serving import (ContinuousBatchEngine, SlotCache,  # noqa: E402
                                  make_decode_block, poisson_trace)
+from repro_torch.telemetry import trace as ttrace  # noqa: E402
 
 ARCH = "gemma2-2b"
 SSM = "mamba2-1.3b"
@@ -343,6 +344,53 @@ def test_engine_eos_retires_early():
     engine2.run(reqs2, mode="continuous", realtime=False)
     assert reqs2[0].n_generated == 1
     assert all(r.t_finished is not None and r.n_generated <= 6 for r in reqs2)
+
+
+def test_engine_spans_follow_admissions_and_blocks():
+    """With a tracer configured the engine records one ``engine.admit`` a
+    request, whose ``slots.prefill`` and ``slots.tail`` children's tokens
+    add up to its prompt, and one ``engine.block`` a block, numbered in
+    order and holding its active slots (the blocks counted by a wrapper of
+    ``_run_block``, as the benchmark wraps it); the tokens are those of a
+    run that records nothing, which leaves no event."""
+    cfg = get_smoke_config(ARCH)
+    params = _lm(cfg)
+    kw = dict(n_slots=3, max_context=36, device="cpu", buckets=(8, 16),
+              decode_block=4)
+    tracer = ttrace.reset()
+    off, _ = _run_engine(ContinuousBatchEngine(cfg, params, **kw),
+                         "continuous")
+    assert list(tracer.events) == []
+    engine = ContinuousBatchEngine(cfg, params, **kw)
+    blocks = []
+    run_block = engine._run_block
+
+    def counted(*args):
+        blocks.append(args)
+        return run_block(*args)
+
+    engine._run_block = counted
+    tracer = ttrace.configure(None)
+    try:
+        on, _ = _run_engine(engine, "continuous")
+    finally:
+        ttrace.reset()
+    for a, b in zip(off, on):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    spans = [e for e in tracer.events if e["kind"] == "span"]
+    admits = [e for e in spans if e["name"] == "engine.admit"]
+    assert sorted(e["rid"] for e in admits) == sorted(r.rid for r in on)
+    prompt = {r.rid: len(r.prompt) for r in on}
+    for a in admits:
+        assert a["prompt_len"] == prompt[a["rid"]]
+        kids = [e for e in spans if e["parent"] == a["id"]]
+        assert [e["name"] for e in kids] == ["slots.prefill", "slots.tail"]
+        assert kids[0]["tokens"] in (8, 16)
+        assert sum(e["tokens"] for e in kids) == a["prompt_len"]
+    block = [e for e in spans if e["name"] == "engine.block"]
+    assert len(block) == len(blocks) > 0
+    assert [e["block"] for e in block] == list(range(1, len(blocks) + 1))
+    assert [e["active"] for e in block] == [int(a.sum()) for a, _ in blocks]
 
 
 def test_poisson_trace_equals_jax():
